@@ -17,16 +17,29 @@ Phases (each exits non-zero on failure):
    random draws (float64 at W=256: identical integer outcomes and
    continuous state within 1e-10; float32 at W=4096: at most 1% of
    walkers differ in any integer outcome);
-5. the main path: the N=216 Ih/Ic stacking pair, W=4096, float32, a
-   sample run from runs/n216_sample/eta_weights.dat with delta-syncs
-   every 5 and chain resyncs every 10 cycles; 20 warm-up and 20 timed
-   cycles, launch counts of both kernels, a torch.profiler trace of 10
-   more cycles (device time per kernel, the device's busy share), an
-   energy audit of 64 walkers and a finite Delta G from the merged
-   unbiased histogram;
-6. one JSON line with every kernel's launches, error against its plain
+5. the N=216 main path: the N=216 Ih/Ic stacking pair, W=4096,
+   float32, a sample run from runs/n216_sample/eta_weights.dat with
+   delta-syncs every 5 and chain resyncs every 10 cycles; 20 warm-up and
+   20 timed cycles, launch counts of both kernels, a torch.profiler
+   trace of 10 more cycles (device time per kernel, the device's busy
+   share), an energy audit of 64 walkers and a finite Delta G from the
+   merged unbiased histogram;
+6. the three kernels of the large-N cell engine (mover energies, chain +
+   WL, mover apply) against their plain versions on one sub-step of the
+   N=8064 stacking pair after a cycle of sampling (float64 at W=64:
+   every integer output identical, energies and slabs within 1e-10;
+   float32 at W=512: the tolerances below, the chain's rows and WL
+   slabs held on the walkers whose integer outcomes agree), with their
+   times;
+7. the N=8064 main path: the cell engine at W=512, float32, Wang-Landau
+   live, one warm-up and 3 timed cycles in which a rebin, scheduled
+   volume moves, a delta-sync and a chain resync fall; seconds per
+   cycle, trials/s, launch counts, slab overflow (must be 0), an energy
+   audit of 64 walkers, a finite merged histogram, and a torch.profiler
+   trace of one more cycle (device time per kernel, the idle share);
+8. one JSON line with every kernel's launches, error against its plain
    version, times and bound;
-7. as the last line, {"ok": true, "device": {...}}.
+9. as the last line, {"ok": true, "device": {...}}.
 
 It imports nothing of JAX.  Without CUDA, or without the repository
 around it, it exits non-zero before printing any result.
@@ -61,6 +74,30 @@ F32_MAX_DIFF_FRAC = 0.01
 # accepted energy deltas of a -4 Hartree total)
 AUDIT_MAX_DRIFT = 1e-4          # Hartree
 
+# ---- the large-N cell engine (N=8064)
+W_CELL = 512            # walkers of the N=8064 main path and f32 checks
+W_CELL_FP64 = 64        # walkers of the float64 kernel checks
+CELL_STACK = (14, 8, 18)        # N = 4*14*8*18 = 8064
+# f32 mover energies: a local energy (|e| ~ 0.1 Hartree) is a sum of
+# ~20 pair terms and ~10^2 three-body terms of <= 1e-2, summed in
+# another order than the plain version's
+F32_MOVER_E_ATOL = 2e-6         # Hartree
+# f32 moment rows (O(1), sums of ~4-16 leg terms), own and neighbours'
+F32_MOVER_MOM_ATOL = 2e-5
+# f32 chain + WL on the walkers whose integer outcomes agree with the
+# plain version's: chain rows (mu, both energies with their residuals,
+# the dmu extrema) and WL slabs, each |kernel - plain| / max(1, |plain|).
+# Both sides do the same arithmetic in the same order without FMA, so
+# only a library function (exp, log) rounding differently can separate
+# them: a few float32 ulps
+F32_CHAIN_RTOL = 1e-6
+# f32 energy audit of the cell engine, one cycle after a chain resync:
+# the tracked and the recomputed total (-159 Hartree, ulp 1.5e-5) each
+# carry a few ulps of f32 summation error, and ~4*10^3 accepted moves
+# per walker each add an energy change good to ~1e-7 (compensated, so
+# no quantisation against the total)
+AUDIT_CELL_MAX_DRIFT = 2e-3     # Hartree
+
 # H100 SXM peaks (NVIDIA data sheet): memory and float32 outside the
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -81,15 +118,24 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, run_ahead: bool = False) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` calls, by CUDA
-    events after one warm-up call."""
+    events after one warm-up call.  ``run_ahead``: ~20 ms of other
+    device work is queued first, so that the host has enqueued every
+    call before the first one starts and the events see the calls back
+    to back: the device time of a short kernel, free of the host's
+    launch gaps."""
     import torch
 
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if run_ahead:
+        pad = torch.zeros(1 << 28, dtype=torch.float32, device=DEVICE)
     torch.cuda.synchronize()
+    if run_ahead:
+        for _ in range(30):
+            pad.add_(1.0)
     start.record()
     for _ in range(reps):
         fn()
@@ -281,12 +327,31 @@ def fused_bound(eng, s, draws):
     return _bound(nbytes, ops)
 
 
-def profile_cycles(eng, s, n, untraced_s_per_cycle):
+def device_rows(prof):
+    """[(device microseconds, launches, kernel name)] of a finished
+    torch.profiler trace, largest first."""
+    from torch.autograd import DeviceType
+
+    rows = [(ev.self_device_time_total, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA]
+    if not rows:
+        fail("the profiler saw no device time")
+    rows.sort(reverse=True)
+    return rows
+
+
+def print_device_rows(tag, rows, n, unit, top=12):
+    for us, count, key in rows[:top]:
+        print(f"[{tag}]   {us / 1e3 / n:10.4f} ms/{unit} {count / n:8.2f} "
+              f"launches/{unit}  {key[:90]}", flush=True)
+
+
+def profile_cycles(eng, s, n, untraced_s_per_cycle, tag="profile"):
     """Trace ``n`` main-path cycles with torch.profiler and print the
     device time per kernel and the device's busy share (one stream, so
     kernel times add up without overlap)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -296,20 +361,340 @@ def profile_cycles(eng, s, n, untraced_s_per_cycle):
         eng.run_cycles(s, n)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    rows = [(ev.self_device_time_total, ev.count, ev.key)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA]
-    if not rows:
-        fail("the profiler saw no device time")
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     dev_s = sum(r[0] for r in rows) * 1e-6
-    print(f"[profile] {n} cycles: device {dev_s * 1e3:.3f} ms of "
+    n_launch = sum(r[1] for r in rows)
+    busy = dev_s / (untraced_s_per_cycle * n)
+    print(f"[{tag}] {n} cycles: device {dev_s * 1e3:.3f} ms of "
           f"{wall * 1e3:.3f} ms traced wall ({dev_s / wall:.4f} busy); of "
           f"the untraced {untraced_s_per_cycle * n * 1e3:.3f} ms: "
-          f"{dev_s / (untraced_s_per_cycle * n):.4f} busy", flush=True)
-    for us, count, key in rows[:12]:
-        print(f"[profile]   {us / 1e3 / n:10.4f} ms/cycle {count / n:8.2f} "
-              f"launches/cycle  {key[:90]}", flush=True)
+          f"{busy:.4f} busy, {1 - busy:.4f} idle; {n_launch / n:.0f} "
+          f"device launches per cycle", flush=True)
+    print_device_rows(tag, rows, n, "cycle")
+
+
+def profile_cell_cycle(eng, s, tag="cell-profile"):
+    """One further cycle of the cell engine, run twice from the same
+    state and the same position of the random stream, so that both
+    passes schedule the same volume moves (each costs seconds):
+
+    * untraced, with the host-clock walls of the sub-step loop and of
+      the whole cycle;
+    * under torch.profiler (device activity only: a cycle is ~10^5 host
+      operations) in two traces, the sub-step loop and the rest of the
+      cycle (scheduled volume moves, delta-sync, chain resync; a rebin
+      before the loop is in neither).
+
+    Prints the device time per kernel and the launches of both parts
+    and the device's idle share of the untraced walls.  ``s`` is
+    advanced by one cycle."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n_sub = eng.sweeps_per_cycle * eng.n_tables
+    snap = s.clone()
+    gens = (eng.stream.sched.get_state(), eng.stream.walk.get_state())
+    walls = {}
+
+    def timed_scan(*args):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = eng._substep_scan(*args)
+        torch.cuda.synchronize()
+        walls["loop"] = time.time() - t0
+        return out
+
+    att0 = int(s.att[1, 0])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng._cycle_with(s, timed_scan)
+    torch.cuda.synchronize()
+    walls["cycle"] = time.time() - t0
+    walls["rest"] = walls["cycle"] - walls["loop"]
+    n_vol = int(s.att[1, 0]) - att0
+
+    eng.stream.sched.set_state(gens[0])
+    eng.stream.walk.set_state(gens[1])
+    traces = [profile(activities=[ProfilerActivity.CUDA]) for _ in range(2)]
+
+    def traced_scan(*args):
+        torch.cuda.synchronize()
+        traces[0].start()
+        out = eng._substep_scan(*args)
+        torch.cuda.synchronize()
+        traces[0].stop()
+        traces[1].start()
+        return out
+
+    t0 = time.time()
+    eng._cycle_with(snap, traced_scan)
+    torch.cuda.synchronize()
+    traces[1].stop()
+    traced_wall = time.time() - t0
+    if not torch.equal(snap.att, s.att):
+        fail("the traced cycle did not repeat the untraced one")
+
+    loop, rest = device_rows(traces[0]), device_rows(traces[1])
+    dev = {"loop": sum(r[0] for r in loop) * 1e-6,
+           "rest": sum(r[0] for r in rest) * 1e-6}
+    dev["cycle"] = dev["loop"] + dev["rest"]
+    print(f"[{tag}] cycle {s.cycle}, untraced: {walls['cycle']:.3f} s = "
+          f"sub-step loop {walls['loop']:.3f} s "
+          f"({walls['loop'] / n_sub * 1e3:.3f} ms per sub-step) + rest "
+          f"{walls['rest']:.3f} s ({n_vol} volume moves, resync "
+          f"{s.cycle % eng.prm.latt_sync_int == 0}, delta-sync "
+          f"{s.cycle % eng.prm.mpi_sync_int == 0}, rebin "
+          f"{s.cycle % eng.prm.list_update_int == 0}); traced wall "
+          f"{traced_wall:.3f} s", flush=True)
+    for part, rows, n, unit in (("loop", loop, n_sub, "sub-step"),
+                                ("rest", rest, 1, "cycle")):
+        busy = dev[part] / walls[part]
+        print(f"[{tag}] {part}: device {dev[part] * 1e3:.3f} ms of the "
+              f"untraced {walls[part] * 1e3:.3f} ms: {busy:.4f} busy, "
+              f"{1 - busy:.4f} idle; {sum(r[1] for r in rows) / n:.1f} "
+              f"device launches per {unit}", flush=True)
+        print_device_rows(tag, rows, n, unit, top=8)
+    busy = dev["cycle"] / walls["cycle"]
+    print(f"[{tag}] whole cycle: device {dev['cycle']:.3f} s of "
+          f"{walls['cycle']:.3f} s: {busy:.4f} busy, {1 - busy:.4f} idle",
+          flush=True)
+
+
+# ----------------------------------------------------------------------
+# the large-N cell engine: set-up shared with
+# tests/test_torch_kernels_cuda.py
+# ----------------------------------------------------------------------
+
+def cell_params(W, dtype, **over):
+    """The N=8064 Wang-Landau run of the JAX package's large-N benchmark
+    (scripts/bench_largen.py: 200 K, 1 atm, 0.25 A steps, 201 bins over
+    mu in [-1200, 1200], one trial per mover, the apply stage and the
+    chain kernel on), at W walkers."""
+    from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR, AUP_TO_ATM
+    from mc_water_ls_mw_tpu_torch.mcmc.config import RunParams
+
+    N = 4 * CELL_STACK[0] * CELL_STACK[1] * CELL_STACK[2]
+    kw = dict(
+        nwater=N, num_lattices=2, temperature=200.0,
+        pressure=1.0 / AUP_TO_ATM,
+        mc_max_trans=0.25 * ANG_TO_BOHR, mc_dv_max=0.2 * ANG_TO_BOHR,
+        nbins=201, mu_min=-1200.0, mu_max=1200.0,
+        mc_vol_prob=1.0 / N, mc_switch_prob=0.1,
+        samplerun=False, eq_mc_cycles=1, list_update_int=5,
+        mpi_sync_int=10, latt_sync_int=10_000,
+        n_walkers=W, dtype=dtype, seed=2014, stack=CELL_STACK,
+        method="stack", cell_trials=1, cell_pallas="apply", cell_chain="on",
+    )
+    kw.update(over)
+    return RunParams(**kw)
+
+
+def make_cell_engine(prm):
+    """(engine, state) of the N=8064 stacking pair on its cell grid."""
+    from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
+    from mc_water_ls_mw_tpu_torch.mcmc.cellengine import (
+        CellEngine,
+        init_cell_state,
+    )
+    from mc_water_ls_mw_tpu_torch.models.stacking import (
+        correspondence_mismatch,
+        stacking_switch_pair,
+    )
+    from mc_water_ls_mw_tpu_torch.models.sw import MW
+    from mc_water_ls_mw_tpu_torch.ops.cells import (
+        build_grid,
+        cap_for_positions,
+        choose_grid_shape,
+    )
+
+    r0, H0 = stacking_switch_pair(*prm.stack)
+    mx, _ = correspondence_mismatch(r0, H0)
+    shape = choose_grid_shape(H0, MW, mx)
+    cg = build_grid(shape, cap_for_positions(r0, H0, shape), H0, MW, mx)
+    grid = build_bin_grid(prm.nbins, prm.mu_min, prm.mu_max)
+    s, aux, caux = init_cell_state(prm, MW, r0, H0, grid, cg, device=DEVICE)
+    return CellEngine(prm, MW, grid, aux, cg, caux, device=DEVICE), s
+
+
+def _max_abs(a, b, relative=False):
+    """Largest |a - b|, with ``relative`` scaled by max(1, |b|); inf if
+    the two are not finite in the same places."""
+    import torch
+
+    fin = torch.isfinite(b)
+    if not torch.equal(fin, torch.isfinite(a)):
+        return float("inf")
+    if not fin.any():
+        return 0.0
+    d = torch.abs(a[fin] - b[fin])
+    if relative:
+        d = d / torch.clamp(torch.abs(b[fin]), min=1.0)
+    return float(d.max())
+
+
+def cell_substep_compare(eng, s, tbl, seed, time_reps=0):
+    """One sub-step's three kernels against their plain versions, at the
+    shapes the main path gives them: the mover energies of table row
+    ``tbl`` from the packed state, the chain + WL pass on those energies
+    (on clones of the chain rows and WL slabs), and the apply stage with
+    the chain kernel's accepts (on clones of the packed slabs).  The
+    state ``s`` is left as it is.
+
+    Returns a dict per kernel: errors against the plain version, the
+    [W] bool of walkers whose integer chain outcomes differ, what the
+    bounds need (in-range counts, accepted movers), and, with
+    ``time_reps``, milliseconds of kernel and plain version."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.mcmc.chain_kernel import SWITCH
+    from mc_water_ls_mw_tpu_torch.ops.cells import PK_VALID
+
+    K, W = eng.K, s.r.shape[-1]
+    dtype = s.r.dtype
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    u = torch.rand((7, K, W), generator=gen, dtype=dtype, device=DEVICE)
+    codes = torch.zeros((K,), dtype=torch.int32, device=DEVICE)
+    codes[K // 2] = SWITCH               # one scheduled switch, 7 moves
+    pks = eng._pack(s)
+    rows = eng._loop_rows(s)
+    fc, cand, off = eng._tables(tbl)
+    out = {}
+
+    # -- mover energies (the kernel, through the engine's own proposal)
+    n0 = eng.mover_kernel.launches
+    trial = eng._propose_t1(s, pks, tbl, u, rows)
+    if eng.mover_kernel.launches != n0 + 1:
+        fail("the proposal did not launch the mover-energies kernel")
+    margs = (pks, s.h, cand, off, fc, trial.rank, trial.p_old, trial.p_new)
+    pe, pown = eng.mover_kernel.plain(*margs)
+    torch.cuda.synchronize()
+    # what the bounds need, per (mover, walker) and summed over the
+    # lattices: occupied candidate slots, and neighbour slots in range of
+    # either position
+    n_occ = torch.zeros((K, W), dtype=torch.int64, device=DEVICE)
+    n_in = torch.zeros((K, W), dtype=torch.int64, device=DEVICE)
+    for l, pk in enumerate(pks):
+        n_occ += (pk[:, PK_VALID][cand.long()] > 0.5).sum(dim=(1, 2))
+        _, _, co, cn = eng.mover_kernel._candidates(
+            pk, s.h[l], cand, off, fc, trial.rank, trial.p_old[l],
+            trial.p_new[l])
+        n_in += ((co.w > 0) | (cn.w > 0)).sum(dim=1)
+    out["mover_energies"] = dict(
+        e_err=_max_abs(trial.e, pe), own_err=_max_abs(trial.own_new, pown),
+        n_occ=int(n_occ.sum()), n_in=int(n_in.sum()),
+        n_movers=int(trial.hasm.sum()),
+        dE_max=float(torch.max(torch.abs(pe[:, :, 1] - pe[:, :, 0]))))
+
+    # -- chain + WL on those energies
+    tables = (trial.e.view(-1, W), rows.inc.view(-1, W), trial.hasm)
+
+    def chain_bufs():
+        return dict(cf=rows.cf.clone(), ci=rows.ci.clone(),
+                    wgt=s.weight.clone(), hist=s.hist.clone(),
+                    uh=s.uhist.clone())
+
+    def chain(fn, b=None):
+        """One chain pass, in place on the buffers ``b`` (fresh clones
+        of the chain rows and WL slabs by default)."""
+        b = chain_bufs() if b is None else b
+        b["joh"], b["cnt"] = fn(codes, True, b["cf"], b["ci"], b["wgt"],
+                                b["hist"], b["uh"], rows.basew, *tables,
+                                u[5], u[6])
+        return b
+
+    ck_, cp = chain(eng.chain_kernel), chain(eng.chain_kernel.plain)
+    torch.cuda.synchronize()
+    differ = torch.zeros((W,), dtype=torch.bool, device=DEVICE)
+    for name in ("ci", "cnt", "joh"):
+        differ |= (ck_[name] != cp[name]).any(dim=0)
+    ok = ~differ
+    slabs = ("wgt", "hist", "uh")
+    out["chain_wl"] = dict(
+        differ=differ,
+        cf_err=_max_abs(ck_["cf"][:, ok], cp["cf"][:, ok]),
+        wl_err=max(_max_abs(ck_[n][:, ok], cp[n][:, ok]) for n in slabs),
+        cf_rel=_max_abs(ck_["cf"][:, ok], cp["cf"][:, ok], relative=True),
+        wl_rel=max(_max_abs(ck_[n][:, ok], cp[n][:, ok], relative=True)
+                   for n in slabs),
+        n_acc=int(cp["joh"].view(K, 2, W)[:, 1].sum()),
+        n_enabled=int(cp["cnt"][0].sum()),
+        hist_grew=float((cp["hist"] - s.hist).sum()))
+
+    # -- apply with the chain kernel's accepts
+    accf = ck_["joh"].view(K, 2, W)[:, 1]
+    pk_k = [pk.clone() for pk in pks]
+    pk_p = [pk.clone() for pk in pks]
+    aargs = (s.h, cand, off, fc, trial.rank, accf, trial.p_old, trial.p_new,
+             trial.own_new)
+    eng.apply_kernel(pk_k, *aargs)
+    eng.apply_kernel.plain(pk_p, *aargs)
+    torch.cuda.synchronize()
+    acc = accf > 0.5
+    out["mover_apply"] = dict(
+        mom_err=max(_max_abs(a[:, :10], b[:, :10])
+                    for a, b in zip(pk_k, pk_p)),
+        rest_equal=all(torch.equal(a[:, 10:], b[:, 10:])
+                       for a, b in zip(pk_k, pk_p)),
+        changed=int(sum((a != b).sum() for a, b in zip(pk_k, pks))),
+        n_acc=int(acc.sum()), n_occ_acc=int(n_occ[acc].sum()),
+        n_in_acc=int(n_in[acc].sum()))
+
+    if time_reps:
+        # kernels: device time (the host runs ahead); plain versions: as
+        # a caller sees them.  The chain and the apply stage run in place
+        # on their buffers, pass after pass.
+        t = out["mover_energies"]
+        t["ms"] = cuda_ms(lambda: eng.mover_kernel(*margs), time_reps, True)
+        t["plain_ms"] = cuda_ms(lambda: eng.mover_kernel.plain(*margs), 3)
+        t = out["chain_wl"]
+        bk, bp = chain_bufs(), chain_bufs()
+        t["ms"] = cuda_ms(lambda: chain(eng.chain_kernel, bk), time_reps,
+                          True)
+        t["plain_ms"] = cuda_ms(lambda: chain(eng.chain_kernel.plain, bp), 3)
+        t = out["mover_apply"]
+        t["ms"] = cuda_ms(lambda: eng.apply_kernel(pk_k, *aargs), time_reps,
+                          True)
+        t["plain_ms"] = cuda_ms(
+            lambda: eng.apply_kernel.plain(pk_p, *aargs), 3)
+    return out
+
+
+def cell_bounds(eng, s, cmp):
+    """{kernel: (ms, bound_by)} of one sub-step's launches from the
+    counts of ``cell_substep_compare``.
+
+    mover_energies: the occupied flag of every candidate slot, the three
+    coordinate rows of the occupied slots (the answer does not depend on
+    an empty slot's coordinates) and the ten moment rows of the slots in
+    range are read once, the movers' inputs read and their energies and
+    own moments written; every occupied slot costs the image shift and
+    two distance tests, every slot in range its legs and wings.
+    mover_apply: the same reads for the accepted movers only, and the
+    moment rows of their in-range neighbours and their own slots
+    written.  chain_wl: its tables read, its rows read and written, and
+    per enabled trial ~16 slab entries (two eta lookups of three bins in
+    two slabs, the histogram and weight update)."""
+    L, W = 2, s.r.shape[-1]
+    K, CF, cap = eng.K, eng.mover_kernel.CF, eng.cellgrid.cap
+    b = s.r.element_size()
+    me, ma, ch = cmp["mover_energies"], cmp["mover_apply"], cmp["chain_wl"]
+    small = (9 * L + 6 * L * K) * W * b + K * W * 4 + K * CF * 16
+    ops_slot = 3 + 2 * 9              # image shift, two distance tests
+    nbytes = (L * K * CF * cap * W + 3 * me["n_occ"] + 10 * me["n_in"]) * b \
+        + small + (2 * L * K + 10 * L * K) * W * b
+    ops = me["n_occ"] * ops_slot + me["n_in"] * 2 * (OPS_LEG + OPS_WING)
+    out = {"mover_energies": _bound(nbytes, ops)}
+    nbytes = (L * CF * cap * ma["n_acc"] + 3 * ma["n_occ_acc"]
+              + 20 * ma["n_in_acc"] + 13 * L * ma["n_acc"]) * b + small \
+        + (K + 10 * L * K) * W * b
+    ops = ma["n_occ_acc"] * ops_slot + ma["n_in_acc"] * (2 * OPS_LEG + 20)
+    out["mover_apply"] = _bound(nbytes, ops)
+    B = eng.grid.nbins
+    nbytes = (2 * 14 + 2 * K * 2 + K * 2 + K + 2 * K + K * 2) * W * b \
+        + (2 * 7 + 4 + K) * W * 4 + 2 * B * b + 16 * ch["n_enabled"] * b
+    out["chain_wl"] = _bound(nbytes, 200 * ch["n_enabled"])
+    return out
 
 
 def _bound(nbytes, ops):
@@ -510,7 +895,157 @@ def main() -> int:
           f"= {dg['J_per_mol']:.4f} J/mol after 25 sampling cycles "
           "(not converged: a smoke value)", flush=True)
 
-    # ---- 6. the kernels
+    del eng, s, samples
+    torch.cuda.empty_cache()
+
+    # ---- 6. the cell engine's kernels vs plain
+    from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value
+
+    eng, s = make_cell_engine(cell_params(
+        W_CELL_FP64, "float64", list_update_int=1, mpi_sync_int=1))
+    eng.run_cycles(s, 1)            # walkers drift apart, WL slabs fill
+    for tbl in (5, 42):
+        cmp = cell_substep_compare(eng, s, tbl, seed=100 + tbl)
+        me, ch, ma = (cmp[k] for k in ("mover_energies", "chain_wl",
+                                       "mover_apply"))
+        print(f"[cell] fp64 W={W_CELL_FP64} table {tbl}: energies err "
+              f"{me['e_err']:.3e} Hartree (max |dE| {me['dE_max']:.3e}), "
+              f"own moments err {me['own_err']:.3e}; chain: "
+              f"{int(ch['differ'].sum())} walkers differ, cf err "
+              f"{ch['cf_err']:.3e}, WL slabs err {ch['wl_err']:.3e}, "
+              f"{ch['n_acc']} of {ch['n_enabled']} trials accepted; apply: "
+              f"moment rows err {ma['mom_err']:.3e}, other rows equal "
+              f"{ma['rest_equal']}, {ma['changed']} slab entries changed",
+              flush=True)
+        if not (me["e_err"] <= 1e-10 and me["own_err"] <= 1e-10
+                and me["dE_max"] > 0):
+            fail("mover_energies fp64 disagrees with its plain version")
+        if ch["differ"].any() or not (ch["cf_err"] <= 1e-10
+                                      and ch["wl_err"] <= 1e-10
+                                      and 0 < ch["n_acc"] < ch["n_enabled"]
+                                      and ch["hist_grew"] > 0):
+            fail("chain_wl fp64 disagrees with its plain version")
+        if not (ma["mom_err"] <= 1e-10 and ma["rest_equal"]
+                and ma["changed"] > 0):
+            fail("mover_apply fp64 disagrees with its plain version")
+    del eng, s
+    torch.cuda.empty_cache()
+
+    Wc = W_CELL
+    prm = cell_params(Wc, "float32", list_update_int=2, mpi_sync_int=2,
+                      latt_sync_int=3)
+    t0 = time.time()
+    eng, s = make_cell_engine(prm)
+    torch.cuda.synchronize()
+    cg = eng.cellgrid
+    print(f"[cell] N={prm.nwater} W={Wc} f32: coarse {cg.n} m={cg.m} "
+          f"nfine={cg.nfine} cap={cg.cap} CF={cg.full_cells.shape[1]} "
+          f"K={eng.K} tables={eng.n_tables} sweeps={eng.sweeps_per_cycle} "
+          f"sub-steps/cycle={eng.sweeps_per_cycle * eng.n_tables} "
+          f"trials/cycle={eng.trials_per_cycle}; init {time.time() - t0:.1f}"
+          f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    t0 = time.time()
+    eng.run_cycles(s, 1)                     # warm-up (WL live from here)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    cmp = cell_substep_compare(eng, s, 5, seed=7, time_reps=20)
+    bounds = cell_bounds(eng, s, cmp)
+    me, ch, ma = (cmp[k] for k in ("mover_energies", "chain_wl",
+                                   "mover_apply"))
+    frac = float(ch["differ"].float().mean())
+    print(f"[cell] f32 W={Wc}: energies err {me['e_err']:.3e} Hartree "
+          f"(limit {F32_MOVER_E_ATOL:g}; max |dE| {me['dE_max']:.3e}), own "
+          f"moments err {me['own_err']:.3e} (limit {F32_MOVER_MOM_ATOL:g}), "
+          f"{me['n_in']} neighbour slots in range of {me['n_movers']} "
+          f"(mover, walker) pairs x 2 lattices, {me['n_occ']} of "
+          f"{2 * eng.K * cg.full_cells.shape[1] * cg.cap * Wc} candidate "
+          f"slots occupied; chain: {frac:.4%} of walkers differ (limit "
+          f"{F32_MAX_DIFF_FRAC:.0%}), on the rest chain rows err "
+          f"{ch['cf_err']:.3e} (relative {ch['cf_rel']:.3e}) and WL slabs "
+          f"err {ch['wl_err']:.3e} (relative {ch['wl_rel']:.3e}; limit "
+          f"{F32_CHAIN_RTOL:g} relative), {ch['n_acc']} of "
+          f"{ch['n_enabled']} trials accepted; apply: moment rows err "
+          f"{ma['mom_err']:.3e} (limit {F32_MOVER_MOM_ATOL:g}), other rows "
+          f"equal {ma['rest_equal']}", flush=True)
+    if not (me["e_err"] <= F32_MOVER_E_ATOL
+            and me["own_err"] <= F32_MOVER_MOM_ATOL and me["dE_max"] > 0):
+        fail("mover_energies f32 disagrees with its plain version")
+    if frac > F32_MAX_DIFF_FRAC or not (0 < ch["n_acc"] < ch["n_enabled"]):
+        fail("chain_wl f32 differs from its plain version on too many "
+             "walkers")
+    if not (ch["cf_rel"] <= F32_CHAIN_RTOL and ch["wl_rel"] <= F32_CHAIN_RTOL
+            and ch["hist_grew"] > 0):
+        fail("chain_wl f32: chain rows or WL slabs of walkers with equal "
+             "integer outcomes disagree with the plain version")
+    if not (ma["mom_err"] <= F32_MOVER_MOM_ATOL and ma["rest_equal"]
+            and ma["changed"] > 0):
+        fail("mover_apply f32 disagrees with its plain version")
+    for name, err in (("mover_energies", me["e_err"]),
+                      ("chain_wl", max(ch["cf_err"], ch["wl_err"])),
+                      ("mover_apply", ma["mom_err"])):
+        t = cmp[name]
+        report[name] = dict(max_abs_err=err, ms=t["ms"],
+                            plain_ms=t["plain_ms"],
+                            bound_ms=bounds[name][0],
+                            bound_by=bounds[name][1])
+        print(f"[cell] {name} f32 W={Wc}: kernel {t['ms']:.4f} ms/launch, "
+              f"plain {t['plain_ms']:.3f} ms, bound {bounds[name][0]:.6f} "
+              f"ms ({bounds[name][1]})", flush=True)
+
+    # ---- 7. the N=8064 main path
+    n_timed = 3
+    cell_kernels = {"mover_energies": eng.mover_kernel,
+                    "chain_wl": eng.chain_kernel,
+                    "mover_apply": eng.apply_kernel}
+    for k in cell_kernels.values():
+        k.launches = 0
+    att0 = s.att.clone()
+    t0 = time.time()
+    s, samples = eng.run_cycles(s, n_timed)  # cycles 2-4: rebin and sync
+    torch.cuda.synchronize()                 # at 2 and 4, resync at 3
+    elapsed = time.time() - t0
+    cell_launches = {n: k.launches for n, k in cell_kernels.items()}
+    launches.update(cell_launches)
+    rate = eng.trials_per_cycle * Wc * n_timed / elapsed
+    att = (s.att - att0).sum(dim=1).tolist()
+    acc_frac = [a / max(t, 1) for a, t in zip(s.acc.sum(dim=1).tolist(),
+                                              s.att.sum(dim=1).tolist())]
+    overflow = int(s.occ_overflow.max())
+    print(f"[cell-main] N={prm.nwater} W={Wc} f32: warm-up cycle "
+          f"{warm_s:.3f} s; {n_timed} cycles in {elapsed:.3f} s = "
+          f"{elapsed / n_timed:.3f} s/cycle = {rate:.4e} trials/s on {kind} "
+          f"({card}); launches {cell_launches}; attempts trans/vol/switch "
+          f"{att} (all walkers), accepted {acc_frac}; occ_overflow "
+          f"{overflow}; dropped {int(s.dropped)}", flush=True)
+    if min(cell_launches.values()) <= 0:
+        fail(f"a kernel of the N=8064 path was not launched: "
+             f"{cell_launches}")
+    if att[1] <= 0:
+        fail("no volume move fell into the timed cycles")
+    if overflow != 0:
+        fail(f"slab overflow {overflow}")
+    if not torch.isfinite(samples["E_ls"]).all():
+        fail("non-finite therm samples of the cell engine")
+    s, drift = eng.audit_energy(s, n_walkers=64)
+    max_drift = float(torch.max(torch.abs(drift)))
+    hist_sum = float(ds_value(s.master_hist).sum())
+    print(f"[cell-main] audit of 64 walkers one cycle after a resync: max "
+          f"|drift| {max_drift:.3e} Hartree (limit {AUDIT_CELL_MAX_DRIFT:g})"
+          f"; merged histogram sum {hist_sum:.6e}", flush=True)
+    if not max_drift < AUDIT_CELL_MAX_DRIFT:
+        fail("cell engine energy audit drift")
+    if not (np.isfinite(hist_sum) and hist_sum > 0):
+        fail("the merged histogram is empty or not finite")
+    t0 = time.time()
+    fresh, _ = eng._full_both(s, s.r, s.h)
+    torch.cuda.synchronize()
+    print(f"[cell-main] slab_full_energy of both lattices, all {Wc} "
+          f"walkers: {time.time() - t0:.3f} s", flush=True)
+    del fresh
+    profile_cell_cycle(eng, s)
+
+    # ---- 8. the kernels
     kernels = [
         dict(name="fused_cycle", route="cuda",
              source="mc_water_ls_mw_tpu_torch/csrc/fused_cycle.cu",
@@ -522,6 +1057,21 @@ def main() -> int:
              replaces="mc_water_ls_mw_tpu/ops/pallas_energy.py:44",
              launches=launches["full_energy"], library_ms=None,
              **report["full_energy"]),
+        dict(name="mover_energies", route="cuda",
+             source="mc_water_ls_mw_tpu_torch/csrc/cell_movers.cu",
+             replaces="mc_water_ls_mw_tpu/ops/cell_pallas.py:88",
+             launches=launches["mover_energies"], library_ms=None,
+             **report["mover_energies"]),
+        dict(name="mover_apply", route="cuda",
+             source="mc_water_ls_mw_tpu_torch/csrc/cell_movers.cu",
+             replaces="mc_water_ls_mw_tpu/ops/cell_pallas.py:624",
+             launches=launches["mover_apply"], library_ms=None,
+             **report["mover_apply"]),
+        dict(name="chain_wl", route="cuda",
+             source="mc_water_ls_mw_tpu_torch/csrc/chain_wl.cu",
+             replaces="mc_water_ls_mw_tpu/mcmc/chain_pallas.py:92",
+             launches=launches["chain_wl"], library_ms=None,
+             **report["chain_wl"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,351 @@
+// The two stencil kernels of the large-N cell engine's sub-step, for K
+// movers (one per same-colour coarse cell), both lattices and every
+// walker in one launch each:
+//
+//   mover_energies  local energy of each mover at its old and its
+//                   proposed position (pair + three-body: the mover's
+//                   own centre-angle sum and the wing sums against its
+//                   neighbours' moments, corrected for the new position
+//                   by the mover's own leg change) and the mover's new
+//                   own moments;
+//   mover_apply     in place on the packed slab, for accepted movers:
+//                   add the per-candidate moment deltas new - old to
+//                   the neighbours' moment rows, set the mover's own
+//                   slot to its new moments and its coordinate rows to
+//                   the new position.
+//
+// They replace the TPU kernels MoverEnergiesPallas._kernel
+// (with_deltas=False) and MoverApplyPallas._kernel
+// (mc_water_ls_mw_tpu/ops/cell_pallas.py).  Plain versions:
+// MoverEnergiesKernel.plain / MoverApplyKernel.plain in
+// ops/cell_kernels.py (cell_energy.mover_energies and the scatter path).
+//
+// Data: each lattice's state is one packed slab pk [nfine, 14, cap, W]
+// (rows 0:10 the moments, 10:13 x y z, 13 the occupied flag), walker
+// last.  A mover's candidates are the cap slots of the CF = 27 fine
+// cells of its coverage stencil (cand [K,CF], wrap offsets off
+// [K,CF,3]); a candidate's image shift is H @ off.  Masking as in the
+// TPU kernel: a slot counts if its flag is > 0.5 and it is not the
+// mover's own slot (the candidate cell is the mover's cell and the slot
+// equals rank).
+//
+// What bounds them on the H100: bytes.  Every candidate slot's flag must
+// be read (K*CF*cap*W elements: 14 MB per lattice at K=8, CF=27, cap=32,
+// W=512 in f32) and the three coordinate rows of the occupied slots
+// (about half of them), but only the few slots within the cutoff of one
+// of the two positions need their ten moment rows; the arithmetic is
+// ~10^9 operations.  Design: a block is one
+// (mover, lattice, tile of 32 walkers); lane = walker, so every row
+// access of a warp is one coalesced 128-byte line (f32).  K*L*W is only
+// 8192 (mover, lattice, walker) triples, so the candidate slots of a
+// triple are split over the NW warps of its block (warp y takes slots
+// y, y+NW, ... of every cell); the flag and coordinate rows are loaded
+// unconditionally (independent loads the hardware overlaps), the moment
+// rows only where a leg is in range.  mover_energies reduces the 26
+// partial sums of the NW warps through shared memory in a fixed order
+// (no float atomics: accept decisions must not depend on scheduling).
+// mover_apply needs no reduction and no atomics: same-colour stencils
+// are disjoint, so no two movers touch one cell, and a mover's own slot
+// is never read as a neighbour (it is self-masked), so its coordinates
+// may be overwritten while other warps still walk the stencil.  The TPU
+// kernel's grid over (walker block, mover, candidate cell), its copy of
+// every visited block through an aliased output and its scalar prefetch
+// of the tables have no counterpart here.
+//
+// Built without FMA contraction (cuda_build.py): every product and sum
+// rounds as the plain versions' elementwise ops do.
+#include <cstdint>
+
+#include "sw_common.cuh"
+
+namespace {
+
+constexpr int PK_R0 = 10, PK_VALID = 13, PK_ROWS = 14;
+constexpr int NW = 8;     // warps per block (candidate-slot split)
+constexpr int NACC = 26;  // pair o/n, w2 o/n, wing o/n, own o[10]/n[10]
+
+}  // namespace
+
+// Mirror of the ctypes structure MoverArgs in ops/cell_kernels.py.
+struct MoverArgs {
+  void* pk[2];    // per lattice [nfine, 14, cap, W]
+  void* h;        // [L,3,3,W]
+  void* cand;     // [K,CF] int32 candidate fine cells
+  void* off;      // [K,CF,3] int32 wrap offsets
+  void* fc;       // [K] int32 movers' fine cells
+  void* rank;     // [K,W] int32 movers' slot ranks
+  void* p_old;    // [L,3,K,W]
+  void* p_new;    // [L,3,K,W]
+  void* e;        // [L,K,2,W]   (energies: out; point 0 old, 1 new)
+  void* own;      // [L,K,10,W]  (energies: out; apply: in)
+  void* accf;     // rows of W accept flags (> 0.5), row k at k*acc_stride
+  long long acc_stride;
+  int L, K, CF, cap, W;
+  SWConsts sw;
+};
+
+// What a thread needs of its (mover, lattice, walker).
+template <typename T>
+struct MoverCtx {
+  const T* pk;
+  int w, W, cap, rank, fcell;
+  T H[3][3];
+  T po[3], pn[3];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_ctx(MoverCtx<T>& c, const MoverArgs& a,
+                                         int l, int k, int w) {
+  const int W = a.W, K = a.K;
+  c.pk = static_cast<const T*>(a.pk[l]);
+  c.w = w;
+  c.W = W;
+  c.cap = a.cap;
+  c.rank = static_cast<const int*>(a.rank)[(size_t)k * W + w];
+  c.fcell = static_cast<const int*>(a.fc)[k];
+  const T* h = static_cast<const T*>(a.h);
+  const T* po = static_cast<const T*>(a.p_old);
+  const T* pn = static_cast<const T*>(a.p_new);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      c.H[i][j] = h[((size_t)(l * 3 + i) * 3 + j) * W + w];
+    c.po[i] = po[((size_t)(l * 3 + i) * K + k) * W + w];
+    c.pn[i] = pn[((size_t)(l * 3 + i) * K + k) * W + w];
+  }
+}
+
+// Image shift H @ off of one candidate cell.
+template <typename T>
+__device__ __forceinline__ void cell_shift(const MoverCtx<T>& c,
+                                           const int* off, T sh[3]) {
+  const T o0 = (T)off[0], o1 = (T)off[1], o2 = (T)off[2];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    sh[i] = o0 * c.H[i][0] + o1 * c.H[i][1] + o2 * c.H[i][2];
+}
+
+// Leg of the candidate at position cj seen from p (no minimum image:
+// the coverage tables hold every partner once, image-shifted).
+template <typename T>
+__device__ __forceinline__ Leg<T> leg_at(const T cj[3], const T p[3],
+                                         const SW<T>& sw) {
+  const T d[3] = {cj[0] - p[0], cj[1] - p[1], cj[2] - p[2]};
+  const T r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  if (!(r2 < sw.rc2)) return leg_none<T>();
+  return leg_in_range(d, r2, sw);
+}
+
+// Slot j of candidate cell cid: true, with both legs, if the slot is a
+// neighbour (occupied, not the mover itself) within the cutoff of the
+// old or the new position.
+template <typename T>
+__device__ __forceinline__ bool slot_legs(const MoverCtx<T>& c, int cid,
+                                          int j, bool self_cell,
+                                          const T sh[3], const SW<T>& sw,
+                                          Leg<T>& go, Leg<T>& gn) {
+  const size_t base = ((size_t)cid * PK_ROWS * c.cap + j) * c.W + c.w;
+  const size_t row = (size_t)c.cap * c.W;
+  const T valid = c.pk[base + PK_VALID * row];
+  const T cj[3] = {c.pk[base + (PK_R0 + 0) * row] + sh[0],
+                   c.pk[base + (PK_R0 + 1) * row] + sh[1],
+                   c.pk[base + (PK_R0 + 2) * row] + sh[2]};
+  if (!(valid > (T)0.5) || (self_cell && j == c.rank)) return false;
+  go = leg_at(cj, c.po, sw);
+  gn = leg_at(cj, c.pn, sw);
+  return go.in || gn.in;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * NW)
+mover_energies_kernel(const MoverArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* red = reinterpret_cast<T*>(smem);  // [NW][NACC][32]
+  const int lane = threadIdx.x, wy = threadIdx.y;
+  const int k = blockIdx.y, l = blockIdx.z;
+  const int W = a.W, K = a.K, CF = a.CF, cap = a.cap;
+  const int w_raw = blockIdx.x * 32 + lane;
+  // ragged edge: lanes beyond W repeat the last walker and store nothing
+  const int w = w_raw < W ? w_raw : W - 1;
+  const SW<T> sw(a.sw);
+  MoverCtx<T> c;
+  load_ctx(c, a, l, k, w);
+  const int* cand = static_cast<const int*>(a.cand) + (size_t)k * CF;
+  const int* off = static_cast<const int*>(a.off) + (size_t)k * CF * 3;
+
+  Mom<T> oo, on;
+  oo.zero();
+  on.zero();
+  T pair_o = 0, pair_n = 0, e3j_o = 0, e3j_n = 0;
+  for (int ci = 0; ci < CF; ++ci) {
+    const int cid = cand[ci];
+    const bool self_cell = cid == c.fcell;
+    T sh[3];
+    cell_shift(c, off + ci * 3, sh);
+    for (int j = wy; j < cap; j += NW) {
+      Leg<T> go, gn;
+      if (!slot_legs(c, cid, j, self_cell, sh, sw, go, gn)) continue;
+      const size_t base = ((size_t)cid * PK_ROWS * cap + j) * W + w;
+      T mj[10];
+#pragma unroll
+      for (int f = 0; f < 10; ++f) mj[f] = c.pk[base + (size_t)f * cap * W];
+      if (go.in) {
+        pair_o += go.pair;
+        oo.add(go.w, go.ux, go.uy, go.uz);
+        e3j_o += wing(go, mj, sw);
+      }
+      if (gn.in) {
+        pair_n += gn.pair;
+        on.add(gn.w, gn.ux, gn.uy, gn.uz);
+        moved_moments(mj, go, gn);
+        e3j_n += wing(gn, mj, sw);
+      }
+    }
+  }
+
+  // partial sums of this warp -> shared memory
+  T* mine = red + (size_t)wy * NACC * 32;
+  mine[0 * 32 + lane] = pair_o;
+  mine[1 * 32 + lane] = pair_n;
+  mine[2 * 32 + lane] = oo.w2;
+  mine[3 * 32 + lane] = on.w2;
+  mine[4 * 32 + lane] = e3j_o;
+  mine[5 * 32 + lane] = e3j_n;
+#pragma unroll
+  for (int f = 0; f < 10; ++f) {
+    mine[(6 + f) * 32 + lane] = oo.m[f];
+    mine[(16 + f) * 32 + lane] = on.m[f];
+  }
+  __syncthreads();
+  // each (sum, walker) pair is reduced by one thread, warps in order
+  for (int i = wy * 32 + lane; i < NACC * 32; i += NW * 32) {
+    T sum = red[i];
+    for (int y = 1; y < NW; ++y) sum += red[(size_t)y * NACC * 32 + i];
+    red[i] = sum;
+  }
+  __syncthreads();
+  if (wy != 0 || w_raw >= W) return;
+
+  T mo[10], mn[10];
+#pragma unroll
+  for (int f = 0; f < 10; ++f) {
+    mo[f] = red[(6 + f) * 32 + lane];
+    mn[f] = red[(16 + f) * 32 + lane];
+  }
+  const T e_old = red[0 * 32 + lane]
+      + sw.lam_eps * (e3_closed_form(mo, red[2 * 32 + lane], sw)
+                      + red[4 * 32 + lane]);
+  const T e_new = red[1 * 32 + lane]
+      + sw.lam_eps * (e3_closed_form(mn, red[3 * 32 + lane], sw)
+                      + red[5 * 32 + lane]);
+  // the layout of the chain kernel's point table (P = 2)
+  T* e = static_cast<T*>(a.e) + ((size_t)l * K + k) * 2 * W + w;
+  e[0] = e_old;
+  e[W] = e_new;
+  T* own = static_cast<T*>(a.own) + ((size_t)l * K + k) * 10 * W + w;
+#pragma unroll
+  for (int f = 0; f < 10; ++f) own[(size_t)f * W] = mn[f];
+}
+
+// The partner's-view moment contribution of a leg: (w, -w u, w u u^T).
+template <typename T>
+__device__ __forceinline__ void leg_delta(const Leg<T>& g, T d[10]) {
+  const T wux = g.w * g.ux, wuy = g.w * g.uy, wuz = g.w * g.uz;
+  d[0] = g.w;
+  d[1] = -wux;
+  d[2] = -wuy;
+  d[3] = -wuz;
+  d[4] = wux * g.ux;
+  d[5] = wuy * g.uy;
+  d[6] = wuz * g.uz;
+  d[7] = wux * g.uy;
+  d[8] = wux * g.uz;
+  d[9] = wuy * g.uz;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * NW)
+mover_apply_kernel(const MoverArgs a) {
+  const int lane = threadIdx.x, wy = threadIdx.y;
+  const int k = blockIdx.y, l = blockIdx.z;
+  const int W = a.W, K = a.K, CF = a.CF, cap = a.cap;
+  const int w = blockIdx.x * 32 + lane;
+  if (w >= W) return;
+  const T acc = static_cast<const T*>(a.accf)[(size_t)k * a.acc_stride + w];
+  if (!(acc > (T)0.5)) return;  // rejected: the slab stays as it is
+  const SW<T> sw(a.sw);
+  MoverCtx<T> c;
+  load_ctx(c, a, l, k, w);
+  T* pk = static_cast<T*>(a.pk[l]);
+  const int* cand = static_cast<const int*>(a.cand) + (size_t)k * CF;
+  const int* off = static_cast<const int*>(a.off) + (size_t)k * CF * 3;
+  const size_t row = (size_t)cap * W;
+
+  for (int ci = 0; ci < CF; ++ci) {
+    const int cid = cand[ci];
+    const bool self_cell = cid == c.fcell;
+    T sh[3];
+    cell_shift(c, off + ci * 3, sh);
+    for (int j = wy; j < cap; j += NW) {
+      const size_t base = ((size_t)cid * PK_ROWS * cap + j) * W + w;
+      if (self_cell && j == c.rank) {
+        // the mover's own slot: new own moments, new position
+        const T* own = static_cast<const T*>(a.own)
+                     + ((size_t)l * K + k) * 10 * W + w;
+#pragma unroll
+        for (int f = 0; f < 10; ++f) pk[base + f * row] = own[(size_t)f * W];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) pk[base + (PK_R0 + i) * row] = c.pn[i];
+        continue;
+      }
+      Leg<T> go, gn;
+      if (!slot_legs(c, cid, j, self_cell, sh, sw, go, gn)) continue;
+      T dlo[10], dln[10];
+      leg_delta(go, dlo);
+      leg_delta(gn, dln);
+#pragma unroll
+      for (int f = 0; f < 10; ++f)
+        pk[base + f * row] = pk[base + f * row] + (dln[f] - dlo[f]);
+    }
+  }
+}
+
+template <typename T>
+static int launch_energies(const MoverArgs* a, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * NW * NACC * 32;
+  cudaError_t err = cudaFuncSetAttribute(
+      mover_energies_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a->W + 31) / 32, a->K, a->L), block(32, NW);
+  mover_energies_kernel<T><<<grid, block, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_apply(const MoverArgs* a, cudaStream_t stream) {
+  const dim3 grid((a->W + 31) / 32, a->K, a->L), block(32, NW);
+  mover_apply_kernel<T><<<grid, block, 0, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+int mover_energies_f32(const MoverArgs* a, void* stream) {
+  return launch_energies<float>(a, (cudaStream_t)stream);
+}
+
+int mover_energies_f64(const MoverArgs* a, void* stream) {
+  return launch_energies<double>(a, (cudaStream_t)stream);
+}
+
+int mover_apply_f32(const MoverArgs* a, void* stream) {
+  return launch_apply<float>(a, (cudaStream_t)stream);
+}
+
+int mover_apply_f64(const MoverArgs* a, void* stream) {
+  return launch_apply<double>(a, (cudaStream_t)stream);
+}
+
+}  // extern "C"

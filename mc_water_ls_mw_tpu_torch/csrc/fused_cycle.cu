@@ -40,6 +40,7 @@
 #include <cstdint>
 
 #include "sw_common.cuh"
+#include "wl_common.cuh"
 
 namespace {
 
@@ -82,54 +83,30 @@ struct FusedArgs {
 
 template <typename T>
 struct Consts {
-  T beta, betaP, pressure, nwater, log_norm, wall2, av_bw;
-  T cpos, cneg, a_pos, a_neg, lnr_pos, lnr_neg;
+  T beta, betaP, pressure, nwater, wall2;
+  BinConsts<T> bin;
   __device__ explicit Consts(const FusedArgs& a)
       : beta((T)a.beta), betaP((T)a.betaP), pressure((T)a.pressure),
-        nwater((T)a.nwater), log_norm((T)a.log_norm), wall2((T)a.wall2),
-        av_bw((T)a.av_bw), cpos((T)a.cpos), cneg((T)a.cneg),
-        a_pos((T)a.a_pos), a_neg((T)a.a_neg), lnr_pos((T)a.lnr_pos),
-        lnr_neg((T)a.lnr_neg) {}
-};
-
-// Round toward zero, saturating, NaN -> 0 (the hardware conversion).
-template <typename T>
-__device__ __forceinline__ long long trunc_ll(T x) {
-  return (long long)(int)x;
-}
-
-// 0-based bin of mu, possibly outside [0, B) (mcmc/bins.mu_to_bin).
-template <typename T>
-__device__ __forceinline__ long long mu_to_bin(T mu, int B,
-                                               const Consts<T>& c) {
-  const long long centre = B / 2;
-  if (fabs(mu) <= (T)0.5) return centre;
-  if (mu > (T)0) {
-    T arg = (T)1 - (mu - (T)0.5) * c.cpos / c.a_pos;
-    return centre + 1 + trunc_ll(log(fmax(arg, (T)1e-300)) / c.lnr_pos);
+        nwater((T)a.nwater), wall2((T)a.wall2) {
+    bin.cpos = (T)a.cpos;
+    bin.cneg = (T)a.cneg;
+    bin.a_pos = (T)a.a_pos;
+    bin.a_neg = (T)a.a_neg;
+    bin.lnr_pos = (T)a.lnr_pos;
+    bin.lnr_neg = (T)a.lnr_neg;
+    bin.av_bw = (T)a.av_bw;
+    bin.log_norm = (T)a.log_norm;
   }
-  T arg = (T)1 - (fabs(mu) - (T)0.5) * c.cneg / c.a_neg;
-  return centre - 1 - trunc_ll(log(fmax(arg, (T)1e-300)) / c.lnr_neg);
-}
-
-template <typename T>
-__device__ __forceinline__ int clampi(long long k, int B) {
-  return (int)(k < 0 ? 0 : (k > B - 1 ? B - 1 : k));
-}
+};
 
 // Per-walker view of the state and its constants.
 template <typename T>
 struct Walker {
-  int w, W, N, B, M;
+  int w, W, N, M;
   T* r;
   T* mom;
-  T* wgt;
-  T* hist;
-  T* uh;
   int* tpm;
-  const T* basew;
-  const T* s_binw;
-  const T* s_mub;
+  WLView<T> wl;  // the WL arrays, the bin grid and the walker's window
   const T* s_frac0;
   const int* s_tbl;
   T H[2][3][3];  // cell matrices
@@ -137,8 +114,8 @@ struct Walker {
   const T* recip;  // [L,3,3,W] reciprocal matrices
   T vol[2];
   T e[2];
-  T mu, f, min_dmu, max_dmu, max_trans, mu_min, mu_max;
-  int ls, att[3], acc[3], start_bin, end_bin, in_window;
+  T mu, f, min_dmu, max_dmu, max_trans;
+  int ls, att[3], acc[3];
 
   __device__ __forceinline__ T& rr(int l, int a, int j) {
     return r[((size_t)(l * 3 + a) * N + j) * W + w];
@@ -148,75 +125,8 @@ struct Walker {
   }
 };
 
-// eta(mu) against the current weight view (Engine._eta): weight total =
-// per-walker growth + master base, by direct indexing.
-template <typename T>
-__device__ T eta_of(const Walker<T>& s, T mu, const Consts<T>& c,
-                    const FusedArgs& a) {
-  const int B = s.B, W = s.W, w = s.w;
-  const int k = clampi<T>(mu_to_bin(mu, B, c), B);
-  const T w_k = s.wgt[k * W + w] + s.basew[k * W + w];
-  T eta;
-  if (!a.eta_interp) {
-    eta = w_k;
-  } else {
-    const int km = k - 1 < 0 ? 0 : k - 1;
-    const int kp = k + 1 > B - 1 ? B - 1 : k + 1;
-    const T w_km = s.wgt[km * W + w] + s.basew[km * W + w];
-    const T w_kp = s.wgt[kp * W + w] + s.basew[kp * W + w];
-    const T bw_k = s.s_binw[k], bw_km = s.s_binw[km], bw_kp = s.s_binw[kp];
-    const T mub_k = s.s_mub[k], mub_km = s.s_mub[km];
-    const T grad_up = (T)2 * (w_kp - w_k) / (bw_k + bw_kp);
-    const T grad_dn = (T)2 * (w_k - w_km) / (bw_k + bw_km);
-    if (k == s.start_bin)
-      eta = w_k + (mu - mub_k) * grad_up;
-    else if (k == s.end_bin)
-      eta = w_k + (mu - mub_k) * grad_dn;
-    else if (mu > mub_k)
-      eta = w_k + (mu - mub_k) * grad_up;
-    else
-      eta = w_km + (mu - mub_km) * grad_dn;
-  }
-  const bool wall = (mu < s.mu_min) | (mu > s.mu_max);
-  const T walled = wall ? (T)1e30 : eta;
-  const T pre = a.dd_seeding ? eta : (T)0;
-  return s.in_window ? walled : pre;
-}
-
-// Per-move WL / unbiased-histogram update of a performed move
-// (Engine._wl_update; mc_update_wl_bins, mc_moves.F90:1597-1689).
-template <typename T>
-__device__ void wl_update(Walker<T>& s, const Consts<T>& c,
-                          const FusedArgs& a) {
-  if (!a.wl_active) return;
-  const int B = s.B, W = s.W, w = s.w;
-  const long long k = mu_to_bin(s.mu, B, c);
-  // health gate: a walker with non-finite energies never writes into
-  // the shared WL arrays
-  const bool upd = (k >= 0) & (k < B) & isfinite(s.e[0]) & isfinite(s.e[1]);
-  if (!upd) return;
-  const int kc = (int)k;
-  const T incr = c.av_bw / s.s_binw[kc];
-  s.hist[kc * W + w] += incr;
-  if (a.samplerun) {
-    // mask before the exp and gate walled entries out entirely
-    const T eta_val = eta_of(s, s.mu, c, a);
-    if (eta_val < (T)1e29) {
-      const T arg = eta_val - c.log_norm;
-      s.uh[kc * W + w] += incr * exp(fmin(arg, (T)60));
-    }
-  } else {
-    s.wgt[kc * W + w] += incr * s.f;
-  }
-}
-
-// Old/new terms of one candidate partner at c from centre position p.
-template <typename T>
-struct Leg {
-  bool in;
-  T pair, w, ux, uy, uz;
-};
-
+// Old/new terms of one candidate partner at c from centre position p
+// (minimum image; the null image of the centre itself is excluded).
 template <typename T>
 __device__ __forceinline__ Leg<T> leg_of(const T c[3], const T p[3],
                                          const T H[3][3], const T A[3][3],
@@ -224,53 +134,8 @@ __device__ __forceinline__ Leg<T> leg_of(const T c[3], const T p[3],
   T d[3] = {c[0] - p[0], c[1] - p[1], c[2] - p[2]};
   mic_fold(d, H, A);
   const T r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-  Leg<T> g;
-  g.in = (r2 < sw.rc2) & (r2 > (T)1e-8);
-  if (!g.in) {
-    g.pair = g.w = g.ux = g.uy = g.uz = (T)0;
-    return g;
-  }
-  const T inv = sw_rsqrt(r2);
-  const T rij = r2 * inv;
-  const T den = sw_denom(rij, sw);
-  g.pair = sw_pair(r2, den, sw);
-  g.w = sw_leg(den, sw);
-  g.ux = d[0] * inv;
-  g.uy = d[1] * inv;
-  g.uz = d[2] * inv;
-  return g;
-}
-
-// Candidate moments after the move: m - delta(old leg) + delta(new leg),
-// with delta = (w, -w u, w u u^T) from the partner's view.
-template <typename T>
-__device__ __forceinline__ void moved_moments(T m[10], const Leg<T>& o,
-                                              const Leg<T>& n) {
-  const T owx = o.w * o.ux, owy = o.w * o.uy, owz = o.w * o.uz;
-  const T nwx = n.w * n.ux, nwy = n.w * n.uy, nwz = n.w * n.uz;
-  m[0] = m[0] - o.w + n.w;
-  m[1] = m[1] - (-owx) + (-nwx);
-  m[2] = m[2] - (-owy) + (-nwy);
-  m[3] = m[3] - (-owz) + (-nwz);
-  m[4] = m[4] - owx * o.ux + nwx * n.ux;
-  m[5] = m[5] - owy * o.uy + nwy * n.uy;
-  m[6] = m[6] - owz * o.uz + nwz * n.uz;
-  m[7] = m[7] - owx * o.uy + nwx * n.uy;
-  m[8] = m[8] - owx * o.uz + nwx * n.uz;
-  m[9] = m[9] - owy * o.uz + nwy * n.uz;
-}
-
-// Wing-angle term of one partner j with moments m seen along leg g
-// (Engine._jcent_rows).
-template <typename T>
-__device__ __forceinline__ T wing(const Leg<T>& g, const T m[10],
-                                  const SW<T>& sw) {
-  const T ux = g.ux, uy = g.uy, uz = g.uz;
-  const T quad = ux * ux * m[4] + uy * uy * m[5] + uz * uz * m[6]
-               + (T)2 * (ux * uy * m[7] + ux * uz * m[8] + uy * uz * m[9]);
-  const T lin = ux * m[1] + uy * m[2] + uz * m[3];
-  const T per = quad + sw.two_c0 * lin + sw.c0sq * m[0] - sw.omc2 * g.w;
-  return g.w * per;
+  if (!((r2 < sw.rc2) & (r2 > (T)1e-8))) return leg_none<T>();
+  return leg_in_range(d, r2, sw);
 }
 
 // One table-mode translation of the shared molecule imol
@@ -362,8 +227,8 @@ __device__ void translation(Walker<T>& s, const T* u, int imol,
   // acceptance (mc_moves.F90:1113-1146) with the finite-state guard
   const T dmu = (dE[0] - dE[1]) * c.beta;
   const T mu_new = s.mu + dmu;
-  const T eta_old = eta_of(s, s.mu, c, a);
-  const T eta_new = eta_of(s, mu_new, c, a);
+  const T eta_old = eta_of(s.wl, s.mu, c.bin);
+  const T eta_new = eta_of(s.wl, mu_new, c.bin);
   const T dE_ls = s.ls == 0 ? dE[0] : dE[1];
   const T diffkT = c.beta * dE_ls + eta_new - eta_old;
   const bool ok = isfinite(diffkT) & isfinite(mu_new) & in_wall;
@@ -405,7 +270,10 @@ __device__ void translation(Walker<T>& s, const T* u, int imol,
   s.att[TRANS] += 1;
   s.acc[TRANS] += accept ? 1 : 0;
   s.tpm[(size_t)imol * s.W + s.w] += 1;
-  wl_update(s, c, a);
+  // health gate: finite energies in both lattices
+  if (a.wl_active)
+    wl_update(s.wl, s.mu, s.f, isfinite(s.e[0]) & isfinite(s.e[1]),
+              c.bin);
 }
 
 // Lattice switch attempt (Engine._switch; mc_moves.F90:1536-1594).
@@ -466,18 +334,23 @@ fused_cycle_kernel(const FusedArgs a) {
   s.w = w;
   s.W = W;
   s.N = N;
-  s.B = B;
   s.M = M;
   s.r = static_cast<T*>(a.r);
   s.mom = static_cast<T*>(a.mom);
-  s.wgt = static_cast<T*>(a.wgt);
-  s.hist = static_cast<T*>(a.hist);
-  s.uh = static_cast<T*>(a.uh);
+  s.wl.w = w;
+  s.wl.W = W;
+  s.wl.B = B;
+  s.wl.wgt = static_cast<T*>(a.wgt);
+  s.wl.hist = static_cast<T*>(a.hist);
+  s.wl.uh = static_cast<T*>(a.uh);
+  s.wl.basew = static_cast<const T*>(a.basew);
+  s.wl.binw = s_binw;
+  s.wl.mub = s_mub;
+  s.wl.eta_interp = a.eta_interp;
+  s.wl.dd_seeding = a.dd_seeding;
+  s.wl.samplerun = a.samplerun;
   s.tpm = static_cast<int*>(a.tpm);
-  s.basew = static_cast<const T*>(a.basew);
   s.recip = static_cast<const T*>(a.recip);
-  s.s_binw = s_binw;
-  s.s_mub = s_mub;
   s.s_frac0 = s_frac0;
   s.s_tbl = s_tbl;
 #pragma unroll
@@ -497,17 +370,17 @@ fused_cycle_kernel(const FusedArgs a) {
   s.min_dmu = wf[WF_MIN_DMU * W + w];
   s.max_dmu = wf[WF_MAX_DMU * W + w];
   s.max_trans = wf[WF_MAX_TRANS * W + w];
-  s.mu_min = wf[WF_MU_MIN * W + w];
-  s.mu_max = wf[WF_MU_MAX * W + w];
+  s.wl.mu_min = wf[WF_MU_MIN * W + w];
+  s.wl.mu_max = wf[WF_MU_MAX * W + w];
   s.ls = wi[WI_LS * W + w];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     s.att[k] = wi[(WI_ATT + k) * W + w];
     s.acc[k] = wi[(WI_ACC + k) * W + w];
   }
-  s.start_bin = wi[WI_START * W + w];
-  s.end_bin = wi[WI_END * W + w];
-  s.in_window = wi[WI_INWIN * W + w];
+  s.wl.start_bin = wi[WI_START * W + w];
+  s.wl.end_bin = wi[WI_END * W + w];
+  s.wl.in_window = wi[WI_INWIN * W + w];
 
   const T* cu = static_cast<const T*>(a.cu);
   for (int t = 0; t < N; ++t) {

@@ -1,8 +1,10 @@
 // Stillinger-Weber pieces shared by the hand-written kernels: the pair
-// term, the three-body leg weight, the minimum-image fold and the
-// closed-form centre-angle sum of the moment formulation.  Each mirrors
-// the plain PyTorch function of the same name in ops/dense.py and keeps
-// its association order, so that float64 results agree to round-off.
+// term, the three-body leg weight, the minimum-image fold, the
+// closed-form centre-angle sum of the moment formulation, and the
+// per-partner leg, wing and moved-moment terms of a trial move.  Each
+// mirrors the plain PyTorch function of the same name in ops/dense.py
+// (or the engine's table step) and keeps its association order, so that
+// float64 results agree to round-off.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -124,4 +126,68 @@ __device__ __forceinline__ T e3_closed_form(const T m[10], T sumw2,
   T msq = m[1] * m[1] + m[2] * m[2] + m[3] * m[3];
   return (T)0.5 * (frob - p.two_c0 * msq + p.c0sq * m[0] * m[0]
                    - p.omc2 * sumw2);
+}
+
+// Terms of one candidate partner seen from a centre: pair energy, leg
+// weight and the unit vector centre -> partner; all zero out of range.
+template <typename T>
+struct Leg {
+  bool in;
+  T pair, w, ux, uy, uz;
+};
+
+template <typename T>
+__device__ __forceinline__ Leg<T> leg_none() {
+  Leg<T> g;
+  g.in = false;
+  g.pair = g.w = g.ux = g.uy = g.uz = (T)0;
+  return g;
+}
+
+// Leg of an in-range displacement d with r2 = |d|^2 < rc^2.
+template <typename T>
+__device__ __forceinline__ Leg<T> leg_in_range(const T d[3], T r2,
+                                               const SW<T>& sw) {
+  Leg<T> g;
+  g.in = true;
+  const T inv = sw_rsqrt(r2);
+  const T rij = r2 * inv;
+  const T den = sw_denom(rij, sw);
+  g.pair = sw_pair(r2, den, sw);
+  g.w = sw_leg(den, sw);
+  g.ux = d[0] * inv;
+  g.uy = d[1] * inv;
+  g.uz = d[2] * inv;
+  return g;
+}
+
+// Candidate moments after the move: m - delta(old leg) + delta(new leg),
+// with delta = (w, -w u, w u u^T) from the partner's view.
+template <typename T>
+__device__ __forceinline__ void moved_moments(T m[10], const Leg<T>& o,
+                                              const Leg<T>& n) {
+  const T owx = o.w * o.ux, owy = o.w * o.uy, owz = o.w * o.uz;
+  const T nwx = n.w * n.ux, nwy = n.w * n.uy, nwz = n.w * n.uz;
+  m[0] = m[0] - o.w + n.w;
+  m[1] = m[1] - (-owx) + (-nwx);
+  m[2] = m[2] - (-owy) + (-nwy);
+  m[3] = m[3] - (-owz) + (-nwz);
+  m[4] = m[4] - owx * o.ux + nwx * n.ux;
+  m[5] = m[5] - owy * o.uy + nwy * n.uy;
+  m[6] = m[6] - owz * o.uz + nwz * n.uz;
+  m[7] = m[7] - owx * o.uy + nwx * n.uy;
+  m[8] = m[8] - owx * o.uz + nwx * n.uz;
+  m[9] = m[9] - owy * o.uz + nwy * n.uz;
+}
+
+// Wing-angle term of one partner j with moments m seen along leg g.
+template <typename T>
+__device__ __forceinline__ T wing(const Leg<T>& g, const T m[10],
+                                  const SW<T>& sw) {
+  const T ux = g.ux, uy = g.uy, uz = g.uz;
+  const T quad = ux * ux * m[4] + uy * uy * m[5] + uz * uz * m[6]
+               + (T)2 * (ux * uy * m[7] + ux * uz * m[8] + uy * uz * m[9]);
+  const T lin = ux * m[1] + uy * m[2] + uz * m[3];
+  const T per = quad + sw.two_c0 * lin + sw.c0sq * m[0] - sw.omc2 * g.w;
+  return g.w * per;
 }

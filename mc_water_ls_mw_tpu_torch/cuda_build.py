@@ -27,7 +27,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "build" / \
     "torch_kernels"
-KERNELS = ("full_energy", "fused_cycle")
+KERNELS = ("full_energy", "fused_cycle", "cell_movers", "chain_wl")
 # -fmad=false: every product and sum is rounded on its own, as in the
 # plain versions' elementwise PyTorch ops.  With nvcc's default
 # contraction into FMAs, a float32 fused cycle rounded each step's

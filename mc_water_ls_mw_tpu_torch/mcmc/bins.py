@@ -173,3 +173,80 @@ def eta_weight(grid: BinGrid, weight, mu, my_mu_min, my_mu_max,
     wall = (mu < my_mu_min) | (mu > my_mu_max)
     eta = torch.where(wall, ETA_WALL, eta)
     return torch.where(torch.as_tensor(in_window), eta, 0.0)
+
+
+def eta_lookup(grid: BinGrid, weight, mu, binw, mub, start_bin, end_bin,
+               my_mu_min, my_mu_max, in_window, interp: bool,
+               seeding: bool = True):
+    """eta(mu) per walker against a TOTAL weight view (batched
+    eta_weight; mc_moves.F90:893-964), shared by the engines and the
+    plain version of the chain kernel.
+
+    weight [B, W]; mu and the window arguments [W]; binw / mub [B]
+    tensors.  Walkers before their window see the wall-less curve
+    (``seeding``) or no bias at all."""
+    B = grid.nbins
+    k = torch.clamp(mu_to_bin(grid, mu), 0, B - 1)
+
+    def at(idx):
+        return torch.take_along_dim(weight, idx[None, :], dim=0)[0]
+
+    if not interp:
+        eta = at(k)
+    else:
+        km = torch.clamp(k - 1, 0, B - 1)
+        kp = torch.clamp(k + 1, 0, B - 1)
+        w_k, w_km, w_kp = at(k), at(km), at(kp)
+        bw_k, bw_km, bw_kp = binw[k], binw[km], binw[kp]
+        mub_k, mub_km = mub[k], mub[km]
+        grad_up = 2.0 * (w_kp - w_k) / (bw_k + bw_kp)
+        grad_dn = 2.0 * (w_k - w_km) / (bw_k + bw_km)
+        eta_first = w_k + (mu - mub_k) * grad_up
+        eta_last = w_k + (mu - mub_k) * grad_dn
+        eta_mid_up = w_k + (mu - mub_k) * grad_up
+        eta_mid_dn = w_km + (mu - mub_km) * grad_dn
+        eta = torch.where(
+            k == start_bin, eta_first,
+            torch.where(k == end_bin, eta_last,
+                        torch.where(mu > mub_k, eta_mid_up, eta_mid_dn)),
+        )
+    wall = (mu < my_mu_min) | (mu > my_mu_max)
+    walled = torch.where(wall, ETA_WALL, eta)
+    pre = eta if seeding else torch.zeros_like(eta)
+    return torch.where(in_window, walled, pre)
+
+
+def wl_move_update(grid: BinGrid, samplerun: bool, log_norm: float, binw,
+                   weight, hist, uhist, eta_fn, mu, f, gate):
+    """Per-move Wang-Landau / unbiased-histogram update of a performed
+    move at mu [W] (mc_update_wl_bins, mc_moves.F90:1597-1689), shared by
+    the engines and the plain version of the chain kernel.
+
+    ``gate`` [W] bool: the move was performed, the WL phase is live and
+    the walker is healthy.  ``eta_fn(mu)`` evaluates eta against the
+    current weight view (sample runs only).  Returns the new (weight,
+    hist, uhist) [B, W]; the reference's per-update min-shift is
+    deferred to the delta-sync (see the JAX engine's _wl_update note)."""
+    B = grid.nbins
+    k = mu_to_bin(grid, mu)
+    in_grid = (k >= 0) & (k < B)
+    kc = torch.clamp(k, 0, B - 1)
+    upd = (in_grid & gate).to(hist.dtype)                    # [W]
+    oh = (torch.arange(B, device=k.device)[:, None] == kc[None, :]
+          ).to(hist.dtype) * upd[None, :]                    # [B, W]
+    # a true division, as the kernels and the JAX package do it:
+    # ``scalar / tensor`` would be reciprocal-then-multiply in PyTorch,
+    # up to an ulp and a half off
+    incr = torch.div(torch.full_like(mu, grid.av_binwidth), binw[kc])
+    hist = hist + oh * incr[None, :]
+    if samplerun:
+        # unbiased histogram, frozen weights (1625-1632): mask BEFORE the
+        # exp (the eta wall would poison via exp(1e30) * 0) and gate
+        # walled entries out entirely
+        eta_val = eta_fn(mu)
+        unwalled = eta_val < 1e29
+        arg = torch.where((upd > 0) & unwalled, eta_val - log_norm, -1.0)
+        u_incr = torch.where(
+            unwalled, incr * torch.exp(torch.clamp(arg, max=60.0)), 0.0)
+        return weight, hist, uhist + oh * u_incr[None, :]
+    return weight + oh * (incr * f)[None, :], hist, uhist

@@ -1,0 +1,976 @@
+"""Large-N parallel cell-sweep MC engine, on tensors.
+
+Counterpart of ``mc_water_ls_mw_tpu/mcmc/cellengine.py`` (whose
+docstring derives the construction) for its usual configuration: one
+trial per scheduled mover (``cell_trials=1``), the fused sub-step
+kernels with the in-place apply stage (``cell_pallas='apply'``) and the
+per-move chain + WL kernel (``cell_chain='on'``).
+
+* Space is partitioned by the two-level mid-frame cell grid of
+  ops/cells.py.  One sub-step picks ONE random molecule in every coarse
+  cell of the active colour (in the scheduled fine block) and proposes
+  translations for all K of them at once; same-colour movers are > 2*rc
+  apart in both replicas, so their energy changes and moment updates are
+  exactly independent.
+* The accept/reject chain stays EXACT: energies are evaluated in
+  parallel (``MoverEnergiesKernel``), acceptance runs sequentially over
+  the movers (``ChainWLKernel``) because mu, eta(mu) and the WL weights
+  couple all moves, then the accepted movers are applied in parallel
+  (``MoverApplyKernel``).
+* A move that would cross the mover's stored FINE-cell boundary is
+  rejected (a state-only-dependent hard wall), which keeps the static
+  coverage tables exact between rebins; the grid origin is re-drawn and
+  the molecules re-binned every ``list_update_int`` cycles.
+* Volume moves, lattice switches outside the chain, the delta-sync and
+  the eta lookups are inherited from the dense ``Engine``; ``CellState``
+  carries the same multicanonical fields.
+
+On CUDA tensors the three wrappers launch their hand-written kernels; on
+CPU tensors they run their plain versions, so what is computed does not
+depend on the device.  Differences from the JAX engine:
+
+* the sub-step loop is a Python loop (the JAX package traces one
+  sub-step into a ``lax.scan``); inside it the packed slabs and the
+  chain's cf/ci rows are the truth and are updated IN PLACE, packed once
+  and unpacked once per cycle;
+* the state is a dataclass updated in place, ``cycle`` is a host int
+  and randomness comes from the engine's stream (mcmc/engine.py);
+* ``cell_pallas='auto'`` and ``cell_chain='auto'`` resolve to 'apply' and
+  'on' on every device (the JAX package's 'auto' picks its micro-batched
+  plain chain on a CPU).
+
+Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md):
+``cell_trials > 1``, ``cell_pallas`` 'on' / 'off', ``cell_chain='off'``,
+``cell_trans_wall > 0``, padded or non-disjoint coverage tables, and
+whatever the dense engine of the port refuses.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..models.sw import SWParams
+from ..ops.cell_energy import _FULL_ENERGY_MAX_ELEMS, slab_full_energy
+from ..ops.cell_kernels import MoverApplyKernel, MoverEnergiesKernel
+from ..ops.cells import (
+    PK_R0,
+    PK_ROWS,
+    PK_VALID,
+    CellGrid,
+    bin_molecules,
+    cell_of_frac,
+    gather_from_slab,
+    scatter_to_slab,
+)
+from ..ops.dsfloat import DS, ds_value, ds_zeros
+from ..ops.geometry import determinant3, from_frac, recip_matrix, to_frac
+from .bins import BinGrid
+from .chain_kernel import (
+    CF_CMU,
+    CF_E0,
+    CF_E0E,
+    CF_E1,
+    CF_E1E,
+    CF_F,
+    CF_MAX_DMU,
+    CF_MIN_DMU,
+    CF_MINUC,
+    CF_MU,
+    CF_MU_MAX,
+    CF_MU_MIN,
+    CF_ROWS,
+    CF_SUMHIST,
+    CF_SWC,
+    CI_END,
+    CI_INVT,
+    CI_INWIN,
+    CI_LS,
+    CI_OCCOK,
+    CI_ROWS,
+    CI_START,
+    CI_SWOK,
+    CN_ACC,
+    CN_EN,
+    CN_FIXED,
+    CN_SWACC,
+    CN_SWEN,
+    ChainWLKernel,
+)
+from .config import RunParams
+from .engine import SWITCH, TRANS, Engine, _UNSUPPORTED, _take_lat
+from .state import (
+    _DTYPES,
+    EngineAux,
+    aux_from_numpy,
+    clone_state,
+    compute_log_unbiased_norm,
+    fields_from_numpy,
+    resolve_device,
+    state_to_numpy,
+)
+
+# per-intermediate element budget of slab_full_energy on the card (80 GB
+# of device memory: ~10 live arrays of 256 MB in float32)
+_FULL_ENERGY_MAX_ELEMS_CUDA = 1 << 26
+
+
+@dataclasses.dataclass
+class CellState:
+    """Sampler state in slab layout; field names shadow SamplerState so
+    that the inherited Engine methods (eta/WL/switch/volume/sync) work
+    unchanged.  Trailing axis = walker everywhere."""
+
+    # configurational state, slab layout (nslot = nfine*cap >= N)
+    r: torch.Tensor              # [L,3,nslot,W] positions (slab slots)
+    h: torch.Tensor              # [L,3,3,W]
+    recip: torch.Tensor          # [L,3,3,W]
+    volume: torch.Tensor         # [L,W]
+    energy: torch.Tensor         # [L,W]
+    # compensated-summation residual of the incremental energy: true
+    # energy = energy + energy_err.  At N ~ 10^4 a move's dE (~1e-5 Ha)
+    # is of the size of the f32 ulp of the total (~152 Ha * 2^-23), so a
+    # plain accumulation quantises and drifts.  Every chain update
+    # two-sums into (energy, energy_err); every from-scratch refresh
+    # (volume accepts, resync, audits) zeroes the residual.
+    energy_err: torch.Tensor     # [L,W]
+    mu: torch.Tensor             # [W]
+    ls: torch.Tensor             # [W] int32
+    moments: torch.Tensor        # [10,L,nslot,W] (Moments field order)
+
+    # slab bookkeeping
+    slot2mol: torch.Tensor       # [nslot,W] int32, -1 = empty
+    mol2slot: torch.Tensor       # [N,W] int32
+    origin: torch.Tensor         # [3] fractional grid origin (shared)
+    occ_overflow: torch.Tensor   # [W] int32 max(occupancy-cap) observed
+
+    # multicanonical state (as SamplerState: per-walker growth since
+    # the last sync + double-single master totals)
+    weight: torch.Tensor
+    hist: torch.Tensor
+    uhist: torch.Tensor
+    f: torch.Tensor
+    sumhist: torch.Tensor
+    invt_active: torch.Tensor
+    firstcycle: torch.Tensor
+    histogram_reset: torch.Tensor
+    master_eta: DS
+    master_hist: DS
+    master_uhist: DS
+    window_id: torch.Tensor
+    my_mu_min: torch.Tensor
+    my_mu_max: torch.Tensor
+    start_bin: torch.Tensor
+    end_bin: torch.Tensor
+    in_window: torch.Tensor
+
+    # counters / step sizes (as SamplerState)
+    max_trans: torch.Tensor
+    dv_max: torch.Tensor
+    att: torch.Tensor
+    acc: torch.Tensor
+    trans_per_mol: torch.Tensor
+    avg_energy: torch.Tensor
+    min_dmu: torch.Tensor
+    max_dmu: torch.Tensor
+
+    cycle: int                   # host counter
+    dropped: torch.Tensor        # int32 scalar (delta-merge drops)
+
+    def clone(self) -> "CellState":
+        return clone_state(self)
+
+
+class CellAux(NamedTuple):
+    """Static large-N extras alongside EngineAux.  (The JAX package's
+    CellAux also carries the mismatch bound, which its engine never
+    reads, and the lattice-1 reference sites of the displacement wall
+    ``cell_trans_wall``, which is not ported yet.)"""
+
+    dfrac0: torch.Tensor      # [3,N] invariant correspondence mismatch
+                              # f1 - f2 per molecule (models/stacking.py)
+
+
+def cell_state_from_numpy(fields: dict, aux_fields: dict, caux_fields: dict,
+                          device="cuda"):
+    """(CellState, EngineAux, CellAux) from plain numpy dicts, the
+    counterpart of state.state_from_numpy: ``fields`` maps every
+    CellState field name to an array (``moments`` [10,L,nslot,W]; the DS
+    masters to (hi, lo) pairs); other keys of the three dicts are
+    ignored."""
+    device = resolve_device(device)
+    state = CellState(**fields_from_numpy(CellState, fields, device))
+    dtype = state.r.dtype
+    caux = CellAux(dfrac0=torch.as_tensor(
+        np.array(caux_fields["dfrac0"]), dtype=dtype, device=device))
+    return state, aux_from_numpy(aux_fields, dtype, device), caux
+
+
+def cell_state_to_numpy(state: CellState) -> dict:
+    """Plain numpy dict of a CellState (the inverse of
+    cell_state_from_numpy)."""
+    return state_to_numpy(state)
+
+
+class _LoopRows(NamedTuple):
+    """What the sub-step loop carries besides the packed slabs: the
+    chain kernel's rows (mcmc/chain_kernel.py), updated in place, and
+    the mover-selection tables, constant between rebins."""
+
+    cf: torch.Tensor        # [CF_ROWS, W]
+    ci: torch.Tensor        # [CI_ROWS, W] int32
+    basew: torch.Tensor     # [B, W] master weight view
+    inc: torch.Tensor       # [K, 2, W] in-cell flags of the two points;
+                            # point 0 (the current position) stays 1
+    occ_f: torch.Tensor     # [n_tables, K, W] occupancy of each table's
+                            # scheduled fine cells, as the float type
+    rank_max: torch.Tensor  # [n_tables, K, W] int32 max(occupancy-1, 0)
+    occupied: torch.Tensor  # [n_tables, K, W] bool occupancy > 0
+
+
+class _Trial(NamedTuple):
+    """One sub-step's K proposals (``CellEngine._propose_t1``)."""
+
+    rank: torch.Tensor      # [K, W] int32 slot rank of each mover
+    slot: torch.Tensor      # [K, W] int64 slab slot of each mover
+    p_old: torch.Tensor     # [L, 3, K, W]
+    p_new: torch.Tensor     # [L, 3, K, W]
+    e: torch.Tensor         # [L, K, 2, W] local energies (old, new)
+    own_new: torch.Tensor   # [L, K, 10, W] the movers' new own moments
+    hasm: torch.Tensor      # [K, W] float 0/1: the trial exists
+
+
+_CELL_UNSUPPORTED = (
+    ("cell_trials > 1 (the multi-trial sub-step and the mover-points "
+     "kernel)", lambda p: int(p.cell_trials) != 1),
+    ("cell_pallas other than 'auto'/'apply' (the per-candidate delta "
+     "output with the scatter path, and the unfused path)",
+     lambda p: p.cell_pallas not in ("auto", "apply")),
+    ("cell_chain='off' (the micro-batched chain)",
+     lambda p: p.cell_chain not in ("auto", "on")),
+    ("cell_trans_wall > 0", lambda p: p.cell_trans_wall > 0.0),
+)
+
+
+class CellEngine(Engine):
+    """Engine for large systems; inherits the multicanonical machinery
+    from Engine and replaces the configurational layout."""
+
+    def __init__(self, prm: RunParams, model: SWParams, grid: BinGrid,
+                 aux: EngineAux, cellgrid: CellGrid, cellaux: CellAux,
+                 device="cuda", stream=None):
+        self.cellgrid = cellgrid
+        self.cellaux = cellaux
+        super().__init__(prm, model, grid, aux, device=device,
+                         stream=stream)
+
+    def _check_scope(self, prm: RunParams, aux: EngineAux) -> None:
+        for name, bad in _UNSUPPORTED + _CELL_UNSUPPORTED:
+            if bad(prm):
+                raise NotImplementedError(
+                    f"{name} is not ported yet (see ROADMAP.md)")
+
+    def _init_layout(self):
+        prm, cg = self.prm, self.cellgrid
+        dev = self.device
+        self.wall = 0.0
+        # volume-move geometry guard: the static coverage tables were
+        # built from the initial boxes with the shrink factor ``guard``
+        # baked in; the volume move rejects any box whose perpendicular
+        # widths shrink below 1/guard of the initial ones
+        self.min_perp_w = np.asarray(cg.perp_w0) / cg.guard
+
+        # static per-(colour, fine-block) tables.  A sub-step is
+        # scheduled at a (colour, block) pair, so every mover's FINE
+        # cell is static: its candidate set is the per-fine-cell
+        # coverage stencil (cells.full_cells).  Same-colour movers'
+        # stencils are DISJOINT where the stencil is the 27-cell cube
+        # and m >= 2; verified explicitly per table, since the in-place
+        # apply stage relies on it.
+        m3 = cg.m ** 3
+        unpadded = bool(np.all(cg.full_mask))
+        self.scatter_unique = unpadded
+        fc_rows, cand_rows, off_rows = [], [], []
+        for col in range(8):
+            cells_c = np.asarray(cg.color_cells[col])
+            for b in range(m3):
+                fc = cg.block_cells[cells_c][:, b]          # [K]
+                cand = cg.full_cells[fc]                    # [K, CF]
+                if len(np.unique(cand)) != cand.size:
+                    self.scatter_unique = False
+                fc_rows.append(fc)
+                cand_rows.append(cand)
+                off_rows.append(cg.full_off[fc])            # [K, CF, 3]
+        if not unpadded:
+            raise NotImplementedError(
+                "padded coverage tables (cells.build_grid full_mask not "
+                "all True) are not ported yet (see ROADMAP.md)")
+        if not self.scatter_unique:
+            raise NotImplementedError(
+                "coverage stencils of same-colour movers that are not "
+                "disjoint (the scatter path of the sub-step) are not "
+                "ported yet (see ROADMAP.md)")
+        # stacked (colour, block) tables, row t = colour*m^3 + block:
+        # int32 for the kernels, and as int64 row offsets for torch
+        # indexing: of the movers' slots in the [nslot, W] slabs and of
+        # their coordinate rows in a packed slab viewed as [rows, W]
+        i32 = lambda a: torch.as_tensor(                    # noqa: E731
+            np.ascontiguousarray(np.stack(a), np.int32), device=dev)
+        self.fc_stack = i32(fc_rows)                        # [8*m3,K]
+        self.cand_stack = i32(cand_rows)                    # [8*m3,K,CF]
+        self.off_stack = i32(off_rows)                      # [8*m3,K,CF,3]
+        self.fc_stack_l = self.fc_stack.long()
+        self.slot_base = (self.fc_stack_l * cg.cap)[:, :, None]
+        self.coord_base = ((
+            self.fc_stack_l[:, None, :] * PK_ROWS + PK_R0
+            + torch.arange(3, device=dev)[None, :, None]
+        ) * cg.cap)[..., None]                              # [8*m3,3,K,1]
+        self.half_dfrac0 = 0.5 * self.cellaux.dfrac0        # [3,N]
+        self.n_tables = 8 * m3
+        self.K = cg.cells_per_color
+        # one sweep = one trial per (coarse cell, fine block); the trial
+        # count per cycle matches nwater to within rounding
+        self.T = int(prm.cell_trials)
+        self.sweeps_per_cycle = max(
+            1, int(round(prm.nwater / (cg.ncoarse * m3 * self.T))))
+        self.trials_per_cycle = (
+            self.sweeps_per_cycle * cg.ncoarse * m3 * self.T)
+
+        self.mover_kernel = MoverEnergiesKernel(self.model, cg)
+        self.apply_kernel = MoverApplyKernel(self.model, cg)
+        self.chain_kernel = ChainWLKernel(
+            prm, self.grid, self.K, self.T,
+            float(self.aux.log_unbiased_norm))
+        self.full_max_elems = (_FULL_ENERGY_MAX_ELEMS_CUDA
+                               if dev.type == "cuda"
+                               else _FULL_ENERGY_MAX_ELEMS)
+
+    # ------------------------------------------------------------------
+    # compensated energy accumulation (see CellState.energy_err)
+    # ------------------------------------------------------------------
+
+    def _e_tot(self, s):
+        return s.energy + s.energy_err
+
+    def _post_volume_energy(self, s, accept):
+        # from-scratch energy on accept: zero the residual there
+        s.energy_err = torch.where(accept[None, :], 0.0, s.energy_err)
+
+    # ------------------------------------------------------------------
+    # full-cell energy (slab)
+    # ------------------------------------------------------------------
+
+    def _slab_valid(self, s: CellState):
+        return s.slot2mol >= 0
+
+    def _full_both(self, s: CellState, r, h, n=None):
+        """Energies [L,n] and moments [10,L,nslot,n] from scratch for the
+        first ``n`` walkers (all by default) at positions r, cells h."""
+        valid = self._slab_valid(s)[:, :n]
+        per = [
+            slab_full_energy(r[l][..., :n], valid, h[l][..., :n],
+                             self.cellgrid, self.model,
+                             max_elems=self.full_max_elems)
+            for l in range(r.shape[0])
+        ]
+        return (torch.stack([p[0] for p in per]),
+                torch.stack([p[1] for p in per], dim=1))
+
+    # ------------------------------------------------------------------
+    # one colour sub-step: K parallel movers, exact sequential chain
+    # ------------------------------------------------------------------
+
+    def _pack(self, s: CellState):
+        """Pack each lattice's slabs into ONE [nfine, PK_ROWS, cap, W]
+        tensor (moment rows 0:10, coordinate rows PK_R0:PK_R0+3, validity
+        row PK_VALID) for the sub-step loop: the layout the mover
+        kernels take.  One copy per cycle; validity is static between
+        rebins, which only happen outside the loop."""
+        cg = self.cellgrid
+        L, _, _, W = s.r.shape
+        nfine, cap = cg.nfine, cg.cap
+        valid = self._slab_valid(s).to(s.r.dtype).reshape(nfine, cap, W)
+        pks = []
+        for l in range(L):
+            pk = torch.empty((nfine, PK_ROWS, cap, W), dtype=s.r.dtype,
+                             device=s.r.device)
+            pk[:, 0:10] = s.moments[:, l].reshape(
+                10, nfine, cap, W).permute(1, 0, 2, 3)
+            pk[:, PK_R0:PK_R0 + 3] = s.r[l].reshape(
+                3, nfine, cap, W).permute(1, 0, 2, 3)
+            pk[:, PK_VALID] = valid
+            pks.append(pk)
+        return pks
+
+    def _unpack(self, s: CellState, pks) -> CellState:
+        """Write the canonical r / moments slabs back out of the packed
+        slabs (inside the sub-step loop s.r / s.moments are stale: the
+        packed tensors are the truth there)."""
+        nfine, _, cap, W = pks[0].shape
+        for l, pk in enumerate(pks):
+            s.moments[:, l] = pk[:, 0:10].permute(1, 0, 2, 3).reshape(
+                10, nfine * cap, W)
+            s.r[l] = pk[:, PK_R0:PK_R0 + 3].permute(1, 0, 2, 3).reshape(
+                3, nfine * cap, W)
+        return s
+
+    def _loop_rows(self, s: CellState, switch_ok=True) -> _LoopRows:
+        """The sub-step loop's rows from the state.  Of the chain rows
+        everything but the chain state proper (mu, energies, residuals,
+        dmu extrema, ls) is constant over a cycle's loop: volumes,
+        windows and the masters only change outside it; so is the
+        occupancy of the fine cells (molecules change cells only at a
+        rebin)."""
+        W = s.mu.shape[0]
+        dtype, dev = s.mu.dtype, s.mu.device
+        cmu, sw_c = self._hoisted_chain_terms(s)
+        cf = torch.zeros((CF_ROWS, W), dtype=dtype, device=dev)
+        for row, val in (
+                (CF_MU, s.mu), (CF_E0, s.energy[0]), (CF_E1, s.energy[1]),
+                (CF_E0E, s.energy_err[0]), (CF_E1E, s.energy_err[1]),
+                (CF_F, s.f), (CF_SUMHIST, s.sumhist),
+                (CF_MIN_DMU, s.min_dmu), (CF_MAX_DMU, s.max_dmu),
+                (CF_MU_MIN, s.my_mu_min), (CF_MU_MAX, s.my_mu_max),
+                (CF_CMU, cmu), (CF_SWC, sw_c), (CF_MINUC, 0.0)):
+            cf[row] = val
+        ci = torch.zeros((CI_ROWS, W), dtype=torch.int32, device=dev)
+        for row, val in (
+                (CI_LS, s.ls), (CI_START, s.start_bin), (CI_END, s.end_bin),
+                (CI_INWIN, s.in_window), (CI_INVT, s.invt_active),
+                (CI_OCCOK, s.occ_overflow == 0),
+                (CI_SWOK, int(bool(switch_ok)))):
+            ci[row] = val
+        basew = ds_value(s.master_eta)[s.window_id.long()].T.contiguous()
+        occ = torch.sum(s.slot2mol.view(-1, self.cellgrid.cap, W) >= 0,
+                        dim=1, dtype=torch.int32)[self.fc_stack_l]
+        return _LoopRows(
+            cf, ci, basew,
+            inc=torch.ones((self.K, 2, W), dtype=dtype, device=dev),
+            occ_f=occ.to(dtype), rank_max=torch.clamp(occ - 1, min=0),
+            occupied=occ > 0)
+
+    def _chain_unrows(self, s: CellState, rows: _LoopRows) -> CellState:
+        """The chain state back into the state's fields."""
+        cf, ci = rows.cf, rows.ci
+        s.mu = cf[CF_MU].clone()
+        s.energy = torch.stack([cf[CF_E0], cf[CF_E1]])
+        s.energy_err = torch.stack([cf[CF_E0E], cf[CF_E1E]])
+        s.min_dmu, s.max_dmu = cf[CF_MIN_DMU].clone(), cf[CF_MAX_DMU].clone()
+        s.ls = ci[CI_LS].clone()
+        return s
+
+    def _tables(self, tbl: int):
+        """Rows of the stacked (colour, block) tables for the kernels:
+        (fc [K], cand [K,CF], off [K,CF,3]), int32."""
+        return self.fc_stack[tbl], self.cand_stack[tbl], self.off_stack[tbl]
+
+    def _substep_canonical(self, s: CellState, tpm_slab, tbl: int, u,
+                           codes_k, switch_ok=True):
+        """One sub-step on the canonical (unpacked) state: pack,
+        sub-step, unpack.  Test/diagnostic entry point - the cycle loop
+        calls _substep on the packed slabs and rows it carries.
+        ``u`` [K, 7, W] as the random stream lays it out."""
+        pks = self._pack(s)
+        rows = self._loop_rows(s, switch_ok)
+        cnt = self._substep(s, pks, tpm_slab, tbl,
+                            u.permute(1, 0, 2).contiguous(), codes_k, rows)
+        self._chain_unrows(s, rows)
+        self._count(s, cnt[None])
+        return self._unpack(s, pks), tpm_slab
+
+    def _count(self, s: CellState, cnt_all):
+        """Fold the chain's counters [n, CN_FIXED + K, W] into att/acc."""
+        tot = cnt_all[:, :CN_FIXED].sum(dim=0, dtype=torch.int32)
+        s.att[TRANS] += tot[CN_EN]
+        s.att[SWITCH] += tot[CN_SWEN]
+        s.acc[TRANS] += tot[CN_ACC]
+        s.acc[SWITCH] += tot[CN_SWACC]
+
+    def _select_movers(self, s: CellState, pks, tbl: int, u_sel,
+                       rows: _LoopRows):
+        """Mover selection, uniform over the STATIC fine cell's
+        occupants (rank-packed slots are contiguous per fine cell and
+        never move between rebins, so ranks [0, occ) are exactly the
+        occupied slots).  The proposal is symmetric: the wall keeps an
+        accepted mover inside its fine cell, so the reverse move faces
+        the same occupancy.  u_sel [K, W].
+
+        Returns (rank [K,W] int32, slot [K,W] int64, p_old [L,3,K,W],
+        mover_mol [K,W], has_mover [K,W])."""
+        K, W = u_sel.shape
+        # truncation toward zero; in f32 u*occ can round up to exactly
+        # occ, which the clamp keeps in range
+        rank = torch.minimum((u_sel * rows.occ_f[tbl]).to(torch.int32),
+                             rows.rank_max[tbl])             # [K,W]
+        slot = self.slot_base[tbl] + rank                    # [K,W]
+        coord = (self.coord_base[tbl] + rank).view(3 * K, W)
+        p_old = torch.stack([
+            torch.gather(pk.view(-1, W), 0, coord) for pk in pks
+        ]).view(len(pks), 3, K, W)
+        mover_mol = torch.gather(s.slot2mol, 0, slot)
+        # a trial is only real if the scheduled fine cell is occupied
+        # AND the selected rank holds a molecule: an empty cell must
+        # never yield a phantom trial
+        has_mover = rows.occupied[tbl] & (mover_mol >= 0)    # [K,W]
+        return rank, slot, p_old, mover_mol, has_mover
+
+    def _hoisted_chain_terms(self, s: CellState):
+        """The volume/enthalpy algebra of the switch rule and the
+        mu-from-scratch refresh, FROZEN for the whole sub-step loop
+        (volumes only change at volume moves, which run outside it).
+
+        Returns (cmu, sw_c):
+          * mu from scratch = beta*(E0 - E1) + cmu (mc_moves:856-862)
+          * switch rule dsw = sgn(ls) * (beta*(E1 - E0) + sw_c)
+            (mc_lattice_switch, mc_moves.F90:1558-1559)"""
+        prm = self.prm
+        lv10 = torch.log(s.volume[1] / s.volume[0])          # [W]
+        pterm = prm.beta * prm.pressure * (s.volume[1] - s.volume[0])
+        cmu = -pterm + prm.nwater * lv10
+        sw_c = pterm - prm.nwater * lv10
+        return cmu, sw_c
+
+    def _substep(self, s: CellState, pks, tpm_slab, tbl: int, u, codes_k,
+                 rows: _LoopRows, cnt=None):
+        """One (colour, fine-block) sub-step, in place on the packed
+        slabs ``pks`` [L] x [nfine, PK_ROWS, cap, W], the chain rows,
+        the WL slabs of ``s`` and the per-slot trial counter
+        ``tpm_slab`` [nslot, W].  ``tbl``: row of the stacked tables;
+        ``u`` [7, K, W]: this sub-step's uniforms (selection, 3
+        direction, magnitude, accept, switch); ``codes_k`` [K] int32 on
+        the state's device.  Returns the chain's counters
+        [CN_FIXED + K, W]."""
+        trial = self._propose_t1(s, pks, tbl, u, rows)
+        joh, cnt = self._chain_kernel_substep(s, rows, trial, codes_k, u[5],
+                                              u[6], cnt)
+        accf = joh.view(self.K, 2, -1)[:, 1]
+        self._apply_t1(s, pks, tpm_slab, tbl, trial, accf, cnt[CN_FIXED:])
+        return cnt
+
+    def _propose_t1(self, s: CellState, pks, tbl: int, u,
+                    rows: _LoopRows) -> _Trial:
+        """Sub-step phase 1: mover selection, displacement proposal,
+        fine-cell wall (into ``rows.inc``), parallel energies of the
+        movers at both positions in both lattices."""
+        cg = self.cellgrid
+        L = s.h.shape[0]
+        fc, cand, off = self._tables(tbl)
+        ls = rows.ci[CI_LS]                  # the walkers' current lattice
+        rank, slot, p_old, mover_mol, has_mover = self._select_movers(
+            s, pks, tbl, u[0], rows)
+
+        # displacement: random direction x U(-1,1)*max_trans in the
+        # active lattice, same fractional displacement in the partner
+        # (mc_water_translation, mc_moves.F90:1021-1067)
+        d = 2.0 * u[1:5] - 1.0               # [4,K,W]: direction, length
+        sq = d[:3] * d[:3]
+        inv_norm = torch.rsqrt(torch.clamp(sq[0] + sq[1] + sq[2],
+                                           min=1e-30))
+        rmag = d[3] * s.max_trans[None, :] * inv_norm
+        v = d[:3] * rmag[None]                               # [3,K,W]
+        sfrac = to_frac(_take_lat(s.recip, ls)[:, :, None, :], v)
+        p_new = p_old + torch.stack([
+            torch.where(ls == l, v,
+                        from_frac(s.h[l][:, :, None, :], sfrac))
+            for l in range(L)
+        ])                                                   # [L,3,K,W]
+
+        # FINE-cell-boundary wall in the MID frame: BOTH endpoints must
+        # resolve to the mover's STORED fine cell (symmetric under the
+        # reverse move, preserving balance even at rounding edges).
+        # The coverage tables reach partners through their stored fine
+        # slots, so every molecule has to stay inside the fine cube it
+        # was binned into.
+        dmid = self.half_dfrac0[
+            :, torch.clamp(mover_mol, min=0).long()]         # [3,K,W]
+        ends = torch.stack([p_old[0], p_new[0]], dim=1)      # [3,2,K,W]
+        fmid = to_frac(s.recip[0][:, :, None, None, :], ends) \
+            - dmid[:, None]
+        inside = cell_of_frac(cg, fmid, s.origin,
+                              level="fine") == fc[:, None]   # [2,K,W]
+        rows.inc[:, 1] = inside[0] & inside[1]
+
+        # parallel energies of all K movers in both lattices, against
+        # the per-fine-cell coverage stencil (the wall keeps both
+        # endpoints inside the stored fine cell, so the stencil's
+        # coverage of that cube reaches every partner)
+        e, own_new = self.mover_kernel(pks, s.h, cand, off, fc, rank, p_old,
+                                       p_new)
+        return _Trial(rank, slot, p_old, p_new, e, own_new,
+                      has_mover.to(e.dtype))
+
+    def _chain_kernel_substep(self, s: CellState, rows: _LoopRows,
+                              trial: _Trial, codes_k, ua, uz, cnt=None):
+        """Sub-step phase 2: the exact sequential accept/reject chain
+        over the K movers with PER-MOVE WL updates, through the chain
+        kernel in its point-table form (P = 2: point 0 = current, point
+        1 = the proposal; the mover kernel's energies and ``rows.inc``
+        are laid out as its tables).  The fine-cell wall is the
+        proposal's in-cell flag; point 0 is trivially in its cell.
+        Returns (joh [K*P, W], cnt [CN_FIXED + K, W])."""
+        W = rows.cf.shape[1]
+        return self.chain_kernel(
+            codes_k, s.cycle >= self.prm.eq_mc_cycles, rows.cf, rows.ci,
+            s.weight, s.hist, s.uhist, rows.basew, trial.e.view(-1, W),
+            rows.inc.view(-1, W), trial.hasm, ua, uz, cnt=cnt)
+
+    def _apply_t1(self, s: CellState, pks, tpm_slab, tbl: int,
+                  trial: _Trial, accf, en_per_mover):
+        """Sub-step phase 3: apply the accepted movers to the packed
+        slabs in place (independent, so parallel application equals the
+        sequential composition) and count the trials per slot."""
+        fc, cand, off = self._tables(tbl)
+        self.apply_kernel(pks, s.h, cand, off, fc, trial.rank, accf,
+                          trial.p_old, trial.p_new, trial.own_new)
+        # per-slot trial counter (gathered to molecule order once per
+        # cycle); the movers' slots are distinct
+        tpm_slab.scatter_add_(0, trial.slot, en_per_mover)
+
+    # ------------------------------------------------------------------
+    # Wang-Landau health gate
+    # ------------------------------------------------------------------
+
+    def _wl_healthy(self, s):
+        """Volume moves run the inherited Engine._wl_update; extend its
+        health gate with the slab-overflow audit, so that a corrupt
+        walker (two molecules sharing a slot after an overflowing rebin)
+        never contributes to the SHARED WL arrays."""
+        return torch.all(torch.isfinite(s.energy), dim=0) & (
+            s.occ_overflow == 0)
+
+    # ------------------------------------------------------------------
+    # volume-move hooks (Engine._volume supplies the shared logic)
+    # ------------------------------------------------------------------
+
+    def _vol_rescale(self, s: CellState, h_new):
+        """Slab layout: rescale slot positions at fixed fractional
+        coordinates (slots and the fractional grid are untouched by
+        construction; there are no stored reference positions)."""
+        r_new = torch.stack([
+            from_frac(h_new[l][:, :, None, :],
+                      to_frac(s.recip[l][:, :, None, :], s.r[l]))
+            for l in range(s.r.shape[0])
+        ])
+        return r_new, None
+
+    def _vol_energy(self, s: CellState, r_new, h_new):
+        return self._full_both(s, r_new, h_new)
+
+    # ------------------------------------------------------------------
+    # rebin: new random grid origin (ergodicity across cells)
+    # ------------------------------------------------------------------
+
+    def _rebin(self, s: CellState) -> CellState:
+        cg = self.cellgrid
+        N, W = s.mol2slot.shape
+        dtype, dev = s.r.dtype, s.r.device
+
+        # gather slabs back to molecule order
+        r_mol = gather_from_slab(s.r, s.mol2slot)            # [L,3,N,W]
+        mom_mol = gather_from_slab(s.moments, s.mol2slot)    # [10,L,N,W]
+
+        origin = self.stream.rebin_origin(s.cycle, dtype).to(dev)
+
+        # wrap so that the MID fractional position lands in
+        # [origin, origin+1): the grid is periodic in g = f_mid - origin,
+        # and stored images must wrap at the GRID boundary for the
+        # coverage tables' +-1 box shifts to be the true periodic
+        # offsets; re-image lattice 2 to within the (invariant)
+        # correspondence mismatch of lattice 1.  All shifts are lattice
+        # vectors, leaving energies unchanged.
+        dmid = self.half_dfrac0[:, :, None]                  # [3,N,1]
+        f1 = to_frac(s.recip[0][:, :, None, :], r_mol[0])
+        f1 = f1 - torch.floor(f1 - dmid - origin[:, None, None])
+        r1 = from_frac(s.h[0][:, :, None, :], f1)
+        f2 = to_frac(s.recip[1][:, :, None, :], r_mol[1])
+        dmic = f1 - f2
+        dmic = dmic - torch.round(dmic)
+        r2 = from_frac(s.h[1][:, :, None, :], f1 - dmic)
+        r_mol = torch.stack([r1, r2])
+
+        cid = cell_of_frac(cg, f1 - dmid, origin, level="fine")
+        slot, max_occ = bin_molecules(cg, cid)
+        s.occ_overflow = torch.maximum(
+            s.occ_overflow, max_occ - cg.cap).to(torch.int32)
+
+        s.r = scatter_to_slab(r_mol, slot, cg.nslot)
+        s.moments = scatter_to_slab(mom_mol, slot, cg.nslot)
+        mols = torch.arange(N, dtype=torch.int32, device=dev)[:, None]
+        s.slot2mol = torch.full((cg.nslot, W), -1, dtype=torch.int32,
+                                device=dev).scatter_(
+            0, slot.long(), mols.expand(N, W).contiguous())
+        s.mol2slot = slot
+        s.origin = origin
+        return s
+
+    # ------------------------------------------------------------------
+    # chain resynchronisation (slab variant of Engine._resync_chains)
+    # ------------------------------------------------------------------
+
+    def _resync_chains(self, s: CellState) -> CellState:
+        L = s.r.shape[0]
+        # lattice 2's cell displacement := lattice 1's
+        # (mc_moves.F90:2276-2277)
+        h = s.h.clone()
+        h[1] = self.ref_h[1][:, :, None] + (
+            s.h[0] - self.ref_h[0][:, :, None])
+        recip = torch.stack([recip_matrix(h[l]) for l in range(L)])
+
+        # every molecule's fractional displacement from its reference
+        # := lattice 1's, i.e. f2 = f1 - dfrac0 (mc_moves.F90:2289-2333)
+        f1 = to_frac(recip[0][:, :, None, :], s.r[0])        # [3,nslot,W]
+        mol = torch.clamp(s.slot2mol, min=0).long()          # [nslot,W]
+        dfrac = self.cellaux.dfrac0[:, mol]                  # [3,nslot,W]
+        r2 = from_frac(h[1][:, :, None, :], f1 - dfrac)
+        s.r[1] = torch.where(self._slab_valid(s)[None], r2, 0.0)
+
+        vol = torch.abs(torch.stack([determinant3(h[l]) for l in range(L)]))
+        s.h, s.recip, s.volume = h, recip, vol
+        s.energy, s.moments = self._full_both(s, s.r, h)
+        s.energy_err = torch.zeros_like(s.energy)
+        s.mu = self._mu_scratch(s.energy, vol)
+        return s
+
+    # ------------------------------------------------------------------
+    # audit (slab variant)
+    # ------------------------------------------------------------------
+
+    def audit_energy(self, s: CellState, n_walkers: int | None = None):
+        """Recompute energies + moments of the first ``n_walkers``
+        walkers (all by default) from scratch, overwrite them, zero
+        their residuals and return the drift [L, n] of the tracked
+        (energy + energy_err) against the fresh values
+        (mc_monitor_stats:1781-1792)."""
+        n = s.r.shape[-1] if n_walkers is None else n_walkers
+        fresh, moments = self._full_both(s, s.r, s.h, n)
+        drift = self._e_tot(s)[:, :n] - fresh
+        s.energy[:, :n] = fresh
+        s.energy_err[:, :n] = 0.0
+        s.moments[..., :n] = moments
+        return s, drift
+
+    # ------------------------------------------------------------------
+    # the cycle
+    # ------------------------------------------------------------------
+
+    def _substep_scan(self, s: CellState, codes, u_all, n_sub):
+        """All sub-steps of the cycle, in order: sub-step ``sid`` runs
+        table row sid % n_tables (colours outer, blocks inner, repeating
+        every sweep) on trials sid*K .. sid*K+K-1 of the schedule.  The
+        packed slabs, the chain rows, the WL slabs and the per-slot
+        trial counts are updated in place by the three kernels; pack
+        and unpack happen once.  Returns (s, tpm_slab)."""
+        W = s.r.shape[-1]
+        K = self.K
+        dev = s.r.device
+        tpm_slab = torch.zeros((self.cellgrid.nslot, W), dtype=torch.int32,
+                               device=dev)
+        cnt_all = torch.empty((n_sub, CN_FIXED + K, W), dtype=torch.int32,
+                              device=dev)
+        codes_d = codes.to(device=dev, dtype=torch.int32)
+        # [n_sub, 7, K, W]: each uniform's [K, W] block contiguous
+        u_all = u_all.permute(0, 2, 1, 3).contiguous()
+        pks = self._pack(s)
+        rows = self._loop_rows(s)
+        for sid in range(n_sub):
+            self._substep(s, pks, tpm_slab, sid % self.n_tables,
+                          u_all[sid], codes_d[sid * K:(sid + 1) * K], rows,
+                          cnt_all[sid])
+        self._chain_unrows(s, rows)
+        self._count(s, cnt_all)
+        return self._unpack(s, pks), tpm_slab
+
+    def _one_cycle(self, s: CellState):
+        return self._cycle_with(s, self._substep_scan)
+
+    def _cycle_with(self, s: CellState, scan_fn):
+        """The cycle skeleton: rebin cadence, the move-type schedule,
+        the sub-step loop (``scan_fn``), scheduled volume moves,
+        delta-sync / chain-resync cadences and the therm sample."""
+        prm = self.prm
+        W = s.r.shape[-1]
+        s.cycle += 1
+        cycle = s.cycle
+
+        # re-draw the grid origin + rebin on the reference's
+        # Verlet-rebuild cadence (mc_cycle:218-222)
+        if cycle % prm.list_update_int == 0:
+            self._rebin(s)
+
+        # shared move-type schedule over this cycle's trials and the
+        # whole cycle's sub-step uniforms [n_sub, K, 7, W]
+        n_sub = self.sweeps_per_cycle * self.n_tables
+        codes, u_all = self.stream.cell_cycle_draws(
+            cycle, self.probs, self.trials_per_cycle, n_sub, self.K, W,
+            s.r.dtype)
+
+        s, tpm_slab = scan_fn(s, codes, u_all, n_sub)
+        s.trans_per_mol += gather_from_slab(tpm_slab, s.mol2slot)
+
+        # scheduled volume moves, back to back (Engine._volume with the
+        # slab hooks above)
+        if prm.allow_vol:
+            self._scheduled_volume_moves(s, codes, cycle)
+
+        s.avg_energy = s.avg_energy + self._e_tot(s) \
+            + prm.pressure * s.volume
+        if cycle % prm.mpi_sync_int == 0:
+            self._sync_all(s)
+        if cycle % prm.latt_sync_int == 0:
+            self._resync_chains(s)
+        T_w = min(prm.therm_walkers, W)
+        return {
+            "cycle": cycle,
+            "E_ls": _take_lat(self._e_tot(s), s.ls)[:T_w],
+            "mu": s.mu[:T_w],
+            "vol": s.volume[:, :T_w],
+            "ls": s.ls[:T_w],
+        }
+
+
+# ----------------------------------------------------------------------
+# state initialisation
+# ----------------------------------------------------------------------
+
+def init_cell_state(prm: RunParams, model: SWParams, r0: np.ndarray,
+                    H0: np.ndarray, grid: BinGrid, cellgrid: CellGrid,
+                    weight0: np.ndarray | None = None, n_windows: int = 1,
+                    device="cuda") -> tuple[CellState, EngineAux, CellAux]:
+    """Build the initial slab-layout walker ensemble (the large-N
+    sibling of state.init_state, same init order as main.f90:98-175).
+    r0 [L,N,3], H0 [L,3,3] in Bohr."""
+    device = resolve_device(device)
+    dtype = _DTYPES[prm.dtype]
+    W, L, N, B = prm.n_walkers, prm.num_lattices, prm.nwater, grid.nbins
+    if L != 2 or prm.parallel_strategy != "mw":
+        raise NotImplementedError(
+            "num_lattices != 2 and parallel_strategy='dd' are not ported "
+            "yet (see ROADMAP.md)")
+
+    r0 = np.asarray(r0, dtype=np.float64)
+    H0 = np.asarray(H0, dtype=np.float64)
+
+    # invariant correspondence mismatch (models/stacking.py)
+    f1_0 = r0[0] @ np.linalg.inv(H0[0]).T
+    f2_0 = r0[1] @ np.linalg.inv(H0[1]).T
+    dfrac0 = f1_0 - f2_0
+    dfrac0 -= np.round(dfrac0)
+
+    # initial binning (origin 0) by the MID fractional position
+    # f_mid = f1 - dfrac0/2 on the FINE grid, host-side
+    fmid0 = f1_0 - 0.5 * dfrac0
+    nshift = np.floor(fmid0)
+    f1 = f1_0 - nshift
+    fmid = fmid0 - nshift                              # in [0,1)
+    r_use = np.stack([f1 @ H0[0].T, (f1 - dfrac0) @ H0[1].T])  # [L,N,3]
+
+    n1, n2, n3 = cellgrid.nf
+    c1 = np.minimum((fmid[:, 0] * n1).astype(np.int32), n1 - 1)
+    c2 = np.minimum((fmid[:, 1] * n2).astype(np.int32), n2 - 1)
+    c3 = np.minimum((fmid[:, 2] * n3).astype(np.int32), n3 - 1)
+    cid = (c1 * n2 + c2) * n3 + c3                     # [N]
+    order = np.argsort(cid, kind="stable")
+    rank = np.empty(N, dtype=np.int32)
+    occ_count = np.zeros(cellgrid.nfine, dtype=np.int32)
+    for i in order:
+        rank[i] = occ_count[cid[i]]
+        occ_count[cid[i]] += 1
+    max_occ = int(occ_count.max())
+    if max_occ > cellgrid.cap:
+        raise ValueError(
+            f"cell occupancy {max_occ} exceeds capacity "
+            f"{cellgrid.cap}; increase cap"
+        )
+    slot_np = (cid * cellgrid.cap + rank).astype(np.int32)
+
+    nslot = cellgrid.nslot
+    r_slab0 = np.zeros((L, 3, nslot), dtype=np.float64)
+    s2m0 = np.full(nslot, -1, dtype=np.int32)
+    for l in range(L):
+        r_slab0[l][:, slot_np] = r_use[l].T
+    s2m0[slot_np] = np.arange(N, dtype=np.int32)
+
+    weight0_np = (np.zeros(B) if weight0 is None
+                  else np.asarray(weight0, dtype=np.float64))
+    log_norm = compute_log_unbiased_norm(prm, grid, weight0_np, W)
+
+    # all walkers start identical: compute one copy, broadcast
+    r1 = torch.as_tensor(r_slab0, dtype=dtype, device=device)[..., None]
+    h1 = torch.as_tensor(H0, dtype=dtype, device=device)[..., None]
+    valid1 = torch.as_tensor(s2m0 >= 0, device=device)[:, None]
+    per = [slab_full_energy(r1[l], valid1, h1[l], cellgrid, model)
+           for l in range(L)]
+    energy1 = torch.cat([p[0] for p in per])                 # [L]
+    mom1 = torch.stack([p[1] for p in per], dim=1)           # [10,L,nslot,1]
+    h = h1.expand(L, 3, 3, W).contiguous()
+    recip = torch.stack([recip_matrix(h[l]) for l in range(L)])
+    vol = torch.abs(torch.stack([determinant3(h[l]) for l in range(L)]))
+    vol1 = vol[:, 0]
+    ref_enth = energy1 + prm.pressure * vol1
+    if any(abs(x) > 1e-300 for x in prm.input_ref_enthalpy[:L]):
+        ref_enth = torch.as_tensor(prm.input_ref_enthalpy[:L], dtype=dtype,
+                                   device=device)
+    mu0_s = (energy1[0] + prm.pressure * vol1[0]
+             - energy1[1] - prm.pressure * vol1[1])
+    mu0_s = mu0_s * prm.beta - N * torch.log(vol1[0] / vol1[1])
+
+    # warm-start weights load into the master row; per-walker arrays
+    # hold only growth since the last sync
+    master_eta = DS(
+        torch.as_tensor(weight0_np[None, :], dtype=dtype, device=device),
+        torch.zeros((1, B), dtype=dtype, device=device),
+    )
+
+    def full(shape, val, dt=dtype):
+        return torch.full(shape, val, dtype=dt, device=device)
+
+    def tens(x, dt=None):
+        return torch.as_tensor(x, dtype=dt, device=device)
+
+    state = CellState(
+        r=r1.expand(L, 3, nslot, W).contiguous(), h=h, recip=recip,
+        volume=vol, energy=energy1[:, None].expand(L, W).contiguous(),
+        energy_err=full((L, W), 0.0),
+        mu=mu0_s.to(dtype).expand(W).contiguous(),
+        ls=full((W,), prm.ls - 1, torch.int32),
+        moments=mom1.expand(10, L, nslot, W).contiguous(),
+        slot2mol=tens(s2m0)[:, None].expand(nslot, W).contiguous(),
+        mol2slot=tens(slot_np)[:, None].expand(N, W).contiguous(),
+        origin=full((3,), 0.0),
+        occ_overflow=full((W,), 0, torch.int32),
+        weight=full((B, W), 0.0), hist=full((B, W), 0.0),
+        uhist=full((B, W), 0.0),
+        f=full((W,), prm.wl_factor), sumhist=full((W,), 0.0),
+        invt_active=full((W,), False, torch.bool),
+        firstcycle=full((W,), True, torch.bool),
+        histogram_reset=full((W,), False, torch.bool),
+        master_eta=master_eta,
+        master_hist=ds_zeros((1, B), dtype, device),
+        master_uhist=ds_zeros((1, B), dtype, device),
+        window_id=full((W,), 0, torch.int32),
+        my_mu_min=full((W,), prm.mu_min), my_mu_max=full((W,), prm.mu_max),
+        start_bin=full((W,), 0, torch.int32),
+        end_bin=full((W,), B - 1, torch.int32),
+        in_window=full((W,), True, torch.bool),
+        max_trans=full((W,), prm.mc_max_trans),
+        dv_max=full((W,), prm.mc_dv_max),
+        att=full((3, W), 0, torch.int32), acc=full((3, W), 0, torch.int32),
+        trans_per_mol=full((N, W), 0, torch.int32),
+        avg_energy=full((L, W), 0.0),
+        min_dmu=full((W,), float("inf")), max_dmu=full((W,), 0.0),
+        cycle=0,
+        dropped=full((), 0, torch.int32),
+    )
+    aux = EngineAux(
+        # shifts unused by the cell engine (audits run on the slab
+        # path); minimal placeholder for structural parity
+        shifts=np.zeros((1, 3), dtype=np.int32),
+        ref_h=tens(H0, dtype).double().cpu().numpy(),
+        ref_enthalpy=ref_enth.to(dtype),
+        log_unbiased_norm=log_norm,
+    )
+    caux = CellAux(dfrac0=tens(np.ascontiguousarray(dfrac0.T), dtype))
+    return state, aux, caux

@@ -48,7 +48,7 @@ from ..ops.dsfloat import ds_add, ds_sub, ds_value, ds_where
 from ..ops.full_energy import FullEnergyKernel
 from ..ops.geometry import determinant3, from_frac, recip_matrix, to_frac
 from ..ops.nbrtable import BREATHING, perp_widths
-from .bins import ETA_WALL, BinGrid, mu_to_bin
+from .bins import BinGrid, eta_lookup, wl_move_update
 from .config import RunParams
 from .fused import FusedCycle
 from .state import _DTYPES, EngineAux, SamplerState, resolve_device
@@ -91,6 +91,27 @@ class PhiloxStream:
                        device=self.device)
         return u[:, :4], u[:, 4]
 
+    # the cell engine's draws (mcmc/cellengine.py)
+
+    def rebin_origin(self, cycle, dtype):
+        """The shared fractional grid origin [3] of a rebin."""
+        return torch.rand((3,), generator=self.sched, dtype=dtype).to(
+            self.device)
+
+    def cell_cycle_draws(self, cycle, probs, T, n_sub, K, W, dtype):
+        """(codes [T] on the CPU, u_all [n_sub, K, 7, W]): the shared
+        move-type schedule over a cycle's T trials and, per sub-step and
+        mover, 1 selection + 6 move uniforms of every walker."""
+        xi = torch.rand((T,), generator=self.sched, dtype=dtype)
+        transP, volP, swP = probs
+        codes = torch.where(
+            xi < transP, TRANS,
+            torch.where(xi < volP, VOL,
+                        torch.where(xi < swP, SWITCH, NOOP)))
+        u_all = torch.rand((n_sub, K, 7, W), generator=self.walk,
+                           dtype=dtype, device=self.device)
+        return codes, u_all
+
 
 def _take_lat(arr, ls):
     """arr [2, ..., W] selected per walker by ls [W] -> [..., W]."""
@@ -102,7 +123,7 @@ class Engine:
 
     def __init__(self, prm: RunParams, model: SWParams, grid: BinGrid,
                  aux: EngineAux, device="cuda", stream=None):
-        _check_scope(prm, aux)
+        self._check_scope(prm, aux)
         self.prm = prm
         self.model = model
         self.grid = grid
@@ -110,6 +131,25 @@ class Engine:
         self.device = resolve_device(device)
         self.dtype = _DTYPES[prm.dtype]
         self.probs = prm.normalised_probs()
+        self.ref_h = torch.as_tensor(aux.ref_h, dtype=self.dtype,
+                                     device=self.device)     # [L,3,3]
+        self.binw = torch.as_tensor(grid.binwidth, dtype=self.dtype,
+                                    device=self.device)
+        self.mub = torch.as_tensor(grid.mu_bin, dtype=self.dtype,
+                                   device=self.device)
+        self.stream = (PhiloxStream(prm.seed, self.device)
+                       if stream is None else stream)
+        self._init_layout()
+
+    def _check_scope(self, prm: RunParams, aux: EngineAux) -> None:
+        """Raise NotImplementedError for what the port leaves out."""
+        _check_scope(prm, aux)
+
+    def _init_layout(self):
+        """The configurational layout's tables and kernels (the dense
+        walker engine: static neighbour tables and the two N=216
+        kernels; the cell engine overrides this)."""
+        prm, model, aux = self.prm, self.model, self.aux
         # MIC-folded residual shift set (a single null shift in table
         # mode: the box is MIC-unique)
         self.fold_shifts = reduced_shift_set(aux.ref_h, model)
@@ -126,19 +166,11 @@ class Engine:
                                      device=self.device)     # [L,3,N]
         # runtime guard for the tables' breathing margin (see
         # _vol_extra_ok)
-        self._tbl_min_w = np.stack([
+        self.min_perp_w = np.stack([
             perp_widths(aux.ref_h[l]) for l in range(aux.ref_h.shape[0])
         ]) / BREATHING                                       # [L,3]
-        self.ref_h = torch.as_tensor(aux.ref_h, dtype=self.dtype,
-                                     device=self.device)     # [L,3,3]
-        self.binw = torch.as_tensor(grid.binwidth, dtype=self.dtype,
-                                    device=self.device)
-        self.mub = torch.as_tensor(grid.mu_bin, dtype=self.dtype,
-                                   device=self.device)
         self.full_energy = FullEnergyKernel(model, self.fold_shifts)
         self.fused_cycle = FusedCycle(self)
-        self.stream = (PhiloxStream(prm.seed, self.device)
-                       if stream is None else stream)
 
     # ------------------------------------------------------------------
     # helpers
@@ -162,81 +194,42 @@ class Engine:
 
     def _eta(self, s: SamplerState, mu):
         """Multicanonical weight eta(mu) per walker (batched
-        bins.eta_weight; mc_moves.F90:893-964)."""
-        prm, grid = self.prm, self.grid
-        weight = self._weight_total(s)
-        B = grid.nbins
-        k = torch.clamp(mu_to_bin(grid, mu), 0, B - 1)
-
-        def at(idx):
-            return torch.take_along_dim(weight, idx[None, :], dim=0)[0]
-
-        if not prm.eta_interp:
-            eta = at(k)
-        else:
-            km = torch.clamp(k - 1, 0, B - 1)
-            kp = torch.clamp(k + 1, 0, B - 1)
-            w_k, w_km, w_kp = at(k), at(km), at(kp)
-            bw = self.binw
-            bw_k, bw_km, bw_kp = bw[k], bw[km], bw[kp]
-            mub_k, mub_km = self.mub[k], self.mub[km]
-            grad_up = 2.0 * (w_kp - w_k) / (bw_k + bw_kp)
-            grad_dn = 2.0 * (w_k - w_km) / (bw_k + bw_km)
-            eta_first = w_k + (mu - mub_k) * grad_up
-            eta_last = w_k + (mu - mub_k) * grad_dn
-            eta_mid_up = w_k + (mu - mub_k) * grad_up
-            eta_mid_dn = w_km + (mu - mub_km) * grad_dn
-            eta = torch.where(
-                k == s.start_bin, eta_first,
-                torch.where(k == s.end_bin, eta_last,
-                            torch.where(mu > mub_k, eta_mid_up,
-                                        eta_mid_dn)),
-            )
-        wall = (mu < s.my_mu_min) | (mu > s.my_mu_max)
-        walled = torch.where(wall, ETA_WALL, eta)
-        # pre-window walkers sample the wall-less global curve (window
-        # seeding) or, with dd_seeding=False, no bias at all
-        pre = eta if prm.dd_seeding else torch.zeros_like(eta)
-        return torch.where(s.in_window, walled, pre)
+        bins.eta_weight; mc_moves.F90:893-964).  Pre-window walkers
+        sample the wall-less global curve (window seeding) or, with
+        dd_seeding=False, no bias at all."""
+        prm = self.prm
+        return eta_lookup(
+            self.grid, self._weight_total(s), mu, self.binw, self.mub,
+            s.start_bin, s.end_bin, s.my_mu_min, s.my_mu_max, s.in_window,
+            prm.eta_interp, prm.dd_seeding)
 
     # ------------------------------------------------------------------
     # Wang-Landau per-move update (mc_update_wl_bins,
     # mc_moves.F90:1597-1689)
     # ------------------------------------------------------------------
 
+    def _e_tot(self, s):
+        """The accurate total energy view.  The dense engine's plain
+        accumulator is exact enough (a move's dE >> ulp(total) at
+        N <= ~10^3); the cell engine overrides it with its compensated
+        (energy + energy_err) pair."""
+        return s.energy
+
+    def _wl_healthy(self, s):
+        """[W] bool gate for writes into the SHARED WL arrays: walkers
+        with non-finite energies never write.  Engine layouts extend it
+        (the cell engine adds its slab-overflow audit)."""
+        return torch.all(torch.isfinite(s.energy), dim=0)
+
     def _wl_update(self, s: SamplerState, active: bool):
         """``active``: the move was performed and the WL phase is live
-        (cycle >= eq_mc_cycles).  Walkers with non-finite energies never
-        write into the shared WL arrays (health gate)."""
-        prm, grid = self.prm, self.grid
+        (cycle >= eq_mc_cycles)."""
         if not active:
             return
-        B = grid.nbins
-        healthy = torch.all(torch.isfinite(s.energy), dim=0)
-        k = mu_to_bin(grid, s.mu)
-        in_grid = (k >= 0) & (k < B)
-        kc = torch.clamp(k, 0, B - 1)
-        upd = (in_grid & healthy).to(s.hist.dtype)           # [W]
-        oh = (torch.arange(B, device=k.device)[:, None] == kc[None, :]
-              ).to(s.hist.dtype) * upd[None, :]              # [B, W]
-        incr = grid.av_binwidth / self.binw[kc]              # [W]
-        s.hist = s.hist + oh * incr[None, :]
-        if prm.samplerun:
-            # unbiased histogram, frozen weights (1625-1632): mask
-            # BEFORE the exp (the eta wall would poison via
-            # exp(1e30) * 0) and gate walled entries out entirely
-            eta_val = self._eta(s, s.mu)
-            unwalled = eta_val < 1e29
-            arg = torch.where((upd > 0) & unwalled,
-                              eta_val - self.aux.log_unbiased_norm, -1.0)
-            u_incr = torch.where(
-                unwalled, incr * torch.exp(torch.clamp(arg, max=60.0)),
-                0.0)
-            s.uhist = s.uhist + oh * u_incr[None, :]
-            return
-        # the reference's per-update min-shift is deferred to the
-        # delta-sync (see the JAX engine's _wl_update note)
-        s.weight = s.weight + oh * (incr * s.f)[None, :]
+        s.weight, s.hist, s.uhist = wl_move_update(
+            self.grid, self.prm.samplerun, self.aux.log_unbiased_norm,
+            self.binw, s.weight, s.hist, s.uhist,
+            lambda mu: self._eta(s, mu), s.mu, s.f, self._wl_healthy(s))
 
     # ------------------------------------------------------------------
     # moves
@@ -380,8 +373,9 @@ class Engine:
         mc_moves.F90:1536-1594); eta cancels since mu is unchanged."""
         prm = self.prm
         lsn = 1 - s.ls
-        E_ls = _take_lat(s.energy, s.ls)
-        E_lsn = _take_lat(s.energy, lsn)
+        e_tot = self._e_tot(s)
+        E_ls = _take_lat(e_tot, s.ls)
+        E_lsn = _take_lat(e_tot, lsn)
         V_ls = _take_lat(s.volume, s.ls)
         V_lsn = _take_lat(s.volume, lsn)
         diffkT = (
@@ -391,7 +385,7 @@ class Engine:
         )
         accept = torch.isfinite(diffkT) & (zeta < torch.exp(-diffkT))
         s.ls = torch.where(accept, lsn, s.ls).to(torch.int32)
-        s.mu = torch.where(accept, self._mu_scratch(s.energy, s.volume),
+        s.mu = torch.where(accept, self._mu_scratch(e_tot, s.volume),
                            s.mu)
         s.att[SWITCH] += 1
         s.acc[SWITCH] += accept.to(torch.int32)
@@ -413,32 +407,35 @@ class Engine:
         sym = outer + outer_t - outer * outer_t              # (1276-82)
         h_new = s.h + (sym * delta[None, None, :])[None]     # [L,3,3,W]
 
-        r_new, ref_new = self._vol_rescale(s, h_new)
+        r_new, ref_new = self._vol_rescale(s, h_new)   # ref_new or None
         recip_new = torch.stack([recip_matrix(h_new[l]) for l in range(L)])
         vol_new = torch.abs(
             torch.stack([determinant3(h_new[l]) for l in range(L)]))
-        e_new, mom_new = self._vol_energy(r_new, h_new)
-        dE = e_new - s.energy
+        e_new, mom_new = self._vol_energy(s, r_new, h_new)
+        e_tot = self._e_tot(s)
+        dE = e_new - e_tot
 
         vol_ls_old = _take_lat(s.volume, s.ls)
         vol_ls_new = _take_lat(vol_new, s.ls)
         mu_new = self._mu_scratch(e_new, vol_new)            # (1366-75)
         deta = self._eta(s, mu_new) - self._eta(s, s.mu)
-        mu_reject = self._mu_scratch(s.energy, s.volume)     # (1524-28)
+        mu_reject = self._mu_scratch(e_tot, s.volume)        # (1524-28)
         diffkT = (                                           # (1380-81)
             prm.beta * _take_lat(dE, s.ls)
             + deta
             + prm.beta * prm.pressure * (vol_ls_new - vol_ls_old)
             - prm.nwater * torch.log(vol_ls_new / vol_ls_old)
         )
-        # finite-state + cell-collapse guards, the table breathing
-        # guard, the displacement wall on the RESCALED state
+        # finite-state + cell-collapse guards, the layout's own guard
+        # (table breathing / grid validity), the displacement wall on the
+        # RESCALED state where the layout keeps reference positions
         ok = torch.isfinite(diffkT) & (torch.min(vol_new, dim=0).values
                                        > 0.0)
         ok = ok & self._vol_extra_ok(h_new)
-        dsp = r_new - ref_new
-        d2 = torch.sum(dsp * dsp, dim=1)                     # [L,N,W]
-        ok = ok & (torch.amax(d2, dim=(0, 1)) <= self.wall ** 2)
+        if ref_new is not None:
+            dsp = r_new - ref_new
+            d2 = torch.sum(dsp * dsp, dim=1)                 # [L,N,W]
+            ok = ok & (torch.amax(d2, dim=(0, 1)) <= self.wall ** 2)
         ok = ok & torch.isfinite(mu_new)
         accept = ok & (u[:, 3] < torch.exp(-diffkT))
 
@@ -449,7 +446,8 @@ class Engine:
                                 s.max_dmu)
         s.mu = torch.where(accept, mu_new, mu_reject)
         s.r = torch.where(accept, r_new, s.r)
-        s.ref_r = torch.where(accept, ref_new, s.ref_r)
+        if ref_new is not None:
+            s.ref_r = torch.where(accept, ref_new, s.ref_r)
         s.h = torch.where(accept, h_new, s.h)
         s.recip = torch.where(accept, recip_new, s.recip)
         s.volume = torch.where(accept, vol_new, s.volume)
@@ -457,7 +455,12 @@ class Engine:
         s.moments = torch.where(accept, mom_new, s.moments)
         s.att[VOL] += 1
         s.acc[VOL] += accept.to(torch.int32)
+        self._post_volume_energy(s, accept)
         self._wl_update(s, s.cycle >= prm.eq_mc_cycles)
+
+    def _post_volume_energy(self, s, accept):
+        """Hook after a volume move's from-scratch energy set (the cell
+        engine zeroes its compensation residual on accept)."""
 
     def _vol_rescale(self, s: SamplerState, h_new):
         """Positions and reference positions rescaled at fixed
@@ -471,18 +474,20 @@ class Engine:
             ]))
         return out[0], out[1]
 
-    def _vol_energy(self, r, h):
+    def _vol_energy(self, s, r, h):
         """Whole-cell energies [L,W] and moments [10,L,N,W] of both
-        lattices (FullEnergyKernel)."""
+        lattices at positions r, cells h (FullEnergyKernel)."""
         per = [self.full_energy(r[l], h[l]) for l in range(r.shape[0])]
         return (torch.stack([p[0] for p in per]),
                 torch.stack([torch.stack(list(p[1])) for p in per], dim=1))
 
     def _vol_extra_ok(self, h_new):
-        """Table guard: reject boxes whose perpendicular widths shrink
-        below 1/BREATHING of the reference geometry, beyond which the
-        static tables could miss in-range pairs
-        (ops/nbrtable.table_radius).  Depends only on the proposed state,
+        """The layout's geometry guard, [W] bool: reject boxes of which
+        a perpendicular width falls to ``min_perp_w`` [L,3] or below.
+        The dense engine's tables could miss in-range pairs below
+        1/BREATHING of the reference widths (ops/nbrtable.table_radius),
+        the cell engine's coverage tables below 1/guard of the initial
+        ones (ops/cells.build_grid).  Depends only on the proposed state,
         so detailed balance holds."""
         ok = None
         for l in range(h_new.shape[0]):
@@ -494,7 +499,7 @@ class Engine:
                 cy = H[2, b] * H[0, c] - H[0, b] * H[2, c]
                 cz = H[0, b] * H[1, c] - H[1, b] * H[0, c]
                 w = vol * torch.rsqrt(cx * cx + cy * cy + cz * cz)
-                cond = w > float(self._tbl_min_w[l, a])
+                cond = w > float(self.min_perp_w[l, a])
                 ok = cond if ok is None else ok & cond
         return ok
 
@@ -576,7 +581,7 @@ class Engine:
         r = s.r.clone()
         r[1] = from_frac(h[1][:, :, None, :], s2)
         vol = torch.abs(torch.stack([determinant3(h[l]) for l in range(L)]))
-        energy, moments = self._vol_energy(r, h)
+        energy, moments = self._vol_energy(s, r, h)
         s.r, s.h, s.recip, s.volume = r, h, recip, vol
         s.energy, s.moments = energy, moments
         s.mu = self._mu_scratch(energy, vol)

@@ -51,6 +51,19 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def clone_state(state):
+    """Deep copy of a state dataclass (tensors and DS pairs cloned)."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, DS):
+            v = DS(v.hi.clone(), v.lo.clone())
+        elif isinstance(v, torch.Tensor):
+            v = v.clone()
+        out[f.name] = v
+    return type(state)(**out)
+
+
 @dataclasses.dataclass
 class SamplerState:
     """Full sampler state; trailing axis = walker everywhere.  Field
@@ -94,15 +107,7 @@ class SamplerState:
     dropped: torch.Tensor        # int32 scalar (delta-merge drops)
 
     def clone(self) -> "SamplerState":
-        out = {}
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            if isinstance(v, DS):
-                v = DS(v.hi.clone(), v.lo.clone())
-            elif isinstance(v, torch.Tensor):
-                v = v.clone()
-            out[f.name] = v
-        return SamplerState(**out)
+        return clone_state(self)
 
 
 class EngineAux(NamedTuple):
@@ -119,22 +124,20 @@ class EngineAux(NamedTuple):
 
 _DS_FIELDS = ("master_eta", "master_hist", "master_uhist")
 _INT_FIELDS = ("ls", "window_id", "start_bin", "end_bin", "att", "acc",
-               "trans_per_mol", "dropped")
+               "trans_per_mol", "dropped", "slot2mol", "mol2slot",
+               "occ_overflow")
 _BOOL_FIELDS = ("invt_active", "firstcycle", "histogram_reset",
                 "in_window")
 
 
-def state_from_numpy(fields: dict, aux_fields: dict, device="cuda"):
-    """Build (SamplerState, EngineAux) from plain numpy dicts.
-
-    ``fields`` maps every SamplerState field name to an array (``moments``
-    [10,L,N,W]; the DS masters to (hi, lo) pairs; ``cycle`` to an int);
-    other keys (a JAX state's PRNG keys) are ignored.  ``aux_fields``
-    maps EngineAux field names likewise.  Float fields keep their dtype,
-    so a float64 reference state stays float64."""
-    device = resolve_device(device)
+def fields_from_numpy(cls, fields: dict, device) -> dict:
+    """Constructor arguments of the state dataclass ``cls`` from a plain
+    numpy dict: DS masters from (hi, lo) pairs, ``cycle`` an int, integer
+    and bool fields in the state's types, floats in their own dtype.
+    Keys that ``cls`` does not have (a JAX state's PRNG keys) are
+    ignored."""
     kw = {}
-    for f in dataclasses.fields(SamplerState):
+    for f in dataclasses.fields(cls):
         v = fields[f.name]
         if f.name == "cycle":
             kw[f.name] = int(np.asarray(v))
@@ -148,10 +151,12 @@ def state_from_numpy(fields: dict, aux_fields: dict, device="cuda"):
             kw[f.name] = torch.as_tensor(np.array(v, bool), device=device)
         else:
             kw[f.name] = torch.as_tensor(np.array(v), device=device)
-    state = SamplerState(**kw)
-    dtype = state.r.dtype
+    return kw
+
+
+def aux_from_numpy(aux_fields: dict, dtype, device) -> EngineAux:
     a = dict(aux_fields)
-    aux = EngineAux(
+    return EngineAux(
         shifts=np.array(a["shifts"], np.int32),
         ref_h=np.array(a["ref_h"], np.float64),
         ref_enthalpy=torch.as_tensor(np.array(a["ref_enthalpy"]),
@@ -163,10 +168,22 @@ def state_from_numpy(fields: dict, aux_fields: dict, device="cuda"):
                else np.array(a["frac0"], np.float64)),
         wall=float(a.get("wall", 0.0) or 0.0),
     )
-    return state, aux
 
 
-def state_to_numpy(state: SamplerState) -> dict:
+def state_from_numpy(fields: dict, aux_fields: dict, device="cuda"):
+    """Build (SamplerState, EngineAux) from plain numpy dicts.
+
+    ``fields`` maps every SamplerState field name to an array (``moments``
+    [10,L,N,W]; the DS masters to (hi, lo) pairs; ``cycle`` to an int);
+    other keys (a JAX state's PRNG keys) are ignored.  ``aux_fields``
+    maps EngineAux field names likewise.  Float fields keep their dtype,
+    so a float64 reference state stays float64."""
+    device = resolve_device(device)
+    state = SamplerState(**fields_from_numpy(SamplerState, fields, device))
+    return state, aux_from_numpy(aux_fields, state.r.dtype, device)
+
+
+def state_to_numpy(state) -> dict:
     """Plain numpy dict of a state (the inverse of state_from_numpy)."""
     out = {}
     for f in dataclasses.fields(state):

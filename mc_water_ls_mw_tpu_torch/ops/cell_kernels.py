@@ -1,0 +1,228 @@
+"""The two stencil kernels of the cell engine's sub-step: the CUDA
+kernels and their plain versions.
+
+Counterpart of ``mc_water_ls_mw_tpu/ops/cell_pallas.py``
+(``MoverEnergiesPallas`` without its per-candidate delta output, and
+``MoverApplyPallas``).  One call serves every lattice (the JAX package
+calls its kernels once per lattice):
+
+* ``MoverEnergiesKernel(pks, h, cand, off, fc, rank, p_old, p_new)`` ->
+  (e [L,K,2,W], own_new [L,K,10,W]): each mover's local energy at its
+  old (point 0) and at its proposed position (point 1), in the layout of
+  the chain kernel's point table, and its new own moments;
+* ``MoverApplyKernel(pks, h, cand, off, fc, rank, accf, p_old, p_new,
+  own_new)`` updates the packed slabs IN PLACE for the accepted movers:
+  neighbours' moment rows += their per-candidate deltas new - old, the
+  mover's own slot := its new moments, its coordinate rows := p_new.
+
+``pks`` is the list of L packed slabs [nfine, PK_ROWS, cap, W]
+(ops/cells.py PK_* layout), ``h`` [L,3,3,W], ``cand`` [K,CF] / ``off``
+[K,CF,3] / ``fc`` [K] int32 rows of the engine's static tables, ``rank``
+[K,W] int32 the movers' slot ranks, ``p_old``/``p_new`` [L,3,K,W],
+``accf`` [K,W] accepted flags (bool, or the working float type: > 0.5;
+rows may be strided).
+
+The kernels are ``csrc/cell_movers.cu`` (its header says what bounds
+them on the H100 and how the design answers that).  The plain versions
+are ``cell_energy.mover_energies`` and the scatter of its per-candidate
+deltas.  A wrapper takes the plain version only for tensors on the CPU;
+for CUDA tensors it launches the kernel or raises.  Both require an
+unpadded coverage table, and the apply kernel disjoint same-colour
+stencils (the engine checks both).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .. import cuda_build
+from ..models.sw import SWParams
+from .cell_energy import mover_energies
+from .cells import PK_R0, PK_ROWS, PK_VALID, CellGrid
+from .dense import Moments
+
+
+class MoverArgs(ctypes.Structure):
+    """Mirror of ``struct MoverArgs`` in csrc/cell_movers.cu."""
+
+    _fields_ = (
+        [("pk", ctypes.c_void_p * 2)]
+        + [(n, ctypes.c_void_p) for n in (
+            "h", "cand", "off", "fc", "rank", "p_old", "p_new", "e", "own",
+            "accf")]
+        + [("acc_stride", ctypes.c_longlong)]
+        + [(n, ctypes.c_int) for n in ("L", "K", "CF", "cap", "W")]
+        + [("sw", cuda_build.SWConsts)]
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(which, dtype):
+    sym = f"mover_{which}_" + ("f32" if dtype == torch.float32 else "f64")
+    return cuda_build.bind("cell_movers", sym,
+                           [ctypes.POINTER(MoverArgs), ctypes.c_void_p])
+
+
+class _MoverKernel:
+    """What both kernels share: the grid's shapes, the argument checks
+    and the argument structure."""
+
+    name = ""
+
+    def __init__(self, model: SWParams, cg: CellGrid):
+        if not bool(np.all(cg.full_mask)):
+            raise ValueError(
+                f"{type(self).__name__} requires an unpadded coverage "
+                "table (cells.build_grid full_mask all True)")
+        self.model = model
+        self.nfine = cg.nfine
+        self.cap = cg.cap
+        self.CF = cg.full_cells.shape[1]
+        self.full_mask = np.asarray(cg.full_mask)
+        self.consts = cuda_build.SWConsts.of(model)
+        # kernel launches (one per call on CUDA tensors)
+        self.launches = 0
+
+    def _args(self, pks, h, cand, off, fc, rank, p_old, p_new):
+        """Checked MoverArgs of the shared inputs."""
+        L, W = len(pks), pks[0].shape[-1]
+        K, CF = cand.shape
+        dtype, dev = pks[0].dtype, pks[0].device
+        floats = list(pks) + [h, p_old, p_new]
+        ints = [cand, off, fc, rank]
+        shapes_ok = (
+            L in (1, 2) and CF == self.CF
+            and all(pk.shape == (pks[0].shape[0], PK_ROWS, self.cap, W)
+                    for pk in pks)
+            and h.shape == (L, 3, 3, W) and off.shape == (K, CF, 3)
+            and fc.shape == (K,) and rank.shape == (K, W)
+            and p_old.shape == p_new.shape == (L, 3, K, W))
+        if not (shapes_ok and dtype in (torch.float32, torch.float64)
+                and all(t.dtype == dtype for t in floats)
+                and all(t.dtype == torch.int32 for t in ints)
+                and all(t.device == dev and t.is_contiguous()
+                        for t in floats + ints)):
+            raise ValueError(
+                f"{self.name}: needs {L} contiguous packed slabs "
+                f"[nfine,{PK_ROWS},{self.cap},W] of one float type, "
+                "h [L,3,3,W], int32 cand [K,CF] / off [K,CF,3] / fc [K] / "
+                "rank [K,W] and p_old, p_new [L,3,K,W] on one device")
+        a = MoverArgs(
+            h=h.data_ptr(), cand=cand.data_ptr(), off=off.data_ptr(),
+            fc=fc.data_ptr(), rank=rank.data_ptr(), p_old=p_old.data_ptr(),
+            p_new=p_new.data_ptr(), L=L, K=K, CF=CF, cap=self.cap, W=W,
+            sw=self.consts)
+        for l, pk in enumerate(pks):
+            a.pk[l] = pk.data_ptr()
+        return a
+
+    def _launch(self, which, args, dtype, dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _entry(which, dtype)(ctypes.byref(args), stream)
+        cuda_build.check(err, self.name)
+        self.launches += 1
+
+    def _candidates(self, pk, H, cand, off, fc, rank, p_old, p_new):
+        """cell_energy.mover_energies of one lattice on the packed slab's
+        rows: (e_old, e_new, cand_old, cand_new)."""
+        mover_slot = fc.long()[:, None] * self.cap + rank.long()
+        return mover_energies(
+            [pk[:, PK_R0 + a] for a in range(3)],
+            Moments(*(pk[:, i] for i in range(10))),
+            pk[:, PK_VALID] > 0.5, H, cand.long(), off, self.full_mask,
+            self.cap, mover_slot, p_old, p_new, self.model)
+
+
+class MoverEnergiesKernel(_MoverKernel):
+    """Local energies at the old and the new position and new own
+    moments of K movers."""
+
+    name = "mover_energies"
+
+    def plain(self, pks, h, cand, off, fc, rank, p_old, p_new):
+        e, own = [], []
+        for l, pk in enumerate(pks):
+            eo, en, _, cn = self._candidates(pk, h[l], cand, off, fc, rank,
+                                             p_old[l], p_new[l])
+            e.append(torch.stack([eo, en], dim=1))           # [K,2,W]
+            own.append(torch.stack(list(cn.own), dim=1))     # [K,10,W]
+        return torch.stack(e), torch.stack(own)
+
+    def __call__(self, pks, h, cand, off, fc, rank, p_old, p_new):
+        if not pks[0].is_cuda:
+            return self.plain(pks, h, cand, off, fc, rank, p_old, p_new)
+        args = self._args(pks, h, cand, off, fc, rank, p_old, p_new)
+        L, K, W = args.L, args.K, args.W
+        dtype, dev = pks[0].dtype, pks[0].device
+        e = torch.empty((L, K, 2, W), dtype=dtype, device=dev)
+        own = torch.empty((L, K, 10, W), dtype=dtype, device=dev)
+        args.e, args.own = e.data_ptr(), own.data_ptr()
+        self._launch("energies", args, dtype, dev)
+        return e, own
+
+
+class MoverApplyKernel(_MoverKernel):
+    """Apply the accepted movers to the packed slabs, in place."""
+
+    name = "mover_apply"
+
+    def plain(self, pks, h, cand, off, fc, rank, accf, p_old, p_new,
+              own_new):
+        """The scatter path: per-candidate deltas new - old added to the
+        stencil cells' moment rows (same-colour stencils are disjoint,
+        so the scatter's indices are unique), then the movers' own slots
+        set.  The deltas do not depend on the movers' own coordinate
+        rows (each mover is masked out of its own stencil and absent
+        from every other), so the order of the two steps is free."""
+        K, CF = cand.shape
+        cap, W = self.cap, pks[0].shape[-1]
+        acc = (accf if accf.dtype == torch.bool else accf > 0.5)  # [K,W]
+        cells = cand.long().reshape(-1)                           # [K*CF]
+        fcl = fc.long()
+        own_slot = (torch.arange(cap, device=rank.device)[None, :, None]
+                    == rank.long()[:, None, :]) & acc[:, None, :]
+        for l, pk in enumerate(pks):
+            _, _, co, cn = self._candidates(pk, h[l], cand, off, fc, rank,
+                                            p_old[l], p_new[l])
+            dlt = torch.stack([
+                (fn - fo).reshape(K, CF, cap, W)
+                for fo, fn in zip(co.delta(), cn.delta())
+            ], dim=2)                                  # [K,CF,10,cap,W]
+            dlt = torch.where(acc[:, None, None, None, :], dlt, 0.0)
+            pk[cells, 0:10] += dlt.reshape(K * CF, 10, cap, W)
+            blk = pk[fcl]                              # [K,14,cap,W]
+            blk[:, 0:10] = torch.where(
+                own_slot[:, None], own_new[l][:, :, None, :], blk[:, 0:10])
+            blk[:, PK_R0:PK_R0 + 3] = torch.where(
+                own_slot[:, None], p_new[l].transpose(0, 1)[:, :, None, :],
+                blk[:, PK_R0:PK_R0 + 3])
+            pk[fcl] = blk
+        return pks
+
+    def __call__(self, pks, h, cand, off, fc, rank, accf, p_old, p_new,
+                 own_new):
+        if not pks[0].is_cuda:
+            return self.plain(pks, h, cand, off, fc, rank, accf, p_old,
+                              p_new, own_new)
+        args = self._args(pks, h, cand, off, fc, rank, p_old, p_new)
+        L, K, W = args.L, args.K, args.W
+        dtype, dev = pks[0].dtype, pks[0].device
+        if accf.dtype == torch.bool:
+            accf = accf.to(dtype)
+        if not (accf.shape == (K, W) and accf.dtype == dtype
+                and accf.device == dev and accf.stride(1) == 1
+                and own_new.shape == (L, K, 10, W)
+                and own_new.dtype == dtype and own_new.device == dev
+                and own_new.is_contiguous()):
+            raise ValueError(
+                "mover_apply: needs accf [K,W] (bool or the slabs' float "
+                "type, rows of unit stride) and contiguous own_new "
+                "[L,K,10,W] on the slabs' device")
+        args.accf, args.acc_stride = accf.data_ptr(), accf.stride(0)
+        args.own = own_new.data_ptr()
+        self._launch("apply", args, dtype, dev)
+        return pks

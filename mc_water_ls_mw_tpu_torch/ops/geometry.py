@@ -55,19 +55,18 @@ def recip_matrix(H):
 def to_frac(recip, v):
     """Cartesian -> fractional: s_b = sum_a recip[a, b] v[a] / 2pi.
 
-    ``v`` is [3, ...] (coordinate first), ``recip`` [3, 3, ...]."""
-    s = [
-        recip[0, b] * v[0] + recip[1, b] * v[1] + recip[2, b] * v[2]
-        for b in range(3)
-    ]
-    return torch.stack(s) * (0.5 * INV_PI)
+    ``v`` is [3, ...] (coordinate first), ``recip`` [3, 3, ...] with the
+    same number of trailing axes as ``v`` (size-1 axes broadcast).  All
+    three components are formed at once, three products and two sums
+    in the order of the component-wise formula."""
+    s = recip[0] * v[0] + recip[1] * v[1] + recip[2] * v[2]
+    return s * (0.5 * INV_PI)
 
 
 def from_frac(H, s):
-    """Fractional -> cartesian: v_a = sum_b H[a, b] s[b]."""
-    v = [H[a, 0] * s[0] + H[a, 1] * s[1] + H[a, 2] * s[2]
-         for a in range(3)]
-    return torch.stack(v)
+    """Fractional -> cartesian: v_a = sum_b H[a, b] s[b]; shapes as in
+    ``to_frac``."""
+    return H[:, 0] * s[0] + H[:, 1] * s[1] + H[:, 2] * s[2]
 
 
 def min_image(v, H, recip):

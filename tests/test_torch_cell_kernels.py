@@ -1,0 +1,275 @@
+"""The plain PyTorch versions of the port's three cell-engine kernels
+against the JAX functions that reach the Pallas kernels they replace.
+
+On a jittered N=8064 slab state (the production-shaped grid: 27-cell
+stencils, disjoint for same-colour movers), float64, W = 2:
+
+* ``MoverEnergiesKernel.plain`` vs ``MoverEnergiesPallas``
+  (with_deltas=False);
+* ``MoverApplyKernel.plain`` vs ``MoverApplyPallas`` (the packed slab);
+* ``ChainWLKernel.plain`` vs ``ChainWLPallas`` with WL live and in a
+  sample run (integer outputs identical).
+
+The Pallas kernels run in interpret mode, as the JAX package's own
+tests run them on the CPU.  The CUDA kernels themselves are held
+against these plain versions on the card (tests/test_torch_kernels_cuda.py,
+chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from mc_water_ls_mw_tpu.models.sw import MW
+from mc_water_ls_mw_tpu.mcmc.chain_pallas import ChainWLPallas
+from mc_water_ls_mw_tpu.mcmc.config import RunParams
+from mc_water_ls_mw_tpu.ops.cell_pallas import (
+    MoverApplyPallas,
+    MoverEnergiesPallas,
+)
+
+from mc_water_ls_mw_tpu_torch.models.sw import MW as TMW
+from mc_water_ls_mw_tpu_torch.mcmc import chain_kernel as ck
+from mc_water_ls_mw_tpu_torch.mcmc.config import RunParams as TRunParams
+from mc_water_ls_mw_tpu_torch.ops.cell_kernels import (
+    MoverApplyKernel,
+    MoverEnergiesKernel,
+)
+from mc_water_ls_mw_tpu_torch.ops.cells import PK_ROWS, PK_VALID
+
+from .test_torch_cells import cell_run_params, jax_cell_system, jitter_slab, tt
+
+
+def pack_lattice(st, cg, l):
+    """Packed slab [nfine, PK_ROWS, cap, W] of lattice l of a JAX cell
+    state (the CellEngine._pack layout), as numpy."""
+    nfine, cap = cg.nfine, cg.cap
+    W = st.r.shape[-1]
+    rows = [np.asarray(f[l]).reshape(nfine, cap, W) for f in st.moments]
+    rows += [np.asarray(st.r[l, a]).reshape(nfine, cap, W)
+             for a in range(3)]
+    rows.append((np.asarray(st.slot2mol) >= 0).astype(rows[0].dtype)
+                .reshape(nfine, cap, W))
+    return np.stack(rows, axis=1)
+
+
+@pytest.fixture(scope="module")
+def movers():
+    """A sub-step's inputs on the jittered state: the (colour 3, block
+    1) table, random ranks among the occupants, proposals 0.3 Bohr from
+    the old positions (some within a fine cell, some beyond)."""
+    sys_ = jax_cell_system()
+    jcg = sys_["jcg"]
+    jst = jitter_slab(sys_, seed=5)
+    K, cap, W = jcg.cells_per_color, jcg.cap, 2
+    rng = np.random.default_rng(6)
+    fc = jcg.block_cells[np.asarray(jcg.color_cells[3])][:, 1]
+    cand, off = jcg.full_cells[fc], jcg.full_off[fc]
+    occ = (np.asarray(jst.slot2mol).reshape(jcg.nfine, cap, W) >= 0
+           ).sum(axis=1)
+    rank = np.stack([[rng.integers(0, max(occ[fc[k], w], 1))
+                      for w in range(W)] for k in range(K)]).astype(np.int32)
+    slot = fc[:, None] * cap + rank
+    r = np.asarray(jst.r)
+    p_old = np.stack([np.stack([r[l, a][slot, np.arange(W)[None, :]]
+                                for a in range(3)]) for l in range(2)])
+    p_new = p_old + rng.normal(scale=0.3, size=p_old.shape)
+    pk = np.stack([pack_lattice(jst, jcg, l) for l in range(2)])
+    assert pk.shape == (2, jcg.nfine, PK_ROWS, cap, W)
+    return dict(sys=sys_, jst=jst, fc=fc.astype(np.int32),
+                cand=cand.astype(np.int32), off=off.astype(np.int32),
+                rank=rank, p_old=p_old, p_new=p_new, pk=pk,
+                accf=rng.uniform(size=(K, W)) < 0.6)
+
+
+def port_args(m):
+    pks = [tt(m["pk"][l]) for l in range(2)]
+    return pks, (tt(m["jst"].h), tt(m["cand"]), tt(m["off"]), tt(m["fc"]),
+                 tt(m["rank"]))
+
+
+def jax_energies(m, l):
+    kern = MoverEnergiesPallas(MW, m["sys"]["jcg"], with_deltas=False)
+    return kern(jnp.asarray(m["pk"][l]), m["jst"].h[l], m["cand"],
+                m["off"], m["fc"], jnp.asarray(m["rank"]),
+                jnp.asarray(m["p_old"][l]), jnp.asarray(m["p_new"][l]))
+
+
+def test_mover_energies_plain_matches_pallas(movers):
+    m = movers
+    pks, shared = port_args(m)
+    kern = MoverEnergiesKernel(TMW, m["sys"]["tcg"])
+    e, own = kern(pks, *shared, tt(m["p_old"]), tt(m["p_new"]))
+    assert kern.launches == 0            # CPU tensors: the plain version
+    assert e.shape == (2, 8, 2, 2) and own.shape == (2, 8, 10, 2)
+    e_old, e_new = e[:, :, 0], e[:, :, 1]
+    for l in range(2):
+        je_old, je_new, jown, jd = jax_energies(m, l)
+        assert jd is None
+        np.testing.assert_allclose(e_old[l].numpy(), np.asarray(je_old),
+                                   rtol=0, atol=1e-10)
+        np.testing.assert_allclose(e_new[l].numpy(), np.asarray(je_new),
+                                   rtol=0, atol=1e-10)
+        np.testing.assert_allclose(
+            own[l].numpy(), np.stack([np.asarray(f) for f in jown], axis=1),
+            rtol=0, atol=1e-10)
+    # the proposals change the energies: the comparison is not of zeros
+    assert float((e_new - e_old).abs().min()) > 1e-6
+
+
+def test_mover_apply_plain_matches_pallas(movers):
+    m = movers
+    pks, shared = port_args(m)
+    tcg = m["sys"]["tcg"]
+    own = MoverEnergiesKernel(TMW, tcg).plain(
+        pks, *shared, tt(m["p_old"]), tt(m["p_new"]))[1]
+    before = [pk.clone() for pk in pks]
+    kern = MoverApplyKernel(TMW, tcg)
+    out = kern(pks, *shared, tt(m["accf"]), tt(m["p_old"]), tt(m["p_new"]),
+               own)
+    assert out[0] is pks[0] and kern.launches == 0       # in place
+    japply = MoverApplyPallas(MW, m["sys"]["jcg"])
+    for l in range(2):
+        jown = jax_energies(m, l)[2]
+        jpk = japply(jnp.asarray(m["pk"][l]), m["jst"].h[l], m["cand"],
+                     m["off"], m["fc"], jnp.asarray(m["rank"]),
+                     jnp.asarray(m["accf"]), jnp.asarray(m["p_old"][l]),
+                     jnp.asarray(m["p_new"][l]), jown)
+        np.testing.assert_allclose(pks[l].numpy(), np.asarray(jpk), rtol=0,
+                                   atol=1e-10)
+        # accepted movers moved, the validity row is untouched, and the
+        # strided float form of the accept flags gives the same slab
+        changed = (pks[l] != before[l]).any(dim=1).any(dim=1)  # [nfine,W]
+        assert bool(changed[m["fc"].astype(np.int64)][tt(m["accf"])].all())
+        assert torch.equal(pks[l][:, PK_VALID], before[l][:, PK_VALID])
+    joh = torch.stack([1.0 - tt(m["accf"]).double(),
+                       tt(m["accf"]).double()], dim=1)          # [K,2,W]
+    again = kern.plain([b.clone() for b in before], *shared, joh[:, 1],
+                       tt(m["p_old"]), tt(m["p_new"]), own)
+    for l in range(2):
+        assert torch.equal(again[l], pks[l])
+
+
+def chain_inputs(K, T, W, B, seed):
+    """Random but plausible inputs of one chain pass (numpy dict)."""
+    rng = np.random.default_rng(seed)
+    P = T + 1
+    beta = 1.0 / (3.1668114e-6 * 200.0)
+    cf = np.zeros((ck.CF_ROWS, W))
+    cf[ck.CF_MU] = rng.normal(0, 8.0, W)
+    cf[ck.CF_E0] = -159.0 + rng.normal(0, 0.01, W)
+    cf[ck.CF_E1] = -159.0 + rng.normal(0, 0.01, W)
+    cf[ck.CF_E0E] = rng.normal(0, 1e-9, W)
+    cf[ck.CF_E1E] = rng.normal(0, 1e-9, W)
+    cf[ck.CF_F] = 0.05
+    cf[ck.CF_MIN_DMU] = np.inf
+    cf[ck.CF_MU_MIN], cf[ck.CF_MU_MAX] = -1200.0, 1200.0
+    cf[ck.CF_CMU] = rng.normal(0, 1.0, W)
+    cf[ck.CF_SWC] = -cf[ck.CF_CMU]
+    ci = np.zeros((ck.CI_ROWS, W), np.int32)
+    ci[ck.CI_LS] = rng.integers(0, 2, W)
+    ci[ck.CI_END] = B - 1
+    ci[ck.CI_INWIN] = 1
+    ci[ck.CI_OCCOK] = 1
+    ci[ck.CI_OCCOK, -1] = 0           # one walker with an overflowed slab
+    ci[ck.CI_SWOK] = 1
+    e = -0.05 + rng.normal(0, 1.0 / beta, (2, K, P, W))
+    if T == 1:
+        # an overlap proposal: never accepted.  (With more points per
+        # mover the packages differ on purpose: the JAX kernel's one-hot
+        # sum over the point table turns the mover's current energy into
+        # NaN as well, the port indexes the current point directly.)
+        e[0, 0, 1, 0] = np.inf
+    codes = rng.choice([0, 0, 0, 0, 2, 1, 3], K * T).astype(np.int32)
+    codes[:2] = (0, 2)
+    return dict(
+        codes=codes, cf=cf, ci=ci,
+        wgt=rng.uniform(0, 0.3, (B, W)), hist=rng.uniform(0, 5, (B, W)),
+        uh=rng.uniform(0, 5, (B, W)),
+        basew=np.repeat(2e-4 * (np.arange(B) - B // 2.0)[:, None] ** 2, W, 1),
+        baseh=np.zeros((B, W)),
+        e=e.reshape(2 * K * P, W),
+        inc=(rng.uniform(size=(K * P, W)) < 0.9).astype(float),
+        hasm=(rng.uniform(size=(K, W)) < 0.9).astype(float),
+        ua=rng.uniform(size=(K * T, W)), uz=rng.uniform(size=(K * T, W)))
+
+
+@pytest.mark.parametrize("samplerun,T", [(False, 1), (True, 1), (False, 2)],
+                         ids=["wl_live", "samplerun", "two_trials"])
+def test_chain_plain_matches_pallas(samplerun, T):
+    K, W = 8, 6
+    kw = cell_run_params(samplerun=samplerun, n_walkers=W, cell_trials=T)
+    jprm, tprm = RunParams(**kw, fused="off"), TRunParams(**kw)
+    from mc_water_ls_mw_tpu.mcmc.bins import build_bin_grid as jgrid
+    from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid as tgrid
+    jg = jgrid(kw["nbins"], kw["mu_min"], kw["mu_max"], dtype=jnp.float64)
+    tg = tgrid(kw["nbins"], kw["mu_min"], kw["mu_max"])
+    B = tg.nbins
+    log_norm = 3.0
+    x = chain_inputs(K, T, W, B, seed=11 + T)
+
+    jk = ChainWLPallas(jprm, jg, K, T, log_norm)
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    jcf, jci, jw, jh, ju, jjoh, jcnt = jk(
+        j["codes"], jnp.asarray([1, 7], jnp.int32), j["cf"], j["ci"],
+        j["wgt"], j["hist"], j["uh"], j["basew"], j["baseh"],
+        jg.binwidth[:, None], jg.mu_bin[:, None], j["e"], j["inc"],
+        j["hasm"], j["ua"], j["uz"])
+
+    tk = ck.ChainWLKernel(tprm, tg, K, T, log_norm)
+    t = {k: tt(v) for k, v in x.items()}
+    joh, cnt = tk(t["codes"], True, t["cf"], t["ci"], t["wgt"], t["hist"],
+                  t["uh"], t["basew"], t["e"], t["inc"], t["hasm"], t["ua"],
+                  t["uz"])
+    assert tk.launches == 0
+    np.testing.assert_array_equal(t["ci"].numpy(), np.asarray(jci))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+    np.testing.assert_array_equal(joh.numpy(), np.asarray(jjoh))
+    for name, mine, ref in (("cf", t["cf"], jcf), ("wgt", t["wgt"], jw),
+                            ("hist", t["hist"], jh), ("uh", t["uh"], ju)):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(ref), rtol=0,
+                                   atol=1e-10, err_msg=name)
+    # the pass did something of every kind, and the gates held
+    c = cnt.numpy()
+    assert c[ck.CN_EN].sum() > c[ck.CN_ACC].sum() > 0
+    assert c[ck.CN_SWEN].sum() > 0
+    if T == 1:
+        assert joh.numpy().reshape(K, 2, W)[0, 1, 0] == 0.0   # the overlap
+    grew = (t["hist"].numpy() != x["hist"]).any(axis=0)
+    assert grew[:-1].all() and not grew[-1]      # the overflowed walker
+    if samplerun:
+        np.testing.assert_array_equal(t["wgt"].numpy(), x["wgt"])
+    else:
+        np.testing.assert_array_equal(t["uh"].numpy(), x["uh"])
+    # WL not live: the slabs stay as they are
+    t2 = {k: tt(v) for k, v in x.items()}
+    tk(t2["codes"], False, t2["cf"], t2["ci"], t2["wgt"], t2["hist"],
+       t2["uh"], t2["basew"], t2["e"], t2["inc"], t2["hasm"], t2["ua"],
+       t2["uz"])
+    for name in ("wgt", "hist", "uh"):
+        np.testing.assert_array_equal(t2[name].numpy(), x[name])
+
+
+@pytest.mark.parametrize("setting", [
+    dict(minu=True), dict(wl_swetnam=True), dict(wl_useinvt=True),
+    dict(num_lattices=1),
+])
+def test_chain_kernel_refuses_unported_rules(setting):
+    from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
+    kw = cell_run_params(**setting)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ck.ChainWLKernel(TRunParams(**kw), build_bin_grid(201, -1200., 1200.),
+                         8, 1, 0.0)
+
+
+def test_mover_kernels_refuse_cpu_misuse(movers):
+    """The wrappers check what a kernel would be given; a padded
+    coverage table is refused at construction."""
+    import dataclasses
+    tcg = movers["sys"]["tcg"]
+    padded = dataclasses.replace(
+        tcg, full_mask=np.concatenate([tcg.full_mask[:-1], [False]]))
+    for cls in (MoverEnergiesKernel, MoverApplyKernel):
+        with pytest.raises(ValueError, match="unpadded"):
+            cls(TMW, padded)

@@ -32,7 +32,11 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
-    assert len(MODULES) >= 14
+    assert len(MODULES) >= 19
+    # the cell engine's modules are among them
+    for name in ("ops.cells", "ops.cell_energy", "ops.cell_kernels",
+                 "mcmc.chain_kernel", "mcmc.cellengine"):
+        assert f"mc_water_ls_mw_tpu_torch.{name}" in MODULES
 
 
 def test_no_jax_import_in_sources():

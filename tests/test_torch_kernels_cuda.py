@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on the card (the checks of chip_smoke.py at a small walker
-count that is not a multiple of 128, so the ragged edge is masked).
+count that is a multiple of neither 128 nor 32, so the ragged edge is
+masked).
 
 These tests need a CUDA device and nvcc and skip without them.  They
 import nothing of JAX, so they also run where JAX is not installed:
@@ -79,3 +80,56 @@ def test_engine_on_card_runs_both_kernels(card):
     assert torch.isfinite(samples["E_ls"]).all()
     s, drift = eng.audit_energy(s, n_walkers=8)
     assert float(drift.abs().max()) < chip_smoke.AUDIT_MAX_DRIFT
+
+
+@pytest.fixture(scope="module")
+def cell_engine(card):
+    """The N=8064 cell engine at W walkers in float64 after one cycle of
+    sampling (a rebin at a random origin, WL slabs filled)."""
+    prm = chip_smoke.cell_params(W, "float64", list_update_int=1,
+                                 mpi_sync_int=1)
+    eng, s = chip_smoke.make_cell_engine(prm)
+    eng.run_cycles(s, 1)
+    return eng, s
+
+
+@pytest.mark.parametrize("tbl", [0, 37])
+def test_mover_energies_kernel_fp64(cell_engine, tbl):
+    eng, s = cell_engine
+    me = chip_smoke.cell_substep_compare(eng, s, tbl, seed=tbl)[
+        "mover_energies"]
+    assert me["e_err"] <= 1e-10 and me["own_err"] <= 1e-10
+    assert me["dE_max"] > 0 and me["n_in"] > 0
+
+
+@pytest.mark.parametrize("tbl", [0, 37])
+def test_chain_wl_kernel_fp64(cell_engine, tbl):
+    eng, s = cell_engine
+    ch = chip_smoke.cell_substep_compare(eng, s, tbl, seed=tbl)["chain_wl"]
+    assert not ch["differ"].any()
+    assert ch["cf_err"] <= 1e-10 and ch["wl_err"] <= 1e-10
+    assert 0 < ch["n_acc"] < ch["n_enabled"] and ch["hist_grew"] > 0
+
+
+@pytest.mark.parametrize("tbl", [0, 37])
+def test_mover_apply_kernel_fp64(cell_engine, tbl):
+    eng, s = cell_engine
+    ma = chip_smoke.cell_substep_compare(eng, s, tbl, seed=tbl)[
+        "mover_apply"]
+    assert ma["mom_err"] <= 1e-10 and ma["rest_equal"]
+    assert ma["changed"] > 0 and ma["n_acc"] > 0
+
+
+def test_cell_engine_on_card_runs_its_kernels(card):
+    prm = chip_smoke.cell_params(W, "float32", list_update_int=2,
+                                 mpi_sync_int=1, latt_sync_int=2)
+    eng, s = chip_smoke.make_cell_engine(prm)
+    s, samples = eng.run_cycles(s, 3)
+    n_sub = eng.sweeps_per_cycle * eng.n_tables
+    for kern in (eng.mover_kernel, eng.chain_kernel, eng.apply_kernel):
+        assert kern.launches == 3 * n_sub
+    assert torch.isfinite(samples["E_ls"]).all()
+    assert int(s.occ_overflow.max()) == 0
+    assert int(s.att[0].min()) > 0 and int(s.acc[0].min()) > 0
+    s, drift = eng.audit_energy(s, n_walkers=8)
+    assert float(drift.abs().max()) < chip_smoke.AUDIT_CELL_MAX_DRIFT

@@ -102,8 +102,8 @@ class JaxStream:
             keys)
         zeta2 = jax.vmap(lambda kk: jax.random.uniform(
             jax.random.fold_in(kk, 104729), (), dtype=jdt))(keys)
-        return (torch.as_tensor(np.asarray(u)),
-                torch.as_tensor(np.asarray(zeta2)))
+        return (torch.as_tensor(np.array(u)),
+                torch.as_tensor(np.array(zeta2)))
 
 
 def small_run_params(**over):
