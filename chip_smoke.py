@@ -37,9 +37,27 @@ Phases (each exits non-zero on failure):
    cycle, trials/s, launch counts, slab overflow (must be 0), an energy
    audit of 64 walkers, a finite merged histogram, and a torch.profiler
    trace of one more cycle (device time per kernel, the idle share);
-8. one JSON line with every kernel's launches, error against its plain
-   version, times and bound;
-9. as the last line, {"ok": true, "device": {...}}.
+8. the multi-trial sub-step (cell_trials=8): the mover-points kernel and
+   the chain + WL kernel at T=8 against their plain versions on one
+   sub-step of the N=8064 pair after a cycle of sampling (float64 at
+   W=16: every integer output identical, energies and own moments
+   within 1e-10; float32 at W=128: the tolerances below), with their
+   times and bounds;
+9. the front-end path: runs/n8064_wl/ice.input with its run.py
+   overrides (128 walkers, float32, cell_trials=8; parallel_strategy
+   'mw' in place of 'dd'; FRONTEND_CUTS lists every interval cut)
+   through the port's run_input_file in build/chip_smoke_frontend: 6
+   cycles that hold volume moves, delta-syncs, monitor_stats with
+   eq_adjust_mc, check_flatness, checkpoints and rebins, then a second
+   call that resumes from the checkpoint for 2 more; seconds per cycle,
+   trials/s, launches, slab overflow (must be 0), an energy audit of 64
+   walkers and a torch.profiler trace of one more cycle;
+10. one JSON line with every kernel's launches (summed over the main
+   paths of phases 5, 7 and 9), error against its plain version, times
+   and bound;
+11. as the last line, {"ok": true, "device": {...}}.
+
+Each phase prints its seconds ("[time]").
 
 It imports nothing of JAX.  Without CUDA, or without the repository
 around it, it exits non-zero before printing any result.
@@ -91,6 +109,11 @@ F32_MOVER_MOM_ATOL = 2e-5
 # only a library function (exp, log) rounding differently can separate
 # them: a few float32 ulps
 F32_CHAIN_RTOL = 1e-6
+# ---- the multi-trial sub-step (cell_trials = 8, the Wang-Landau
+# production runs runs/n8064_wl and runs/n8064_wl2)
+MT_TRIALS = 8
+W_MT = 128              # walkers of runs/n8064_wl, the f32 checks
+W_MT_FP64 = 16          # walkers of the float64 checks
 # f32 energy audit of the cell engine, one cycle after a chain resync:
 # the tracked and the recomputed total (-159 Hartree, ulp 1.5e-5) each
 # carry a few ulps of f32 summation error, and ~4*10^3 accepted moves
@@ -116,6 +139,16 @@ OPS_WING = 45
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+_PHASE_T0 = [time.time()]
+
+
+def phase_time(name: str) -> None:
+    """Print the seconds since the previous phase ended."""
+    now = time.time()
+    print(f"[time] {name}: {now - _PHASE_T0[0]:.1f} s", flush=True)
+    _PHASE_T0[0] = now
 
 
 def cuda_ms(fn, reps: int, run_ahead: bool = False) -> float:
@@ -690,11 +723,348 @@ def cell_bounds(eng, s, cmp):
         + (K + 10 * L * K) * W * b
     ops = ma["n_occ_acc"] * ops_slot + ma["n_in_acc"] * (2 * OPS_LEG + 20)
     out["mover_apply"] = _bound(nbytes, ops)
-    B = eng.grid.nbins
-    nbytes = (2 * 14 + 2 * K * 2 + K * 2 + K + 2 * K + K * 2) * W * b \
-        + (2 * 7 + 4 + K) * W * 4 + 2 * B * b + 16 * ch["n_enabled"] * b
-    out["chain_wl"] = _bound(nbytes, 200 * ch["n_enabled"])
+    out["chain_wl"] = chain_bound(eng, W, b, 2, ch["n_enabled"])
     return out
+
+
+def multitrial_compare(eng, s, tbl, seed, time_reps=0):
+    """One multi-trial sub-step's points kernel and its chain pass (an
+    engine at cell_trials = T > 1) against their plain versions, at the
+    shapes the main path gives them: the P = T + 1 point table of table
+    row ``tbl`` from the engine's own proposal on the packed state, and
+    the K x T chain on that table (on clones of the chain rows and WL
+    slabs).  ``s`` is left as it is.
+
+    Returns a dict per kernel: errors against the plain version, the [W]
+    bool of walkers whose integer chain outcomes differ, what the bounds
+    need (occupied candidate slots, slots in range of any point, legs
+    over all points, enabled trials) and, with ``time_reps``,
+    milliseconds of kernel and plain version."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.mcmc.chain_kernel import SWITCH
+    from mc_water_ls_mw_tpu_torch.ops.cell_energy import _gather_candidates
+    from mc_water_ls_mw_tpu_torch.ops.cells import PK_R0, PK_VALID
+
+    K, T, W = eng.K, eng.T, s.r.shape[-1]
+    P = T + 1
+    dtype = s.r.dtype
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    u = torch.rand((4 + 3 * T, K, W), generator=gen, dtype=dtype,
+                   device=DEVICE)
+    ua, uz = torch.rand((2, K * T, W), generator=gen, dtype=dtype,
+                        device=DEVICE)
+    codes = torch.zeros((K * T,), dtype=torch.int32, device=DEVICE)
+    codes[K * T // 2] = SWITCH
+    pks = eng._pack(s)
+    rows = eng._loop_rows(s)
+    fc, cand, off = eng._tables(tbl)
+    out = {}
+
+    n0 = eng.points_kernel.launches
+    trial = eng._propose_tm(s, pks, tbl, u, rows)
+    if eng.points_kernel.launches != n0 + 1:
+        fail("the proposal did not launch the mover-points kernel")
+    pargs = (pks, s.h, cand, off, fc, trial.rank, trial.pts)
+    pe, pown = eng.points_kernel.plain(*pargs)
+    torch.cuda.synchronize()
+    # what the bound needs, summed over (lattice, mover, walker)
+    n_occ = n_any = n_legs = 0
+    slot = fc.long()[:, None] * eng.cellgrid.cap + trial.rank.long()
+    for l, pk in enumerate(pks):
+        n_occ += int((pk[:, PK_VALID][cand.long()] > 0.5).sum())
+        cx, cy, cz, mask = _gather_candidates(
+            pk[:, PK_R0], pk[:, PK_R0 + 1], pk[:, PK_R0 + 2],
+            pk[:, PK_VALID] > 0.5, s.h[l], cand.long(), off,
+            eng.points_kernel.full_mask, eng.cellgrid.cap, slot)
+        anyp = torch.zeros_like(mask)
+        for t in range(P):
+            p = trial.pts[t, l]
+            r2 = ((cx - p[0][:, None]) ** 2 + (cy - p[1][:, None]) ** 2
+                  + (cz - p[2][:, None]) ** 2)
+            in_t = (r2 < eng.model.rc2) & mask
+            n_legs += int(in_t.sum())
+            anyp |= in_t
+        n_any += int(anyp.sum())
+    out["mover_points"] = dict(
+        e_err=_max_abs(trial.e, pe), own_err=_max_abs(trial.own, pown),
+        n_occ=n_occ, n_any=n_any, n_legs=n_legs,
+        n_movers=int(trial.hasm.sum()),
+        dE_max=float(torch.max(torch.abs(pe[:, :, 1:] - pe[:, :, :1]))))
+
+    tables = (trial.e.view(-1, W), trial.inc.view(-1, W), trial.hasm)
+
+    def chain_bufs():
+        return dict(cf=rows.cf.clone(), ci=rows.ci.clone(),
+                    wgt=s.weight.clone(), hist=s.hist.clone(),
+                    uh=s.uhist.clone())
+
+    def chain(fn, b=None):
+        b = chain_bufs() if b is None else b
+        b["joh"], b["cnt"] = fn(codes, True, b["cf"], b["ci"], b["wgt"],
+                                b["hist"], b["uh"], rows.basew, *tables,
+                                ua, uz)
+        return b
+
+    ck_, cp = chain(eng.chain_kernel), chain(eng.chain_kernel.plain)
+    torch.cuda.synchronize()
+    differ = torch.zeros((W,), dtype=torch.bool, device=DEVICE)
+    for name in ("ci", "cnt", "joh"):
+        differ |= (ck_[name] != cp[name]).any(dim=0)
+    ok = ~differ
+    slabs = ("wgt", "hist", "uh")
+    out["chain_wl"] = dict(
+        differ=differ,
+        cf_err=_max_abs(ck_["cf"][:, ok], cp["cf"][:, ok]),
+        wl_err=max(_max_abs(ck_[n][:, ok], cp[n][:, ok]) for n in slabs),
+        cf_rel=_max_abs(ck_["cf"][:, ok], cp["cf"][:, ok], relative=True),
+        wl_rel=max(_max_abs(ck_[n][:, ok], cp[n][:, ok], relative=True)
+                   for n in slabs),
+        n_acc=int((1.0 - cp["joh"].view(K, P, W)[:, 0]).sum()),
+        n_enabled=int(cp["cnt"][0].sum()),
+        hist_grew=float((cp["hist"] - s.hist).sum()))
+
+    if time_reps:
+        t = out["mover_points"]
+        t["ms"] = cuda_ms(lambda: eng.points_kernel(*pargs), time_reps, True)
+        t["plain_ms"] = cuda_ms(lambda: eng.points_kernel.plain(*pargs), 3)
+        t = out["chain_wl"]
+        bk, bp = chain_bufs(), chain_bufs()
+        t["ms"] = cuda_ms(lambda: chain(eng.chain_kernel, bk), time_reps,
+                          True)
+        t["plain_ms"] = cuda_ms(lambda: chain(eng.chain_kernel.plain, bp), 3)
+    return out
+
+
+def multitrial_bounds(eng, s, cmp):
+    """{kernel: (ms, bound_by)} of one multi-trial sub-step's launches
+    from the counts of ``multitrial_compare``.
+
+    mover_points: the occupied flag of every candidate slot, the three
+    coordinate rows of the occupied slots and the ten moment rows of the
+    slots in range of any point are read once, the points, cells and
+    ranks read, the P energies and P own-moment sets written; every
+    occupied slot costs its image shift and P distance tests, every leg
+    in range of a point its leg and wing terms."""
+    L, W = 2, s.r.shape[-1]
+    K, T, CF, cap = eng.K, eng.T, eng.points_kernel.CF, eng.cellgrid.cap
+    P = T + 1
+    b = s.r.element_size()
+    mp = cmp["mover_points"]
+    nbytes = (L * K * CF * cap * W + 3 * mp["n_occ"] + 10 * mp["n_any"]) * b \
+        + (9 * L + 3 * P * L * K) * W * b + K * W * 4 + K * CF * 16 \
+        + (P * L * K + 10 * P * L * K) * W * b
+    ops = mp["n_occ"] * (3 + P * 9) + mp["n_legs"] * (OPS_LEG + OPS_WING)
+    return {"mover_points": _bound(nbytes, ops),
+            "chain_wl": chain_bound(eng, W, b, P,
+                                    cmp["chain_wl"]["n_enabled"])}
+
+
+def chain_bound(eng, W, b, P, n_enabled):
+    """(ms, bound_by) of one chain pass over K movers x T trials on a
+    P-point table: its tables read (energies of both lattices, in-cell
+    flags, trial flags, accept and switch uniforms), its rows read and
+    written, its one-hot written, and per enabled trial ~16 slab entries
+    (two eta lookups of three bins in two slabs, the histogram and weight
+    update) and ~200 + 6P operations (the one-hot reads of the current
+    point among them)."""
+    K, T, B = eng.K, eng.T, eng.grid.nbins
+    nbytes = (2 * 14 + 2 * K * P + K * P + K + 2 * K * T + K * P) * W * b \
+        + (2 * 7 + 4 + K) * W * 4 + 2 * B * b + 16 * n_enabled * b
+    return _bound(nbytes, (200 + 6 * P) * n_enabled)
+
+
+# ----------------------------------------------------------------------
+# the front-end path: runs/n8064_wl through the port's run_input_file
+# ----------------------------------------------------------------------
+
+# the overrides of runs/n8064_wl/run.py (its MU_RANGE and WL_QTIME
+# defaults)
+N8064_WL = dict(
+    stack=(14, 8, 18), n_walkers=128, parallel_strategy="dd", n_windows=16,
+    window_overlap=2, mu_min=-90000.0, mu_max=90000.0, nbins=201,
+    cell_trials=8, mc_max_trans=0.10, mc_dv_max=0.2, eq_adjust_mc=True,
+    wl_factor=0.005 * 16.0 / 128, eq_mc_cycles=400, list_update_int=10,
+    mpi_sync_int=50, monitor_int=500, flat_chk_int=500, wl_minhist=5,
+    file_output_int=100, therm_walkers=8, traj_output_int=100_000_000,
+    chkpt_dump_int=250, timer_qtime=9000.0, timer_closetime=420,
+    max_mc_cycles=100_000_000,
+)
+# what the smoke run changes: the strategy ('dd' mu windows are not
+# ported; n_windows and window_overlap go with it) and, to fit rebins,
+# volume moves, delta-syncs, monitor_stats with eq_adjust_mc,
+# check_flatness and a checkpoint into 6 + 2 cycles, these cycle counts
+# and intervals (the run's own values in the comments)
+FRONTEND_CUTS = dict(
+    parallel_strategy="mw",
+    eq_mc_cycles=3,             # 400
+    list_update_int=3,          # 10
+    monitor_int=2,              # 500
+    flat_chk_int=4,             # 500
+    mpi_sync_int=2,             # 50
+    file_output_int=2,          # 100
+    chkpt_dump_int=4,           # 250
+)
+FRONTEND_CYCLES = (6, 2)        # first call, resumed call
+
+
+def _block_seconds(log_path):
+    """(cycles, seconds of cycle dispatch, seconds of whole blocks) summed
+    over the app's '# block' lines of a log."""
+    n = disp = tot = 0.0
+    for ln in open(log_path):
+        if ln.startswith("# block "):
+            parts = ln.split()
+            n += int(parts[3])
+            tot += float(parts[6].rstrip("s"))
+            disp += float(parts[9])
+    return int(n), disp, tot
+
+
+def frontend_run():
+    """Drive runs/n8064_wl (128 walkers, float32, cell_trials=8) through
+    the port's run_input_file in build/chip_smoke_frontend: 6 cycles,
+    then a second call that resumes from the checkpoint for 2 more, then
+    a traced cycle.  The kernels' counts are those of the engines the two
+    calls built (created at 0 when the run sets up).  Returns
+    {"launches": {kernel: count over both calls}}."""
+    import shutil
+
+    import torch
+
+    from mc_water_ls_mw_tpu_torch import app as app_mod
+    from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
+    from mc_water_ls_mw_tpu_torch.mcmc.cellengine import CellEngine
+    from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value64
+
+    apps = []
+
+    class Recorded(app_mod.Application):
+        """The Application, remembered so that its engine can be read."""
+
+        def setup(self):
+            apps.append(self)
+            return super().setup()
+
+    d = os.path.join(ROOT, "build", "chip_smoke_frontend")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    shutil.copy(os.path.join(ROOT, "runs", "n8064_wl", "ice.input"), d)
+    over = {k: v for k, v in {**N8064_WL, **FRONTEND_CUTS}.items()
+            if k not in ("n_windows", "window_overlap")}
+    path = os.path.join(d, "ice.input")
+    cwd, original = os.getcwd(), app_mod.Application
+    app_mod.Application = Recorded
+    kernels = ("mover_points", "chain_wl", "mover_apply")
+    try:
+        out = []
+        for n_cyc in FRONTEND_CYCLES:
+            t0 = time.time()
+            s = app_mod.run_input_file(path, overrides=over,
+                                       max_cycles=n_cyc, device=DEVICE)
+            torch.cuda.synchronize()
+            app = apps[-1]
+            eng = app.engine
+            objs = dict(zip(kernels, (eng.points_kernel, eng.chain_kernel,
+                                      eng.apply_kernel)))
+            out.append(dict(wall=time.time() - t0, s=s, app=app,
+                            launches={k: o.launches
+                                      for k, o in objs.items()}))
+    finally:
+        os.chdir(cwd)
+        app_mod.Application = original
+    first, second = out
+    eng, s = second["app"].engine, second["s"]
+    prm = eng.prm
+    n_sub = eng.sweeps_per_cycle * eng.n_tables
+    W = N8064_WL["n_walkers"]
+    if not (isinstance(eng, CellEngine) and eng.T == MT_TRIALS
+            and s.r.shape[-1] == W and s.r.dtype == torch.float32):
+        fail(f"the front-end run did not build the T={MT_TRIALS} float32 "
+             f"cell engine at {W} walkers")
+    for run, n_cyc in zip(out, FRONTEND_CYCLES):
+        if any(n != n_cyc * n_sub for n in run["launches"].values()):
+            fail(f"front-end run: launches {run['launches']}, expected "
+                 f"{n_cyc * n_sub} of each kernel")
+    if first["s"].cycle != FRONTEND_CYCLES[0] or \
+            second["app"].start_cycle != FRONTEND_CYCLES[0] or \
+            s.cycle != sum(FRONTEND_CYCLES):
+        fail(f"the resumed run did not continue from cycle "
+             f"{FRONTEND_CYCLES[0]}: started at "
+             f"{second['app'].start_cycle}, ended at {s.cycle}")
+    ended = s.cycle
+    node = open(os.path.join(d, "node000.log")).read()
+    glog = open(os.path.join(d, "mc.log")).read()
+    # volume-move attempts of all walkers in the monitored cycles
+    n_vol = sum(int(ln.split()[5]) for ln in node.splitlines()
+                if ln.endswith(" box moves"))
+    need = {
+        "monitor_stats with eq_adjust_mc": "# Max molecule translation",
+        "check_flatness": "# Checking flatness of histogram at cycle",
+        "the restart": f"# Restarting from cycle {FRONTEND_CYCLES[0]} (",
+    }
+    for what, text in need.items():
+        if text not in node + glog:
+            fail(f"front-end run: no trace of {what} in the logs")
+    files = set(os.listdir(d))
+    want = {"checkpoint000.npz.1", "checkpoint000.npz.2", "eta_weights.dat",
+            "histogram.dat", "unbiased_histogram.dat", "mW.psf", "mW.dcd",
+            "mc.log", "node000.log"} | {
+                f"ice{w:03d}_therm.dat"
+                for w in range(min(prm.therm_walkers, W))}
+    if not want <= files:
+        fail(f"front-end run: missing files {sorted(want - files)}")
+    overflow = int(s.occ_overflow.max())
+    # the energy audit right after one more cycle's sub-step loop (an
+    # accepted volume move, hoisted after the loop, recomputes a
+    # walker's energy from scratch, so an audit at the end of a cycle
+    # would mostly see none of the loop's accumulated drift); on a copy
+    # of the state, whose first 64 walkers the audit overwrites
+    drifts = []
+
+    def audited_scan(*args):
+        st, tpm = eng._substep_scan(*args)
+        drifts.append(eng.audit_energy(st.clone(), n_walkers=64)[1])
+        return st, tpm
+
+    eng._cycle_with(s, audited_scan)
+    max_drift = float(torch.max(torch.abs(drifts[0])))
+    n, disp, tot = _block_seconds(os.path.join(d, "mc.log"))
+    rate = eng.trials_per_cycle * W * n / disp
+    kind = torch.cuda.get_device_name(0)
+    print(f"[frontend] runs/n8064_wl through run_input_file, overrides "
+          f"but {sorted(FRONTEND_CUTS)} (cut) and n_windows/window_overlap "
+          f"(dropped): N={prm.nwater} W={W} float32 T={eng.T}, "
+          f"{n_sub} sub-steps/cycle, {eng.trials_per_cycle} trials/cycle",
+          flush=True)
+    print(f"[frontend] {n} cycles over both calls: {disp / n:.3f} s/cycle "
+          f"in the cycle loop ({tot / n:.3f} s/cycle with the block "
+          f"events) = {rate:.4e} trials/s on {kind}; calls "
+          f"{first['wall']:.1f} s and {second['wall']:.1f} s with set-up; "
+          f"{n_vol} volume-move attempts (all walkers, cycles 1-"
+          f"{prm.monitor_int * (ended // prm.monitor_int)}); launches "
+          f"{first['launches']} + {second['launches']}; "
+          f"resumed at cycle {second['app'].start_cycle}, ended at "
+          f"{ended}; occ_overflow {overflow}; max_trans "
+          f"{float(s.max_trans.mean()) / ANG_TO_BOHR:.4f} A (from "
+          f"{N8064_WL['mc_max_trans']}); audit of 64 walkers after the "
+          f"sub-step loop of cycle {s.cycle}: max |drift| "
+          f"{max_drift:.3e} Hartree (limit {AUDIT_CELL_MAX_DRIFT:g}); "
+          f"merged histogram sum {ds_value64(s.master_hist).sum():.6e}",
+          flush=True)
+    if overflow != 0:
+        fail(f"front-end run: slab overflow {overflow}")
+    if n_vol <= 0:
+        fail("front-end run: no volume move")
+    if not max_drift < AUDIT_CELL_MAX_DRIFT:
+        fail("front-end run: energy audit drift")
+    if not (abs(float(s.max_trans.mean())
+                - N8064_WL["mc_max_trans"] * ANG_TO_BOHR) > 1e-6):
+        fail("front-end run: eq_adjust_mc left max_trans as it was")
+    profile_cell_cycle(eng, s, tag="frontend-profile")
+    return {"launches": {k: first["launches"][k] + second["launches"][k]
+                         for k in kernels}}
 
 
 def _bound(nbytes, ops):
@@ -734,7 +1104,7 @@ def main() -> int:
 
     from mc_water_ls_mw_tpu_torch import cuda_build
     from mc_water_ls_mw_tpu_torch.mcmc.engine import PhiloxStream
-    from mc_water_ls_mw_tpu_torch.mcmc.wanglandau import compute_deltaG
+    from mc_water_ls_mw_tpu_torch.mcmc.wanglandau import deltaG_from_uhist
     from mc_water_ls_mw_tpu_torch.models.sw import MW
     from mc_water_ls_mw_tpu_torch.ops.dense import reduced_shift_set
     from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value64
@@ -754,6 +1124,7 @@ def main() -> int:
         for ln in regs:
             print(f"[build]   {ln}", flush=True)
 
+    phase_time("1-2. device and build")
     report = {}
     W = W_MAIN
 
@@ -789,6 +1160,8 @@ def main() -> int:
     print(f"[full_energy] f32 W={W}: kernel {fe_ms:.3f} ms, plain "
           f"{fe_plain_ms:.3f} ms, bound {fe_bound_ms:.4f} ms "
           f"({fe_bound_by})", flush=True)
+
+    phase_time("3. full energy")
 
     # ---- 4. FusedCycle vs plain
     for samplerun in (True, False):
@@ -854,6 +1227,8 @@ def main() -> int:
               f"on {sms} SMs", flush=True)
     del eng, s, sk, sp, sp2
 
+    phase_time("4. fused cycle")
+
     # ---- 5. the main path
     prm = sample_params(W, "float32", mpi_sync_int=5, latt_sync_int=10,
                         eq_mc_cycles=20, max_mc_cycles=45)
@@ -888,8 +1263,8 @@ def main() -> int:
     if not max_drift < AUDIT_MAX_DRIFT:
         fail("energy audit drift")
     eng.merged_histogram(s)
-    dg = compute_deltaG(prm, eng.grid, ds_value64(s.master_uhist)[0])
-    if dg is None or not all(np.isfinite(v) for v in dg.values()):
+    dg = deltaG_from_uhist(prm, eng.grid, ds_value64(s.master_uhist)[0])
+    if dg is None or not all(np.all(np.isfinite(v)) for v in dg.values()):
         fail(f"Delta G is not finite: {dg}")
     print(f"[main] Delta G(Ic - Ih) = {dg['kT_per_mol']:.6e} kT/molecule "
           f"= {dg['J_per_mol']:.4f} J/mol after 25 sampling cycles "
@@ -897,6 +1272,8 @@ def main() -> int:
 
     del eng, s, samples
     torch.cuda.empty_cache()
+
+    phase_time("5. N=216 main path")
 
     # ---- 6. the cell engine's kernels vs plain
     from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value
@@ -993,6 +1370,8 @@ def main() -> int:
               f"plain {t['plain_ms']:.3f} ms, bound {bounds[name][0]:.6f} "
               f"ms ({bounds[name][1]})", flush=True)
 
+    phase_time("6. cell kernels")
+
     # ---- 7. the N=8064 main path
     n_timed = 3
     cell_kernels = {"mover_energies": eng.mover_kernel,
@@ -1044,8 +1423,79 @@ def main() -> int:
           f"walkers: {time.time() - t0:.3f} s", flush=True)
     del fresh
     profile_cell_cycle(eng, s)
+    del eng, s, samples
+    torch.cuda.empty_cache()
+    phase_time("7. N=8064 cell main path")
 
-    # ---- 8. the kernels
+    # ---- 8. the multi-trial kernels (cell_trials = 8) vs plain
+    from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
+
+    for Wm, dtype in ((W_MT_FP64, "float64"), (W_MT, "float32")):
+        eng, s = make_cell_engine(cell_params(
+            Wm, dtype, cell_trials=MT_TRIALS,
+            mc_max_trans=0.10 * ANG_TO_BOHR, list_update_int=1,
+            mpi_sync_int=1))
+        eng.run_cycles(s, 1)        # walkers drift apart, WL slabs fill
+        reps = 20 if dtype == "float32" else 0
+        for tbl in ((5, 42) if dtype == "float64" else (5,)):
+            cmp = multitrial_compare(eng, s, tbl, seed=300 + tbl,
+                                     time_reps=reps)
+            mp, ch = cmp["mover_points"], cmp["chain_wl"]
+            frac = float(ch["differ"].float().mean())
+            print(f"[multi] {dtype} W={Wm} T={eng.T} table {tbl}: points "
+                  f"energies err {mp['e_err']:.3e} Hartree (max |dE| "
+                  f"{mp['dE_max']:.3e}), own moments err "
+                  f"{mp['own_err']:.3e}, {mp['n_legs']} legs in range over "
+                  f"{eng.T + 1} points of {mp['n_movers']} (mover, walker) "
+                  f"pairs x 2 lattices; chain: {int(ch['differ'].sum())} "
+                  f"walkers differ ({frac:.4%}), on the rest chain rows err "
+                  f"{ch['cf_err']:.3e} (relative {ch['cf_rel']:.3e}), WL "
+                  f"slabs err {ch['wl_err']:.3e} (relative "
+                  f"{ch['wl_rel']:.3e}), {ch['n_acc']} of {ch['n_enabled']} "
+                  "trials accepted", flush=True)
+            if dtype == "float64":
+                if not (mp["e_err"] <= 1e-10 and mp["own_err"] <= 1e-10
+                        and mp["dE_max"] > 0):
+                    fail("mover_points fp64 disagrees with its plain "
+                         "version")
+                if ch["differ"].any() or not (
+                        ch["cf_err"] <= 1e-10 and ch["wl_err"] <= 1e-10
+                        and 0 < ch["n_acc"] < ch["n_enabled"]
+                        and ch["hist_grew"] > 0):
+                    fail("chain_wl fp64 at T=8 disagrees with its plain "
+                         "version")
+                continue
+            if not (mp["e_err"] <= F32_MOVER_E_ATOL
+                    and mp["own_err"] <= F32_MOVER_MOM_ATOL
+                    and mp["dE_max"] > 0):
+                fail("mover_points f32 disagrees with its plain version")
+            if frac > F32_MAX_DIFF_FRAC or not (
+                    ch["cf_rel"] <= F32_CHAIN_RTOL
+                    and ch["wl_rel"] <= F32_CHAIN_RTOL
+                    and 0 < ch["n_acc"] < ch["n_enabled"]):
+                fail("chain_wl f32 at T=8 disagrees with its plain version")
+            bounds = multitrial_bounds(eng, s, cmp)
+            report["mover_points"] = dict(
+                max_abs_err=max(mp["e_err"], mp["own_err"]), ms=mp["ms"],
+                plain_ms=mp["plain_ms"], bound_ms=bounds["mover_points"][0],
+                bound_by=bounds["mover_points"][1])
+            for name in ("mover_points", "chain_wl"):
+                t = cmp[name]
+                print(f"[multi] {name} f32 W={Wm} T={eng.T}: kernel "
+                      f"{t['ms']:.4f} ms/launch, plain {t['plain_ms']:.3f} "
+                      f"ms, bound {bounds[name][0]:.6f} ms "
+                      f"({bounds[name][1]})", flush=True)
+        del eng, s
+        torch.cuda.empty_cache()
+    phase_time("8. multi-trial kernels")
+
+    # ---- 9. the front-end path: run_input_file at T = 8
+    fe = frontend_run()
+    for name, n in fe["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    phase_time("9. front-end path")
+
+    # ---- 10. the kernels
     kernels = [
         dict(name="fused_cycle", route="cuda",
              source="mc_water_ls_mw_tpu_torch/csrc/fused_cycle.cu",
@@ -1072,6 +1522,11 @@ def main() -> int:
              replaces="mc_water_ls_mw_tpu/mcmc/chain_pallas.py:92",
              launches=launches["chain_wl"], library_ms=None,
              **report["chain_wl"]),
+        dict(name="mover_points", route="cuda",
+             source="mc_water_ls_mw_tpu_torch/csrc/cell_movers.cu",
+             replaces="mc_water_ls_mw_tpu/ops/cell_pallas.py:388",
+             launches=launches["mover_points"], library_ms=None,
+             **report["mover_points"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// The two stencil kernels of the large-N cell engine's sub-step, for K
+// The three stencil kernels of the large-N cell engine's sub-step, for K
 // movers (one per same-colour coarse cell), both lattices and every
 // walker in one launch each:
 //
@@ -8,6 +8,11 @@
 //                   neighbours' moments, corrected for the new position
 //                   by the mover's own leg change) and the mover's new
 //                   own moments;
+//   mover_points    the same at P = T + 1 points per mover (the
+//                   multi-trial sub-step: point 0 the stored position,
+//                   points 1..T the anchored-window candidates) in one
+//                   pass over the stencil, and the own moments at every
+//                   point;
 //   mover_apply     in place on the packed slab, for accepted movers:
 //                   add the per-candidate moment deltas new - old to
 //                   the neighbours' moment rows, set the mover's own
@@ -15,10 +20,12 @@
 //                   the new position.
 //
 // They replace the TPU kernels MoverEnergiesPallas._kernel
-// (with_deltas=False) and MoverApplyPallas._kernel
-// (mc_water_ls_mw_tpu/ops/cell_pallas.py).  Plain versions:
-// MoverEnergiesKernel.plain / MoverApplyKernel.plain in
-// ops/cell_kernels.py (cell_energy.mover_energies and the scatter path).
+// (with_deltas=False), MoverPointsPallas._kernel and
+// MoverApplyPallas._kernel (mc_water_ls_mw_tpu/ops/cell_pallas.py).
+// Plain versions: MoverEnergiesKernel.plain / MoverPointsKernel.plain /
+// MoverApplyKernel.plain in ops/cell_kernels.py
+// (cell_energy.mover_energies, cell_energy.mover_point_energies and the
+// scatter path).
 //
 // Data: each lattice's state is one packed slab pk [nfine, 14, cap, W]
 // (rows 0:10 the moments, 10:13 x y z, 13 the occupied flag), walker
@@ -311,6 +318,175 @@ mover_apply_kernel(const MoverArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------
+// mover_points: the multi-trial sub-step's energies at P points.
+//
+// What bounds it on the H100: at P = 9 the operations more than the
+// bytes.  The stencil is read as by mover_energies (every candidate
+// slot's flag, the coordinates of the occupied ones, the moment rows of
+// the slots in range of some point) and ONCE for all P points: a warp
+// loads a slot's rows, then tests the slot against each point; only the
+// ~13 slots in range of a point cost a leg and a wing term there.  The
+// TPU kernel keeps 13 running sums per point in VMEM scratch (13 P rows
+// of [cap, walker block]); here they would be 117 registers a thread at
+// P = 9 (234 in float64) and spill, so each thread keeps its partial
+// sums in its own column of shared memory, [warp][point][13][lane]
+// (touched only for in-range legs), and the points of its walker there
+// too.  The warps of a block are reduced in a fixed order as in
+// mover_energies; warp y then finishes points y, y + nw, ...  The number
+// of warps nw is chosen by the host so that the block's shared memory
+// stays under ~108 KB (two blocks per SM).
+// ---------------------------------------------------------------------
+
+constexpr int NPA = 13;  // per point: pair, w^2, wing, own moments [10]
+
+// Mirror of the ctypes structure PointsArgs in ops/cell_kernels.py.
+struct PointsArgs {
+  void* pk[2];  // per lattice [nfine, 14, cap, W]
+  void* h;      // [L,3,3,W]
+  void* cand;   // [K,CF] int32 candidate fine cells
+  void* off;    // [K,CF,3] int32 wrap offsets
+  void* fc;     // [K] int32 movers' fine cells
+  void* rank;   // [K,W] int32 movers' slot ranks
+  void* pts;    // [P,L,3,K,W] evaluation points (point 0 = stored)
+  void* e;      // [L,K,P,W] out: the chain kernel's point table
+  void* own;    // [L,K,P,10,W] out: own moments at every point
+  int L, K, CF, cap, W, P, nw;
+  SWConsts sw;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(32 * NW)
+mover_points_kernel(const PointsArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int P = a.P, nw = a.nw;
+  const int lane = threadIdx.x, wy = threadIdx.y;
+  const int k = blockIdx.y, l = blockIdx.z;
+  const int W = a.W, K = a.K, L = a.L, CF = a.CF, cap = a.cap;
+  const size_t nacc = (size_t)P * NPA * 32;  // one warp's partial sums
+  T* acc = reinterpret_cast<T*>(smem);        // [nw][P][NPA][32]
+  T* spt = acc + nw * nacc;                   // [P][3][32]
+  const int w_raw = blockIdx.x * 32 + lane;
+  // ragged edge: lanes beyond W repeat the last walker and store nothing
+  const int w = w_raw < W ? w_raw : W - 1;
+  const SW<T> sw(a.sw);
+  const T* pk = static_cast<const T*>(a.pk[l]);
+  const int rank = static_cast<const int*>(a.rank)[(size_t)k * W + w];
+  const int fcell = static_cast<const int*>(a.fc)[k];
+  const int* cand = static_cast<const int*>(a.cand) + (size_t)k * CF;
+  const int* off = static_cast<const int*>(a.off) + (size_t)k * CF * 3;
+  MoverCtx<T> c;  // for cell_shift: the cell matrix
+  const T* h = static_cast<const T*>(a.h);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      c.H[i][j] = h[((size_t)(l * 3 + i) * 3 + j) * W + w];
+  const T* pts = static_cast<const T*>(a.pts);
+  for (int i = wy; i < 3 * P; i += nw)
+    spt[i * 32 + lane] =
+        pts[(((size_t)(i / 3) * L + l) * 3 + i % 3) * K * W + (size_t)k * W + w];
+  T* mine = acc + wy * nacc + lane;
+  for (int i = 0; i < P * NPA; ++i) mine[i * 32] = (T)0;
+  __syncthreads();
+
+  const size_t row = (size_t)cap * W;
+  for (int ci = 0; ci < CF; ++ci) {
+    const int cid = cand[ci];
+    const bool self_cell = cid == fcell;
+    T sh[3];
+    cell_shift(c, off + ci * 3, sh);
+    for (int j = wy; j < cap; j += nw) {
+      const size_t base = ((size_t)cid * PK_ROWS * cap + j) * W + w;
+      const T valid = pk[base + PK_VALID * row];
+      const T cj[3] = {pk[base + (PK_R0 + 0) * row] + sh[0],
+                       pk[base + (PK_R0 + 1) * row] + sh[1],
+                       pk[base + (PK_R0 + 2) * row] + sh[2]};
+      if (!(valid > (T)0.5) || (self_cell && j == rank)) continue;
+      const T p0[3] = {spt[0 * 32 + lane], spt[1 * 32 + lane],
+                       spt[2 * 32 + lane]};
+      const Leg<T> g0 = leg_at(cj, p0, sw);
+      T mj[10];
+      bool loaded = false;
+      for (int t = 0; t < P; ++t) {
+        Leg<T> g = g0;
+        if (t > 0) {
+          const T pt[3] = {spt[(3 * t + 0) * 32 + lane],
+                           spt[(3 * t + 1) * 32 + lane],
+                           spt[(3 * t + 2) * 32 + lane]};
+          g = leg_at(cj, pt, sw);
+        }
+        if (!g.in) continue;
+        if (!loaded) {
+#pragma unroll
+          for (int f = 0; f < 10; ++f) mj[f] = pk[base + (size_t)f * row];
+          loaded = true;
+        }
+        T* at = mine + (size_t)t * NPA * 32;
+        at[0] += g.pair;
+        at[32] += g.w * g.w;
+        if (t == 0) {
+          at[64] += wing(g, mj, sw);
+        } else {
+          // world(t): the neighbour's moments with the mover's leg moved
+          // from point 0 to point t
+          T eff[10];
+#pragma unroll
+          for (int f = 0; f < 10; ++f) eff[f] = mj[f];
+          moved_moments(eff, g0, g);
+          at[64] += wing(g, eff, sw);
+        }
+        const T wux = g.w * g.ux, wuy = g.w * g.uy, wuz = g.w * g.uz;
+        at[3 * 32] += g.w;
+        at[4 * 32] += wux;
+        at[5 * 32] += wuy;
+        at[6 * 32] += wuz;
+        at[7 * 32] += wux * g.ux;
+        at[8 * 32] += wuy * g.uy;
+        at[9 * 32] += wuz * g.uz;
+        at[10 * 32] += wux * g.uy;
+        at[11 * 32] += wux * g.uz;
+        at[12 * 32] += wuy * g.uz;
+      }
+    }
+  }
+
+  // the warps' partial sums, reduced in a fixed order
+  __syncthreads();
+  for (size_t i = (size_t)wy * 32 + lane; i < nacc; i += (size_t)nw * 32) {
+    T sum = acc[i];
+    for (int y = 1; y < nw; ++y) sum += acc[(size_t)y * nacc + i];
+    acc[i] = sum;
+  }
+  __syncthreads();
+  if (w_raw >= W) return;
+  for (int t = wy; t < P; t += nw) {
+    const T* r = acc + (size_t)t * NPA * 32 + lane;
+    T m[10];
+#pragma unroll
+    for (int f = 0; f < 10; ++f) m[f] = r[(3 + f) * 32];
+    const T e_t = r[0] + sw.lam_eps * (e3_closed_form(m, r[32], sw) + r[64]);
+    static_cast<T*>(a.e)[(((size_t)l * K + k) * P + t) * W + w] = e_t;
+    T* own = static_cast<T*>(a.own) + (((size_t)l * K + k) * P + t) * 10 * W + w;
+#pragma unroll
+    for (int f = 0; f < 10; ++f) own[(size_t)f * W] = m[f];
+  }
+}
+
+template <typename T>
+static int launch_points(const PointsArgs* a, cudaStream_t stream) {
+  if (a->nw < 1 || a->nw > NW) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(T) * 32 * ((size_t)a->nw * a->P * NPA + 3 * (size_t)a->P);
+  cudaError_t err = cudaFuncSetAttribute(
+      mover_points_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a->W + 31) / 32, a->K, a->L), block(32, a->nw);
+  mover_points_kernel<T><<<grid, block, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch_energies(const MoverArgs* a, cudaStream_t stream) {
   const size_t smem = sizeof(T) * NW * NACC * 32;
@@ -346,6 +522,14 @@ int mover_apply_f32(const MoverArgs* a, void* stream) {
 
 int mover_apply_f64(const MoverArgs* a, void* stream) {
   return launch_apply<double>(a, (cudaStream_t)stream);
+}
+
+int mover_points_f32(const PointsArgs* a, void* stream) {
+  return launch_points<float>(a, (cudaStream_t)stream);
+}
+
+int mover_points_f64(const PointsArgs* a, void* stream) {
+  return launch_points<double>(a, (cudaStream_t)stream);
 }
 
 }  // extern "C"

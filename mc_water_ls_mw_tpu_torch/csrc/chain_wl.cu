@@ -165,13 +165,22 @@ __global__ void __launch_bounds__(TB) chain_wl_kernel(const ChainArgs a) {
       // cell wall only vetoes acceptance
       const bool enabled = tt && has_k;
       if (enabled) {
-        // dE(current point -> t) from the point table
+        // dE(current point -> t) from the point table.  The current
+        // point's values are read as the TPU kernel reads them, as
+        // sum_p onehot[p] * v[p]: a non-finite energy at any point of
+        // the mover poisons (and so rejects) its later trials
         const size_t r0 = (size_t)(k * P) * W + w;
         const size_t r1 = (size_t)((K + k) * P) * W + w;
-        const T dE0 = e[r0 + (size_t)t * W] - e[r0 + (size_t)j * W];
-        const T dE1 = e[r1 + (size_t)t * W] - e[r1 + (size_t)j * W];
-        const bool gate = (inc[r0 + (size_t)j * W] > (T)0.5)
-                        && (inc[r0 + (size_t)t * W] > (T)0.5);
+        T ec0 = (T)0, ec1 = (T)0, ic = (T)0;
+        for (int p = 0; p < P; ++p) {
+          const T oh = p == j ? (T)1 : (T)0;
+          ec0 = ec0 + oh * e[r0 + (size_t)p * W];
+          ec1 = ec1 + oh * e[r1 + (size_t)p * W];
+          ic = ic + oh * inc[r0 + (size_t)p * W];
+        }
+        const T dE0 = e[r0 + (size_t)t * W] - ec0;
+        const T dE1 = e[r1 + (size_t)t * W] - ec1;
+        const bool gate = (ic > (T)0.5) && (inc[r0 + (size_t)t * W] > (T)0.5);
         const T dmu = (dE0 - dE1) * beta;
         const T mu_new = mu + dmu;
         const T eta_old = eta_of(v, mu, bc);

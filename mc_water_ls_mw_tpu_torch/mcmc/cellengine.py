@@ -1,10 +1,12 @@
 """Large-N parallel cell-sweep MC engine, on tensors.
 
 Counterpart of ``mc_water_ls_mw_tpu/mcmc/cellengine.py`` (whose
-docstring derives the construction) for its usual configuration: one
-trial per scheduled mover (``cell_trials=1``), the fused sub-step
-kernels with the in-place apply stage (``cell_pallas='apply'``) and the
-per-move chain + WL kernel (``cell_chain='on'``).
+docstring derives the construction) for its usual configurations: one
+trial per scheduled mover (``cell_trials=1``) or T anchored-window
+trials per mover (``cell_trials=T > 1``, ``_substep_multi``), with the
+fused sub-step kernels and the in-place apply stage
+(``cell_pallas='apply'``) and the per-move chain + WL kernel
+(``cell_chain='on'``).
 
 * Space is partitioned by the two-level mid-frame cell grid of
   ops/cells.py.  One sub-step picks ONE random molecule in every coarse
@@ -13,10 +15,11 @@ per-move chain + WL kernel (``cell_chain='on'``).
   apart in both replicas, so their energy changes and moment updates are
   exactly independent.
 * The accept/reject chain stays EXACT: energies are evaluated in
-  parallel (``MoverEnergiesKernel``), acceptance runs sequentially over
+  parallel (``MoverEnergiesKernel``; at T > 1 ``MoverPointsKernel`` at
+  all T + 1 points of each mover), acceptance runs sequentially over
   the movers (``ChainWLKernel``) because mu, eta(mu) and the WL weights
   couple all moves, then the accepted movers are applied in parallel
-  (``MoverApplyKernel``).
+  (``MoverApplyKernel``; at T > 1 once, at each mover's final point).
 * A move that would cross the mover's stored FINE-cell boundary is
   rejected (a state-only-dependent hard wall), which keeps the static
   coverage tables exact between rebins; the grid origin is re-drawn and
@@ -25,7 +28,7 @@ per-move chain + WL kernel (``cell_chain='on'``).
   the eta lookups are inherited from the dense ``Engine``; ``CellState``
   carries the same multicanonical fields.
 
-On CUDA tensors the three wrappers launch their hand-written kernels; on
+On CUDA tensors the wrappers launch their hand-written kernels; on
 CPU tensors they run their plain versions, so what is computed does not
 depend on the device.  Differences from the JAX engine:
 
@@ -40,7 +43,7 @@ depend on the device.  Differences from the JAX engine:
   plain chain on a CPU).
 
 Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md):
-``cell_trials > 1``, ``cell_pallas`` 'on' / 'off', ``cell_chain='off'``,
+``cell_pallas`` 'on' / 'off', ``cell_chain='off'``,
 ``cell_trans_wall > 0``, padded or non-disjoint coverage tables, and
 whatever the dense engine of the port refuses.
 """
@@ -55,7 +58,11 @@ import torch
 
 from ..models.sw import SWParams
 from ..ops.cell_energy import _FULL_ENERGY_MAX_ELEMS, slab_full_energy
-from ..ops.cell_kernels import MoverApplyKernel, MoverEnergiesKernel
+from ..ops.cell_kernels import (
+    MoverApplyKernel,
+    MoverEnergiesKernel,
+    MoverPointsKernel,
+)
 from ..ops.cells import (
     PK_R0,
     PK_ROWS,
@@ -223,8 +230,9 @@ class _LoopRows(NamedTuple):
     cf: torch.Tensor        # [CF_ROWS, W]
     ci: torch.Tensor        # [CI_ROWS, W] int32
     basew: torch.Tensor     # [B, W] master weight view
-    inc: torch.Tensor       # [K, 2, W] in-cell flags of the two points;
-                            # point 0 (the current position) stays 1
+    inc: torch.Tensor       # [K, 2, W] in-cell flags of the two points
+                            # of a single-trial sub-step; point 0 (the
+                            # current position) stays 1
     occ_f: torch.Tensor     # [n_tables, K, W] occupancy of each table's
                             # scheduled fine cells, as the float type
     rank_max: torch.Tensor  # [n_tables, K, W] int32 max(occupancy-1, 0)
@@ -243,9 +251,20 @@ class _Trial(NamedTuple):
     hasm: torch.Tensor      # [K, W] float 0/1: the trial exists
 
 
+class _TrialTM(NamedTuple):
+    """One multi-trial sub-step's proposals (``CellEngine._propose_tm``):
+    P = T + 1 points per mover, point 0 its stored position."""
+
+    rank: torch.Tensor      # [K, W] int32 slot rank of each mover
+    slot: torch.Tensor      # [K, W] int64 slab slot of each mover
+    pts: torch.Tensor       # [P, L, 3, K, W] evaluation points
+    inc: torch.Tensor       # [K, P, W] float 0/1 in-cell flag per point
+    e: torch.Tensor         # [L, K, P, W] local energies per point
+    own: torch.Tensor       # [L, K, P, 10, W] own moments per point
+    hasm: torch.Tensor      # [K, W] float 0/1: the trial exists
+
+
 _CELL_UNSUPPORTED = (
-    ("cell_trials > 1 (the multi-trial sub-step and the mover-points "
-     "kernel)", lambda p: int(p.cell_trials) != 1),
     ("cell_pallas other than 'auto'/'apply' (the per-candidate delta "
      "output with the scatter path, and the unfused path)",
      lambda p: p.cell_pallas not in ("auto", "apply")),
@@ -334,12 +353,22 @@ class CellEngine(Engine):
         # one sweep = one trial per (coarse cell, fine block); the trial
         # count per cycle matches nwater to within rounding
         self.T = int(prm.cell_trials)
+        if self.T < 1:
+            raise ValueError(f"cell_trials must be >= 1, not {self.T}")
         self.sweeps_per_cycle = max(
             1, int(round(prm.nwater / (cg.ncoarse * m3 * self.T))))
         self.trials_per_cycle = (
             self.sweeps_per_cycle * cg.ncoarse * m3 * self.T)
+        # uniforms per (sub-step, mover, walker): selection, direction
+        # (3), magnitude, accept, switch at T = 1; selection, anchor (3),
+        # T candidates (3 each), T accept and T switch uniforms at T > 1
+        self.n_u = 7 if self.T == 1 else 4 + 5 * self.T
 
-        self.mover_kernel = MoverEnergiesKernel(self.model, cg)
+        if self.T == 1:
+            self.mover_kernel = MoverEnergiesKernel(self.model, cg)
+        else:
+            self.points_kernel = MoverPointsKernel(self.model, cg,
+                                                   self.T + 1)
         self.apply_kernel = MoverApplyKernel(self.model, cg)
         self.chain_kernel = ChainWLKernel(
             prm, self.grid, self.K, self.T,
@@ -472,11 +501,17 @@ class CellEngine(Engine):
         """One sub-step on the canonical (unpacked) state: pack,
         sub-step, unpack.  Test/diagnostic entry point - the cycle loop
         calls _substep on the packed slabs and rows it carries.
-        ``u`` [K, 7, W] as the random stream lays it out."""
+        ``u`` [K, n_u, W] as the random stream lays it out."""
         pks = self._pack(s)
         rows = self._loop_rows(s, switch_ok)
-        cnt = self._substep(s, pks, tpm_slab, tbl,
-                            u.permute(1, 0, 2).contiguous(), codes_k, rows)
+        if self.T == 1:
+            cnt = self._substep(s, pks, tpm_slab, tbl,
+                                u.permute(1, 0, 2).contiguous(), codes_k,
+                                rows)
+        else:
+            u_mv, u_a, u_z = self._split_uniforms(u[None])
+            cnt = self._substep_multi(s, pks, tpm_slab, tbl, u_mv[0],
+                                      u_a[0], u_z[0], codes_k, rows)
         self._chain_unrows(s, rows)
         self._count(s, cnt[None])
         return self._unpack(s, pks), tpm_slab
@@ -630,6 +665,106 @@ class CellEngine(Engine):
         tpm_slab.scatter_add_(0, trial.slot, en_per_mover)
 
     # ------------------------------------------------------------------
+    # the multi-trial sub-step (cell_trials = T > 1)
+    # ------------------------------------------------------------------
+
+    def _split_uniforms(self, u_all):
+        """A cycle's uniforms [n, K, 4 + 5T, W] as the multi-trial
+        sub-step reads them: (u_mv [n, 4 + 3T, K, W] selection, anchor
+        and candidates with each uniform's [K, W] block contiguous, u_a
+        and u_z [n, K*T, W] the accept and switch uniforms of trial
+        (k, t) at row k*T + t, the chain kernel's layout).  One copy per
+        cycle."""
+        n, K, _, W = u_all.shape
+        T = self.T
+        u_mv = u_all[:, :, :4 + 3 * T].permute(0, 2, 1, 3).contiguous()
+        u_a = u_all[:, :, 4 + 3 * T:4 + 4 * T].reshape(n, K * T, W)
+        u_z = u_all[:, :, 4 + 4 * T:4 + 5 * T].reshape(n, K * T, W)
+        return u_mv, u_a, u_z
+
+    def _substep_multi(self, s: CellState, pks, tpm_slab, tbl: int, u, ua,
+                       uz, codes_kt, rows: _LoopRows, cnt=None):
+        """One multi-trial (colour, fine-block) sub-step: T Metropolis
+        trials per scheduled mover under the anchored-window proposal
+        (the JAX package's CellEngine._substep_multi derives its
+        exactness), in place as :meth:`_substep`.  ``u`` [4 + 3T, K, W]
+        selection, anchor and candidate uniforms, ``ua`` / ``uz``
+        [K*T, W] accept / switch uniforms, ``codes_kt`` [K*T] int32 move
+        codes of trial (k, t) at k*T + t.  Returns the chain's counters
+        [CN_FIXED + K, W]."""
+        W = rows.cf.shape[1]
+        trial = self._propose_tm(s, pks, tbl, u, rows)
+        joh, cnt = self.chain_kernel(
+            codes_kt, s.cycle >= self.prm.eq_mc_cycles, rows.cf, rows.ci,
+            s.weight, s.hist, s.uhist, rows.basew, trial.e.view(-1, W),
+            trial.inc.view(-1, W), trial.hasm, ua, uz, cnt=cnt)
+        self._apply_tm(s, pks, tbl, trial, joh.view(self.K, self.T + 1, W))
+        # per-slot trial counter: all enabled translation trials of a
+        # mover land on its slot
+        tpm_slab.scatter_add_(0, trial.slot, cnt[CN_FIXED:])
+        return cnt
+
+    def _propose_tm(self, s: CellState, pks, tbl: int, u,
+                    rows: _LoopRows) -> _TrialTM:
+        """Multi-trial phase 1: mover selection, the anchored-window
+        points (v_t = (a + b_t) * max_trans from the stored position in
+        the active lattice, the same fractional displacement in the
+        partner), the fine-cell wall of every point and the P-point
+        energy table of both lattices in one kernel launch."""
+        cg = self.cellgrid
+        L = s.h.shape[0]
+        K, T = self.K, self.T
+        W = u.shape[-1]
+        fc, cand, off = self._tables(tbl)
+        ls = rows.ci[CI_LS]
+        rank, slot, p_old, mover_mol, has_mover = self._select_movers(
+            s, pks, tbl, u[0], rows)
+
+        anc = 2.0 * u[1:4] - 1.0                             # [3,K,W]
+        b = (2.0 * u[4:4 + 3 * T] - 1.0).view(T, 3, K, W)
+        v = (anc[None] + b) * s.max_trans                    # [T,3,K,W]
+        v = v.transpose(0, 1)                                # [3,T,K,W]
+        recip_ls = _take_lat(s.recip, ls)[:, :, None, None, :]
+        sfrac = to_frac(recip_ls, v)
+        tv = torch.stack([
+            torch.where(ls == l, v,
+                        from_frac(s.h[l][:, :, None, None, :], sfrac))
+            for l in range(L)
+        ])                                                   # [L,3,T,K,W]
+        pts = torch.cat([
+            p_old[None], p_old[None] + tv.permute(2, 0, 1, 3, 4)
+        ]).contiguous()                                      # [P,L,3,K,W]
+
+        # fine-cell wall per point (see _propose_t1); the chain's gate
+        # is in-cell(current) & in-cell(proposal)
+        dmid = self.half_dfrac0[
+            :, torch.clamp(mover_mol, min=0).long()]         # [3,K,W]
+        fmid = to_frac(s.recip[0][:, :, None, None, :],
+                       pts[:, 0].transpose(0, 1)) - dmid[:, None]
+        inc = cell_of_frac(cg, fmid, s.origin, level="fine") \
+            == fc[None, :, None]                             # [P,K,W]
+
+        e, own = self.points_kernel(pks, s.h, cand, off, fc, rank, pts)
+        return _TrialTM(rank, slot, pts,
+                        inc.transpose(0, 1).to(e.dtype).contiguous(), e,
+                        own, has_mover.to(e.dtype))
+
+    def _apply_tm(self, s: CellState, pks, tbl: int, trial: _TrialTM,
+                  joh):
+        """Multi-trial phase 3: apply each mover's FINAL point once (the
+        net moment update of the accepted point equals the point-0 ->
+        point-j delta, whatever the path).  ``joh`` [K, P, W]: one-hot
+        of each mover's accepted point.  The final point and its own
+        moments are the one-hot mixtures over the P points."""
+        fc, cand, off = self._tables(tbl)
+        p_fin = torch.sum(trial.pts * joh.transpose(0, 1)[:, None, None],
+                          dim=0)                             # [L,3,K,W]
+        own_fin = torch.sum(trial.own * joh[None, :, :, None], dim=2)
+        accf = joh[:, 0] < 0.5
+        self.apply_kernel(pks, s.h, cand, off, fc, trial.rank, accf,
+                          trial.pts[0], p_fin, own_fin)
+
+    # ------------------------------------------------------------------
     # Wang-Landau health gate
     # ------------------------------------------------------------------
 
@@ -764,21 +899,30 @@ class CellEngine(Engine):
         trial counts are updated in place by the three kernels; pack
         and unpack happen once.  Returns (s, tpm_slab)."""
         W = s.r.shape[-1]
-        K = self.K
+        K, T = self.K, self.T
         dev = s.r.device
         tpm_slab = torch.zeros((self.cellgrid.nslot, W), dtype=torch.int32,
                                device=dev)
         cnt_all = torch.empty((n_sub, CN_FIXED + K, W), dtype=torch.int32,
                               device=dev)
         codes_d = codes.to(device=dev, dtype=torch.int32)
-        # [n_sub, 7, K, W]: each uniform's [K, W] block contiguous
-        u_all = u_all.permute(0, 2, 1, 3).contiguous()
         pks = self._pack(s)
         rows = self._loop_rows(s)
-        for sid in range(n_sub):
-            self._substep(s, pks, tpm_slab, sid % self.n_tables,
-                          u_all[sid], codes_d[sid * K:(sid + 1) * K], rows,
-                          cnt_all[sid])
+        if T == 1:
+            # [n_sub, 7, K, W]: each uniform's [K, W] block contiguous
+            u_all = u_all.permute(0, 2, 1, 3).contiguous()
+            for sid in range(n_sub):
+                self._substep(s, pks, tpm_slab, sid % self.n_tables,
+                              u_all[sid], codes_d[sid * K:(sid + 1) * K],
+                              rows, cnt_all[sid])
+        else:
+            u_mv, u_a, u_z = self._split_uniforms(u_all)
+            for sid in range(n_sub):
+                self._substep_multi(
+                    s, pks, tpm_slab, sid % self.n_tables, u_mv[sid],
+                    u_a[sid], u_z[sid],
+                    codes_d[sid * K * T:(sid + 1) * K * T], rows,
+                    cnt_all[sid])
         self._chain_unrows(s, rows)
         self._count(s, cnt_all)
         return self._unpack(s, pks), tpm_slab
@@ -801,11 +945,11 @@ class CellEngine(Engine):
             self._rebin(s)
 
         # shared move-type schedule over this cycle's trials and the
-        # whole cycle's sub-step uniforms [n_sub, K, 7, W]
+        # whole cycle's sub-step uniforms [n_sub, K, n_u, W]
         n_sub = self.sweeps_per_cycle * self.n_tables
         codes, u_all = self.stream.cell_cycle_draws(
-            cycle, self.probs, self.trials_per_cycle, n_sub, self.K, W,
-            s.r.dtype)
+            cycle, self.probs, self.trials_per_cycle, n_sub, self.K,
+            self.n_u, W, s.r.dtype)
 
         s, tpm_slab = scan_fn(s, codes, u_all, n_sub)
         s.trans_per_mol += gather_from_slab(tpm_slab, s.mol2slot)

@@ -30,11 +30,11 @@ Against the JAX kernel's interface: the WL-live gate is a host bool (the
 port's cycle counter lives on the host), and the master-histogram base
 and the cycle number, which only feed the Swetnam and 1/t schedules, are
 not taken: those schedules and MINU are not ported and the engine
-refuses them (ROADMAP.md).  A mover's current point energy is read by
-direct indexing where the JAX kernel sums a one-hot over the point
-table; the two agree unless another point of the same mover holds a
-non-finite energy, which with one trial per mover (P = 2) rejects the
-trial either way.
+refuses them (ROADMAP.md).  A mover's current point energies and in-cell
+flag are read as the JAX kernel reads them, as the sum over the P points
+of the accepted-point one-hot times the point's value: a non-finite
+energy at any point of a mover makes every later trial of that mover
+non-finite, and so rejected.
 
 The kernel is ``csrc/chain_wl.cu`` (its header says what bounds it on
 the H100 and how the design answers that); it shares ``eta_of`` and
@@ -164,7 +164,8 @@ class ChainWLKernel:
                 prm.eta_interp, prm.dd_seeding)
 
         e = e.reshape(2, K, P, W)
-        inc = inc.reshape(K, P, W) > 0.5
+        inc = inc.reshape(K, P, W)
+        iota_p = torch.arange(P, device=dev)[:, None]
         joh = torch.zeros((K, P, W), dtype=dtype, device=dev)
         cnt = torch.zeros((CN_FIXED + K, W), dtype=torch.int32, device=dev)
         for k in range(K):
@@ -176,13 +177,17 @@ class ChainWLKernel:
                 swt = codes[i] == SWITCH
                 sw_try = (tt or swt) if prm.mc_always_switch else swt
                 if tt:
-                    # dE(current point -> t) from the point table
-                    jj = j[None, None, :]
-                    e_cur = torch.gather(e[:, k], 1, jj.expand(2, 1, W))[:, 0]
-                    in_cur = torch.gather(inc[k], 0, j[None, :])[0]
-                    dE0 = e[0, k, t] - e_cur[0]
-                    dE1 = e[1, k, t] - e_cur[1]
-                    gate = in_cur & inc[k, t]
+                    # dE(current point -> t) from the point table: the
+                    # current point's values as sum_p onehot[p] * v[p]
+                    oh = (iota_p == j[None, :]).to(dtype)      # [P,W]
+                    ec0 = ec1 = ic = 0.0
+                    for p in range(P):
+                        ec0 = ec0 + oh[p] * e[0, k, p]
+                        ec1 = ec1 + oh[p] * e[1, k, p]
+                        ic = ic + oh[p] * inc[k, p]
+                    dE0 = e[0, k, t] - ec0
+                    dE1 = e[1, k, t] - ec1
+                    gate = (ic > 0.5) & (inc[k, t] > 0.5)
                     dmu = (dE0 - dE1) * beta
                     mu_new = mu + dmu
                     eta_old = eta_of(mu)
@@ -236,8 +241,7 @@ class ChainWLKernel:
                     mu = torch.where(sw_acc, cmu - de10, mu)
                     cnt[CN_SWEN] += sw_ok.to(torch.int32)
                     cnt[CN_SWACC] += sw_acc.to(torch.int32)
-            joh[k] = (torch.arange(P, device=dev)[:, None] == j[None, :]
-                      ).to(dtype)
+            joh[k] = (iota_p == j[None, :]).to(dtype)
         for row, val in ((CF_MU, mu), (CF_E0, e0), (CF_E1, e1),
                          (CF_E0E, er0), (CF_E1E, er1),
                          (CF_MIN_DMU, min_dmu), (CF_MAX_DMU, max_dmu)):

@@ -66,11 +66,29 @@ class PhiloxStream:
     run is reproducible from its seed."""
 
     def __init__(self, seed: int, device):
+        self.seed = int(seed)
         self.sched = torch.Generator(device="cpu")
-        self.sched.manual_seed(int(seed))
+        self.sched.manual_seed(self.seed)
         self.walk = torch.Generator(device=device)
-        self.walk.manual_seed(int(seed) + 1)
+        self.walk.manual_seed(self.seed + 1)
         self.device = device
+
+    def get_state(self):
+        """The two generators' states (CPU uint8 tensors), for a
+        checkpoint."""
+        return [self.sched.get_state(), self.walk.get_state()]
+
+    def set_state(self, states):
+        self.sched.set_state(states[0])
+        self.walk.set_state(states[1])
+
+    def reseed(self, cycle: int):
+        """Seed both generators from (seed, cycle): the restart from a
+        checkpoint that holds no state of these streams."""
+        s0, s1 = np.random.SeedSequence(
+            [self.seed, int(cycle)]).generate_state(2)
+        self.sched.manual_seed(int(s0))
+        self.walk.manual_seed(int(s1))
 
     def cycle_draws(self, cycle, probs, N, W, dtype):
         """(codes [N], sched_mol [N]) on the CPU, cycle_u [N,7,W]."""
@@ -98,17 +116,19 @@ class PhiloxStream:
         return torch.rand((3,), generator=self.sched, dtype=dtype).to(
             self.device)
 
-    def cell_cycle_draws(self, cycle, probs, T, n_sub, K, W, dtype):
-        """(codes [T] on the CPU, u_all [n_sub, K, 7, W]): the shared
-        move-type schedule over a cycle's T trials and, per sub-step and
-        mover, 1 selection + 6 move uniforms of every walker."""
-        xi = torch.rand((T,), generator=self.sched, dtype=dtype)
+    def cell_cycle_draws(self, cycle, probs, n_trials, n_sub, K, n_u, W,
+                         dtype):
+        """(codes [n_trials] on the CPU, u_all [n_sub, K, n_u, W]): the
+        shared move-type schedule over a cycle's trials and, per sub-step
+        and mover, the ``n_u`` uniforms of every walker (7 with one trial
+        per mover, 4 + 5T with T trials: mcmc/cellengine.py)."""
+        xi = torch.rand((n_trials,), generator=self.sched, dtype=dtype)
         transP, volP, swP = probs
         codes = torch.where(
             xi < transP, TRANS,
             torch.where(xi < volP, VOL,
                         torch.where(xi < swP, SWITCH, NOOP)))
-        u_all = torch.rand((n_sub, K, 7, W), generator=self.walk,
+        u_all = torch.rand((n_sub, K, n_u, W), generator=self.walk,
                            dtype=dtype, device=self.device)
         return codes, u_all
 
@@ -658,6 +678,10 @@ class Engine:
         """Fully merged weights and histograms (the delta-sync, run
         now)."""
         return self._sync_all(s)
+
+    def resync_chains(self, s: SamplerState):
+        """The chain resync, run now (a restart from a checkpoint)."""
+        return self._resync_chains(s)
 
 
 _UNSUPPORTED = (

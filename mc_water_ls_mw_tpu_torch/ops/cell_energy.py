@@ -14,11 +14,11 @@ partner in both replicas exactly once, so there is no minimum-image
 fold.
 
 ``mover_energies`` is the plain version the mover-energies and
-mover-apply kernels are held against (ops/cell_kernels.py);
-``slab_full_energy`` serves volume moves, resyncs and audits on both
-devices (it is plain tensor code in the JAX package too).  The
-multi-point variant ``mover_point_energies`` of the JAX package
-(cell_trials > 1) is not ported yet (ROADMAP.md).
+mover-apply kernels are held against, ``mover_point_energies`` (the
+multi-trial sub-step, cell_trials > 1) that of the mover-points kernel
+(ops/cell_kernels.py); ``slab_full_energy`` serves volume moves,
+resyncs and audits on both devices (it is plain tensor code in the JAX
+package too).
 """
 
 from __future__ import annotations
@@ -182,6 +182,41 @@ def mover_energies(slab_r, slab_mom: Moments, valid, H, cand_cells,
     e3j_new = _slab_jcentred(cn, eff, prm)
     e_new = cn.pair_sum + lam_eps * (cn.e3i + e3j_new)
     return e_old, e_new, co, cn
+
+
+def mover_point_energies(slab_r, slab_mom: Moments, valid, H, cand_cells,
+                         cand_off, cand_mask, cap, mover_slot, pts,
+                         prm: SWParams):
+    """One lattice: local energies of K movers at P evaluation points
+    each (the multi-trial sub-step, cell_trials > 1).
+
+    pts: [P, 3, K, W]; point 0 MUST be the mover's stored position - the
+    slab moments carry the mover's own leg contributions from there, so
+    the world with the mover at point t uses neighbour moments
+    ``mom - delta(point 0) + delta(point t)``.  e(t) is the mover's full
+    local energy in world(t), so dE(j -> t) = e(t) - e(j) for any pair
+    of points and the chain composes trials from one table.  Other
+    arguments as :func:`mover_energies`.
+
+    Returns (e [P, K, W], owns: list of P Moments ([K, W] fields)).  The
+    candidates are gathered ONCE (they do not depend on the point)."""
+    lam_eps = prm.lam * prm.epsilon
+    cand = _gather_candidates(slab_r[0], slab_r[1], slab_r[2], valid, H,
+                              cand_cells, cand_off, cand_mask, cap,
+                              mover_slot)
+    mom_nb = Moments(*(_cell_take(f, cand_cells, cap) for f in slab_mom))
+    P = pts.shape[0]
+    cs = [_slab_candidates(cand, (pts[t, 0], pts[t, 1], pts[t, 2]), prm)
+          for t in range(P)]
+    d0 = cs[0].delta()
+    es, owns = [], []
+    for t in range(P):
+        eff = mom_nb if t == 0 else Moments(*(
+            m - a + b for m, a, b in zip(mom_nb, d0, cs[t].delta())))
+        e3j = _slab_jcentred(cs[t], eff, prm)
+        es.append(cs[t].pair_sum + lam_eps * (cs[t].e3i + e3j))
+        owns.append(cs[t].own)
+    return torch.stack(es), owns
 
 
 # per-intermediate element budget of slab_full_energy: the

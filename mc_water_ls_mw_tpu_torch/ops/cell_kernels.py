@@ -1,15 +1,20 @@
-"""The two stencil kernels of the cell engine's sub-step: the CUDA
+"""The three stencil kernels of the cell engine's sub-step: the CUDA
 kernels and their plain versions.
 
 Counterpart of ``mc_water_ls_mw_tpu/ops/cell_pallas.py``
-(``MoverEnergiesPallas`` without its per-candidate delta output, and
-``MoverApplyPallas``).  One call serves every lattice (the JAX package
-calls its kernels once per lattice):
+(``MoverEnergiesPallas`` without its per-candidate delta output,
+``MoverPointsPallas`` and ``MoverApplyPallas``).  One call serves every
+lattice (the JAX package calls its kernels once per lattice):
 
 * ``MoverEnergiesKernel(pks, h, cand, off, fc, rank, p_old, p_new)`` ->
   (e [L,K,2,W], own_new [L,K,10,W]): each mover's local energy at its
   old (point 0) and at its proposed position (point 1), in the layout of
   the chain kernel's point table, and its new own moments;
+* ``MoverPointsKernel(pks, h, cand, off, fc, rank, pts)`` with ``pts``
+  [P,L,3,K,W] (point 0 the stored position) -> (e [L,K,P,W], own
+  [L,K,P,10,W]): the multi-trial sub-step's local energies at all P
+  points in one stencil pass, again in the chain kernel's layout, and
+  the own moments at every point;
 * ``MoverApplyKernel(pks, h, cand, off, fc, rank, accf, p_old, p_new,
   own_new)`` updates the packed slabs IN PLACE for the accepted movers:
   neighbours' moment rows += their per-candidate deltas new - old, the
@@ -24,8 +29,8 @@ rows may be strided).
 
 The kernels are ``csrc/cell_movers.cu`` (its header says what bounds
 them on the H100 and how the design answers that).  The plain versions
-are ``cell_energy.mover_energies`` and the scatter of its per-candidate
-deltas.  A wrapper takes the plain version only for tensors on the CPU;
+are ``cell_energy.mover_energies``, ``cell_energy.mover_point_energies``
+and the scatter of the per-candidate deltas.  A wrapper takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  Both require an
 unpadded coverage table, and the apply kernel disjoint same-colour
 stencils (the engine checks both).
@@ -41,7 +46,7 @@ import torch
 
 from .. import cuda_build
 from ..models.sw import SWParams
-from .cell_energy import mover_energies
+from .cell_energy import mover_energies, mover_point_energies
 from .cells import PK_R0, PK_ROWS, PK_VALID, CellGrid
 from .dense import Moments
 
@@ -60,11 +65,25 @@ class MoverArgs(ctypes.Structure):
     )
 
 
+class PointsArgs(ctypes.Structure):
+    """Mirror of ``struct PointsArgs`` in csrc/cell_movers.cu."""
+
+    _fields_ = (
+        [("pk", ctypes.c_void_p * 2)]
+        + [(n, ctypes.c_void_p) for n in (
+            "h", "cand", "off", "fc", "rank", "pts", "e", "own")]
+        + [(n, ctypes.c_int) for n in ("L", "K", "CF", "cap", "W", "P",
+                                       "nw")]
+        + [("sw", cuda_build.SWConsts)]
+    )
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(which, dtype):
     sym = f"mover_{which}_" + ("f32" if dtype == torch.float32 else "f64")
+    struct = PointsArgs if which == "points" else MoverArgs
     return cuda_build.bind("cell_movers", sym,
-                           [ctypes.POINTER(MoverArgs), ctypes.c_void_p])
+                           [ctypes.POINTER(struct), ctypes.c_void_p])
 
 
 class _MoverKernel:
@@ -87,12 +106,13 @@ class _MoverKernel:
         # kernel launches (one per call on CUDA tensors)
         self.launches = 0
 
-    def _args(self, pks, h, cand, off, fc, rank, p_old, p_new):
-        """Checked MoverArgs of the shared inputs."""
+    def _check(self, pks, h, cand, off, fc, rank, points, points_shape):
+        """Raise unless the inputs are what the kernels take; ``points``
+        are the evaluation-point tensors, each of ``points_shape``."""
         L, W = len(pks), pks[0].shape[-1]
         K, CF = cand.shape
         dtype, dev = pks[0].dtype, pks[0].device
-        floats = list(pks) + [h, p_old, p_new]
+        floats = list(pks) + [h] + list(points)
         ints = [cand, off, fc, rank]
         shapes_ok = (
             L in (1, 2) and CF == self.CF
@@ -100,7 +120,7 @@ class _MoverKernel:
                     for pk in pks)
             and h.shape == (L, 3, 3, W) and off.shape == (K, CF, 3)
             and fc.shape == (K,) and rank.shape == (K, W)
-            and p_old.shape == p_new.shape == (L, 3, K, W))
+            and all(p.shape == points_shape for p in points))
         if not (shapes_ok and dtype in (torch.float32, torch.float64)
                 and all(t.dtype == dtype for t in floats)
                 and all(t.dtype == torch.int32 for t in ints)
@@ -110,7 +130,14 @@ class _MoverKernel:
                 f"{self.name}: needs {L} contiguous packed slabs "
                 f"[nfine,{PK_ROWS},{self.cap},W] of one float type, "
                 "h [L,3,3,W], int32 cand [K,CF] / off [K,CF,3] / fc [K] / "
-                "rank [K,W] and p_old, p_new [L,3,K,W] on one device")
+                f"rank [K,W] and points {points_shape} on one device")
+
+    def _args(self, pks, h, cand, off, fc, rank, p_old, p_new):
+        """Checked MoverArgs of the shared inputs."""
+        L, W = len(pks), pks[0].shape[-1]
+        K, CF = cand.shape
+        self._check(pks, h, cand, off, fc, rank, (p_old, p_new),
+                    (L, 3, K, W))
         a = MoverArgs(
             h=h.data_ptr(), cand=cand.data_ptr(), off=off.data_ptr(),
             fc=fc.data_ptr(), rank=rank.data_ptr(), p_old=p_old.data_ptr(),
@@ -121,6 +148,7 @@ class _MoverKernel:
         return a
 
     def _launch(self, which, args, dtype, dev):
+        """Launch kernel ``which`` on the current stream and count it."""
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _entry(which, dtype)(ctypes.byref(args), stream)
         cuda_build.check(err, self.name)
@@ -162,6 +190,63 @@ class MoverEnergiesKernel(_MoverKernel):
         own = torch.empty((L, K, 10, W), dtype=dtype, device=dev)
         args.e, args.own = e.data_ptr(), own.data_ptr()
         self._launch("energies", args, dtype, dev)
+        return e, own
+
+
+class MoverPointsKernel(_MoverKernel):
+    """Local energies and own moments of K movers at P = T + 1 points
+    each (the multi-trial sub-step)."""
+
+    name = "mover_points"
+    # shared-memory budget of one block (bytes): two blocks per SM
+    SMEM_BUDGET = 110592
+
+    def __init__(self, model: SWParams, cg: CellGrid, n_points: int):
+        super().__init__(model, cg)
+        if n_points < 2:
+            raise ValueError("MoverPointsKernel needs n_points >= 2")
+        self.P = int(n_points)
+
+    def warps(self, dtype) -> int:
+        """Warps per block: as many as the shared-memory budget allows
+        (13 running sums per point and lane, and the points), at most
+        8."""
+        per_warp = self.P * 13 * 32 * (8 if dtype == torch.float64 else 4)
+        spare = self.SMEM_BUDGET - self.P * 3 * 32 * (
+            8 if dtype == torch.float64 else 4)
+        return max(1, min(8, spare // per_warp))
+
+    def plain(self, pks, h, cand, off, fc, rank, pts):
+        mover_slot = fc.long()[:, None] * self.cap + rank.long()
+        e, own = [], []
+        for l, pk in enumerate(pks):
+            el, owns = mover_point_energies(
+                [pk[:, PK_R0 + a] for a in range(3)],
+                Moments(*(pk[:, i] for i in range(10))),
+                pk[:, PK_VALID] > 0.5, h[l], cand.long(), off,
+                self.full_mask, self.cap, mover_slot, pts[:, l], self.model)
+            e.append(el.transpose(0, 1))                     # [K,P,W]
+            own.append(torch.stack(
+                [torch.stack(list(m), dim=1) for m in owns], dim=1))
+        return torch.stack(e), torch.stack(own)    # [L,K,P,W], [L,K,P,10,W]
+
+    def __call__(self, pks, h, cand, off, fc, rank, pts):
+        if not pks[0].is_cuda:
+            return self.plain(pks, h, cand, off, fc, rank, pts)
+        L, W = len(pks), pks[0].shape[-1]
+        K, P = cand.shape[0], self.P
+        self._check(pks, h, cand, off, fc, rank, (pts,), (P, L, 3, K, W))
+        dtype, dev = pks[0].dtype, pks[0].device
+        e = torch.empty((L, K, P, W), dtype=dtype, device=dev)
+        own = torch.empty((L, K, P, 10, W), dtype=dtype, device=dev)
+        a = PointsArgs(
+            h=h.data_ptr(), cand=cand.data_ptr(), off=off.data_ptr(),
+            fc=fc.data_ptr(), rank=rank.data_ptr(), pts=pts.data_ptr(),
+            e=e.data_ptr(), own=own.data_ptr(), L=L, K=K, CF=self.CF,
+            cap=self.cap, W=W, P=P, nw=self.warps(dtype), sw=self.consts)
+        for l, pk in enumerate(pks):
+            a.pk[l] = pk.data_ptr()
+        self._launch("points", a, dtype, dev)
         return e, own
 
 

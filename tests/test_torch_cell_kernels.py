@@ -8,7 +8,8 @@ stencils, disjoint for same-colour movers), float64, W = 2:
   (with_deltas=False);
 * ``MoverApplyKernel.plain`` vs ``MoverApplyPallas`` (the packed slab);
 * ``ChainWLKernel.plain`` vs ``ChainWLPallas`` with WL live and in a
-  sample run (integer outputs identical).
+  sample run, at one, two and eight trials per mover, and on a point
+  table that holds a non-finite energy (integer outputs identical).
 
 The Pallas kernels run in interpret mode, as the JAX package's own
 tests run them on the CPU.  The CUDA kernels themselves are held
@@ -16,8 +17,11 @@ against these plain versions on the card (tests/test_torch_kernels_cuda.py,
 chip_smoke.py).
 """
 
+import functools
+
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -77,10 +81,16 @@ def movers():
     p_new = p_old + rng.normal(scale=0.3, size=p_old.shape)
     pk = np.stack([pack_lattice(jst, jcg, l) for l in range(2)])
     assert pk.shape == (2, jcg.nfine, PK_ROWS, cap, W)
+    # the JAX kernels jitted, so that the second lattice and the second
+    # test reuse the first call's compilation (an eager interpret-mode
+    # call traces and compiles the kernel anew every time)
     return dict(sys=sys_, jst=jst, fc=fc.astype(np.int32),
                 cand=cand.astype(np.int32), off=off.astype(np.int32),
                 rank=rank, p_old=p_old, p_new=p_new, pk=pk,
-                accf=rng.uniform(size=(K, W)) < 0.6)
+                accf=rng.uniform(size=(K, W)) < 0.6,
+                jenergies=jax.jit(MoverEnergiesPallas(MW, jcg,
+                                                      with_deltas=False)),
+                japply=jax.jit(MoverApplyPallas(MW, jcg)))
 
 
 def port_args(m):
@@ -90,10 +100,10 @@ def port_args(m):
 
 
 def jax_energies(m, l):
-    kern = MoverEnergiesPallas(MW, m["sys"]["jcg"], with_deltas=False)
-    return kern(jnp.asarray(m["pk"][l]), m["jst"].h[l], m["cand"],
-                m["off"], m["fc"], jnp.asarray(m["rank"]),
-                jnp.asarray(m["p_old"][l]), jnp.asarray(m["p_new"][l]))
+    return m["jenergies"](
+        jnp.asarray(m["pk"][l]), m["jst"].h[l], m["cand"], m["off"],
+        m["fc"], jnp.asarray(m["rank"]), jnp.asarray(m["p_old"][l]),
+        jnp.asarray(m["p_new"][l]))
 
 
 def test_mover_energies_plain_matches_pallas(movers):
@@ -129,10 +139,9 @@ def test_mover_apply_plain_matches_pallas(movers):
     out = kern(pks, *shared, tt(m["accf"]), tt(m["p_old"]), tt(m["p_new"]),
                own)
     assert out[0] is pks[0] and kern.launches == 0       # in place
-    japply = MoverApplyPallas(MW, m["sys"]["jcg"])
     for l in range(2):
         jown = jax_energies(m, l)[2]
-        jpk = japply(jnp.asarray(m["pk"][l]), m["jst"].h[l], m["cand"],
+        jpk = m["japply"](jnp.asarray(m["pk"][l]), m["jst"].h[l], m["cand"],
                      m["off"], m["fc"], jnp.asarray(m["rank"]),
                      jnp.asarray(m["accf"]), jnp.asarray(m["p_old"][l]),
                      jnp.asarray(m["p_new"][l]), jown)
@@ -176,10 +185,9 @@ def chain_inputs(K, T, W, B, seed):
     ci[ck.CI_SWOK] = 1
     e = -0.05 + rng.normal(0, 1.0 / beta, (2, K, P, W))
     if T == 1:
-        # an overlap proposal: never accepted.  (With more points per
-        # mover the packages differ on purpose: the JAX kernel's one-hot
-        # sum over the point table turns the mover's current energy into
-        # NaN as well, the port indexes the current point directly.)
+        # an overlap proposal: never accepted (with more points per mover
+        # a non-finite point poisons all of the mover's trials:
+        # test_chain_nonfinite_point_matches_pallas)
         e[0, 0, 1, 0] = np.inf
     codes = rng.choice([0, 0, 0, 0, 2, 1, 3], K * T).astype(np.int32)
     codes[:2] = (0, 2)
@@ -195,19 +203,46 @@ def chain_inputs(K, T, W, B, seed):
         ua=rng.uniform(size=(K * T, W)), uz=rng.uniform(size=(K * T, W)))
 
 
-@pytest.mark.parametrize("samplerun,T", [(False, 1), (True, 1), (False, 2)],
-                         ids=["wl_live", "samplerun", "two_trials"])
-def test_chain_plain_matches_pallas(samplerun, T):
-    K, W = 8, 6
+def poison_point(x, K, T):
+    """Give point 2 of mover 1 of walker 0 an infinite energy in the
+    chain inputs ``x`` (T >= 2), with both of that mover's trials
+    enabled translations inside the cell and its first accept uniform 0:
+    a direct read of the current point's energy would accept that first
+    trial, the JAX kernel's one-hot sum over the points poisons it."""
+    P = T + 1
+    x["e"].reshape(2, K, P, -1)[0, 1, 2, 0] = np.inf
+    x["codes"][T:2 * T] = 0                           # mover 1: translations
+    x["inc"].reshape(K, P, -1)[1, :, 0] = 1.0
+    x["hasm"][1, 0] = 1.0
+    x["ua"][1 * T, 0] = 0.0
+
+
+@functools.lru_cache(maxsize=None)
+def chain_case(samplerun, T, K):
+    """(inputs, port chain, port tensors after the pass, joh, cnt) of one
+    chain test case on W = 6 walkers, after run_chains held it against
+    ``ChainWLPallas``; once per process, because an interpret-mode call
+    of the JAX kernel traces and compiles it anew (~30 s).  At T = 2 one
+    point energy is infinite (poison_point)."""
+    W = 6
+    x = chain_inputs(K, T, W, 201, seed=11 + T)
+    if T == 2:
+        poison_point(x, K, T)
+    return (x, *run_chains(x, K, T, W, samplerun))
+
+
+def run_chains(x, K, T, W, samplerun=False):
+    """One chain pass of ``ChainWLPallas`` and of the port's plain
+    chain on the inputs ``x`` (chain_inputs).  Returns (port chain, port
+    tensors after the pass, joh, cnt) after asserting that the integer
+    outputs are identical and the rows and slabs agree within 1e-10."""
     kw = cell_run_params(samplerun=samplerun, n_walkers=W, cell_trials=T)
     jprm, tprm = RunParams(**kw, fused="off"), TRunParams(**kw)
     from mc_water_ls_mw_tpu.mcmc.bins import build_bin_grid as jgrid
     from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid as tgrid
     jg = jgrid(kw["nbins"], kw["mu_min"], kw["mu_max"], dtype=jnp.float64)
     tg = tgrid(kw["nbins"], kw["mu_min"], kw["mu_max"])
-    B = tg.nbins
     log_norm = 3.0
-    x = chain_inputs(K, T, W, B, seed=11 + T)
 
     jk = ChainWLPallas(jprm, jg, K, T, log_norm)
     j = {k: jnp.asarray(v) for k, v in x.items()}
@@ -230,12 +265,27 @@ def test_chain_plain_matches_pallas(samplerun, T):
                             ("hist", t["hist"], jh), ("uh", t["uh"], ju)):
         np.testing.assert_allclose(mine.numpy(), np.asarray(ref), rtol=0,
                                    atol=1e-10, err_msg=name)
+    return tk, t, joh, cnt
+
+
+@pytest.mark.parametrize("samplerun,T,K", [(False, 1, 8), (True, 1, 8),
+                                           (False, 2, 8), (False, 8, 2)],
+                         ids=["wl_live", "samplerun", "two_trials",
+                              "eight_trials"])
+def test_chain_plain_matches_pallas(samplerun, T, K):
+    # (eight trials on two movers: the interpret-mode JAX kernel's
+    # compile time grows with the trials times the points per mover)
+    W = 6
+    x, tk, t, joh, cnt = chain_case(samplerun, T, K)
     # the pass did something of every kind, and the gates held
     c = cnt.numpy()
     assert c[ck.CN_EN].sum() > c[ck.CN_ACC].sum() > 0
     assert c[ck.CN_SWEN].sum() > 0
     if T == 1:
         assert joh.numpy().reshape(K, 2, W)[0, 1, 0] == 0.0   # the overlap
+    else:
+        # some movers ended at a point beyond the first trial's
+        assert joh.numpy().reshape(K, T + 1, W)[:, 2:].sum() > 0
     grew = (t["hist"].numpy() != x["hist"]).any(axis=0)
     assert grew[:-1].all() and not grew[-1]      # the overflowed walker
     if samplerun:
@@ -249,6 +299,27 @@ def test_chain_plain_matches_pallas(samplerun, T):
        t2["uz"])
     for name in ("wgt", "hist", "uh"):
         np.testing.assert_array_equal(t2[name].numpy(), x[name])
+
+
+def test_chain_nonfinite_point_matches_pallas():
+    """Two trials per mover; point 2 of mover 1 of walker 0 holds an
+    infinite energy (poison_point).  The current point's energy is read
+    as the sum over the point table of the accepted-point one-hot times
+    the energy, as the JAX kernel reads it, so 0 * inf poisons every
+    trial of that mover (a direct read of the current point would
+    accept its first trial: translation, both points in the cell, accept
+    uniform 0).  The run is the two_trials case's, held against
+    ``ChainWLPallas`` there."""
+    K, T = 8, 2
+    P = T + 1
+    x, tk, t, joh, cnt = chain_case(False, T, K)
+    assert np.isinf(x["e"].reshape(2, K, P, -1)[0, 1, 2, 0])
+    oh = joh.numpy().reshape(K, P, -1)
+    assert oh[1, :, 0].tolist() == [1.0, 0.0, 0.0]    # never moved
+    assert cnt.numpy()[ck.CN_FIXED + 1, 0] == T       # both trials enabled
+    # the other walkers' mover 1 and walker 0's other movers do move
+    assert oh[1, 1:, 1:].sum() + oh[[0, 2, 3, 4, 5, 6, 7], 1:, 0].sum() > 0
+    assert np.isfinite(t["cf"].numpy()[ck.CF_MU]).all()
 
 
 @pytest.mark.parametrize("setting", [

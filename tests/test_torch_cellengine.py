@@ -239,7 +239,7 @@ def test_auto_resolves_to_the_kernels(system):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(cell_trials=2), dict(cell_pallas="on"), dict(cell_pallas="off"),
+    dict(leshift=True), dict(cell_pallas="on"), dict(cell_pallas="off"),
     dict(cell_chain="off"), dict(cell_trans_wall=1.5),
     dict(parallel_strategy="dd"), dict(minu=True), dict(mc_ensemble="nvt"),
     dict(wl_swetnam=True), dict(num_lattices=1),

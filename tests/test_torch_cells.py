@@ -151,17 +151,18 @@ class JaxCellStream(JaxStream):
             jax.random.fold_in(self.shared_key, cycle), 0x0E161)
         return tt(jax.random.uniform(okey, (3,), dtype=jdt))
 
-    def cell_cycle_draws(self, cycle, probs, T, n_sub, K, W, dtype):
+    def cell_cycle_draws(self, cycle, probs, n_trials, n_sub, K, n_u, W,
+                         dtype):
         jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
         ck = jax.random.fold_in(self.shared_key, cycle)
-        xi = jax.random.uniform(ck, (T,), dtype=jdt)
+        xi = jax.random.uniform(ck, (n_trials,), dtype=jdt)
         transP, volP, swP = probs
         codes = jnp.where(
             xi < transP, TRANS,
             jnp.where(xi < volP, VOL, jnp.where(xi < swP, SWITCH, NOOP)))
         u_all = jax.vmap(
             lambda k: jax.random.uniform(jax.random.fold_in(k, cycle),
-                                         (n_sub, K, 7), dtype=jdt),
+                                         (n_sub, K, n_u), dtype=jdt),
             out_axes=3,
         )(self.keys)
         return tt(codes), tt(u_all)

@@ -34,7 +34,10 @@ from mc_water_ls_mw_tpu_torch.mcmc.state import (
     state_from_numpy,
     state_to_numpy,
 )
-from mc_water_ls_mw_tpu_torch.mcmc.wanglandau import compute_deltaG
+from mc_water_ls_mw_tpu_torch.mcmc.wanglandau import (
+    compute_deltaG,
+    deltaG_from_uhist,
+)
 from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value64
 
 from .test_torch_state import (
@@ -130,8 +133,8 @@ class _Logs:
 def test_deltaG_matches_jax(runs, tmp_path, monkeypatch):
     samplerun, r = runs
     prm = r["teng"].prm
-    mine = compute_deltaG(prm, r["teng"].grid,
-                          ds_value64(r["ts"].master_uhist)[0])
+    mine = deltaG_from_uhist(prm, r["teng"].grid,
+                             ds_value64(r["ts"].master_uhist)[0])
     if not samplerun:
         # WL generation keeps no unbiased histogram
         assert mine is None
@@ -157,6 +160,20 @@ def test_deltaG_matches_jax(runs, tmp_path, monkeypatch):
     dg = np.log((p[:B // 2] * bw[:B // 2]).sum()
                 / (p[B // 2:] * bw[B // 2:]).sum())
     np.testing.assert_allclose(mine["kT"], dg, rtol=1e-10)
+    # the logging form writes the same lines and the same dump
+    jdump = np.loadtxt(tmp_path / f"unbiased_histogram_{r['ts'].cycle:010d}"
+                       ".dat", skiprows=1)
+    tlogs = _Logs()
+    compute_deltaG(r["teng"], r["ts"].clone(), tlogs, None)
+    assert [x.split("=")[0] for x in tlogs.lines] == \
+        [x.split("=")[0] for x in logs.lines]
+    for a, b in zip(tlogs.lines[1:], logs.lines[1:]):
+        np.testing.assert_allclose(float(a.split("=")[1].split()[0]),
+                                   float(b.split("=")[1].split()[0]),
+                                   rtol=1e-7, atol=1e-7)
+    np.testing.assert_allclose(
+        np.loadtxt(tmp_path / f"unbiased_histogram_{r['ts'].cycle:010d}"
+                   ".dat", skiprows=1), jdump, rtol=1e-10, atol=0)
 
 
 @pytest.mark.parametrize("setting", [

@@ -32,10 +32,12 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
-    assert len(MODULES) >= 19
-    # the cell engine's modules are among them
+    assert len(MODULES) >= 26
+    # the cell engine's modules and the front end are among them
     for name in ("ops.cells", "ops.cell_energy", "ops.cell_kernels",
-                 "mcmc.chain_kernel", "mcmc.cellengine"):
+                 "mcmc.chain_kernel", "mcmc.cellengine", "mcmc.wanglandau",
+                 "io.namelist", "io.xmol", "io.writers", "io.checkpoint",
+                 "app", "cli"):
         assert f"mc_water_ls_mw_tpu_torch.{name}" in MODULES
 
 

@@ -133,3 +133,38 @@ def test_cell_engine_on_card_runs_its_kernels(card):
     assert int(s.att[0].min()) > 0 and int(s.acc[0].min()) > 0
     s, drift = eng.audit_energy(s, n_walkers=8)
     assert float(drift.abs().max()) < chip_smoke.AUDIT_CELL_MAX_DRIFT
+
+
+@pytest.fixture(scope="module")
+def multitrial_engine(card):
+    """The N=8064 cell engine at eight trials per mover, W walkers,
+    float64, after one cycle of sampling."""
+    prm = chip_smoke.cell_params(W, "float64",
+                                 cell_trials=chip_smoke.MT_TRIALS,
+                                 list_update_int=1, mpi_sync_int=1)
+    eng, s = chip_smoke.make_cell_engine(prm)
+    eng.run_cycles(s, 1)
+    counts = [k.launches for k in (eng.points_kernel, eng.chain_kernel,
+                                   eng.apply_kernel)]
+    return eng, s, counts
+
+
+@pytest.mark.parametrize("tbl", [0, 37])
+def test_mover_points_and_chain_kernels_fp64(multitrial_engine, tbl):
+    eng, s, _ = multitrial_engine
+    cmp = chip_smoke.multitrial_compare(eng, s, tbl, seed=tbl)
+    mp, ch = cmp["mover_points"], cmp["chain_wl"]
+    assert mp["e_err"] <= 1e-10 and mp["own_err"] <= 1e-10
+    assert mp["dE_max"] > 0 and mp["n_legs"] > 0
+    assert not ch["differ"].any()
+    assert ch["cf_err"] <= 1e-10 and ch["wl_err"] <= 1e-10
+    assert 0 < ch["n_acc"] < ch["n_enabled"] and ch["hist_grew"] > 0
+
+
+def test_multitrial_engine_on_card_runs_its_kernels(multitrial_engine):
+    eng, s, counts = multitrial_engine
+    n_sub = eng.sweeps_per_cycle * eng.n_tables
+    assert n_sub == 128 and counts == [n_sub] * 3
+    assert int(s.occ_overflow.max()) == 0 and int(s.acc[0].min()) > 0
+    s2, drift = eng.audit_energy(s.clone(), n_walkers=8)
+    assert float(drift.abs().max()) < 1e-9

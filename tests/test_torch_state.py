@@ -38,6 +38,14 @@ from mc_water_ls_mw_tpu_torch.mcmc.state import (
 from mc_water_ls_mw_tpu_torch.ops import dsfloat as tds
 from mc_water_ls_mw_tpu_torch.ops import geometry as tgeo
 
+# The port's CPU tests run small tensors, which PyTorch's intra-op
+# threads do not speed up; left at one thread per core, parallel test
+# workers oversubscribe the cores (a full-depth cell cycle costs ~5x the
+# CPU seconds for a 1.3x shorter wall).  The port's engine tests import
+# this module, and pytest collects it in every worker process, so the
+# port runs on one thread in each.
+torch.set_num_threads(1)
+
 TRANS, VOL, SWITCH, NOOP = 0, 1, 2, 3
 
 
