@@ -12,11 +12,15 @@ Phases (each exits non-zero on failure):
    source, all started together) and print the build seconds;
 3. FullEnergyKernel against its plain PyTorch version on both N=216
    lattices at W=4096 with jittered positions (float64: rtol 1e-12;
-   float32: the tolerances below);
-4. FusedCycle against its plain version over one cycle with the same
-   random draws (float64 at W=256: identical integer outcomes and
-   continuous state within 1e-10; float32 at W=4096: at most 1% of
-   walkers differ in any integer outcome);
+   float32: the tolerances below), and likewise on the N=48 cells of
+   the (1,2,6) stacking pair, three folded image shifts;
+4. FusedCycle's table kernel against its plain version over one cycle
+   with the same random draws (float64 at W=256: identical integer
+   outcomes and continuous state within 1e-10; float32 at W=4096: at
+   most 1% of walkers differ in any integer outcome); 4b. likewise its
+   dense-candidate kernel at N=216 (nbr_table='off', one shift) and at
+   N=48 (three shifts); 4c. likewise its multi-trial kernel at
+   dense_trials=8; each with its time and bound;
 5. the N=216 main path: the N=216 Ih/Ic stacking pair, W=4096,
    float32, a sample run from runs/n216_sample/eta_weights.dat with
    delta-syncs every 5 and chain resyncs every 10 cycles; 20 warm-up and
@@ -24,6 +28,13 @@ Phases (each exits non-zero on failure):
    trace of 10 more cycles (device time per kernel, the device's busy
    share), an energy audit of 64 walkers and a finite Delta G from the
    merged unbiased histogram;
+   5b. path B: the same sample run with nbr_table='off' (exact
+   reference move semantics: the dense-candidate kernel), 20 warm-up
+   and 20 timed cycles, a trace of 5 more, the audit and Delta G;
+   5c. path C: the N=216 Wang-Landau run of the JAX package's
+   scripts/bench_dense_multitrial.py at dense_trials = 1, 2, 4 and 8,
+   20 timed cycles each (trials/s against T), the audit and the merged
+   histogram at T=8;
 6. the three kernels of the large-N cell engine (mover energies, chain +
    WL, mover apply) against their plain versions on one sub-step of the
    N=8064 stacking pair after a cycle of sampling (float64 at W=64:
@@ -52,10 +63,16 @@ Phases (each exits non-zero on failure):
    call that resumes from the checkpoint for 2 more; seconds per cycle,
    trials/s, launches, slab overflow (must be 0), an energy audit of 64
    walkers and a torch.profiler trace of one more cycle;
-10. one JSON line with every kernel's launches (summed over the main
-   paths of phases 5, 7 and 9), error against its plain version, times
-   and bound;
-11. as the last line, {"ok": true, "device": {...}}.
+10. path A: the reference's own N=48 example, runs/n216_sample/ice.input
+   with --walkers 4096 and the (1,2,6) stacking pair (DENSE48_CUTS
+   lists every interval cut), through run_input_file in
+   build/chip_smoke_dense48: 40 cycles, then 8 resumed from the
+   checkpoint; ms per cycle, moves/s, launches, an energy audit and the
+   merged histogram;
+11. one JSON line with every kernel's launches (summed over the main
+   paths of phases 5, 5b, 5c, 7, 9 and 10), error against its plain
+   version, times and bound;
+12. as the last line, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds ("[time]").
 
@@ -91,6 +108,13 @@ F32_MAX_DIFF_FRAC = 0.01
 # of them since a chain resync (accumulated f32 round-off of ~10^3
 # accepted energy deltas of a -4 Hartree total)
 AUDIT_MAX_DRIFT = 1e-4          # Hartree
+# the N=48 example (three folded shifts), 5 cycles after a resync: the
+# dense step of the JAX package counts a triplet (i, j, i') twice when
+# molecule j sees two images of the moved molecule i within the cutoff
+# (a box narrower than twice the cutoff), so its tracked energies drift
+# from a recomputation by 2-6e-4 Hartree per walker in 2-6 cycles in
+# float64, in the JAX engine and in the port alike (ROADMAP.md, queue 3)
+AUDIT_DENSE48_MAX_DRIFT = 5e-3  # Hartree
 
 # ---- the large-N cell engine (N=8064)
 W_CELL = 512            # walkers of the N=8064 main path and f32 checks
@@ -112,6 +136,8 @@ F32_CHAIN_RTOL = 1e-6
 # ---- the multi-trial sub-step (cell_trials = 8, the Wang-Landau
 # production runs runs/n8064_wl and runs/n8064_wl2)
 MT_TRIALS = 8
+# the dense multi-trial branch (dense_trials = 8, path C)
+MULTI_T = 8
 W_MT = 128              # walkers of runs/n8064_wl, the f32 checks
 W_MT_FP64 = 16          # walkers of the float64 checks
 # f32 energy audit of the cell engine, one cycle after a chain resync:
@@ -202,40 +228,100 @@ def sample_params(W, dtype, **over):
     return RunParams(**kw)
 
 
-def make_engine(prm, stream=None):
-    """(engine, state) of the stacking pair from the committed weights."""
+def make_engine(prm, stream=None, paper_pair=False):
+    """(engine, state): the stacking pair of ``prm.stack`` from the
+    committed weights (runs/n216_sample/eta_weights.dat), or with
+    ``paper_pair`` the paper's N=216 pair (models/lattices.switch_pair_216)
+    from flat weights."""
     from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
     from mc_water_ls_mw_tpu_torch.mcmc.engine import Engine
     from mc_water_ls_mw_tpu_torch.mcmc.state import init_state
+    from mc_water_ls_mw_tpu_torch.models.lattices import switch_pair_216
     from mc_water_ls_mw_tpu_torch.models.stacking import (
         stacking_switch_pair,
     )
     from mc_water_ls_mw_tpu_torch.models.sw import MW
 
-    r0, H0 = stacking_switch_pair(*prm.stack)
     grid = build_bin_grid(prm.nbins, prm.mu_min, prm.mu_max)
-    w0 = np.loadtxt(os.path.join(ROOT, "runs", "n216_sample",
-                                 "eta_weights.dat"), skiprows=1)[:, 1]
-    if len(w0) != grid.nbins:
-        fail(f"eta_weights.dat has {len(w0)} bins, grid {grid.nbins}")
+    if paper_pair:
+        r0, H0 = switch_pair_216()
+        w0 = None
+    else:
+        r0, H0 = stacking_switch_pair(*prm.stack)
+        w0 = np.loadtxt(os.path.join(ROOT, "runs", "n216_sample",
+                                     "eta_weights.dat"), skiprows=1)[:, 1]
+        if len(w0) != grid.nbins:
+            fail(f"eta_weights.dat has {len(w0)} bins, grid {grid.nbins}")
     s, aux = init_state(prm, MW, r0, H0, grid, weight0=w0, device=DEVICE)
     return Engine(prm, MW, grid, aux, device=DEVICE, stream=stream), s
 
 
-def jittered_cells(W, dtype, seed=0):
-    """Both lattices of the stacking pair as [3,N,W] positions with
-    0.05 Bohr jitter, and their [3,3,W] cells."""
+# the dense-candidate cases of kernel 1 (fused_cycle_dense): the
+# reference's own example size, N=48 (runs/n216_sample/ice.input: 101
+# bins over mu in [-400, 400]; cells of the (1,2,6) stacking pair, N < 96
+# in a box that is not MIC-unique: three folded shifts), and the N=216
+# sample run with exact reference move semantics (nbr_table='off': one
+# shift)
+DENSE_CASES = {
+    "n48": dict(nwater=48, stack=(1, 2, 6), mu_min=-400.0, mu_max=400.0),
+    "n216": dict(nbr_table="off"),
+}
+
+
+def dense_params(W, dtype, case, **over):
+    return sample_params(W, dtype, **{**DENSE_CASES[case], **over})
+
+
+def multi_params(W, dtype, T, **over):
+    """The N=216 Wang-Landau run at dense_trials=T of the JAX package's
+    scripts/bench_dense_multitrial.py (201 bins over mu in [-1800, 1800],
+    samplerun off, mc_switch_prob 0.1, delta-sync every 250 cycles,
+    eq_mc_cycles 1) with the rest of its N=216 parameters
+    (__graft_entry__._setup: the paper's pair, 200 K, 1 atm, 1.1 A
+    steps, mc_vol_prob 1/768, 'mw'), at W walkers."""
+    from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR, AUP_TO_ATM
+    from mc_water_ls_mw_tpu_torch.mcmc.config import RunParams
+
+    kw = dict(
+        nwater=216, num_lattices=2, temperature=200.0,
+        pressure=1.0 / AUP_TO_ATM,
+        mc_max_trans=1.1 * ANG_TO_BOHR, mc_dv_max=0.924 * ANG_TO_BOHR,
+        nbins=201, mu_min=-1800.0, mu_max=1800.0,
+        mc_vol_prob=1.0 / 768, mc_switch_prob=0.1,
+        samplerun=False, eq_mc_cycles=1, list_update_int=10,
+        mpi_sync_int=250, parallel_strategy="mw", window_overlap=1,
+        dense_trials=T, n_walkers=W, dtype=dtype, seed=2014,
+    )
+    kw.update(over)
+    return RunParams(**kw)
+
+
+def kernel_draws(eng, s, seed):
+    """One cycle's draws of the engine's branch from a stream of its own
+    (codes, molecule schedule or None, uniforms)."""
+    from mc_water_ls_mw_tpu_torch.mcmc.engine import PhiloxStream
+
+    _, _, N, W = s.r.shape
+    return PhiloxStream(seed, DEVICE).cycle_draws(
+        s.cycle + 1, eng.probs, N, W, s.r.dtype, trials=eng.dT,
+        shared_mol=not eng.dense)
+
+
+def jittered_cells(W, dtype, seed=0, stack=(3, 3, 6)):
+    """Both lattices of a stacking pair as [3,N,W] positions with 0.05
+    Bohr jitter, and their [3,3,W] cells."""
     import torch
 
     from mc_water_ls_mw_tpu_torch.models.stacking import (
         stacking_switch_pair,
     )
 
-    r0, H0 = stacking_switch_pair(3, 3, 6)
+    r0, H0 = stacking_switch_pair(*stack)
+    N = r0.shape[1]
     rng = np.random.default_rng(seed)
     out = []
     for l in range(2):
-        r3 = r0[l].T[:, :, None] + rng.normal(0, 0.05, (3, 216, W))
+        r3 = r0[l].T[:, :, None] + rng.normal(0, 0.05, (3, N, W))
         H = np.broadcast_to(H0[l][:, :, None], (3, 3, W))
         out.append((torch.as_tensor(r3, dtype=dtype, device=DEVICE),
                     torch.as_tensor(np.ascontiguousarray(H), dtype=dtype,
@@ -281,13 +367,14 @@ FUSED_FIELDS = ("r", "moments", "energy", "mu", "weight", "hist", "uhist",
                 "min_dmu", "max_dmu")
 
 
-def fused_max_err(sk, sp, mask, names=FUSED_FIELDS):
+def fused_max_err(sk, sp, mask, names=None):
     """Largest |kernel - plain| over the walkers in ``mask``, scaled by
     max(1, |plain|), over the continuous fields ``names`` (by default
     every one the kernel writes)."""
     import torch
 
     err = 0.0
+    names = FUSED_FIELDS if names is None else names
     for name in names:
         a, b = getattr(sk, name)[..., mask], getattr(sp, name)[..., mask]
         fin = torch.isfinite(b)
@@ -337,12 +424,7 @@ def fused_bound(eng, s, draws):
 
     codes, sched, cu = draws
     L, _, N, W = s.r.shape
-    B = eng.grid.nbins
-    b = s.r.element_size()
-    rw = (L * 3 * N + 10 * L * N + L + 3 * B + 8) * W * b \
-        + (N + 11) * W * 4
-    ro = (2 * L * 9 + L + 7 * N + B) * W * b + eng.tbl.size * 4
-    nbytes = 2 * rw + ro
+    nbytes = _state_bytes(eng, s, N * 7, _table_bytes(eng, s))
     ops = 0
     trans = [int(m) for c, m in zip(codes.tolist(), sched.tolist())
              if c == 0]
@@ -358,6 +440,197 @@ def fused_bound(eng, s, draws):
             ops += k * (len(js) * W * 2 * OPS_FOLD
                         + n_in * 2 * (OPS_LEG + OPS_WING))
     return _bound(nbytes, ops)
+
+
+def _state_bytes(eng, s, n_u_rows, extra_ro=0):
+    """Bytes of one cycle's state traffic: every array a fused-cycle
+    kernel reads and writes moved once each way, its read-only inputs
+    (cells, volumes, ``n_u_rows`` rows of uniforms, master weights)
+    read once, plus ``extra_ro`` bytes of static tables."""
+    L, _, N, W = s.r.shape
+    B = eng.grid.nbins
+    b = s.r.element_size()
+    rw = (L * 3 * N + 10 * L * N + L + 3 * B + 8) * W * b \
+        + (N + 11) * W * 4
+    ro = (2 * L * 9 + L + n_u_rows + B) * W * b + extra_ro
+    return 2 * rw + ro
+
+
+def _table_bytes(eng, s):
+    """Bytes of the static neighbour tables and frac0."""
+    return eng.tbl.size * 4 + eng.frac0.numel() * s.r.element_size()
+
+
+def _dense_in_range(s, l, p, shifts, rc2, exclude=None):
+    """[W] count of (candidate, shift) legs in range of the points p
+    [3,W] in lattice l, the null image of molecule ``exclude`` [W] left
+    out."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.ops.dense import (
+        _h_components,
+        _img_components,
+        _mic_fold,
+    )
+
+    Hc = _h_components(s.h[l])
+    f = _mic_fold(*(s.r[l, a] - p[a] for a in range(3)), Hc)
+    img = _img_components(shifts, Hc)                        # [S,W] x3
+    r2 = sum((f[a][None] + img[a][:, None]) ** 2 for a in range(3))
+    inr = r2 < rc2                                           # [S,N,W]
+    if exclude is not None:
+        inr[0, exclude, torch.arange(p.shape[-1], device=p.device)] = False
+    return inr.sum(dim=(0, 1))
+
+
+def dense_bound(eng, s, draws):
+    """(ms, bound_by) of one dense-branch cycle: the state moved once
+    each way, and per translation step and walker, in each lattice, a
+    folded distance test of all N candidates from both points plus an
+    image shift and test for each further shift, and the leg and wing
+    work of the legs in range of the old point, counted on the state at
+    the start of the cycle for the molecule each walker draws (the new
+    point's legs taken as many)."""
+    import torch
+
+    codes, _, cu = draws
+    L, _, N, W = s.r.shape
+    S = len(eng.fold_shifts)
+    nbytes = _state_bytes(eng, s, N * 7)
+    walker = torch.arange(W, device=s.r.device)
+    n_steps = n_in = 0
+    for t, code in enumerate(codes.tolist()):
+        if code != 0:
+            continue
+        n_steps += 1
+        imol = torch.clamp((cu[t, 0] * N).to(torch.int64), max=N - 1)
+        for l in range(L):
+            p = s.r[l][:, imol, walker]
+            n_in += int(_dense_in_range(s, l, p, eng.fold_shifts,
+                                        eng.model.rc2, imol).sum())
+    ops = n_steps * W * L * 2 * N * (OPS_FOLD + 9 * (S - 1)) \
+        + n_in * 2 * (OPS_LEG + OPS_WING)
+    return _bound(nbytes, ops)
+
+
+def multi_bound(eng, s, draws):
+    """(ms, bound_by) of one multi-trial cycle: the state moved once each
+    way and the tables read, and per mover and walker, in each lattice,
+    a folded distance test of every valid table partner from point 0 and
+    from each translation trial's point, and the leg and wing work of
+    the partners in range of those points (the trial points computed
+    from the draws on the state at the start of the cycle)."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.ops.dense import _h_components, _mic_fold
+
+    codes, sched, cu = draws
+    L, _, N, W = s.r.shape
+    T = eng.dT
+    nbytes = _state_bytes(eng, s, cu.shape[0] * cu.shape[1],
+                          _table_bytes(eng, s))
+    codes = codes.tolist()
+    n_tests = n_legs = 0
+    for step, imol in enumerate(sched.tolist()):
+        u = cu[step]
+        anc = 2.0 * u[1:4] - 1.0
+        pts = [s.r[:, :, imol, :]]                           # [L,3,W]
+        for t in range(T):
+            if codes[step * T + t] == 0:
+                v = (anc + (2.0 * u[4 + 3 * t:7 + 3 * t] - 1.0)) \
+                    * s.max_trans
+                pts.append(pts[0] + eng._map_disp(s, v))
+        for l in range(L):
+            js = eng._partners[l][imol]
+            Hc = _h_components(s.h[l])
+            n_tests += len(js) * len(pts) * W
+            for p in pts:
+                d = _mic_fold(*(s.r[l, a][js] - p[l, a] for a in range(3)),
+                              Hc)
+                r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+                n_legs += int(((r2 < eng.model.rc2) & (r2 > 1e-8)).sum())
+    ops = n_tests * OPS_FOLD + n_legs * (OPS_LEG + OPS_WING)
+    return _bound(nbytes, ops)
+
+
+def time_cycles(eng, s, draws, reps):
+    """(kernel, plain) milliseconds of one cycle from clones of ``s``:
+    the kernel by CUDA events over ``reps`` cycles after a warm-up one,
+    the plain version by the host clock over one cycle (the plain
+    versions are host-paced)."""
+    import torch
+
+    st = s.clone()
+
+    def one_cycle():
+        st.cycle += 1
+        eng.fused_cycle(st, *draws, True, True)
+
+    ms = cuda_ms(one_cycle, reps)
+    sp = s.clone()
+    sp.cycle += 1
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng.fused_cycle.plain(sp, *draws, True, True)
+    torch.cuda.synchronize()
+    return ms, (time.time() - t0) * 1e3
+
+
+def fused_kernel_check(prm, tag, reps=0, paper_pair=False):
+    """One cycle of the fused-cycle kernel of ``prm``'s engine against its
+    plain version, from the state after two cycles, with the same draws:
+    float64, identical integer outcomes and continuous state within
+    1e-10; float32, at most F32_MAX_DIFF_FRAC of walkers with a
+    differing integer outcome.  Prints the kernel's registers and
+    spills.  With ``reps``, also times the kernel and the plain version
+    and computes the bound, and returns the kernel's report entry."""
+    import torch
+
+    eng, s = make_engine(prm, paper_pair=paper_pair)
+    kernel = eng.fused_cycle.kernel
+    eng.run_cycles(s, 2)                     # walkers drift apart
+    draws = kernel_draws(eng, s, 7)
+    f64 = s.r.dtype == torch.float64
+    W = s.r.shape[-1]
+    sk, sp, differ = fused_compare(eng, s, draws)
+    frac = float(differ.float().mean())
+    ok = ~differ
+    n_acc = int((sk.acc[0] - s.acc[0]).sum())
+    e_err = float(torch.max(torch.abs(sk.energy[:, ok] - sp.energy[:, ok])))
+    # (in f32 a histogram row can still differ on the rest: a mu within
+    # round-off of a bin edge lands in the neighbouring bin)
+    err = fused_max_err(sk, sp, ok, None if f64 else
+                        ("r", "moments", "energy", "mu"))
+    regs, spill, per_sm = eng.fused_cycle.occupancy(s.r.dtype)
+    print(f"[{tag}] {kernel} {'fp64' if f64 else 'f32'} W={W} "
+          f"S={len(eng.fold_shifts)} T={eng.dT}: {int(differ.sum())} walkers "
+          f"differ ({frac:.4%}; limit {0 if f64 else F32_MAX_DIFF_FRAC:.0%})"
+          f", on the rest energy max abs err {e_err:.3e} Hartree, relative "
+          f"state err {err:.3e}; {n_acc} accepted translations; {regs} "
+          f"registers, {spill} spill bytes per thread, at most {per_sm} "
+          f"blocks of 128 walkers per SM", flush=True)
+    if n_acc == 0:
+        fail(f"{kernel}: no translation accepted")
+    if f64:
+        if differ.any() or not err <= 1e-10:
+            fail(f"{kernel} fp64 disagrees with its plain version")
+    elif frac > F32_MAX_DIFF_FRAC:
+        fail(f"{kernel} f32 differs from its plain version on too many "
+             "walkers")
+    if not reps:
+        return None
+    ms, plain_ms = time_cycles(eng, s, draws, reps)
+    bound_ms, bound_by = {"fused_cycle": fused_bound,
+                          "fused_cycle_dense": dense_bound,
+                          "fused_cycle_multi": multi_bound}[kernel](
+                              eng, s, draws)
+    print(f"[{tag}] {kernel} f32 W={W}: kernel {ms:.3f} ms/cycle, plain "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"{-(-W // 128)} blocks on "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs",
+          flush=True)
+    return dict(max_abs_err=e_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def device_rows(prof):
@@ -922,6 +1195,18 @@ def _block_seconds(log_path):
     return int(n), disp, tot
 
 
+def _block_split(log_path):
+    """(therm, wl/monitor, ckpt/other) seconds summed over the app's
+    '# block' lines of a log (each printed to 0.1 s)."""
+    out = [0.0, 0.0, 0.0]
+    for ln in open(log_path):
+        if ln.startswith("# block "):
+            parts = ln.split()
+            for k, i in enumerate((12, 15, 18)):
+                out[k] += float(parts[i])
+    return out
+
+
 def frontend_run():
     """Drive runs/n8064_wl (128 walkers, float32, cell_trials=8) through
     the port's run_input_file in build/chip_smoke_frontend: 6 cycles,
@@ -1067,6 +1352,165 @@ def frontend_run():
                          for k in kernels}}
 
 
+# ----------------------------------------------------------------------
+# path A: the reference's own N=48 example through run_input_file
+# ----------------------------------------------------------------------
+
+# runs/n216_sample/ice.input (the reference's ice1 weight generation,
+# nwater = 48) with the README's --walkers 4096, and the (1,2,6)
+# stacking pair in place of the example's xmol lattice files, which are
+# not in the repository
+DENSE48 = dict(n_walkers=4096, stack=(1, 2, 6))
+# what the smoke run cuts, to fit volume moves, delta-syncs, chain
+# resyncs, monitor_stats with eq_adjust_mc, check_flatness and
+# checkpoints into 40 + 8 cycles: these cycle counts and intervals (the
+# run's own values, from the input or the defaults, in the comments)
+DENSE48_CUTS = dict(
+    eq_mc_cycles=16,            # 10000
+    monitor_int=8,              # 1000
+    flat_chk_int=16,            # 10000
+    file_output_int=8,          # 50
+    chkpt_dump_int=16,          # 1000
+    mpi_sync_int=8,             # 250
+    latt_sync_int=16,           # 10000
+)
+DENSE48_CYCLES = (40, 8)        # first call, resumed call
+
+
+def dense48_run():
+    """Drive runs/n216_sample/ice.input (N=48, 4096 walkers, float32)
+    through the port's run_input_file in build/chip_smoke_dense48: 40
+    cycles, then a second call that resumes from the checkpoint for 8
+    more.  The kernels' counts are those of the engines the two calls
+    built (created at 0 when the run sets up).  Returns {"launches":
+    {kernel: count over both calls}, "s_per_cycle": ...}."""
+    import shutil
+
+    import torch
+
+    from mc_water_ls_mw_tpu_torch import app as app_mod
+    from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
+    from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value64
+
+    apps = []
+
+    class Recorded(app_mod.Application):
+        """The Application, remembered so that its engine can be read."""
+
+        def setup(self):
+            apps.append(self)
+            return super().setup()
+
+    d = os.path.join(ROOT, "build", "chip_smoke_dense48")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    shutil.copy(os.path.join(ROOT, "runs", "n216_sample", "ice.input"), d)
+    over = {**DENSE48, **DENSE48_CUTS}
+    path = os.path.join(d, "ice.input")
+    cwd, original = os.getcwd(), app_mod.Application
+    app_mod.Application = Recorded
+    try:
+        out = []
+        for n_cyc in DENSE48_CYCLES:
+            t0 = time.time()
+            s = app_mod.run_input_file(path, overrides=over,
+                                       max_cycles=n_cyc, device=DEVICE)
+            torch.cuda.synchronize()
+            eng = apps[-1].engine
+            out.append(dict(wall=time.time() - t0, s=s, app=apps[-1],
+                            launches={
+                                "fused_cycle_dense": eng.fused_cycle.launches,
+                                "full_energy": eng.full_energy.launches}))
+    finally:
+        os.chdir(cwd)
+        app_mod.Application = original
+    first, second = out
+    eng, s = second["app"].engine, second["s"]
+    prm = eng.prm
+    W = DENSE48["n_walkers"]
+    if not (eng.dense and len(eng.fold_shifts) == 3 and prm.nwater == 48
+            and s.r.shape[-1] == W and s.r.dtype == torch.float32
+            and not prm.samplerun):
+        fail("the N=48 run did not build the dense-candidate float32 WL "
+             f"engine with three folded shifts at {W} walkers")
+    for run, n_cyc in zip(out, DENSE48_CYCLES):
+        if run["launches"]["fused_cycle_dense"] != n_cyc:
+            fail(f"N=48 run: launches {run['launches']}, expected {n_cyc} "
+                 "of the dense kernel")
+    if first["s"].cycle != DENSE48_CYCLES[0] or \
+            second["app"].start_cycle != DENSE48_CYCLES[0] or \
+            s.cycle != sum(DENSE48_CYCLES):
+        fail(f"the resumed N=48 run did not continue from cycle "
+             f"{DENSE48_CYCLES[0]}: started at "
+             f"{second['app'].start_cycle}, ended at {s.cycle}")
+    node = open(os.path.join(d, "node000.log")).read()
+    glog = open(os.path.join(d, "mc.log")).read()
+    n_vol = sum(int(ln.split()[5]) for ln in node.splitlines()
+                if ln.endswith(" box moves"))
+    need = {
+        "monitor_stats with eq_adjust_mc": "# Max molecule translation",
+        "check_flatness": "# Checking flatness of histogram at cycle",
+        "the restart": f"# Restarting from cycle {DENSE48_CYCLES[0]} (",
+    }
+    for what, text in need.items():
+        if text not in node + glog:
+            fail(f"N=48 run: no trace of {what} in the logs")
+    files = set(os.listdir(d))
+    want = {"checkpoint000.npz.1", "checkpoint000.npz.2", "eta_weights.dat",
+            "histogram.dat", "mW.psf", "mW.dcd", "mc.log", "node000.log",
+            "ice000_therm.dat"}
+    if not want <= files:
+        fail(f"N=48 run: missing files {sorted(want - files)}")
+    # the energy audit 5 cycles after the last chain resync (cycle 48);
+    # its limit is the drift of the JAX package's own dense step here
+    eng.run_cycles(s, 5)
+    s, drift = eng.audit_energy(s, n_walkers=64)
+    max_drift = float(torch.max(torch.abs(drift)))
+    # the engine's own cycle time on the host clock (the app's block
+    # lines print seconds to 0.1 s), 10 cycles before the next resync
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng.run_cycles(s, 10)
+    torch.cuda.synchronize()
+    s_cycle = (time.time() - t0) / 10
+    eng.merged_histogram(s)
+    hist = ds_value64(s.master_hist)[0]
+    n, disp, tot = _block_seconds(os.path.join(d, "mc.log"))
+    therm, wlmon, ckpt = _block_split(os.path.join(d, "mc.log"))
+    rate = prm.nwater * W / s_cycle
+    kind = torch.cuda.get_device_name(0)
+    print(f"[dense48] runs/n216_sample/ice.input through run_input_file, "
+          f"overrides {sorted(DENSE48)} and {sorted(DENSE48_CUTS)} (cut): "
+          f"N={prm.nwater} W={W} float32, {len(eng.fold_shifts)} folded "
+          f"shifts, {prm.nbins} bins", flush=True)
+    print(f"[dense48] 10 more cycles: {s_cycle * 1e3:.3f} ms/cycle = "
+          f"{rate:.4e} moves/s on {kind}; the app's {n} cycles over both "
+          f"calls: {disp:.1f} s in the cycle loop, {tot:.1f} s with the "
+          f"block events (therm {therm:.1f} s, wl/monitor {wlmon:.1f} s, "
+          f"checkpoints {ckpt:.1f} s); calls {first['wall']:.1f} s and "
+          f"{second['wall']:.1f} s with set-up; {n_vol} volume-move "
+          f"attempts (all walkers, cycles "
+          f"1-{prm.monitor_int * (sum(DENSE48_CYCLES) // prm.monitor_int)}); "
+          f"launches {first['launches']} + {second['launches']}; resumed "
+          f"at cycle {second['app'].start_cycle}; max_trans "
+          f"{float(s.max_trans.mean()) / ANG_TO_BOHR:.4f} A (from "
+          f"{prm.mc_max_trans / ANG_TO_BOHR:.4f}); audit of 64 walkers 5 "
+          f"cycles after a resync: max |drift| {max_drift:.3e} Hartree "
+          f"(limit {AUDIT_DENSE48_MAX_DRIFT:g}); merged histogram sum "
+          f"{hist.sum():.6e} over {int((hist > 0).sum())} bins", flush=True)
+    if n_vol <= 0:
+        fail("N=48 run: no volume move")
+    if not max_drift < AUDIT_DENSE48_MAX_DRIFT:
+        fail("N=48 run: energy audit drift")
+    if not (np.isfinite(hist.sum()) and hist.sum() > 0):
+        fail("N=48 run: the merged histogram is empty or not finite")
+    if not (abs(float(s.max_trans.mean()) - prm.mc_max_trans) > 1e-6):
+        fail("N=48 run: eq_adjust_mc left max_trans as it was")
+    return {"launches": {k: first["launches"][k] + second["launches"][k]
+                         for k in first["launches"]},
+            "s_per_cycle": s_cycle, "rate": rate}
+
+
 def _bound(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_PER_S * 1e3
@@ -1103,7 +1547,6 @@ def main() -> int:
           flush=True)
 
     from mc_water_ls_mw_tpu_torch import cuda_build
-    from mc_water_ls_mw_tpu_torch.mcmc.engine import PhiloxStream
     from mc_water_ls_mw_tpu_torch.mcmc.wanglandau import deltaG_from_uhist
     from mc_water_ls_mw_tpu_torch.models.sw import MW
     from mc_water_ls_mw_tpu_torch.ops.dense import reduced_shift_set
@@ -1161,73 +1604,60 @@ def main() -> int:
           f"{fe_plain_ms:.3f} ms, bound {fe_bound_ms:.4f} ms "
           f"({fe_bound_by})", flush=True)
 
+    # three folded shifts: the N=48 cells of the (1,2,6) stacking pair
+    shifts48 = reduced_shift_set(stacking_switch_pair(1, 2, 6)[1], MW)
+    fe48 = FullEnergyKernel(MW, shifts48)
+    for dtype in (torch.float64, torch.float32):
+        for l, (r3, H) in enumerate(jittered_cells(W, dtype, seed=2,
+                                                   stack=(1, 2, 6))):
+            rel, merr, mscale = full_energy_errors(fe48, r3, H)
+            print(f"[full_energy] N=48 S={len(shifts48)} {str(dtype)[6:]} "
+                  f"lattice {l}: E rel err {rel:.3e}, moments max abs err "
+                  f"{merr:.3e} (max |mom| {mscale:.3f})", flush=True)
+            if dtype == torch.float64:
+                if not (rel <= 1e-12 and merr <= 1e-12 * max(1, mscale)):
+                    fail("FullEnergyKernel fp64 at S=3 disagrees with its "
+                         "plain version")
+            elif not (rel <= F32_E_RTOL and merr <= F32_MOM_ATOL):
+                fail("FullEnergyKernel f32 at S=3 disagrees with its plain "
+                     "version")
+    print(f"[full_energy] N=48 S={len(shifts48)} f32 W={W}: kernel "
+          f"{cuda_ms(lambda: fe48(r3, H), 20):.4f} ms, plain "
+          f"{cuda_ms(lambda: fe48.plain(r3, H), 3):.3f} ms", flush=True)
+
     phase_time("3. full energy")
 
-    # ---- 4. FusedCycle vs plain
+    # ---- 4. FusedCycle's kernels vs plain: the table branch, 4b. the
+    # dense-candidate branch at N=216 (one shift) and N=48 (three), 4c.
+    # the multi-trial branch at T=8
     for samplerun in (True, False):
-        prm = sample_params(W_FP64, "float64", samplerun=samplerun,
-                            wl_factor=0.0 if samplerun else 0.005,
-                            eq_mc_cycles=0)
-        eng, s = make_engine(prm)
-        eng.run_cycles(s, 2)                 # walkers drift apart
-        draws = PhiloxStream(7, DEVICE).cycle_draws(
-            s.cycle + 1, eng.probs, 216, W_FP64, torch.float64)
-        sk, sp, differ = fused_compare(eng, s, draws)
-        err = fused_max_err(sk, sp, ~differ)
-        n_acc = int((sk.acc[0] - s.acc[0]).sum())
-        print(f"[fused] fp64 W={W_FP64} samplerun={samplerun}: "
-              f"{int(differ.sum())} walkers differ, max err {err:.3e}, "
-              f"{n_acc} accepted translations", flush=True)
-        if differ.any() or not err <= 1e-10 or n_acc == 0:
-            fail("FusedCycle fp64 disagrees with its plain version")
-    prm = sample_params(W, "float32", eq_mc_cycles=0)
-    eng, s = make_engine(prm)
-    eng.run_cycles(s, 2)
-    draws = PhiloxStream(7, DEVICE).cycle_draws(
-        s.cycle + 1, eng.probs, 216, W, torch.float32)
-    sk, sp, differ = fused_compare(eng, s, draws)
-    frac = float(differ.float().mean())
-    ok = ~differ
-    e_err = float(torch.max(torch.abs(sk.energy[:, ok] - sp.energy[:, ok])))
-    # (a histogram row can still differ on the rest: a mu within
-    # round-off of a bin edge lands in the neighbouring bin)
-    print(f"[fused] f32 W={W}: {frac:.4%} of walkers differ "
-          f"(limit {F32_MAX_DIFF_FRAC:.0%}); on the rest energy max abs "
-          f"err {e_err:.3e} Hartree, relative chain-state err "
-          f"{fused_max_err(sk, sp, ok, ('r', 'moments', 'energy', 'mu')):.3e}",
-          flush=True)
-    if frac > F32_MAX_DIFF_FRAC:
-        fail("FusedCycle f32 differs from its plain version on too many "
-             "walkers")
-
-    def one_kernel_cycle(st=s.clone()):
-        st.cycle += 1
-        eng.fused_cycle(st, *draws, True, True)
-
-    fused_ms = cuda_ms(one_kernel_cycle, 5)
-    t0 = time.time()
-    sp2 = s.clone()
-    sp2.cycle += 1
-    eng.fused_cycle.plain(sp2, *draws, True, True)
-    torch.cuda.synchronize()
-    fused_plain_ms = (time.time() - t0) * 1e3
-    fused_bound_ms, fused_bound_by = fused_bound(eng, s, draws)
-    report["fused_cycle"] = dict(
-        max_abs_err=e_err, ms=fused_ms, plain_ms=fused_plain_ms,
-        bound_ms=fused_bound_ms, bound_by=fused_bound_by)
-    print(f"[fused] f32 W={W}: kernel {fused_ms:.3f} ms/cycle, plain "
-          f"{fused_plain_ms:.1f} ms, bound {fused_bound_ms:.4f} ms "
-          f"({fused_bound_by})", flush=True)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for dtype in (torch.float32, torch.float64):
-        regs, spill, per_sm = eng.fused_cycle.occupancy(dtype)
-        print(f"[fused] {str(dtype)[6:]} occupancy: {regs} registers and "
-              f"{spill} spill bytes per thread, at most {per_sm} blocks of "
-              f"128 walkers per SM; W={W} launches {-(-W // 128)} blocks "
-              f"on {sms} SMs", flush=True)
-    del eng, s, sk, sp, sp2
-
+        fused_kernel_check(sample_params(
+            W_FP64, "float64", samplerun=samplerun,
+            wl_factor=0.0 if samplerun else 0.005, eq_mc_cycles=0), "fused")
+    report["fused_cycle"] = fused_kernel_check(
+        sample_params(W, "float32", eq_mc_cycles=0), "fused", reps=5)
     phase_time("4. fused cycle")
+
+    for case in ("n216", "n48"):
+        sample = case == "n216"          # path B samples, path A builds WL
+        for Wk, dt in ((W_FP64, "float64"), (W, "float32")):
+            out = fused_kernel_check(
+                dense_params(Wk, dt, case, samplerun=sample,
+                             wl_factor=0.0 if sample else 0.005,
+                             eq_mc_cycles=0),
+                f"dense-{case}", reps=3 if dt == "float32" else 0)
+            if sample and out is not None:
+                report["fused_cycle_dense"] = out
+    phase_time("4b. dense-candidate kernel")
+
+    for Wk, dt in ((W_FP64, "float64"), (W, "float32")):
+        out = fused_kernel_check(
+            multi_params(Wk, dt, MULTI_T, eq_mc_cycles=0), "multi",
+            reps=5 if dt == "float32" else 0, paper_pair=True)
+        if out is not None:
+            report["fused_cycle_multi"] = out
+    torch.cuda.empty_cache()
+    phase_time("4c. multi-trial kernel")
 
     # ---- 5. the main path
     prm = sample_params(W, "float32", mpi_sync_int=5, latt_sync_int=10,
@@ -1274,6 +1704,98 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_time("5. N=216 main path")
+
+    # ---- 5b. path B: the N=216 sample run with exact reference move
+    # semantics (nbr_table='off': the dense-candidate kernel)
+    prm = dense_params(W, "float32", "n216", mpi_sync_int=5,
+                       latt_sync_int=10, eq_mc_cycles=20, max_mc_cycles=45)
+    eng, s = make_engine(prm)
+    eng.run_cycles(s, 20)                    # warm-up = equilibration
+    torch.cuda.synchronize()
+    eng.fused_cycle.launches = 0
+    eng.full_energy.launches = 0
+    t0 = time.time()
+    s, samples = eng.run_cycles(s, 20)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    dense_launches = {"fused_cycle_dense": eng.fused_cycle.launches,
+                      "full_energy": eng.full_energy.launches}
+    print(f"[dense-main] N=216 nbr_table='off' W={W} f32: 20 cycles in "
+          f"{elapsed:.3f} s = {elapsed / 20 * 1e3:.3f} ms/cycle = "
+          f"{W * prm.nwater * 20 / elapsed:.4e} moves/s on {kind} ({card}); "
+          f"launches {dense_launches}", flush=True)
+    if dense_launches["fused_cycle_dense"] != 20:
+        fail(f"the dense kernel was not launched once per cycle: "
+             f"{dense_launches}")
+    if not torch.isfinite(samples["E_ls"]).all():
+        fail("non-finite therm samples on path B")
+    profile_cycles(eng, s, 5, elapsed / 20, tag="dense-profile")
+    s, drift = eng.audit_energy(s, n_walkers=64)    # 5 cycles after a resync
+    max_drift = float(torch.max(torch.abs(drift)))
+    att, acc = s.att.sum(dim=1).tolist(), s.acc.sum(dim=1).tolist()
+    print(f"[dense-main] audit of 64 walkers: max |drift| {max_drift:.3e} "
+          f"Hartree (limit {AUDIT_MAX_DRIFT:g}); accepted "
+          f"{[a / max(t, 1) for a, t in zip(acc, att)]} of trans/vol/switch",
+          flush=True)
+    if not max_drift < AUDIT_MAX_DRIFT:
+        fail("path B energy audit drift")
+    eng.merged_histogram(s)
+    dg = deltaG_from_uhist(prm, eng.grid, ds_value64(s.master_uhist)[0])
+    if dg is None or not all(np.all(np.isfinite(v)) for v in dg.values()):
+        fail(f"path B: Delta G is not finite: {dg}")
+    print(f"[dense-main] Delta G(Ic - Ih) = {dg['kT_per_mol']:.6e} "
+          f"kT/molecule = {dg['J_per_mol']:.4f} J/mol after 25 sampling "
+          "cycles (not converged: a smoke value)", flush=True)
+    for k, n in dense_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    del eng, s, samples
+    torch.cuda.empty_cache()
+    phase_time("5b. path B (N=216, nbr_table='off')")
+
+    # ---- 5c. path C: N=216 Wang-Landau at dense_trials = 1, 2, 4, 8
+    for T in (1, 2, 4, MULTI_T):
+        prm = multi_params(W, "float32", T)
+        eng, s = make_engine(prm, paper_pair=True)
+        eng.run_cycles(s, 5)                 # warm-up, WL live
+        torch.cuda.synchronize()
+        eng.fused_cycle.launches = 0
+        att0 = int(s.att[0].sum())
+        t0 = time.time()
+        s, samples = eng.run_cycles(s, 20)
+        torch.cuda.synchronize()
+        elapsed = time.time() - t0
+        n_launch = eng.fused_cycle.launches
+        trials = int(s.att[0].sum()) - att0
+        print(f"[multi-main] N=216 WL T={T} W={W} f32 ({eng.fused_cycle.kernel}"
+              f"): 20 cycles in {elapsed:.3f} s = {elapsed / 20 * 1e3:.3f} "
+              f"ms/cycle = {W * prm.nwater * 20 / elapsed:.4e} trials/s "
+              f"({trials / elapsed:.4e} translation trials/s) on {kind}; "
+              f"{n_launch} launches; accepted "
+              f"{float(s.acc[0].sum()) / max(1, int(s.att[0].sum())):.4f} "
+              "of translations", flush=True)
+        if n_launch != 20 or not torch.isfinite(samples["E_ls"]).all():
+            fail(f"path C at T={T}: {n_launch} launches or non-finite "
+                 "samples")
+        if T == MULTI_T:
+            launches["fused_cycle_multi"] = n_launch
+            eng.resync_chains(s)
+            eng.run_cycles(s, 5)
+            s, drift = eng.audit_energy(s, n_walkers=64)
+            max_drift = float(torch.max(torch.abs(drift)))
+            eng.merged_histogram(s)
+            hist = ds_value64(s.master_hist)[0]
+            print(f"[multi-main] T={T}: audit of 64 walkers 5 cycles after "
+                  f"a resync: max |drift| {max_drift:.3e} Hartree (limit "
+                  f"{AUDIT_MAX_DRIFT:g}); merged histogram sum "
+                  f"{hist.sum():.6e} over {int((hist > 0).sum())} bins",
+                  flush=True)
+            if not max_drift < AUDIT_MAX_DRIFT:
+                fail("path C energy audit drift")
+            if not (np.isfinite(hist.sum()) and hist.sum() > 0):
+                fail("path C: the merged histogram is empty or not finite")
+        del eng, s, samples
+    torch.cuda.empty_cache()
+    phase_time("5c. path C (N=216, dense_trials sweep)")
 
     # ---- 6. the cell engine's kernels vs plain
     from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value
@@ -1495,13 +2017,30 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     phase_time("9. front-end path")
 
-    # ---- 10. the kernels
+    # ---- 10. path A: the reference's own N=48 example through the front
+    # end (the dense-candidate kernel at three folded shifts)
+    d48 = dense48_run()
+    for name, n in d48["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    phase_time("10. path A (N=48 example)")
+
+    # ---- 11. the kernels
     kernels = [
         dict(name="fused_cycle", route="cuda",
              source="mc_water_ls_mw_tpu_torch/csrc/fused_cycle.cu",
              replaces="mc_water_ls_mw_tpu/mcmc/fused.py:1099",
              launches=launches["fused_cycle"], library_ms=None,
              **report["fused_cycle"]),
+        dict(name="fused_cycle_dense", route="cuda",
+             source="mc_water_ls_mw_tpu_torch/csrc/fused_cycle.cu",
+             replaces="mc_water_ls_mw_tpu/mcmc/fused.py:584",
+             launches=launches["fused_cycle_dense"], library_ms=None,
+             **report["fused_cycle_dense"]),
+        dict(name="fused_cycle_multi", route="cuda",
+             source="mc_water_ls_mw_tpu_torch/csrc/fused_cycle.cu",
+             replaces="mc_water_ls_mw_tpu/mcmc/fused.py:856",
+             launches=launches["fused_cycle_multi"], library_ms=None,
+             **report["fused_cycle_multi"]),
         dict(name="full_energy", route="cuda",
              source="mc_water_ls_mw_tpu_torch/csrc/full_energy.cu",
              replaces="mc_water_ls_mw_tpu/ops/pallas_energy.py:44",

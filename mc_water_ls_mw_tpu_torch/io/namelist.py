@@ -126,6 +126,9 @@ _GROUPS = {
         "largen", "largen_threshold", "cell_cap", "relabel", "stack",
         "nbr_table", "trans_wall", "fused", "cell_pallas",
         "cell_trials", "cell_chain",
+        # the dense engine's multi-trial branch; an extension of the
+        # port (the JAX package's reader rejects the key)
+        "dense_trials",
     ],
 }
 

@@ -2,18 +2,28 @@
 
 Counterpart of ``mc_water_ls_mw_tpu/mcmc/engine.py`` (the dense walker
 engine; reference mc_moves.F90), for the slice the port covers: two
-lattices, NPT, the 'mw' strategy (one window shared by all walkers), the
-static neighbour-table mode with its displacement wall, Wang-Landau
-weight generation or a sample run.  Every other setting raises
-``NotImplementedError`` in ``Engine.__init__``.
+lattices, NPT, the 'mw' strategy (one window shared by all walkers),
+Wang-Landau weight generation or a sample run, in either candidate
+mode of the JAX package:
+
+* static neighbour tables with their displacement wall (N >= 96 in a
+  MIC-unique box): a molecule schedule shared by all walkers, one trial
+  per move or ``dense_trials`` = T > 1 anchored-window trials per mover;
+* dense candidates (no tables: N < 96, a box that is not MIC-unique, or
+  ``nbr_table='off'``): each walker draws its own molecule and every
+  molecule under every folded image shift is a candidate, with no wall
+  (the reference's own move semantics).
+
+Every other setting raises ``NotImplementedError`` in
+``Engine.__init__``.
 
 One cycle (``_one_cycle``) draws a shared move schedule and per-walker
 uniforms from the engine's random stream, runs every translation,
 switch attempt and per-move WL update of the cycle through
-``FusedCycle`` (the hand-written CUDA kernel on the card, a plain step
-loop on the CPU), then the scheduled volume moves (whose whole-cell
-energies go through ``FullEnergyKernel``), the delta-sync of the WL
-arrays and the chain resync at their intervals.
+``FusedCycle`` (one hand-written CUDA kernel per candidate mode on the
+card, a plain step loop on the CPU), then the scheduled volume moves
+(whose whole-cell energies go through ``FullEnergyKernel``), the
+delta-sync of the WL arrays and the chain resync at their intervals.
 
 Design notes that differ from the JAX engine:
 
@@ -42,6 +52,7 @@ from ..ops.dense import (
     _mic_fold,
     _pair,
     full_energy_batch,
+    local_energies_batch,
     reduced_shift_set,
 )
 from ..ops.dsfloat import ds_add, ds_sub, ds_value, ds_where
@@ -90,17 +101,27 @@ class PhiloxStream:
         self.sched.manual_seed(int(s0))
         self.walk.manual_seed(int(s1))
 
-    def cycle_draws(self, cycle, probs, N, W, dtype):
-        """(codes [N], sched_mol [N]) on the CPU, cycle_u [N,7,W]."""
+    def cycle_draws(self, cycle, probs, N, W, dtype, trials=1,
+                    shared_mol=True):
+        """(codes [N], sched_mol, cycle_u) of one cycle: the move codes
+        of all N trials on the CPU; with ``shared_mol`` (table mode) the
+        molecule schedule [N // trials] on the CPU, else None (each
+        walker's molecule comes from slot 0 of its uniforms); the
+        per-walker uniforms [N // trials, n_u, W], n_u = 7 at one trial
+        per move and 4 + 5T at T = ``trials`` (mcmc/fused.py)."""
         xi = torch.rand((N,), generator=self.sched, dtype=dtype)
         transP, volP, swP = probs
         codes = torch.where(
             xi < transP, TRANS,
             torch.where(xi < volP, VOL,
                         torch.where(xi < swP, SWITCH, NOOP)))
-        sched = torch.randint(0, N, (N,), generator=self.sched)
-        cycle_u = torch.rand((N, 7, W), generator=self.walk, dtype=dtype,
-                             device=self.device)
+        n_steps = N // trials
+        sched = None
+        if shared_mol:
+            sched = torch.randint(0, N, (N,), generator=self.sched)[:n_steps]
+        n_u = 7 if trials == 1 else 4 + 5 * trials
+        cycle_u = torch.rand((n_steps, n_u, W), generator=self.walk,
+                             dtype=dtype, device=self.device)
         return codes, sched, cycle_u
 
     def volume_draws(self, cycle, k, W, dtype):
@@ -167,28 +188,35 @@ class Engine:
 
     def _init_layout(self):
         """The configurational layout's tables and kernels (the dense
-        walker engine: static neighbour tables and the two N=216
-        kernels; the cell engine overrides this)."""
+        walker engine: static neighbour tables where ``init_state`` built
+        them, dense candidates otherwise, and the two N <= ~10^3 kernels;
+        the cell engine overrides this)."""
         prm, model, aux = self.prm, self.model, self.aux
         # MIC-folded residual shift set (a single null shift in table
-        # mode: the box is MIC-unique)
+        # mode: the box is MIC-unique; up to a few in dense mode)
         self.fold_shifts = reduced_shift_set(aux.ref_h, model)
         self.wall = float(aux.wall)
-        self.tbl = np.asarray(aux.nbr_tbl, np.int32)         # [L,N,M]
-        N = prm.nwater
-        # each molecule's valid table partners (sentinel N dropped)
-        self._partners = [
-            [torch.as_tensor(row[row < N].astype(np.int64),
-                             device=self.device) for row in self.tbl[l]]
-            for l in range(self.tbl.shape[0])
-        ]
-        self.frac0 = torch.as_tensor(aux.frac0, dtype=self.dtype,
-                                     device=self.device)     # [L,3,N]
-        # runtime guard for the tables' breathing margin (see
-        # _vol_extra_ok)
-        self.min_perp_w = np.stack([
-            perp_widths(aux.ref_h[l]) for l in range(aux.ref_h.shape[0])
-        ]) / BREATHING                                       # [L,3]
+        # anchored-window trials per mover (table mode only; validated
+        # by _check_scope)
+        self.dT = max(1, int(prm.dense_trials))
+        self.dense = aux.nbr_tbl is None
+        self.tbl = self._partners = self.frac0 = self.min_perp_w = None
+        if not self.dense:
+            self.tbl = np.asarray(aux.nbr_tbl, np.int32)     # [L,N,M]
+            N = prm.nwater
+            # each molecule's valid table partners (sentinel N dropped)
+            self._partners = [
+                [torch.as_tensor(row[row < N].astype(np.int64),
+                                 device=self.device) for row in self.tbl[l]]
+                for l in range(self.tbl.shape[0])
+            ]
+            self.frac0 = torch.as_tensor(aux.frac0, dtype=self.dtype,
+                                         device=self.device)  # [L,3,N]
+            # runtime guard for the tables' breathing margin (see
+            # _vol_extra_ok)
+            self.min_perp_w = np.stack([
+                perp_widths(aux.ref_h[l]) for l in range(aux.ref_h.shape[0])
+            ]) / BREATHING                                   # [L,3]
         self.full_energy = FullEnergyKernel(model, self.fold_shifts)
         self.fused_cycle = FusedCycle(self)
 
@@ -266,7 +294,13 @@ class Engine:
         inv_norm = torch.rsqrt(
             torch.clamp(d0 * d0 + d1 * d1 + d2 * d2, min=1e-30))
         rmag = (2.0 * u[4] - 1.0) * s.max_trans * inv_norm
-        v = torch.stack([d0 * rmag, d1 * rmag, d2 * rmag])   # [3,W]
+        return self._map_disp(s, torch.stack([d0 * rmag, d1 * rmag,
+                                              d2 * rmag]))
+
+    def _map_disp(self, s: SamplerState, v):
+        """Active-lattice displacement v [3, W] -> per-lattice trial
+        vectors [L, 3, W]: the same fractional displacement in the
+        partner lattice (mc_moves.F90:1042-1067)."""
         sfrac = to_frac(_take_lat(s.recip, s.ls), v)
         return torch.stack([
             torch.where(s.ls == l, v, from_frac(s.h[l], sfrac))
@@ -358,16 +392,7 @@ class Engine:
             effs.append(torch.stack(list(mm_eff)))
             owns.append(torch.stack(list(own_n)))
         dE = torch.stack(e_news) - torch.stack(e_olds)       # [L,W]
-
-        dmu = (dE[0] - dE[1]) * prm.beta
-        mu_new = s.mu + dmu                                  # (1113)
-        eta_old = self._eta(s, s.mu)
-        eta_new = self._eta(s, mu_new)
-        diffkT = prm.beta * _take_lat(dE, s.ls) + eta_new - eta_old
-        # finite-state guard: never accept non-finite deltas (a
-        # poisoned walker would pump WL weight at its stale bin)
-        ok = torch.isfinite(diffkT) & torch.isfinite(mu_new) & in_wall
-        accept = ok & (u[5] < torch.exp(-diffkT))            # (1146)
+        accept, mu_new, dmu = self._trans_decision(s, dE, u[5], in_wall)
 
         for l in range(L):
             js = self._partners[l][imol]
@@ -375,18 +400,161 @@ class Engine:
             s.moments[:, l, imol, :] = torch.where(
                 accept, owns[l], s.moments[:, l, imol, :])
             s.moments[:, l, js, :] = torch.where(accept, effs[l], cands[l])
+        s.trans_per_mol[imol] += 1
+        self._trans_bookkeeping(s, accept, mu_new, dmu, dE, wl_active)
+
+    def _trans_decision(self, s: SamplerState, dE, u_acc, extra_ok=None):
+        """Acceptance of a translation with per-lattice energy changes
+        dE [L, W] (mc_moves.F90:1113-1146) -> (accept, mu_new, dmu), all
+        [W].  ``extra_ok``: the displacement wall of table mode."""
+        prm = self.prm
+        dmu = (dE[0] - dE[1]) * prm.beta
+        mu_new = s.mu + dmu                                  # (1113)
+        eta_old = self._eta(s, s.mu)
+        eta_new = self._eta(s, mu_new)
+        diffkT = prm.beta * _take_lat(dE, s.ls) + eta_new - eta_old
+        # finite-state guard: never accept non-finite deltas (a
+        # poisoned walker would pump WL weight at its stale bin)
+        ok = torch.isfinite(diffkT) & torch.isfinite(mu_new)
+        if extra_ok is not None:
+            ok = ok & extra_ok
+        accept = ok & (u_acc < torch.exp(-diffkT))           # (1146)
+        return accept, mu_new, dmu
+
+    def _trans_bookkeeping(self, s: SamplerState, accept, mu_new, dmu, dE,
+                           wl_active: bool):
+        """Energies, mu, counters and the per-move WL update after a
+        performed translation (mc_moves.F90:1113, 1156-1159)."""
         # where-based: a rejected overlap proposal can carry non-finite dE
         s.energy = torch.where(accept, s.energy + dE, s.energy)
         s.mu = torch.where(accept, mu_new, s.mu)
         s.att[TRANS] += 1
         s.acc[TRANS] += accept.to(torch.int32)
-        s.trans_per_mol[imol] += 1
         admu = torch.abs(dmu)
         s.min_dmu = torch.where(accept & (admu < s.min_dmu), admu,
                                 s.min_dmu)
         s.max_dmu = torch.where(accept & (admu > s.max_dmu), admu,
                                 s.max_dmu)
         self._wl_update(s, wl_active)
+
+    def _translation(self, s: SamplerState, u, wl_active: bool):
+        """One dense-candidate translation (mc_water_translation,
+        mc_moves.F90:966-1213): each walker moves its own molecule
+        ``min(int(u[0] N), N-1)``, every molecule under every folded
+        image shift is a candidate (ops/dense.local_energies_batch), and
+        there is no displacement wall.  u [7, W].  The plain counterpart
+        of one step of the dense fused kernel; callers skip steps whose
+        scheduled move is not a translation."""
+        L, _, N, W = s.r.shape
+        imol = torch.clamp((u[0] * N).to(torch.int32), max=N - 1)
+        transvec = self._trial_vectors(s, u)                 # [L,3,W]
+        walker = torch.arange(W, device=s.r.device)
+        idx = imol.long()
+        e_olds, e_news, effs, p_news = [], [], [], []
+        for l in range(L):
+            p_new = s.r[l, :, idx, walker] + transvec[l]     # [3,W]
+            e_old, e_new, eff = local_energies_batch(
+                s.r[l], s.h[l], imol, p_new, Moments(*s.moments[:, l]),
+                self.fold_shifts, self.model, True)
+            e_olds.append(e_old)
+            e_news.append(e_new)
+            effs.append(torch.stack(list(eff)))
+            p_news.append(p_new)
+        dE = torch.stack(e_news) - torch.stack(e_olds)       # [L,W]
+        accept, mu_new, dmu = self._trans_decision(s, dE, u[5])
+
+        for l in range(L):
+            s.r[l, :, idx, walker] = torch.where(
+                accept, p_news[l], s.r[l, :, idx, walker])
+            s.moments[:, l] = torch.where(accept, effs[l], s.moments[:, l])
+        s.trans_per_mol[idx, walker] += 1
+        self._trans_bookkeeping(s, accept, mu_new, dmu, dE, wl_active)
+
+    def _translation_tbl_multi(self, s: SamplerState, ut, codes, imol: int,
+                               wl_active: bool, switch_ok: bool):
+        """T = dense_trials anchored-window trials of the shared mover
+        ``imol`` on one fetch of its table rows (the JAX package's
+        fused._do_translation_tbl_multi; the proposal law is the cell
+        engine's multi-trial sub-step).  ut [4 + 5T, W]: slots 1:4 the
+        anchor a, 4:4+3T the trial offsets b_t (v_t = (a + b_t) *
+        max_trans), then T accept and T switch uniforms; trial t is
+        performed if ``codes[t]`` is a translation and followed by a
+        switch attempt as a one-trial step is.  Every trial is evaluated
+        against the mover's ORIGINAL rows and point 0; the rows of the
+        last accepted point are stored once at the end."""
+        prm, model = self.prm, self.model
+        L, T = s.r.shape[0], self.dT
+        lam_eps = model.lam * model.epsilon
+        do_switch = prm.mc_always_switch or prm.allow_switch
+
+        js, p0, cand_r, mm_cand, del0, refs = [], [], [], [], [], []
+        e_cur, eff_cur, own_cur, p_cur = [], [], [], []
+        for l in range(L):
+            js.append(self._partners[l][imol])
+            p = s.r[l, :, imol, :].clone()
+            cr = s.r[l][:, js[l], :]                         # [3,M,W]
+            mm = Moments(*s.moments[:, l][:, js[l], :])
+            pair0, leg0, d0, _, e3i0 = self._cand_tbl(cr, _h_components(
+                s.h[l]), p)
+            e_cur.append(pair0 + lam_eps * (e3i0 + self._jcent_rows(leg0,
+                                                                    mm)))
+            refs.append(from_frac(s.h[l], self.frac0[l, :, imol, None]))
+            p0.append(p)
+            cand_r.append(cr)
+            mm_cand.append(mm)
+            del0.append(d0)
+            eff_cur.append(torch.stack(list(mm)))
+            own_cur.append(s.moments[:, l, imol, :].clone())
+            p_cur.append(p)
+
+        anc = 2.0 * ut[1:4] - 1.0                            # [3,W]
+        n_en = 0
+        for t in range(T):
+            code = int(codes[t])
+            if code == TRANS:
+                n_en += 1
+                v = (anc + (2.0 * ut[4 + 3 * t:7 + 3 * t] - 1.0)) \
+                    * s.max_trans
+                transvec = self._map_disp(s, v)
+                e_t, dE, effs, owns, p_ts, in_wall = [], [], [], [], [], None
+                for l in range(L):
+                    p_t = p0[l] + transvec[l]
+                    pair_t, leg_t, del_t, own_t, e3i_t = self._cand_tbl(
+                        cand_r[l], _h_components(s.h[l]), p_t)
+                    eff = Moments(*(st - d0 + dt for st, d0, dt in
+                                    zip(mm_cand[l], del0[l], del_t)))
+                    et = pair_t + lam_eps * (e3i_t
+                                             + self._jcent_rows(leg_t, eff))
+                    e_t.append(et)
+                    dE.append(et - e_cur[l])
+                    effs.append(torch.stack(list(eff)))
+                    owns.append(torch.stack(list(own_t)))
+                    p_ts.append(p_t)
+                    # displacement wall on the candidate point
+                    dw = p_t - refs[l]
+                    ok_l = torch.sum(dw * dw, dim=0) <= self.wall * self.wall
+                    in_wall = ok_l if in_wall is None else in_wall & ok_l
+                dE = torch.stack(dE)
+                accept, mu_new, dmu = self._trans_decision(
+                    s, dE, ut[4 + 3 * T + t], in_wall)
+                self._trans_bookkeeping(s, accept, mu_new, dmu, dE,
+                                        wl_active)
+                # fold the accepted point into the running selection
+                for l in range(L):
+                    e_cur[l] = torch.where(accept, e_t[l], e_cur[l])
+                    p_cur[l] = torch.where(accept, p_ts[l], p_cur[l])
+                    eff_cur[l] = torch.where(accept, effs[l], eff_cur[l])
+                    own_cur[l] = torch.where(accept, owns[l], own_cur[l])
+            if do_switch and switch_ok and (
+                    code == SWITCH or (prm.mc_always_switch and code == TRANS)):
+                self._switch(s, ut[4 + 4 * T + t])
+
+        # one store per T trials
+        for l in range(L):
+            s.r[l, :, imol, :] = p_cur[l]
+            s.moments[:, l, imol, :] = own_cur[l]
+            s.moments[:, l, js[l], :] = eff_cur[l]
+        s.trans_per_mol[imol] += n_en
 
     def _switch(self, s: SamplerState, zeta):
         """Lattice switch attempt of every walker (mc_lattice_switch,
@@ -451,8 +619,10 @@ class Engine:
         # RESCALED state where the layout keeps reference positions
         ok = torch.isfinite(diffkT) & (torch.min(vol_new, dim=0).values
                                        > 0.0)
-        ok = ok & self._vol_extra_ok(h_new)
-        if ref_new is not None:
+        extra_ok = self._vol_extra_ok(h_new)
+        if extra_ok is not None:
+            ok = ok & extra_ok
+        if ref_new is not None and self.wall > 0.0:
             dsp = r_new - ref_new
             d2 = torch.sum(dsp * dsp, dim=1)                 # [L,N,W]
             ok = ok & (torch.amax(d2, dim=(0, 1)) <= self.wall ** 2)
@@ -502,13 +672,16 @@ class Engine:
                 torch.stack([torch.stack(list(p[1])) for p in per], dim=1))
 
     def _vol_extra_ok(self, h_new):
-        """The layout's geometry guard, [W] bool: reject boxes of which
-        a perpendicular width falls to ``min_perp_w`` [L,3] or below.
-        The dense engine's tables could miss in-range pairs below
-        1/BREATHING of the reference widths (ops/nbrtable.table_radius),
-        the cell engine's coverage tables below 1/guard of the initial
-        ones (ops/cells.build_grid).  Depends only on the proposed state,
-        so detailed balance holds."""
+        """The layout's geometry guard, [W] bool, or None where there is
+        none (dense candidates): reject boxes of which a perpendicular
+        width falls to ``min_perp_w`` [L,3] or below.  The dense
+        engine's tables could miss in-range pairs below 1/BREATHING of
+        the reference widths (ops/nbrtable.table_radius), the cell
+        engine's coverage tables below 1/guard of the initial ones
+        (ops/cells.build_grid).  Depends only on the proposed state, so
+        detailed balance holds."""
+        if self.min_perp_w is None:
+            return None
         ok = None
         for l in range(h_new.shape[0]):
             H = h_new[l]                                     # [3,3,W]
@@ -639,7 +812,8 @@ class Engine:
         s.cycle += 1
         cycle = s.cycle
         codes, sched_mol, cycle_u = self.stream.cycle_draws(
-            cycle, self.probs, N, W, s.r.dtype)
+            cycle, self.probs, N, W, s.r.dtype, trials=self.dT,
+            shared_mol=not self.dense)
         # every translation, switch attempt and per-move WL update of
         # the cycle (mc_cycle's hot loop, mc_moves.F90:224-250)
         self.fused_cycle(s, codes, sched_mol, cycle_u,
@@ -695,17 +869,26 @@ _UNSUPPORTED = (
     ("wl_useinvt", lambda p: p.wl_useinvt),
     ("leshift", lambda p: p.leshift),
     ("mc_vol_wall > 0", lambda p: p.mc_vol_wall > 0.0),
-    ("dense_trials > 1", lambda p: int(p.dense_trials) > 1),
 )
 
 
 def _check_scope(prm: RunParams, aux: EngineAux) -> None:
+    # the multi-trial envelope, with the JAX engine's messages
+    # (engine.py:139-162 of the JAX package; the port always runs the
+    # fused cycle, so it has no counterpart of the "fused" check)
+    dT = max(1, int(prm.dense_trials))
+    if dT > 1:
+        if prm.num_lattices != 2:
+            raise ValueError("dense_trials > 1 requires num_lattices = 2")
+        if aux.nbr_tbl is None:
+            raise ValueError(
+                "dense_trials > 1 requires the candidate-reduction table "
+                "mode (nbr_table; MIC-unique box)")
+        if prm.nwater % dT:
+            raise ValueError(
+                f"dense_trials={dT} must divide nwater={prm.nwater} "
+                "(trials per cycle stay nwater)")
     for name, bad in _UNSUPPORTED:
         if bad(prm):
             raise NotImplementedError(
                 f"{name} is not ported yet (see ROADMAP.md)")
-    if aux.nbr_tbl is None:
-        raise NotImplementedError(
-            "dense-candidate mode (no static neighbour tables: N < 96 or "
-            "a box that is not MIC-unique) is not ported yet (see "
-            "ROADMAP.md)")

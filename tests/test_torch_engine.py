@@ -179,20 +179,13 @@ def test_deltaG_matches_jax(runs, tmp_path, monkeypatch):
 @pytest.mark.parametrize("setting", [
     dict(parallel_strategy="dd"), dict(minu=True), dict(wl_swetnam=True),
     dict(wl_useinvt=True), dict(leshift=True), dict(mc_vol_wall=0.05),
-    dict(dense_trials=2), dict(mc_ensemble="nvt"),
+    dict(mc_ensemble="nvt"),
 ])
 def test_unported_settings_raise(runs, setting):
     r = runs[1]
     prm = dataclasses.replace(r["teng"].prm, **setting)
     with pytest.raises(NotImplementedError):
         TEngine(prm, TMW, r["teng"].grid, r["teng"].aux, device="cpu")
-
-
-def test_dense_candidate_mode_raises(runs):
-    r = runs[1]
-    aux = r["teng"].aux._replace(nbr_tbl=None)
-    with pytest.raises(NotImplementedError, match="dense-candidate"):
-        TEngine(r["teng"].prm, TMW, r["teng"].grid, aux, device="cpu")
 
 
 def test_audit_heals_and_reports_drift(runs):

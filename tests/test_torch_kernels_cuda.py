@@ -70,6 +70,58 @@ def test_fused_cycle_kernel_fp64(card, samplerun):
     assert eng.fused_cycle.launches == 3
 
 
+def test_full_energy_kernel_three_shifts(card):
+    """N=48, the (1,2,6) stacking pair: three folded image shifts."""
+    from mc_water_ls_mw_tpu_torch.models.stacking import (
+        stacking_switch_pair,
+    )
+    from mc_water_ls_mw_tpu_torch.models.sw import MW
+    from mc_water_ls_mw_tpu_torch.ops.dense import reduced_shift_set
+    from mc_water_ls_mw_tpu_torch.ops.full_energy import FullEnergyKernel
+
+    shifts = reduced_shift_set(stacking_switch_pair(1, 2, 6)[1], MW)
+    assert len(shifts) == 3
+    kern = FullEnergyKernel(MW, shifts)
+    for dtype in (torch.float64, torch.float32):
+        for r3, H in chip_smoke.jittered_cells(W, dtype, seed=4,
+                                               stack=(1, 2, 6)):
+            rel, merr, mscale = chip_smoke.full_energy_errors(kern, r3, H)
+            if dtype == torch.float64:
+                assert rel <= 1e-12 and merr <= 1e-12 * max(1.0, mscale)
+            else:
+                assert rel <= chip_smoke.F32_E_RTOL
+                assert merr <= chip_smoke.F32_MOM_ATOL
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.DENSE_CASES))
+def test_fused_cycle_dense_kernel_fp64(card, case):
+    prm = chip_smoke.dense_params(W, "float64", case, samplerun=False,
+                                  wl_factor=0.005, eq_mc_cycles=0)
+    eng, s = chip_smoke.make_engine(prm)
+    assert eng.fused_cycle.kernel == "fused_cycle_dense"
+    eng.run_cycles(s, 2)
+    draws = chip_smoke.kernel_draws(eng, s, 12)
+    sk, sp, differ = chip_smoke.fused_compare(eng, s, draws)
+    assert not differ.any()
+    assert chip_smoke.fused_max_err(sk, sp, ~differ) <= 1e-10
+    assert int((sk.acc[0] - s.acc[0]).sum()) > 0
+    assert eng.fused_cycle.launches == 3
+
+
+def test_fused_cycle_multi_kernel_fp64(card):
+    prm = chip_smoke.multi_params(W, "float64", 8, eq_mc_cycles=0)
+    eng, s = chip_smoke.make_engine(prm, paper_pair=True)
+    assert eng.fused_cycle.kernel == "fused_cycle_multi"
+    eng.run_cycles(s, 2)
+    draws = chip_smoke.kernel_draws(eng, s, 13)
+    sk, sp, differ = chip_smoke.fused_compare(eng, s, draws)
+    assert not differ.any()
+    assert chip_smoke.fused_max_err(sk, sp, ~differ) <= 1e-10
+    assert int((sk.acc[0] - s.acc[0]).sum()) > 0
+    assert int((sk.acc[2] - s.acc[2]).sum()) > 0
+    assert eng.fused_cycle.launches == 3
+
+
 def test_engine_on_card_runs_both_kernels(card):
     prm = chip_smoke.sample_params(W, "float32", mpi_sync_int=2,
                                    latt_sync_int=3, eq_mc_cycles=1)

@@ -77,13 +77,15 @@ def jax_aux_fields(aux) -> dict:
 class JaxStream:
     """The draws of the JAX Engine._one_cycle and
     _scheduled_volume_moves (engine.py:1055-1131, 824-837) from a JAX
-    state's keys, handed to the port's engine as tensors."""
+    state's keys, handed to the port's engine as tensors: no molecule
+    schedule in dense mode, the multi-trial shape at T > 1."""
 
     def __init__(self, jax_state):
         self.shared_key = jax_state.shared_key
         self.keys = jax_state.key
 
-    def cycle_draws(self, cycle, probs, N, W, dtype):
+    def cycle_draws(self, cycle, probs, N, W, dtype, trials=1,
+                    shared_mol=True):
         jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
         ck = jax.random.fold_in(self.shared_key, cycle)
         xi = jax.random.uniform(ck, (N,), dtype=jdt)
@@ -91,15 +93,21 @@ class JaxStream:
         codes = jnp.where(
             xi < transP, TRANS,
             jnp.where(xi < volP, VOL, jnp.where(xi < swP, SWITCH, NOOP)))
-        sched = jax.random.randint(jax.random.fold_in(ck, 0x6d6f6c), (N,),
-                                   0, N, dtype=jnp.int32)
+        # multi-trial steps: N/T movers of 4 + 5T uniforms each
+        # (engine.py:1110-1130)
+        n_steps = N // trials
+        n_u = 7 if trials == 1 else 4 + 5 * trials
+        sched = None
+        if shared_mol:
+            sched = torch.as_tensor(np.array(jax.random.randint(
+                jax.random.fold_in(ck, 0x6d6f6c), (N,), 0, N,
+                dtype=jnp.int32))[:n_steps])
         cycle_u = jax.vmap(
             lambda k: jax.random.uniform(jax.random.fold_in(k, cycle),
-                                         (N, 7), dtype=jdt),
+                                         (n_steps, n_u), dtype=jdt),
             out_axes=2,
         )(self.keys)
-        return (torch.as_tensor(np.asarray(codes)),
-                torch.as_tensor(np.asarray(sched)),
+        return (torch.as_tensor(np.array(codes)), sched,
                 torch.as_tensor(np.asarray(cycle_u)))
 
     def volume_draws(self, cycle, k, W, dtype):
