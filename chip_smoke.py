@@ -48,6 +48,29 @@ Phases (each exits non-zero on failure):
    cycle, trials/s, launch counts, slab overflow (must be 0), an energy
    audit of 64 walkers, a finite merged histogram, and a torch.profiler
    trace of one more cycle (device time per kernel, the idle share);
+   6b. the scatter path (cell_pallas 'on', what 'auto' picks where
+   same-colour stencils overlap) on the N=6048 (12,7,18) pair after a
+   cycle of sampling, float64 at W=64: the mover kernel's delta output
+   against its plain version (energies, own moments and every delta
+   within 1e-10), and a whole sub-step through the kernels against the
+   same through the plain versions (every integer output identical,
+   slabs, chain rows and WL slabs within 1e-10), run twice through the
+   kernels with bitwise-equal results;
+   6c. 'on' against 'apply' on the N=8064 grid (disjoint stencils, where
+   both run), one cycle each from one seed, float64 at W=64: integer
+   state identical, continuous state within 1e-10;
+   7b. the N=24192 flagship, stacking_switch_pair(24,14,18) on the grid
+   the front end gives it (coarse (8,8,4) x 2^3, 75-cell stencils that
+   overlap, K=32, 768 sub-steps per cycle), W=128, float32, the modes
+   left to 'auto' (they must resolve to 'on' and the chain kernel): a
+   warm-up cycle, the checks of 6b in float32 on its state (at most 1%
+   of walkers with differing integer outcomes, the tolerances below),
+   the delta kernel's time and bound, then 2 timed cycles holding a
+   rebin, volume moves, a delta-sync and a chain resync (FLAG_CUTS lists
+   the cuts); seconds per cycle, trials/s, launches, slab overflow (must
+   be 0), a torch.profiler trace of one more cycle (device time per
+   kernel and of the scatter, the idle share), then an energy audit of
+   64 walkers and a finite merged histogram;
 8. the multi-trial sub-step (cell_trials=8): the mover-points kernel and
    the chain + WL kernel at T=8 against their plain versions on one
    sub-step of the N=8064 pair after a cycle of sampling (float64 at
@@ -70,7 +93,7 @@ Phases (each exits non-zero on failure):
    checkpoint; ms per cycle, moves/s, launches, an energy audit and the
    merged histogram;
 11. one JSON line with every kernel's launches (summed over the main
-   paths of phases 5, 5b, 5c, 7, 9 and 10), error against its plain
+   paths of phases 5, 5b, 5c, 7, 7b, 9 and 10), error against its plain
    version, times and bound;
 12. as the last line, {"ok": true, "device": {...}}.
 
@@ -146,6 +169,22 @@ W_MT_FP64 = 16          # walkers of the float64 checks
 # per walker each add an energy change good to ~1e-7 (compensated, so
 # no quantisation against the total)
 AUDIT_CELL_MAX_DRIFT = 2e-3     # Hartree
+# ---- the scatter path (cell_pallas='on'): grids whose same-colour
+# stencils overlap
+SCATTER_STACK = (12, 7, 18)     # N = 6048, the float64 check's grid
+FLAG_STACK = (24, 14, 18)       # N = 24192, the flagship: coarse (8,8,4)
+W_FLAG = 128                    # walkers of the flagship path
+# the flagship's cuts of scripts/bench_largen.py's intervals (5 timed
+# cycles, list_update_int 5, mpi_sync_int 10, latt_sync_int 10^4), so
+# that a rebin and a delta-sync (cycle 2) and a chain resync (cycle 3)
+# fall in its 2 timed cycles (the schedule of seed 2014 puts 1 and 4
+# volume moves there); the profiled cycle 4 (a rebin, a delta-sync, one
+# volume move) precedes the audit, one cycle after the resync
+FLAG_CUTS = dict(list_update_int=2, mpi_sync_int=2, latt_sync_int=3)
+FLAG_TIMED = 2
+# f32 energy audit of the flagship, one cycle after a chain resync: the
+# N=8064 gate scaled by the total's f32 ulp (-477 Hartree: 3.1e-5)
+AUDIT_FLAG_MAX_DRIFT = 4e-3     # Hartree
 
 # H100 SXM peaks (NVIDIA data sheet): memory and float32 outside the
 # tensor cores
@@ -160,6 +199,9 @@ OPS_LEG = 39
 # the wing term of a partner (quad + lin + per: 25) and its moved
 # moments (20), per in-range leg of a translation
 OPS_WING = 45
+# a candidate slot's moment deltas new - old: two leg contributions (13
+# each) and ten differences
+OPS_DELTA = 36
 
 
 def fail(msg: str) -> None:
@@ -771,15 +813,16 @@ def profile_cell_cycle(eng, s, tag="cell-profile"):
 # tests/test_torch_kernels_cuda.py
 # ----------------------------------------------------------------------
 
-def cell_params(W, dtype, **over):
-    """The N=8064 Wang-Landau run of the JAX package's large-N benchmark
+def cell_params(W, dtype, stack=CELL_STACK, **over):
+    """The Wang-Landau run of the JAX package's large-N benchmark
     (scripts/bench_largen.py: 200 K, 1 atm, 0.25 A steps, 201 bins over
     mu in [-1200, 1200], one trial per mover, the apply stage and the
-    chain kernel on), at W walkers."""
+    chain kernel on) on the stacking pair ``stack`` (N=8064 by default),
+    at W walkers."""
     from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR, AUP_TO_ATM
     from mc_water_ls_mw_tpu_torch.mcmc.config import RunParams
 
-    N = 4 * CELL_STACK[0] * CELL_STACK[1] * CELL_STACK[2]
+    N = 4 * stack[0] * stack[1] * stack[2]
     kw = dict(
         nwater=N, num_lattices=2, temperature=200.0,
         pressure=1.0 / AUP_TO_ATM,
@@ -788,7 +831,7 @@ def cell_params(W, dtype, **over):
         mc_vol_prob=1.0 / N, mc_switch_prob=0.1,
         samplerun=False, eq_mc_cycles=1, list_update_int=5,
         mpi_sync_int=10, latt_sync_int=10_000,
-        n_walkers=W, dtype=dtype, seed=2014, stack=CELL_STACK,
+        n_walkers=W, dtype=dtype, seed=2014, stack=stack,
         method="stack", cell_trials=1, cell_pallas="apply", cell_chain="on",
     )
     kw.update(over)
@@ -796,7 +839,9 @@ def cell_params(W, dtype, **over):
 
 
 def make_cell_engine(prm):
-    """(engine, state) of the N=8064 stacking pair on its cell grid."""
+    """(engine, state) of the stacking pair ``prm.stack`` on the cell
+    grid the front end picks for it (app.py: choose_grid_shape without
+    prefer_disjoint)."""
     from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
     from mc_water_ls_mw_tpu_torch.mcmc.cellengine import (
         CellEngine,
@@ -838,6 +883,53 @@ def _max_abs(a, b, relative=False):
     return float(d.max())
 
 
+def chain_compare(eng, s, rows, e, inc, hasm, codes, ua, uz):
+    """The chain + WL kernel against its plain version on one sub-step's
+    point table (energies ``e`` [L,K,P,W], in-cell flags ``inc``
+    [K,P,W], trial flags ``hasm`` [K,W]), each on fresh clones of the
+    chain rows ``rows`` and the WL slabs of ``s``.
+
+    Returns (a dict: the [W] bool of walkers whose integer outcomes
+    differ, the rows' and slabs' errors on the rest, accepted and enabled
+    trials, the histogram's growth; ``chain(fn, b)``, which runs one pass
+    of ``fn`` in place on the buffers ``b``, or returns fresh buffers
+    when ``fn`` is None; the kernel's pass)."""
+    import torch
+
+    K, P, W = inc.shape
+    tables = (e.view(-1, W), inc.view(-1, W), hasm)
+
+    def chain(fn, b=None):
+        if b is None:
+            b = dict(cf=rows.cf.clone(), ci=rows.ci.clone(),
+                     wgt=s.weight.clone(), hist=s.hist.clone(),
+                     uh=s.uhist.clone())
+        if fn is not None:
+            b["joh"], b["cnt"] = fn(codes, True, b["cf"], b["ci"], b["wgt"],
+                                    b["hist"], b["uh"], rows.basew, *tables,
+                                    ua, uz)
+        return b
+
+    ck_, cp = chain(eng.chain_kernel), chain(eng.chain_kernel.plain)
+    torch.cuda.synchronize()
+    differ = torch.zeros((W,), dtype=torch.bool, device=DEVICE)
+    for name in ("ci", "cnt", "joh"):
+        differ |= (ck_[name] != cp[name]).any(dim=0)
+    ok = ~differ
+    slabs = ("wgt", "hist", "uh")
+    out = dict(
+        differ=differ,
+        cf_err=_max_abs(ck_["cf"][:, ok], cp["cf"][:, ok]),
+        wl_err=max(_max_abs(ck_[n][:, ok], cp[n][:, ok]) for n in slabs),
+        cf_rel=_max_abs(ck_["cf"][:, ok], cp["cf"][:, ok], relative=True),
+        wl_rel=max(_max_abs(ck_[n][:, ok], cp[n][:, ok], relative=True)
+                   for n in slabs),
+        n_acc=int((1.0 - cp["joh"].view(K, P, W)[:, 0]).sum()),
+        n_enabled=int(cp["cnt"][0].sum()),
+        hist_grew=float((cp["hist"] - s.hist).sum()))
+    return out, chain, ck_
+
+
 def cell_substep_compare(eng, s, tbl, seed, time_reps=0):
     """One sub-step's three kernels against their plain versions, at the
     shapes the main path gives them: the mover energies of table row
@@ -853,7 +945,6 @@ def cell_substep_compare(eng, s, tbl, seed, time_reps=0):
     import torch
 
     from mc_water_ls_mw_tpu_torch.mcmc.chain_kernel import SWITCH
-    from mc_water_ls_mw_tpu_torch.ops.cells import PK_VALID
 
     K, W = eng.K, s.r.shape[-1]
     dtype = s.r.dtype
@@ -875,17 +966,7 @@ def cell_substep_compare(eng, s, tbl, seed, time_reps=0):
     margs = (pks, s.h, cand, off, fc, trial.rank, trial.p_old, trial.p_new)
     pe, pown = eng.mover_kernel.plain(*margs)
     torch.cuda.synchronize()
-    # what the bounds need, per (mover, walker) and summed over the
-    # lattices: occupied candidate slots, and neighbour slots in range of
-    # either position
-    n_occ = torch.zeros((K, W), dtype=torch.int64, device=DEVICE)
-    n_in = torch.zeros((K, W), dtype=torch.int64, device=DEVICE)
-    for l, pk in enumerate(pks):
-        n_occ += (pk[:, PK_VALID][cand.long()] > 0.5).sum(dim=(1, 2))
-        _, _, co, cn = eng.mover_kernel._candidates(
-            pk, s.h[l], cand, off, fc, trial.rank, trial.p_old[l],
-            trial.p_new[l])
-        n_in += ((co.w > 0) | (cn.w > 0)).sum(dim=1)
+    n_occ, n_in = _occupancy_counts(eng, s, pks, trial, cand, off, fc)
     out["mover_energies"] = dict(
         e_err=_max_abs(trial.e, pe), own_err=_max_abs(trial.own_new, pown),
         n_occ=int(n_occ.sum()), n_in=int(n_in.sum()),
@@ -893,39 +974,8 @@ def cell_substep_compare(eng, s, tbl, seed, time_reps=0):
         dE_max=float(torch.max(torch.abs(pe[:, :, 1] - pe[:, :, 0]))))
 
     # -- chain + WL on those energies
-    tables = (trial.e.view(-1, W), rows.inc.view(-1, W), trial.hasm)
-
-    def chain_bufs():
-        return dict(cf=rows.cf.clone(), ci=rows.ci.clone(),
-                    wgt=s.weight.clone(), hist=s.hist.clone(),
-                    uh=s.uhist.clone())
-
-    def chain(fn, b=None):
-        """One chain pass, in place on the buffers ``b`` (fresh clones
-        of the chain rows and WL slabs by default)."""
-        b = chain_bufs() if b is None else b
-        b["joh"], b["cnt"] = fn(codes, True, b["cf"], b["ci"], b["wgt"],
-                                b["hist"], b["uh"], rows.basew, *tables,
-                                u[5], u[6])
-        return b
-
-    ck_, cp = chain(eng.chain_kernel), chain(eng.chain_kernel.plain)
-    torch.cuda.synchronize()
-    differ = torch.zeros((W,), dtype=torch.bool, device=DEVICE)
-    for name in ("ci", "cnt", "joh"):
-        differ |= (ck_[name] != cp[name]).any(dim=0)
-    ok = ~differ
-    slabs = ("wgt", "hist", "uh")
-    out["chain_wl"] = dict(
-        differ=differ,
-        cf_err=_max_abs(ck_["cf"][:, ok], cp["cf"][:, ok]),
-        wl_err=max(_max_abs(ck_[n][:, ok], cp[n][:, ok]) for n in slabs),
-        cf_rel=_max_abs(ck_["cf"][:, ok], cp["cf"][:, ok], relative=True),
-        wl_rel=max(_max_abs(ck_[n][:, ok], cp[n][:, ok], relative=True)
-                   for n in slabs),
-        n_acc=int(cp["joh"].view(K, 2, W)[:, 1].sum()),
-        n_enabled=int(cp["cnt"][0].sum()),
-        hist_grew=float((cp["hist"] - s.hist).sum()))
+    out["chain_wl"], chain, ck_ = chain_compare(
+        eng, s, rows, trial.e, rows.inc, trial.hasm, codes, u[5], u[6])
 
     # -- apply with the chain kernel's accepts
     accf = ck_["joh"].view(K, 2, W)[:, 1]
@@ -954,7 +1004,7 @@ def cell_substep_compare(eng, s, tbl, seed, time_reps=0):
         t["ms"] = cuda_ms(lambda: eng.mover_kernel(*margs), time_reps, True)
         t["plain_ms"] = cuda_ms(lambda: eng.mover_kernel.plain(*margs), 3)
         t = out["chain_wl"]
-        bk, bp = chain_bufs(), chain_bufs()
+        bk, bp = chain(None), chain(None)
         t["ms"] = cuda_ms(lambda: chain(eng.chain_kernel, bk), time_reps,
                           True)
         t["plain_ms"] = cuda_ms(lambda: chain(eng.chain_kernel.plain, bp), 3)
@@ -987,16 +1037,188 @@ def cell_bounds(eng, s, cmp):
     me, ma, ch = cmp["mover_energies"], cmp["mover_apply"], cmp["chain_wl"]
     small = (9 * L + 6 * L * K) * W * b + K * W * 4 + K * CF * 16
     ops_slot = 3 + 2 * 9              # image shift, two distance tests
-    nbytes = (L * K * CF * cap * W + 3 * me["n_occ"] + 10 * me["n_in"]) * b \
-        + small + (2 * L * K + 10 * L * K) * W * b
-    ops = me["n_occ"] * ops_slot + me["n_in"] * 2 * (OPS_LEG + OPS_WING)
-    out = {"mover_energies": _bound(nbytes, ops)}
+    out = {"mover_energies": mover_energies_bound(eng, s, me)}
     nbytes = (L * CF * cap * ma["n_acc"] + 3 * ma["n_occ_acc"]
               + 20 * ma["n_in_acc"] + 13 * L * ma["n_acc"]) * b + small \
         + (K + 10 * L * K) * W * b
     ops = ma["n_occ_acc"] * ops_slot + ma["n_in_acc"] * (2 * OPS_LEG + 20)
     out["mover_apply"] = _bound(nbytes, ops)
     out["chain_wl"] = chain_bound(eng, W, b, 2, ch["n_enabled"])
+    return out
+
+
+def mover_energies_bound(eng, s, me, deltas=False):
+    """(ms, bound_by) of one mover-energies launch from the counts ``me``
+    of a comparison (occupied candidate slots ``n_occ``, neighbour slots
+    in range of either position ``n_in``): the occupied flag of every
+    candidate slot, the three coordinate rows of the occupied slots (the
+    answer does not depend on an empty slot's coordinates) and the ten
+    moment rows of the slots in range are read once, the movers' inputs
+    read and their energies and own moments written; every occupied slot
+    costs the image shift and two distance tests, every slot in range
+    its legs and wings.  With ``deltas`` the delta output is written
+    whole (ten values per candidate slot, zeros included) and every slot
+    in range costs its deltas."""
+    L, W = 2, s.r.shape[-1]
+    K, CF, cap = eng.K, eng.mover_kernel.CF, eng.cellgrid.cap
+    b = s.r.element_size()
+    small = (9 * L + 6 * L * K) * W * b + K * W * 4 + K * CF * 16
+    nbytes = (L * K * CF * cap * W + 3 * me["n_occ"] + 10 * me["n_in"]) * b \
+        + small + (2 * L * K + 10 * L * K) * W * b
+    ops = me["n_occ"] * (3 + 2 * 9) + me["n_in"] * 2 * (OPS_LEG + OPS_WING)
+    if deltas:
+        nbytes += 10 * L * K * CF * cap * W * b
+        ops += me["n_in"] * OPS_DELTA
+    return _bound(nbytes, ops)
+
+
+class _Plain:
+    """A kernel wrapper whose call is its plain version: the engine's
+    sub-step run on CUDA tensors with the plain versions, for the
+    comparisons (it launches nothing and counts nothing)."""
+
+    def __init__(self, kern):
+        self._kern = kern
+
+    def __getattr__(self, name):
+        return getattr(self._kern, name)
+
+    def __call__(self, *args, cnt=None):
+        out = self._kern.plain(*args)
+        if cnt is not None:           # the chain's preallocated counters
+            cnt.copy_(out[1])
+            out = (out[0], cnt)
+        return out
+
+
+def _occupancy_counts(eng, s, pks, trial, cand, off, fc):
+    """Per (mover, walker), summed over the lattices: the occupied
+    candidate slots and the neighbour slots in range of either position
+    (what the bounds need)."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.ops.cells import PK_VALID
+
+    K, W = trial.rank.shape
+    n_occ = torch.zeros((K, W), dtype=torch.int64, device=DEVICE)
+    n_in = torch.zeros((K, W), dtype=torch.int64, device=DEVICE)
+    for l, pk in enumerate(pks):
+        n_occ += (pk[:, PK_VALID][cand.long()] > 0.5).sum(dim=(1, 2))
+        _, _, co, cn = eng.mover_kernel._candidates(
+            pk, s.h[l], cand, off, fc, trial.rank, trial.p_old[l],
+            trial.p_new[l])
+        n_in += ((co.w > 0) | (cn.w > 0)).sum(dim=1)
+    return n_occ, n_in
+
+
+def scatter_substep_compare(eng, s, tbl, seed, time_reps=0):
+    """One sub-step of the scatter path (an engine at cell_pallas 'on')
+    at the shapes the main path gives it, from table row ``tbl`` of the
+    state ``s`` (left as it is) with one set of draws:
+
+    * the mover kernel's delta output (kernel 3b), from the engine's own
+      proposal, against its plain version: energies, own moments and
+      every delta of every candidate slot;
+    * the chain + WL kernel against its plain version on the kernel's
+      energies (``chain_compare``);
+    * the whole sub-step (proposal, chain, scatter) run twice through
+      the kernels and once through their plain versions (``_Plain``),
+      each on a clone of the state: the integer outcomes (chain rows,
+      counters, per-slot trial counts) of the kernels against the plain
+      versions, the packed slabs, chain rows and WL slabs on the walkers
+      whose integer outcomes agree (in float32 the chain rows of the two
+      differ by what the energies do: mu by beta times the sum of the
+      accepted moves' energy differences), and whether the two kernel
+      runs gave bitwise-equal results (the scatter's repeated indices
+      are added by atomics in no fixed order).
+
+    With ``time_reps``: milliseconds of the kernel, of its plain version
+    and of the scatter (``_scatter_moments``) of one sub-step."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.mcmc.chain_kernel import (
+        CN_ACC,
+        CN_EN,
+        SWITCH,
+    )
+
+    K, W = eng.K, s.r.shape[-1]
+    dtype = s.r.dtype
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    u = torch.rand((7, K, W), generator=gen, dtype=dtype, device=DEVICE)
+    codes = torch.zeros((K,), dtype=torch.int32, device=DEVICE)
+    codes[K // 2] = SWITCH               # one scheduled switch
+    fc, cand, off = eng._tables(tbl)
+    out = {}
+
+    pks = eng._pack(s)
+    rows = eng._loop_rows(s)
+    n0 = eng.mover_kernel.launches
+    trial = eng._propose_t1(s, pks, tbl, u, rows)
+    if eng.mover_kernel.launches != n0 + 1 or trial.dlt is None:
+        fail("the proposal did not launch the mover kernel with deltas")
+    margs = (pks, s.h, cand, off, fc, trial.rank, trial.p_old, trial.p_new)
+    pe, pown, pdlt = eng.mover_kernel.plain(*margs)
+    torch.cuda.synchronize()
+    n_occ, n_in = _occupancy_counts(eng, s, pks, trial, cand, off, fc)
+    out["mover_energies_deltas"] = dict(
+        e_err=_max_abs(trial.e, pe), own_err=_max_abs(trial.own_new, pown),
+        dlt_err=_max_abs(trial.dlt, pdlt),
+        n_dlt=int((pdlt != 0).any(dim=3).sum()),
+        n_occ=int(n_occ.sum()), n_in=int(n_in.sum()),
+        dE_max=float(torch.max(torch.abs(pe[:, :, 1] - pe[:, :, 0]))))
+    out["chain_wl"] = chain_compare(eng, s, rows, trial.e, rows.inc,
+                                    trial.hasm, codes, u[5], u[6])[0]
+
+    def substep(plain):
+        st = s.clone()
+        pk_, rows_ = eng._pack(st), eng._loop_rows(st)
+        tpm = torch.zeros((eng.cellgrid.nslot, W), dtype=torch.int32,
+                          device=DEVICE)
+        kerns = eng.mover_kernel, eng.chain_kernel
+        if plain:
+            eng.mover_kernel, eng.chain_kernel = map(_Plain, kerns)
+        try:
+            cnt = eng._substep(st, pk_, tpm, tbl, u.clone(), codes, rows_)
+        finally:
+            eng.mover_kernel, eng.chain_kernel = kerns
+        return dict(pks=pk_, cf=rows_.cf, ci=rows_.ci, cnt=cnt, tpm=tpm,
+                    wgt=st.weight, hist=st.hist, uh=st.uhist)
+
+    a, a2, p = substep(False), substep(False), substep(True)
+    torch.cuda.synchronize()
+    differ = torch.zeros((W,), dtype=torch.bool, device=DEVICE)
+    for name in ("ci", "cnt", "tpm"):
+        differ |= (a[name] != p[name]).any(dim=0)
+    ok = ~differ
+    slabs = ("wgt", "hist", "uh")
+    out["substep"] = dict(
+        differ=differ,
+        mom_err=max(_max_abs(x[:, :10][..., ok], y[:, :10][..., ok])
+                    for x, y in zip(a["pks"], p["pks"])),
+        coord_err=max(_max_abs(x[:, 10:][..., ok], y[:, 10:][..., ok])
+                      for x, y in zip(a["pks"], p["pks"])),
+        cf_rel=_max_abs(a["cf"][:, ok], p["cf"][:, ok], relative=True),
+        wl_rel=max(_max_abs(a[n][:, ok], p[n][:, ok], relative=True)
+                   for n in slabs),
+        repeat_equal=all(torch.equal(x, y) for x, y in
+                         zip(a["pks"], a2["pks"])) and all(
+            torch.equal(a[n], a2[n]) for n in ("cf", "ci", "cnt", "tpm")
+            + slabs),
+        changed=int(sum((x != y).sum() for x, y in zip(a["pks"], pks))),
+        n_acc=int(p["cnt"][CN_ACC].sum()),
+        n_enabled=int(p["cnt"][CN_EN].sum()))
+
+    if time_reps:
+        t = out["mover_energies_deltas"]
+        t["ms"] = cuda_ms(lambda: eng.mover_kernel(*margs), time_reps, True)
+        t["plain_ms"] = cuda_ms(lambda: eng.mover_kernel.plain(*margs), 3)
+        accf = (u[5] < 0.5).to(dtype)
+        pk_t = [pk.clone() for pk in pks]
+        t["scatter_ms"] = cuda_ms(
+            lambda: eng._scatter_moments(pk_t, tbl, trial, accf), time_reps,
+            True)
     return out
 
 
@@ -1066,44 +1288,15 @@ def multitrial_compare(eng, s, tbl, seed, time_reps=0):
         n_movers=int(trial.hasm.sum()),
         dE_max=float(torch.max(torch.abs(pe[:, :, 1:] - pe[:, :, :1]))))
 
-    tables = (trial.e.view(-1, W), trial.inc.view(-1, W), trial.hasm)
-
-    def chain_bufs():
-        return dict(cf=rows.cf.clone(), ci=rows.ci.clone(),
-                    wgt=s.weight.clone(), hist=s.hist.clone(),
-                    uh=s.uhist.clone())
-
-    def chain(fn, b=None):
-        b = chain_bufs() if b is None else b
-        b["joh"], b["cnt"] = fn(codes, True, b["cf"], b["ci"], b["wgt"],
-                                b["hist"], b["uh"], rows.basew, *tables,
-                                ua, uz)
-        return b
-
-    ck_, cp = chain(eng.chain_kernel), chain(eng.chain_kernel.plain)
-    torch.cuda.synchronize()
-    differ = torch.zeros((W,), dtype=torch.bool, device=DEVICE)
-    for name in ("ci", "cnt", "joh"):
-        differ |= (ck_[name] != cp[name]).any(dim=0)
-    ok = ~differ
-    slabs = ("wgt", "hist", "uh")
-    out["chain_wl"] = dict(
-        differ=differ,
-        cf_err=_max_abs(ck_["cf"][:, ok], cp["cf"][:, ok]),
-        wl_err=max(_max_abs(ck_[n][:, ok], cp[n][:, ok]) for n in slabs),
-        cf_rel=_max_abs(ck_["cf"][:, ok], cp["cf"][:, ok], relative=True),
-        wl_rel=max(_max_abs(ck_[n][:, ok], cp[n][:, ok], relative=True)
-                   for n in slabs),
-        n_acc=int((1.0 - cp["joh"].view(K, P, W)[:, 0]).sum()),
-        n_enabled=int(cp["cnt"][0].sum()),
-        hist_grew=float((cp["hist"] - s.hist).sum()))
+    out["chain_wl"], chain, _ = chain_compare(
+        eng, s, rows, trial.e, trial.inc, trial.hasm, codes, ua, uz)
 
     if time_reps:
         t = out["mover_points"]
         t["ms"] = cuda_ms(lambda: eng.points_kernel(*pargs), time_reps, True)
         t["plain_ms"] = cuda_ms(lambda: eng.points_kernel.plain(*pargs), 3)
         t = out["chain_wl"]
-        bk, bp = chain_bufs(), chain_bufs()
+        bk, bp = chain(None), chain(None)
         t["ms"] = cuda_ms(lambda: chain(eng.chain_kernel, bk), time_reps,
                           True)
         t["plain_ms"] = cuda_ms(lambda: chain(eng.chain_kernel.plain, bp), 3)
@@ -1509,6 +1702,238 @@ def dense48_run():
     return {"launches": {k: first["launches"][k] + second["launches"][k]
                          for k in first["launches"]},
             "s_per_cycle": s_cycle, "rate": rate}
+
+
+def scatter_phase():
+    """6b: the scatter path's kernels against their plain versions in
+    float64 on the (12,7,18) pair (scatter_substep_compare at two
+    tables after a cycle of sampling)."""
+    import torch
+
+    eng, s = make_cell_engine(cell_params(
+        W_CELL_FP64, "float64", stack=SCATTER_STACK, cell_pallas="auto",
+        cell_chain="auto", list_update_int=1, mpi_sync_int=1))
+    require_scatter_modes(eng)
+    eng.run_cycles(s, 1)            # walkers drift apart, WL slabs fill
+    for tbl in (5, 42):
+        cmp = scatter_substep_compare(eng, s, tbl, seed=500 + tbl)
+        d, ch, sub = (cmp[k] for k in ("mover_energies_deltas", "chain_wl",
+                                       "substep"))
+        print(f"[scatter] fp64 N={eng.prm.nwater} W={W_CELL_FP64} table "
+              f"{tbl}: energies err {d['e_err']:.3e} Hartree (max |dE| "
+              f"{d['dE_max']:.3e}), own moments err {d['own_err']:.3e}, "
+              f"deltas err {d['dlt_err']:.3e} ({d['n_dlt']} nonzero slots); "
+              f"chain: {int(ch['differ'].sum())} walkers differ, rows err "
+              f"{ch['cf_err']:.3e}, WL slabs err {ch['wl_err']:.3e}; "
+              f"sub-step: {int(sub['differ'].sum())} walkers differ, slab "
+              f"moment rows err {sub['mom_err']:.3e}, coordinates err "
+              f"{sub['coord_err']:.3e}, chain rows rel err "
+              f"{sub['cf_rel']:.3e}, WL slabs rel err {sub['wl_rel']:.3e}, "
+              f"{sub['n_acc']} of {sub['n_enabled']} trials accepted, "
+              f"{sub['changed']} slab entries changed, repeated run "
+              f"bitwise equal {sub['repeat_equal']}", flush=True)
+        if not (d["e_err"] <= 1e-10 and d["own_err"] <= 1e-10
+                and d["dlt_err"] <= 1e-10 and d["dE_max"] > 0
+                and d["n_dlt"] > 0):
+            fail("mover_energies_deltas fp64 disagrees with its plain "
+                 "version")
+        if ch["differ"].any() or not (ch["cf_err"] <= 1e-10
+                                      and ch["wl_err"] <= 1e-10):
+            fail("chain_wl fp64 at K=8, CF=75 disagrees with its plain "
+                 "version")
+        if sub["differ"].any() or not (
+                sub["mom_err"] <= 1e-10 and sub["coord_err"] <= 1e-10
+                and sub["cf_rel"] <= 1e-10 and sub["wl_rel"] <= 1e-10
+                and 0 < sub["n_acc"] < sub["n_enabled"]
+                and sub["changed"] > 0):
+            fail("the fp64 scatter sub-step disagrees with its plain "
+                 "versions")
+        if not sub["repeat_equal"]:
+            fail("the scatter sub-step is not deterministic")
+
+
+def on_apply_phase():
+    """6c: 'on' against 'apply' on the N=8064 grid, where both run
+    (disjoint stencils): one cycle each from one seed, float64."""
+    import torch
+
+    ends = {}
+    for mode in ("on", "apply"):
+        eng, s = make_cell_engine(cell_params(
+            W_CELL_FP64, "float64", cell_pallas=mode, list_update_int=1,
+            mpi_sync_int=1))
+        eng.run_cycles(s, 1)
+        ends[mode] = s
+    ints_equal, names, err = state_diff(ends["on"], ends["apply"])
+    print(f"[on-apply] fp64 N=8064 W={W_CELL_FP64}, one cycle: integer "
+          f"state equal {ints_equal} {names}; continuous state max abs "
+          f"diff {err:.3e}; accepted {ends['on'].acc[0].sum().item()} "
+          "translations", flush=True)
+    if not (ints_equal and err <= 1e-10):
+        fail("'on' and 'apply' disagree on the disjoint grid")
+
+
+def flagship_run(kind, card):
+    """7b: the N=24192 flagship on the grid the front end gives it, on
+    the scatter path (kernels 3b and 6 at K=32, CF=75).  Returns
+    {"launches": of its main path, "report": the delta kernel's line}."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value64
+
+    prm = cell_params(W_FLAG, "float32", stack=FLAG_STACK,
+                      cell_pallas="auto", cell_chain="auto", **FLAG_CUTS)
+    t0 = time.time()
+    eng, s = make_cell_engine(prm)
+    torch.cuda.synchronize()
+    cg = eng.cellgrid
+    n_sub = eng.sweeps_per_cycle * eng.n_tables
+    mu0 = float(s.mu[0])
+    print(f"[flagship] N={prm.nwater} W={W_FLAG} f32: coarse {cg.n} "
+          f"m={cg.m} nfine={cg.nfine} cap={cg.cap} "
+          f"CF={cg.full_cells.shape[1]} K={eng.K} tables={eng.n_tables} "
+          f"sweeps={eng.sweeps_per_cycle} sub-steps/cycle={n_sub} "
+          f"trials/cycle={eng.trials_per_cycle}; cell_pallas="
+          f"'{prm.cell_pallas}' -> use_cell_pallas {eng.use_cell_pallas}, "
+          f"use_cell_apply {eng.use_cell_apply} ('on': deltas + scatter), "
+          f"cell_chain='{prm.cell_chain}' -> use_chain_kernel "
+          f"{eng.use_chain_kernel}; mu0 {mu0:.6e} in [{prm.mu_min:g}, "
+          f"{prm.mu_max:g}]; init {time.time() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    if not (cg.n == (8, 8, 4) and cg.full_cells.shape[1] == 75
+            and eng.K == 32):
+        fail(f"the flagship's grid is not (8,8,4) x 2^3 with CF=75: {cg.n}")
+    require_scatter_modes(eng)
+    if not prm.mu_min < mu0 < prm.mu_max:
+        fail(f"the flagship's starting mu {mu0} is outside the bin range")
+    t0 = time.time()
+    eng.run_cycles(s, 1)                     # warm-up (WL live from here)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    t0 = time.time()
+    cmp = scatter_substep_compare(eng, s, 5, seed=9, time_reps=10)
+    d, ch, sub = (cmp[k] for k in ("mover_energies_deltas", "chain_wl",
+                                   "substep"))
+    bound = mover_energies_bound(eng, s, d, deltas=True)
+    frac = float(sub["differ"].float().mean())
+    print(f"[flagship] f32: energies err {d['e_err']:.3e} Hartree (limit "
+          f"{F32_MOVER_E_ATOL:g}), own moments err {d['own_err']:.3e}, "
+          f"deltas err {d['dlt_err']:.3e} (limit {F32_MOVER_MOM_ATOL:g}); "
+          f"{d['n_in']} neighbour slots in range, {d['n_dlt']} nonzero "
+          f"delta slots; chain at K={eng.K} on the kernel's energies: "
+          f"{float(ch['differ'].float().mean()):.4%} of walkers differ, on "
+          f"the rest rows rel err {ch['cf_rel']:.3e}, WL slabs rel err "
+          f"{ch['wl_rel']:.3e} (limit {F32_CHAIN_RTOL:g}); sub-step: "
+          f"{frac:.4%} of walkers differ (limit {F32_MAX_DIFF_FRAC:.0%}), "
+          f"on the rest slab moment rows err {sub['mom_err']:.3e}, "
+          f"coordinates err {sub['coord_err']:.3e}, chain rows rel err "
+          f"{sub['cf_rel']:.3e} (from the energies' round-off), WL slabs "
+          f"rel err {sub['wl_rel']:.3e}; {sub['n_acc']} of "
+          f"{sub['n_enabled']} trials accepted; repeated run bitwise equal "
+          f"{sub['repeat_equal']}; {time.time() - t0:.1f} s", flush=True)
+    if not (d["e_err"] <= F32_MOVER_E_ATOL
+            and d["own_err"] <= F32_MOVER_MOM_ATOL
+            and d["dlt_err"] <= F32_MOVER_MOM_ATOL and d["dE_max"] > 0):
+        fail("mover_energies_deltas f32 disagrees with its plain version")
+    if (float(ch["differ"].float().mean()) > F32_MAX_DIFF_FRAC
+            or not (ch["cf_rel"] <= F32_CHAIN_RTOL
+                    and ch["wl_rel"] <= F32_CHAIN_RTOL
+                    and 0 < ch["n_acc"] < ch["n_enabled"])):
+        fail("chain_wl f32 at K=32 disagrees with its plain version")
+    if frac > F32_MAX_DIFF_FRAC or not (
+            sub["mom_err"] <= F32_MOVER_MOM_ATOL and sub["coord_err"] == 0.0
+            and sub["wl_rel"] <= F32_CHAIN_RTOL
+            and 0 < sub["n_acc"] < sub["n_enabled"]):
+        fail("the f32 scatter sub-step disagrees with its plain versions")
+    if not sub["repeat_equal"]:
+        fail("the f32 scatter sub-step is not deterministic")
+    line = dict(max_abs_err=max(d["e_err"], d["dlt_err"]), ms=d["ms"],
+                plain_ms=d["plain_ms"], bound_ms=bound[0], bound_by=bound[1])
+    print(f"[flagship] mover_energies_deltas f32 W={W_FLAG}: kernel "
+          f"{d['ms']:.4f} ms/launch, plain {d['plain_ms']:.3f} ms, bound "
+          f"{bound[0]:.6f} ms ({bound[1]}); the scatter of one sub-step "
+          f"(_scatter_moments, both lattices) {d['scatter_ms']:.4f} ms",
+          flush=True)
+    del cmp, d, sub
+
+    flag_kernels = {"mover_energies_deltas": eng.mover_kernel,
+                    "chain_wl": eng.chain_kernel}
+    for k in flag_kernels.values():
+        k.launches = 0
+    att0 = s.att.clone()
+    t0 = time.time()
+    s, samples = eng.run_cycles(s, FLAG_TIMED)   # cycles 2-3: rebin and
+    torch.cuda.synchronize()                     # sync at 2, resync at 3
+    elapsed = time.time() - t0
+    flag_launches = {n: k.launches for n, k in flag_kernels.items()}
+    att = (s.att - att0).sum(dim=1).tolist()
+    acc_frac = [a / max(t, 1) for a, t in zip(s.acc.sum(dim=1).tolist(),
+                                              s.att.sum(dim=1).tolist())]
+    overflow = int(s.occ_overflow.max())
+    print(f"[flagship-main] N={prm.nwater} W={W_FLAG} f32: warm-up cycle "
+          f"{warm_s:.3f} s; {FLAG_TIMED} cycles in {elapsed:.3f} s = "
+          f"{elapsed / FLAG_TIMED:.3f} s/cycle = "
+          f"{eng.trials_per_cycle * W_FLAG * FLAG_TIMED / elapsed:.4e} "
+          f"trials/s on {kind} ({card}); launches {flag_launches}; attempts "
+          f"trans/vol/switch {att} (all walkers), accepted {acc_frac}; "
+          f"occ_overflow {overflow}; dropped {int(s.dropped)}", flush=True)
+    if set(flag_launches.values()) != {FLAG_TIMED * n_sub}:
+        fail(f"the flagship's kernels were not launched once per sub-step: "
+             f"{flag_launches}")
+    if att[1] <= 0:
+        fail("no volume move fell into the flagship's timed cycles")
+    if overflow != 0:
+        fail(f"flagship slab overflow {overflow}")
+    if not torch.isfinite(samples["E_ls"]).all():
+        fail("non-finite therm samples of the flagship")
+    profile_cell_cycle(eng, s, tag="flag-profile")       # cycle 4
+    t0 = time.time()
+    s, drift = eng.audit_energy(s, n_walkers=64)
+    max_drift = float(torch.max(torch.abs(drift)))
+    eng.merged_histogram(s)
+    hist = ds_value64(s.master_hist)[0]
+    print(f"[flagship-main] audit of 64 walkers one cycle after a resync: "
+          f"max |drift| {max_drift:.3e} Hartree (limit "
+          f"{AUDIT_FLAG_MAX_DRIFT:g}); merged histogram sum "
+          f"{hist.sum():.6e} over {int((hist > 0).sum())} bins; "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if not max_drift < AUDIT_FLAG_MAX_DRIFT:
+        fail("flagship energy audit drift")
+    if not (np.isfinite(hist.sum()) and hist.sum() > 0):
+        fail("the flagship's merged histogram is empty or not finite")
+    return {"launches": flag_launches, "report": line}
+
+
+def require_scatter_modes(eng):
+    """Fail unless the cell engine resolved to the scatter path: the
+    mover kernel with its delta output, no apply kernel, the chain
+    kernel."""
+    if not (eng.use_cell_pallas and not eng.use_cell_apply
+            and eng.use_chain_kernel and eng.mover_kernel.with_deltas
+            and not eng.scatter_unique):
+        fail("the cell engine did not resolve to 'on' with the chain "
+             "kernel on a grid whose stencils overlap")
+
+
+def state_diff(a, b):
+    """(integer fields equal, names of those that differ, largest |a -
+    b| of the float fields) of two CellStates."""
+    import dataclasses
+
+    import torch
+
+    names, err = [], 0.0
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        pairs = (zip(x, y) if isinstance(x, tuple)
+                 else [(x, y)] if torch.is_tensor(x) else [])
+        for xx, yy in pairs:
+            if xx.is_floating_point():
+                err = max(err, _max_abs(xx, yy))
+            elif not torch.equal(xx, yy):
+                names.append(f.name)
+    return not names, names, err
 
 
 def _bound(nbytes, ops):
@@ -1949,6 +2374,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_time("7. N=8064 cell main path")
 
+    # ---- 6b. the scatter path's kernels vs plain (float64, the
+    # (12,7,18) pair: 75-cell stencils that overlap)
+    scatter_phase()
+    torch.cuda.empty_cache()
+    phase_time("6b. delta output and scatter path")
+
+    # ---- 6c. 'on' against 'apply' where both run (N=8064)
+    on_apply_phase()
+    torch.cuda.empty_cache()
+    phase_time("6c. 'on' against 'apply' (N=8064)")
+
+    # ---- 7b. the N=24192 flagship on its front-end grid
+    flag = flagship_run(kind, card)
+    for name, n in flag["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    report["mover_energies_deltas"] = flag["report"]
+    torch.cuda.empty_cache()
+    phase_time("7b. N=24192 flagship (scatter path)")
+
     # ---- 8. the multi-trial kernels (cell_trials = 8) vs plain
     from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
 
@@ -2066,6 +2510,12 @@ def main() -> int:
              replaces="mc_water_ls_mw_tpu/ops/cell_pallas.py:388",
              launches=launches["mover_points"], library_ms=None,
              **report["mover_points"]),
+        dict(name="mover_energies_deltas", route="cuda",
+             source="mc_water_ls_mw_tpu_torch/csrc/cell_movers.cu",
+             replaces="mc_water_ls_mw_tpu/ops/cell_pallas.py:88 "
+                      "(with_deltas=True)",
+             launches=launches["mover_energies_deltas"], library_ms=None,
+             **report["mover_energies_deltas"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

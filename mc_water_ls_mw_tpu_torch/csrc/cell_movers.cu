@@ -7,7 +7,10 @@
 //                   own centre-angle sum and the wing sums against its
 //                   neighbours' moments, corrected for the new position
 //                   by the mover's own leg change) and the mover's new
-//                   own moments;
+//                   own moments; its second entry point
+//                   (mover_energies_deltas) also writes every candidate
+//                   slot's ten moment deltas new - old, which the
+//                   engine's scatter path adds to the slab;
 //   mover_points    the same at P = T + 1 points per mover (the
 //                   multi-trial sub-step: point 0 the stored position,
 //                   points 1..T the anchored-window candidates) in one
@@ -19,8 +22,8 @@
 //                   slot to its new moments and its coordinate rows to
 //                   the new position.
 //
-// They replace the TPU kernels MoverEnergiesPallas._kernel
-// (with_deltas=False), MoverPointsPallas._kernel and
+// They replace the TPU kernels MoverEnergiesPallas._kernel (both
+// with_deltas=False and with_deltas=True), MoverPointsPallas._kernel and
 // MoverApplyPallas._kernel (mc_water_ls_mw_tpu/ops/cell_pallas.py).
 // Plain versions: MoverEnergiesKernel.plain / MoverPointsKernel.plain /
 // MoverApplyKernel.plain in ops/cell_kernels.py
@@ -29,9 +32,10 @@
 //
 // Data: each lattice's state is one packed slab pk [nfine, 14, cap, W]
 // (rows 0:10 the moments, 10:13 x y z, 13 the occupied flag), walker
-// last.  A mover's candidates are the cap slots of the CF = 27 fine
-// cells of its coverage stencil (cand [K,CF], wrap offsets off
-// [K,CF,3]); a candidate's image shift is H @ off.  Masking as in the
+// last.  A mover's candidates are the cap slots of the CF fine cells of
+// its coverage stencil (cand [K,CF], wrap offsets off [K,CF,3]; CF = 27
+// where the fine cells are at least the coverage radius wide, 75 on
+// narrower ones); a candidate's image shift is H @ off.  Masking as in the
 // TPU kernel: a slot counts if its flag is > 0.5 and it is not the
 // mover's own slot (the candidate cell is the mover's cell and the slot
 // equals rank).
@@ -51,6 +55,13 @@
 // rows only where a leg is in range.  mover_energies reduces the 26
 // partial sums of the NW warps through shared memory in a fixed order
 // (no float atomics: accept decisions must not depend on scheduling).
+// mover_energies_deltas adds the output [L, K, CF, 10, cap, W] (per
+// lattice the rows of the packed slab's moment block, so the engine's
+// scatter reads it as it is) and writes EVERY slot of it, zeros where
+// the slot is masked or out of range of both positions: a single pass
+// with no memset, whose coalesced stores (lane = walker) are the bulk of
+// its bytes (10*K*CF*cap*W per lattice, 393 MB at K=32, CF=75, cap=32,
+// W=128 in f32), so it is bound by them.
 // mover_apply needs no reduction and no atomics: same-colour stencils
 // are disjoint, so no two movers touch one cell, and a mover's own slot
 // is never read as a neighbour (it is self-masked), so its coordinates
@@ -86,6 +97,7 @@ struct MoverArgs {
   void* e;        // [L,K,2,W]   (energies: out; point 0 old, 1 new)
   void* own;      // [L,K,10,W]  (energies: out; apply: in)
   void* accf;     // rows of W accept flags (> 0.5), row k at k*acc_stride
+  void* dlt;      // [L,K,CF,10,cap,W] (energies with deltas: out)
   long long acc_stride;
   int L, K, CF, cap, W;
   SWConsts sw;
@@ -164,7 +176,23 @@ __device__ __forceinline__ bool slot_legs(const MoverCtx<T>& c, int cid,
   return go.in || gn.in;
 }
 
+// The partner's-view moment contribution of a leg: (w, -w u, w u u^T).
 template <typename T>
+__device__ __forceinline__ void leg_delta(const Leg<T>& g, T d[10]) {
+  const T wux = g.w * g.ux, wuy = g.w * g.uy, wuz = g.w * g.uz;
+  d[0] = g.w;
+  d[1] = -wux;
+  d[2] = -wuy;
+  d[3] = -wuz;
+  d[4] = wux * g.ux;
+  d[5] = wuy * g.uy;
+  d[6] = wuz * g.uz;
+  d[7] = wux * g.uy;
+  d[8] = wux * g.uz;
+  d[9] = wuy * g.uz;
+}
+
+template <typename T, bool DELTAS>
 __global__ void __launch_bounds__(32 * NW)
 mover_energies_kernel(const MoverArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -192,7 +220,21 @@ mover_energies_kernel(const MoverArgs a) {
     cell_shift(c, off + ci * 3, sh);
     for (int j = wy; j < cap; j += NW) {
       Leg<T> go, gn;
-      if (!slot_legs(c, cid, j, self_cell, sh, sw, go, gn)) continue;
+      const bool in = slot_legs(c, cid, j, self_cell, sh, sw, go, gn);
+      if (DELTAS && w_raw < W) {
+        // this slot's deltas new - old (zero where no leg is in range)
+        T* d = static_cast<T*>(a.dlt)
+             + ((((size_t)l * K + k) * CF + ci) * 10 * cap + j) * W + w;
+        T dlo[10], dln[10];
+        if (in) {
+          leg_delta(go, dlo);
+          leg_delta(gn, dln);
+        }
+#pragma unroll
+        for (int f = 0; f < 10; ++f)
+          d[(size_t)f * cap * W] = in ? dln[f] - dlo[f] : (T)0;
+      }
+      if (!in) continue;
       const size_t base = ((size_t)cid * PK_ROWS * cap + j) * W + w;
       T mj[10];
 #pragma unroll
@@ -253,22 +295,6 @@ mover_energies_kernel(const MoverArgs a) {
   T* own = static_cast<T*>(a.own) + ((size_t)l * K + k) * 10 * W + w;
 #pragma unroll
   for (int f = 0; f < 10; ++f) own[(size_t)f * W] = mn[f];
-}
-
-// The partner's-view moment contribution of a leg: (w, -w u, w u u^T).
-template <typename T>
-__device__ __forceinline__ void leg_delta(const Leg<T>& g, T d[10]) {
-  const T wux = g.w * g.ux, wuy = g.w * g.uy, wuz = g.w * g.uz;
-  d[0] = g.w;
-  d[1] = -wux;
-  d[2] = -wuy;
-  d[3] = -wuz;
-  d[4] = wux * g.ux;
-  d[5] = wuy * g.uy;
-  d[6] = wuz * g.uz;
-  d[7] = wux * g.uy;
-  d[8] = wux * g.uz;
-  d[9] = wuy * g.uz;
 }
 
 template <typename T>
@@ -487,15 +513,16 @@ static int launch_points(const PointsArgs* a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool DELTAS>
 static int launch_energies(const MoverArgs* a, cudaStream_t stream) {
+  if (DELTAS && a->dlt == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(T) * NW * NACC * 32;
   cudaError_t err = cudaFuncSetAttribute(
-      mover_energies_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      mover_energies_kernel<T, DELTAS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a->W + 31) / 32, a->K, a->L), block(32, NW);
-  mover_energies_kernel<T><<<grid, block, smem, stream>>>(*a);
+  mover_energies_kernel<T, DELTAS><<<grid, block, smem, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
@@ -509,11 +536,19 @@ static int launch_apply(const MoverArgs* a, cudaStream_t stream) {
 extern "C" {
 
 int mover_energies_f32(const MoverArgs* a, void* stream) {
-  return launch_energies<float>(a, (cudaStream_t)stream);
+  return launch_energies<float, false>(a, (cudaStream_t)stream);
 }
 
 int mover_energies_f64(const MoverArgs* a, void* stream) {
-  return launch_energies<double>(a, (cudaStream_t)stream);
+  return launch_energies<double, false>(a, (cudaStream_t)stream);
+}
+
+int mover_energies_deltas_f32(const MoverArgs* a, void* stream) {
+  return launch_energies<float, true>(a, (cudaStream_t)stream);
+}
+
+int mover_energies_deltas_f64(const MoverArgs* a, void* stream) {
+  return launch_energies<double, true>(a, (cudaStream_t)stream);
 }
 
 int mover_apply_f32(const MoverArgs* a, void* stream) {

@@ -4,9 +4,11 @@ Counterpart of ``mc_water_ls_mw_tpu/mcmc/cellengine.py`` (whose
 docstring derives the construction) for its usual configurations: one
 trial per scheduled mover (``cell_trials=1``) or T anchored-window
 trials per mover (``cell_trials=T > 1``, ``_substep_multi``), with the
-fused sub-step kernels and the in-place apply stage
-(``cell_pallas='apply'``) and the per-move chain + WL kernel
-(``cell_chain='on'``).
+fused sub-step kernels, the per-move chain + WL kernel
+(``cell_chain='on'``) and either apply stage: the in-place apply kernel
+(``cell_pallas='apply'``, disjoint same-colour stencils) or the scatter
+of the mover kernel's per-candidate deltas (``cell_pallas='on'``, at
+one trial per mover, on any unpadded grid).
 
 * Space is partitioned by the two-level mid-frame cell grid of
   ops/cells.py.  One sub-step picks ONE random molecule in every coarse
@@ -19,7 +21,8 @@ fused sub-step kernels and the in-place apply stage
   all T + 1 points of each mover), acceptance runs sequentially over
   the movers (``ChainWLKernel``) because mu, eta(mu) and the WL weights
   couple all moves, then the accepted movers are applied in parallel
-  (``MoverApplyKernel``; at T > 1 once, at each mover's final point).
+  (``MoverApplyKernel``; at T > 1 once, at each mover's final point;
+  with 'on' the scatter of the deltas, ``_scatter_moments``).
 * A move that would cross the mover's stored FINE-cell boundary is
   rejected (a state-only-dependent hard wall), which keeps the static
   coverage tables exact between rebins; the grid origin is re-drawn and
@@ -38,14 +41,17 @@ depend on the device.  Differences from the JAX engine:
   and unpacked once per cycle;
 * the state is a dataclass updated in place, ``cycle`` is a host int
   and randomness comes from the engine's stream (mcmc/engine.py);
-* ``cell_pallas='auto'`` and ``cell_chain='auto'`` resolve to 'apply' and
-  'on' on every device (the JAX package's 'auto' picks its micro-batched
-  plain chain on a CPU).
+* ``cell_pallas='auto'`` and ``cell_chain='auto'`` resolve on every
+  device as the JAX engine resolves them on an accelerator: 'apply' where
+  same-colour stencils are disjoint, else 'on' (at one trial per mover),
+  and the chain kernel (the JAX package's 'auto' picks its unfused XLA
+  sub-step and micro-batched chain on a CPU).
 
 Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md):
-``cell_pallas`` 'on' / 'off', ``cell_chain='off'``,
-``cell_trans_wall > 0``, padded or non-disjoint coverage tables, and
-whatever the dense engine of the port refuses.
+``cell_pallas='off'``, ``cell_chain='off'``, ``cell_trans_wall > 0``,
+padded coverage tables, ``cell_trials > 1`` on stencils that are not
+disjoint (the JAX engine's XLA fallback), and whatever the dense engine
+of the port refuses.
 """
 
 from __future__ import annotations
@@ -249,6 +255,8 @@ class _Trial(NamedTuple):
     e: torch.Tensor         # [L, K, 2, W] local energies (old, new)
     own_new: torch.Tensor   # [L, K, 10, W] the movers' new own moments
     hasm: torch.Tensor      # [K, W] float 0/1: the trial exists
+    dlt: torch.Tensor | None = None  # [L, K, CF, 10, cap, W] per-candidate
+                                     # moment deltas ('on' only)
 
 
 class _TrialTM(NamedTuple):
@@ -265,9 +273,8 @@ class _TrialTM(NamedTuple):
 
 
 _CELL_UNSUPPORTED = (
-    ("cell_pallas other than 'auto'/'apply' (the per-candidate delta "
-     "output with the scatter path, and the unfused path)",
-     lambda p: p.cell_pallas not in ("auto", "apply")),
+    ("cell_pallas='off' (the unfused XLA sub-step)",
+     lambda p: p.cell_pallas not in ("auto", "apply", "on")),
     ("cell_chain='off' (the micro-batched chain)",
      lambda p: p.cell_chain not in ("auto", "on")),
     ("cell_trans_wall > 0", lambda p: p.cell_trans_wall > 0.0),
@@ -307,8 +314,10 @@ class CellEngine(Engine):
         # cell is static: its candidate set is the per-fine-cell
         # coverage stencil (cells.full_cells).  Same-colour movers'
         # stencils are DISJOINT where the stencil is the 27-cell cube
-        # and m >= 2; verified explicitly per table, since the in-place
-        # apply stage relies on it.
+        # and m >= 2 (fine cells at least the coverage radius wide);
+        # verified explicitly per table, since the in-place apply stage
+        # relies on it.  Narrower fine cells need the 75-cell stencil,
+        # and those of same-colour movers overlap.
         m3 = cg.m ** 3
         unpadded = bool(np.all(cg.full_mask))
         self.scatter_unique = unpadded
@@ -327,11 +336,6 @@ class CellEngine(Engine):
             raise NotImplementedError(
                 "padded coverage tables (cells.build_grid full_mask not "
                 "all True) are not ported yet (see ROADMAP.md)")
-        if not self.scatter_unique:
-            raise NotImplementedError(
-                "coverage stencils of same-colour movers that are not "
-                "disjoint (the scatter path of the sub-step) are not "
-                "ported yet (see ROADMAP.md)")
         # stacked (colour, block) tables, row t = colour*m^3 + block:
         # int32 for the kernels, and as int64 row offsets for torch
         # indexing: of the movers' slots in the [nslot, W] slabs and of
@@ -342,11 +346,19 @@ class CellEngine(Engine):
         self.cand_stack = i32(cand_rows)                    # [8*m3,K,CF]
         self.off_stack = i32(off_rows)                      # [8*m3,K,CF,3]
         self.fc_stack_l = self.fc_stack.long()
+        self.cand_stack_l = self.cand_stack.long()
         self.slot_base = (self.fc_stack_l * cg.cap)[:, :, None]
-        self.coord_base = ((
-            self.fc_stack_l[:, None, :] * PK_ROWS + PK_R0
-            + torch.arange(3, device=dev)[None, :, None]
-        ) * cg.cap)[..., None]                              # [8*m3,3,K,1]
+
+        def row_base(first, n):
+            """Row offsets [8*m3, n, K, 1] of rows first..first+n-1 of
+            the movers' fine-cell blocks in a packed slab viewed as
+            [rows, W] (add the mover's rank)."""
+            return ((self.fc_stack_l[:, None, :] * PK_ROWS + first
+                     + torch.arange(n, device=dev)[None, :, None])
+                    * cg.cap)[..., None]
+
+        self.coord_base = row_base(PK_R0, 3)
+        self.mom_base = row_base(0, 10)
         self.half_dfrac0 = 0.5 * self.cellaux.dfrac0        # [3,N]
         self.n_tables = 8 * m3
         self.K = cg.cells_per_color
@@ -364,18 +376,54 @@ class CellEngine(Engine):
         # T candidates (3 each), T accept and T switch uniforms at T > 1
         self.n_u = 7 if self.T == 1 else 4 + 5 * self.T
 
+        self._resolve_modes()
         if self.T == 1:
-            self.mover_kernel = MoverEnergiesKernel(self.model, cg)
+            self.mover_kernel = MoverEnergiesKernel(
+                self.model, cg, with_deltas=not self.use_cell_apply)
         else:
             self.points_kernel = MoverPointsKernel(self.model, cg,
                                                    self.T + 1)
-        self.apply_kernel = MoverApplyKernel(self.model, cg)
+        if self.use_cell_apply:
+            self.apply_kernel = MoverApplyKernel(self.model, cg)
         self.chain_kernel = ChainWLKernel(
             prm, self.grid, self.K, self.T,
             float(self.aux.log_unbiased_norm))
         self.full_max_elems = (_FULL_ENERGY_MAX_ELEMS_CUDA
                                if dev.type == "cuda"
                                else _FULL_ENERGY_MAX_ELEMS)
+
+    def _resolve_modes(self):
+        """``cell_pallas`` / ``cell_chain`` as the JAX engine resolves
+        them on an accelerator (its CellEngine.__init__), on an unpadded
+        grid; sets ``use_cell_pallas``, ``use_cell_apply`` and
+        ``use_chain_kernel`` under the JAX names.  'apply' (or 'auto'
+        where same-colour stencils are disjoint) applies the movers with
+        the in-place apply kernel; 'on' (or 'auto' where they overlap, at
+        one trial per mover) scatters the mover kernel's per-candidate
+        deltas.  The kernels always run: 'off' is refused by
+        _check_scope."""
+        pallas, T = self.prm.cell_pallas, self.T
+        if pallas == "apply" and not self.scatter_unique:
+            raise ValueError(
+                "cell_pallas='apply' needs disjoint same-colour "
+                "coverage stencils (scatter_unique)")
+        self.use_cell_pallas = True
+        self.use_cell_apply = pallas == "apply" or (
+            pallas == "auto" and self.scatter_unique)
+        if T > 1 and not self.use_cell_apply:
+            if pallas == "on":
+                raise ValueError(
+                    "cell_trials > 1 supports cell_pallas in ('off', "
+                    "'apply', 'auto'): the multi-point kernel has no "
+                    "per-candidate delta output for the 'on' scatter path")
+            raise NotImplementedError(
+                "cell_trials > 1 on coverage stencils of same-colour "
+                "movers that are not disjoint (the unfused XLA sub-step "
+                "with the micro-batched chain) is not ported yet (see "
+                "ROADMAP.md)")
+        # cell_chain 'auto' and 'on' both mean the chain kernel here:
+        # 'off' and one lattice are refused by _check_scope
+        self.use_chain_kernel = True
 
     # ------------------------------------------------------------------
     # compensated energy accumulation (see CellState.energy_err)
@@ -631,11 +679,12 @@ class CellEngine(Engine):
         # parallel energies of all K movers in both lattices, against
         # the per-fine-cell coverage stencil (the wall keeps both
         # endpoints inside the stored fine cell, so the stencil's
-        # coverage of that cube reaches every partner)
-        e, own_new = self.mover_kernel(pks, s.h, cand, off, fc, rank, p_old,
-                                       p_new)
+        # coverage of that cube reaches every partner); with 'on' also
+        # the per-candidate moment deltas
+        e, own_new, *dlt = self.mover_kernel(pks, s.h, cand, off, fc, rank,
+                                             p_old, p_new)
         return _Trial(rank, slot, p_old, p_new, e, own_new,
-                      has_mover.to(e.dtype))
+                      has_mover.to(e.dtype), *dlt)
 
     def _chain_kernel_substep(self, s: CellState, rows: _LoopRows,
                               trial: _Trial, codes_k, ua, uz, cnt=None):
@@ -656,13 +705,61 @@ class CellEngine(Engine):
                   trial: _Trial, accf, en_per_mover):
         """Sub-step phase 3: apply the accepted movers to the packed
         slabs in place (independent, so parallel application equals the
-        sequential composition) and count the trials per slot."""
-        fc, cand, off = self._tables(tbl)
-        self.apply_kernel(pks, s.h, cand, off, fc, trial.rank, accf,
-                          trial.p_old, trial.p_new, trial.own_new)
+        sequential composition) and count the trials per slot.
+        ``accf`` [K, W]: the accepted flags (> 0.5)."""
+        if self.use_cell_apply:
+            fc, cand, off = self._tables(tbl)
+            self.apply_kernel(pks, s.h, cand, off, fc, trial.rank, accf,
+                              trial.p_old, trial.p_new, trial.own_new)
+        else:
+            self._scatter_moments(pks, tbl, trial, accf)
         # per-slot trial counter (gathered to molecule order once per
         # cycle); the movers' slots are distinct
         tpm_slab.scatter_add_(0, trial.slot, en_per_mover)
+
+    def _scatter_moments(self, pks, tbl: int, trial: _Trial, accf):
+        """The scatter path of phase 3 ('on'), in the JAX engine's order
+        and arithmetic (its _apply_t1 non-apply branch): the accepted
+        movers' coordinate rows := p_old + (p_new - p_old), then per
+        lattice the acceptance-masked per-candidate deltas scatter-added
+        into the stencil cells' moment rows and the movers' own slots
+        set to their new moments (``_scatter_moments_one``).  The deltas
+        do not depend on the movers' coordinate rows (each mover is
+        masked out of its own stencil and more than 2 rc from every
+        other same-colour mover), so the order of the steps is free."""
+        K, W = accf.shape
+        acc = accf > 0.5
+        coord = (self.coord_base[tbl] + trial.rank).view(3 * K, W)
+        mom = (self.mom_base[tbl] + trial.rank).view(10 * K, W)
+        cand_flat = self.cand_stack_l[tbl].view(-1)          # [K*CF]
+        dp = torch.where(acc, trial.p_new - trial.p_old, 0.0)
+        for l, pk in enumerate(pks):
+            pk.view(-1, W).scatter_(
+                0, coord, (trial.p_old[l] + dp[l]).view(3 * K, W))
+        for l, pk in enumerate(pks):
+            self._scatter_moments_one(pk, trial.dlt[l], trial.own_new[l],
+                                      cand_flat, acc, mom)
+
+    @staticmethod
+    def _scatter_moments_one(pk, dlt, own, cand_flat, acc, mom):
+        """One lattice's moment update of the scatter path, in place:
+        ``dlt`` [K, CF, 10, cap, W] (masked by ``acc`` [K, W] in place)
+        added to the moment rows of the packed slab ``pk`` at the stencil
+        cells ``cand_flat`` [K*CF], whose entries repeat where stencils
+        overlap; then the accepted movers' own slots (rows ``mom``
+        [10*K, W] of ``pk`` viewed as [rows, W]) := ``own`` [K, 10, W].
+        At most one of the movers that reach a cell has a nonzero delta
+        at any of its slots (same-colour movers are more than 2 rc apart
+        in both replicas); every other addend is an exact zero, so the
+        sum does not depend on the order of the additions (atomics on
+        CUDA)."""
+        K, CF, _, cap, W = dlt.shape
+        dlt.masked_fill_(~acc[:, None, None, None, :], 0.0)
+        pk[:, 0:10].index_add_(0, cand_flat, dlt.view(K * CF, 10, cap, W))
+        flat = pk.view(-1, W)
+        flat.scatter_(0, mom, torch.where(
+            acc.repeat(10, 1), own.transpose(0, 1).reshape(10 * K, W),
+            torch.gather(flat, 0, mom)))
 
     # ------------------------------------------------------------------
     # the multi-trial sub-step (cell_trials = T > 1)

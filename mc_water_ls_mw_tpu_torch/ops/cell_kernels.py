@@ -2,14 +2,19 @@
 kernels and their plain versions.
 
 Counterpart of ``mc_water_ls_mw_tpu/ops/cell_pallas.py``
-(``MoverEnergiesPallas`` without its per-candidate delta output,
-``MoverPointsPallas`` and ``MoverApplyPallas``).  One call serves every
-lattice (the JAX package calls its kernels once per lattice):
+(``MoverEnergiesPallas`` with and without its per-candidate delta
+output, ``MoverPointsPallas`` and ``MoverApplyPallas``).  One call serves
+every lattice (the JAX package calls its kernels once per lattice):
 
 * ``MoverEnergiesKernel(pks, h, cand, off, fc, rank, p_old, p_new)`` ->
   (e [L,K,2,W], own_new [L,K,10,W]): each mover's local energy at its
   old (point 0) and at its proposed position (point 1), in the layout of
-  the chain kernel's point table, and its new own moments;
+  the chain kernel's point table, and its new own moments; built with
+  ``with_deltas=True`` it returns a third tensor, dlt [L,K,CF,10,cap,W],
+  every candidate slot's moment deltas new - old (zero for masked slots
+  and slots out of range of both positions): per lattice, viewed as
+  [K*CF, 10, cap, W], the moment rows 0:10 of the packed slab's blocks
+  at ``cand``, which the engine's scatter path adds to the slab;
 * ``MoverPointsKernel(pks, h, cand, off, fc, rank, pts)`` with ``pts``
   [P,L,3,K,W] (point 0 the stored position) -> (e [L,K,P,W], own
   [L,K,P,10,W]): the multi-trial sub-step's local energies at all P
@@ -30,10 +35,10 @@ rows may be strided).
 The kernels are ``csrc/cell_movers.cu`` (its header says what bounds
 them on the H100 and how the design answers that).  The plain versions
 are ``cell_energy.mover_energies``, ``cell_energy.mover_point_energies``
-and the scatter of the per-candidate deltas.  A wrapper takes the plain version only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises.  Both require an
-unpadded coverage table, and the apply kernel disjoint same-colour
-stencils (the engine checks both).
+and the scatter of the per-candidate deltas.  A wrapper takes the plain
+version only for tensors on the CPU; for CUDA tensors it launches the
+kernel or raises.  All require an unpadded coverage table, and the apply
+kernel disjoint same-colour stencils (the engine checks both).
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ class MoverArgs(ctypes.Structure):
         [("pk", ctypes.c_void_p * 2)]
         + [(n, ctypes.c_void_p) for n in (
             "h", "cand", "off", "fc", "rank", "p_old", "p_new", "e", "own",
-            "accf")]
+            "accf", "dlt")]
         + [("acc_stride", ctypes.c_longlong)]
         + [(n, ctypes.c_int) for n in ("L", "K", "CF", "cap", "W")]
         + [("sw", cuda_build.SWConsts)]
@@ -80,6 +85,8 @@ class PointsArgs(ctypes.Structure):
 
 @functools.lru_cache(maxsize=None)
 def _entry(which, dtype):
+    """The C entry point ``mover_<which>_<f32|f64>`` of csrc/cell_movers.cu
+    (``which``: energies, energies_deltas, points, apply)."""
     sym = f"mover_{which}_" + ("f32" if dtype == torch.float32 else "f64")
     struct = PointsArgs if which == "points" else MoverArgs
     return cuda_build.bind("cell_movers", sym,
@@ -164,20 +171,39 @@ class _MoverKernel:
             pk[:, PK_VALID] > 0.5, H, cand.long(), off, self.full_mask,
             self.cap, mover_slot, p_old, p_new, self.model)
 
+    def _deltas(self, co, cn):
+        """Per-candidate moment deltas new - old [K, CF, 10, cap, W] of
+        one lattice from the candidate objects of ``_candidates``."""
+        K, _, W = co.w.shape
+        return torch.stack([
+            (fn - fo).reshape(K, self.CF, self.cap, W)
+            for fo, fn in zip(co.delta(), cn.delta())
+        ], dim=2)
+
 
 class MoverEnergiesKernel(_MoverKernel):
     """Local energies at the old and the new position and new own
-    moments of K movers."""
+    moments of K movers; with ``with_deltas`` also every candidate
+    slot's moment deltas (the JAX kernel's constructor flag)."""
 
-    name = "mover_energies"
+    def __init__(self, model: SWParams, cg: CellGrid,
+                 with_deltas: bool = False):
+        super().__init__(model, cg)
+        self.with_deltas = bool(with_deltas)
+        self.name = ("mover_energies_deltas" if self.with_deltas
+                     else "mover_energies")
 
     def plain(self, pks, h, cand, off, fc, rank, p_old, p_new):
-        e, own = [], []
+        e, own, dlt = [], [], []
         for l, pk in enumerate(pks):
-            eo, en, _, cn = self._candidates(pk, h[l], cand, off, fc, rank,
-                                             p_old[l], p_new[l])
+            eo, en, co, cn = self._candidates(pk, h[l], cand, off, fc, rank,
+                                              p_old[l], p_new[l])
             e.append(torch.stack([eo, en], dim=1))           # [K,2,W]
             own.append(torch.stack(list(cn.own), dim=1))     # [K,10,W]
+            if self.with_deltas:
+                dlt.append(self._deltas(co, cn))             # [K,CF,10,cap,W]
+        if self.with_deltas:
+            return torch.stack(e), torch.stack(own), torch.stack(dlt)
         return torch.stack(e), torch.stack(own)
 
     def __call__(self, pks, h, cand, off, fc, rank, p_old, p_new):
@@ -189,8 +215,15 @@ class MoverEnergiesKernel(_MoverKernel):
         e = torch.empty((L, K, 2, W), dtype=dtype, device=dev)
         own = torch.empty((L, K, 10, W), dtype=dtype, device=dev)
         args.e, args.own = e.data_ptr(), own.data_ptr()
-        self._launch("energies", args, dtype, dev)
-        return e, own
+        if not self.with_deltas:
+            self._launch("energies", args, dtype, dev)
+            return e, own
+        # every slot is written by the kernel: no zero fill
+        dlt = torch.empty((L, K, self.CF, 10, self.cap, W), dtype=dtype,
+                          device=dev)
+        args.dlt = dlt.data_ptr()
+        self._launch("energies_deltas", args, dtype, dev)
+        return e, own, dlt
 
 
 class MoverPointsKernel(_MoverKernel):
@@ -273,11 +306,8 @@ class MoverApplyKernel(_MoverKernel):
         for l, pk in enumerate(pks):
             _, _, co, cn = self._candidates(pk, h[l], cand, off, fc, rank,
                                             p_old[l], p_new[l])
-            dlt = torch.stack([
-                (fn - fo).reshape(K, CF, cap, W)
-                for fo, fn in zip(co.delta(), cn.delta())
-            ], dim=2)                                  # [K,CF,10,cap,W]
-            dlt = torch.where(acc[:, None, None, None, :], dlt, 0.0)
+            dlt = torch.where(acc[:, None, None, None, :],
+                              self._deltas(co, cn), 0.0)  # [K,CF,10,cap,W]
             pk[cells, 0:10] += dlt.reshape(K * CF, 10, cap, W)
             blk = pk[fcl]                              # [K,14,cap,W]
             blk[:, 0:10] = torch.where(

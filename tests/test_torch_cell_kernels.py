@@ -8,8 +8,13 @@ stencils, disjoint for same-colour movers), float64, W = 2:
   (with_deltas=False);
 * ``MoverApplyKernel.plain`` vs ``MoverApplyPallas`` (the packed slab);
 * ``ChainWLKernel.plain`` vs ``ChainWLPallas`` with WL live and in a
-  sample run, at one, two and eight trials per mover, and on a point
-  table that holds a non-finite energy (integer outputs identical).
+  sample run, at one, two and eight trials per mover, at the flagship's
+  32 movers, and on a point table that holds a non-finite energy
+  (integer outputs identical);
+
+and on a jittered N=6048 state of the (12,7,18) pair (75-cell stencils
+that overlap between same-colour movers) ``MoverEnergiesKernel.plain``
+with deltas vs ``MoverEnergiesPallas(with_deltas=True)``.
 
 The Pallas kernels run in interpret mode, as the JAX package's own
 tests run them on the CPU.  The CUDA kernels themselves are held
@@ -58,12 +63,12 @@ def pack_lattice(st, cg, l):
     return np.stack(rows, axis=1)
 
 
-@pytest.fixture(scope="module")
-def movers():
-    """A sub-step's inputs on the jittered state: the (colour 3, block
-    1) table, random ranks among the occupants, proposals 0.3 Bohr from
-    the old positions (some within a fine cell, some beyond)."""
-    sys_ = jax_cell_system()
+def mover_case(dims, with_deltas=False):
+    """A sub-step's inputs on a jittered state of the stacking pair
+    ``dims``: the (colour 3, block 1) table, random ranks among the
+    occupants, proposals 0.3 Bohr from the old positions (some within a
+    fine cell, some beyond)."""
+    sys_ = jax_cell_system(dims)
     jcg = sys_["jcg"]
     jst = jitter_slab(sys_, seed=5)
     K, cap, W = jcg.cells_per_color, jcg.cap, 2
@@ -88,9 +93,22 @@ def movers():
                 cand=cand.astype(np.int32), off=off.astype(np.int32),
                 rank=rank, p_old=p_old, p_new=p_new, pk=pk,
                 accf=rng.uniform(size=(K, W)) < 0.6,
-                jenergies=jax.jit(MoverEnergiesPallas(MW, jcg,
-                                                      with_deltas=False)),
+                jenergies=jax.jit(MoverEnergiesPallas(
+                    MW, jcg, with_deltas=with_deltas)),
                 japply=jax.jit(MoverApplyPallas(MW, jcg)))
+
+
+@pytest.fixture(scope="module")
+def movers():
+    """The N=8064 pair's sub-step inputs (mover_case)."""
+    return mover_case((14, 8, 18))
+
+
+@pytest.fixture(scope="module")
+def movers75():
+    """The (12,7,18) pair's sub-step inputs: CF = 75, overlapping
+    same-colour stencils (mover_case)."""
+    return mover_case((12, 7, 18), with_deltas=True)
 
 
 def port_args(m):
@@ -126,6 +144,42 @@ def test_mover_energies_plain_matches_pallas(movers):
             rtol=0, atol=1e-10)
     # the proposals change the energies: the comparison is not of zeros
     assert float((e_new - e_old).abs().min()) > 1e-6
+
+
+def test_mover_energies_deltas_plain_matches_pallas(movers75):
+    """The per-candidate delta output (the JAX kernel's with_deltas=True)
+    on 75-cell stencils: energies, own moments and every field of the
+    deltas new - old of every candidate slot."""
+    m = movers75
+    tcg = m["sys"]["tcg"]
+    K, CF, cap = tcg.cells_per_color, tcg.full_cells.shape[1], tcg.cap
+    assert (K, CF, cap) == (8, 75, 28)
+    pks, shared = port_args(m)
+    kern = MoverEnergiesKernel(TMW, tcg, with_deltas=True)
+    e, own, dlt = kern(pks, *shared, tt(m["p_old"]), tt(m["p_new"]))
+    assert kern.launches == 0 and kern.name == "mover_energies_deltas"
+    assert dlt.shape == (2, K, CF, 10, cap, 2)
+    for l in range(2):
+        je_old, je_new, jown, jd = jax_energies(m, l)
+        np.testing.assert_allclose(e[l, :, 0].numpy(), np.asarray(je_old),
+                                   rtol=0, atol=1e-10)
+        np.testing.assert_allclose(e[l, :, 1].numpy(), np.asarray(je_new),
+                                   rtol=0, atol=1e-10)
+        np.testing.assert_allclose(
+            own[l].numpy(), np.stack([np.asarray(f) for f in jown], axis=1),
+            rtol=0, atol=1e-10)
+        for f in range(10):
+            np.testing.assert_allclose(dlt[l, :, :, f].numpy(),
+                                       np.asarray(jd[f]), rtol=0, atol=1e-10,
+                                       err_msg=f"delta field {f}")
+        # the deltas are not all zeros: some slots of every mover's
+        # stencil are in range of one of its two positions
+        nz = (dlt[l] != 0).any(dim=2)                     # [K,CF,cap,W]
+        assert bool(nz.flatten(1, 2).any(dim=1).all())
+    # the same energies and own moments as without the delta output
+    e0, own0 = MoverEnergiesKernel(TMW, tcg)(pks, *shared, tt(m["p_old"]),
+                                             tt(m["p_new"]))
+    assert torch.equal(e0, e) and torch.equal(own0, own)
 
 
 def test_mover_apply_plain_matches_pallas(movers):
@@ -269,12 +323,14 @@ def run_chains(x, K, T, W, samplerun=False):
 
 
 @pytest.mark.parametrize("samplerun,T,K", [(False, 1, 8), (True, 1, 8),
-                                           (False, 2, 8), (False, 8, 2)],
+                                           (False, 2, 8), (False, 8, 2),
+                                           (False, 1, 32)],
                          ids=["wl_live", "samplerun", "two_trials",
-                              "eight_trials"])
+                              "eight_trials", "thirty_two_movers"])
 def test_chain_plain_matches_pallas(samplerun, T, K):
     # (eight trials on two movers: the interpret-mode JAX kernel's
-    # compile time grows with the trials times the points per mover)
+    # compile time grows with the trials times the points per mover;
+    # 32 movers at one trial: the N=24192 flagship's sub-step)
     W = 6
     x, tk, t, joh, cnt = chain_case(samplerun, T, K)
     # the pass did something of every kind, and the gates held

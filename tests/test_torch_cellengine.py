@@ -216,8 +216,10 @@ def test_molecules_stay_in_stored_fine_cells(cycles):
 
 
 def test_auto_resolves_to_the_kernels(system):
-    """'auto' means the apply stage and the chain kernel on every
-    device: what is computed never depends on the device."""
+    """On this grid (disjoint same-colour stencils) 'auto' means the
+    apply stage and the chain kernel on every device, as the JAX engine
+    resolves it on an accelerator: what is computed never depends on
+    the device."""
     jeng, _, _ = engines(system)
     ts, taux, tcaux = to_port(system["jst"], system["jaux"],
                               system["jcaux"])
@@ -226,9 +228,11 @@ def test_auto_resolves_to_the_kernels(system):
     teng = CellEngine(prm, TMW, system["tgrid"], taux, system["tcg"], tcaux,
                       device="cpu")
     assert isinstance(teng.mover_kernel, MoverEnergiesKernel)
+    assert not teng.mover_kernel.with_deltas
     assert isinstance(teng.apply_kernel, MoverApplyKernel)
     assert isinstance(teng.chain_kernel, ChainWLKernel)
-    assert teng.scatter_unique
+    assert teng.scatter_unique and teng.use_cell_apply
+    assert teng.use_cell_pallas and teng.use_chain_kernel
     assert (teng.K, teng.n_tables, teng.sweeps_per_cycle,
             teng.trials_per_cycle) == (8, 64, 16, 8192)
     assert (jeng.K, jeng.n_tables, jeng.sweeps_per_cycle,
@@ -239,7 +243,8 @@ def test_auto_resolves_to_the_kernels(system):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(leshift=True), dict(cell_pallas="on"), dict(cell_pallas="off"),
+    dict(leshift=True), dict(cell_pallas="on", cell_chain="off"),
+    dict(cell_pallas="off"),
     dict(cell_chain="off"), dict(cell_trans_wall=1.5),
     dict(parallel_strategy="dd"), dict(minu=True), dict(mc_ensemble="nvt"),
     dict(wl_swetnam=True), dict(num_lattices=1),
@@ -264,9 +269,16 @@ def test_unported_grids_raise(system):
         CellEngine(prm, TMW, system["tgrid"], taux, padded, tcaux,
                    device="cpu")
     # the smallest box the grid supports: 75-cell stencils that overlap
-    # between same-colour movers
+    # between same-colour movers.  The scatter path runs them at one
+    # trial per mover (test_torch_cellengine_scatter.py); the in-place
+    # apply stage and the multi-trial sub-step do not
     small = build_grids(12, 7, 18)[4]
     assert small.full_mask.all()
-    with pytest.raises(NotImplementedError, match="disjoint"):
+    with pytest.raises(ValueError, match="disjoint"):
         CellEngine(prm, TMW, system["tgrid"], taux, small, tcaux,
+                   device="cpu")
+    multi = TRunParams(**{**system["kw"], "cell_pallas": "auto",
+                          "cell_trials": 8})
+    with pytest.raises(NotImplementedError, match="not disjoint"):
+        CellEngine(multi, TMW, system["tgrid"], taux, small, tcaux,
                    device="cpu")

@@ -57,16 +57,18 @@ TRANS, VOL, SWITCH, NOOP = 0, 1, 2, 3
 # shared helpers
 # ----------------------------------------------------------------------
 
-def cell_run_params(**over):
-    """The N=8064 stacking pair's parameters at test size (float64,
-    W = 2; step sizes and bins of the JAX package's own large-N benchmark,
+def cell_run_params(dims=(14, 8, 18), **over):
+    """The parameters of the stacking pair ``dims`` (N = 4 * product;
+    the N=8064 pair by default) at test size (float64, W = 2; step sizes
+    and bins of the JAX package's own large-N benchmark,
     scripts/bench_largen.py)."""
+    N = 4 * int(np.prod(dims))
     kw = dict(
-        nwater=8064, num_lattices=2, temperature=200.0,
+        nwater=N, num_lattices=2, temperature=200.0,
         pressure=1.0 / AUP_TO_ATM,
         mc_max_trans=0.25 * ANG_TO_BOHR, mc_dv_max=0.2 * ANG_TO_BOHR,
         nbins=201, mu_min=-1200.0, mu_max=1200.0,
-        mc_vol_prob=1.0 / 8064, mc_switch_prob=0.1, samplerun=False,
+        mc_vol_prob=1.0 / N, mc_switch_prob=0.1, samplerun=False,
         eq_mc_cycles=0, wl_factor=0.05, list_update_int=100000,
         mpi_sync_int=100000, latt_sync_int=100000,
         n_walkers=2, dtype="float64",
@@ -92,12 +94,12 @@ def build_grids(nx=14, ny=8, m=18):
     return r0, H0, mx, jcg, tcg
 
 
-def jax_cell_system(**over):
-    """The N=8064 system in the JAX package: a dict with the run
-    parameters, both bin grids, both cell grids and the JAX initial
-    state with its aux tuples."""
-    kw = cell_run_params(**over)
-    r0, H0, mx, jcg, tcg = build_grids()
+def jax_cell_system(dims=(14, 8, 18), **over):
+    """The system of the stacking pair ``dims`` (N=8064 by default) in
+    the JAX package: a dict with the run parameters, both bin grids, both
+    cell grids and the JAX initial state with its aux tuples."""
+    kw = cell_run_params(dims, **over)
+    r0, H0, mx, jcg, tcg = build_grids(*dims)
     jgrid = jbins.build_bin_grid(kw["nbins"], kw["mu_min"], kw["mu_max"],
                                  dtype=jnp.float64)
     tgrid = tbins.build_bin_grid(kw["nbins"], kw["mu_min"], kw["mu_max"])
@@ -177,7 +179,20 @@ def system():
 # the grid construction (host numpy in both packages)
 # ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("dims", [(14, 8, 18), (12, 7, 18)])
+def stencils_overlap(cg) -> bool:
+    """Whether the coverage stencils of some two same-colour movers
+    share a fine cell (the engine's scatter_unique is its negation on an
+    unpadded grid)."""
+    for col in range(8):
+        cells_c = np.asarray(cg.color_cells[col])
+        for b in range(cg.m ** 3):
+            cand = cg.full_cells[cg.block_cells[cells_c][:, b]]
+            if len(np.unique(cand)) != cand.size:
+                return True
+    return False
+
+
+@pytest.mark.parametrize("dims", [(14, 8, 18), (12, 7, 18), (24, 14, 18)])
 def test_grid_tables_identical(dims):
     r0, H0, mx, jcg, tcg = build_grids(*dims)
     assert tcg.n == jcg.n and tcg.m == jcg.m and tcg.cap == jcg.cap
@@ -200,8 +215,23 @@ def test_grid_tables_identical(dims):
             tcells.choose_grid_shape(H0, TMW, mx, prefer_disjoint=True)
         with pytest.raises(ValueError):
             jcells.choose_grid_shape(H0, MW, mx, prefer_disjoint=True)
+        assert not stencils_overlap(tcg)
+    elif dims == (24, 14, 18):
+        # the N=24192 flagship on the grid the front end picks for it:
+        # coarse (8,8,4), 2048 fine cells narrower than the coverage
+        # radius, 75-cell stencils that overlap between same-colour
+        # movers, 32 movers per sub-step
+        assert tcg.n == (8, 8, 4) and tcg.m == 2 and tcg.nfine == 2048
+        assert tcg.cap == 32 and tcg.full_cells.shape == (2048, 75)
+        assert tcg.full_mask.all() and tcg.cells_per_color == 32
+        assert stencils_overlap(tcg)
+        # only the disjoint-stencil request gives it the 27-cell grid
+        assert tcells.choose_grid_shape(
+            H0, TMW, mx, prefer_disjoint=True) == (6, 6, 4)
+        assert jcells.choose_grid_shape(
+            H0, MW, mx, prefer_disjoint=True) == (6, 6, 4)
     else:
-        assert tcg.full_cells.shape[1] > 27
+        assert tcg.full_cells.shape[1] == 75 and stencils_overlap(tcg)
 
 
 def test_grid_helpers_identical():

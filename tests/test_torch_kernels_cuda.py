@@ -220,3 +220,32 @@ def test_multitrial_engine_on_card_runs_its_kernels(multitrial_engine):
     assert int(s.occ_overflow.max()) == 0 and int(s.acc[0].min()) > 0
     s2, drift = eng.audit_energy(s.clone(), n_walkers=8)
     assert float(drift.abs().max()) < 1e-9
+
+
+@pytest.fixture(scope="module")
+def scatter_engine(card):
+    """The cell engine on the (12,7,18) pair (75-cell stencils that
+    overlap: 'auto' resolves to the scatter path) at W walkers, float64,
+    after one cycle of sampling."""
+    prm = chip_smoke.cell_params(W, "float64",
+                                 stack=chip_smoke.SCATTER_STACK,
+                                 cell_pallas="auto", cell_chain="auto",
+                                 list_update_int=1, mpi_sync_int=1)
+    eng, s = chip_smoke.make_cell_engine(prm)
+    chip_smoke.require_scatter_modes(eng)
+    eng.run_cycles(s, 1)
+    return eng, s
+
+
+@pytest.mark.parametrize("tbl", [0, 37])
+def test_mover_energies_deltas_kernel_fp64(scatter_engine, tbl):
+    eng, s = scatter_engine
+    cmp = chip_smoke.scatter_substep_compare(eng, s, tbl, seed=tbl)
+    d, sub = cmp["mover_energies_deltas"], cmp["substep"]
+    assert d["e_err"] <= 1e-10 and d["own_err"] <= 1e-10
+    assert d["dlt_err"] <= 1e-10 and d["n_dlt"] > 0
+    assert not sub["differ"].any()
+    assert sub["mom_err"] <= 1e-10 and sub["coord_err"] <= 1e-10
+    assert sub["cf_rel"] <= 1e-10 and sub["wl_rel"] <= 1e-10
+    assert 0 < sub["n_acc"] < sub["n_enabled"]
+    assert sub["repeat_equal"]                  # the scatter's determinism
