@@ -643,14 +643,13 @@ def fused_kernel_check(prm, tag, reps=0, paper_pair=False):
     # round-off of a bin edge lands in the neighbouring bin)
     err = fused_max_err(sk, sp, ok, None if f64 else
                         ("r", "moments", "energy", "mu"))
-    regs, spill, per_sm = eng.fused_cycle.occupancy(s.r.dtype)
+    occ = eng.fused_cycle.occupancy(s.r.dtype, W)
     print(f"[{tag}] {kernel} {'fp64' if f64 else 'f32'} W={W} "
           f"S={len(eng.fold_shifts)} T={eng.dT}: {int(differ.sum())} walkers "
           f"differ ({frac:.4%}; limit {0 if f64 else F32_MAX_DIFF_FRAC:.0%})"
           f", on the rest energy max abs err {e_err:.3e} Hartree, relative "
-          f"state err {err:.3e}; {n_acc} accepted translations; {regs} "
-          f"registers, {spill} spill bytes per thread, at most {per_sm} "
-          f"blocks of 128 walkers per SM", flush=True)
+          f"state err {err:.3e}; {n_acc} accepted translations; "
+          f"{occupancy_text(occ)}", flush=True)
     if n_acc == 0:
         fail(f"{kernel}: no translation accepted")
     if f64:
@@ -668,11 +667,20 @@ def fused_kernel_check(prm, tag, reps=0, paper_pair=False):
                               eng, s, draws)
     print(f"[{tag}] {kernel} f32 W={W}: kernel {ms:.3f} ms/cycle, plain "
           f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"{-(-W // 128)} blocks on "
+          f"{occ['blocks']} blocks of {occ['walkers_per_block']} walkers on "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs",
           flush=True)
     return dict(max_abs_err=e_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def occupancy_text(occ):
+    """One line of FusedCycle.occupancy's report."""
+    return (f"{occ['registers']} registers, {occ['spill_bytes']} spill "
+            f"bytes per thread; {occ['walkers_per_block']} walkers per "
+            f"block ({occ['smem_bytes']} shared bytes), {occ['blocks']} "
+            f"blocks, at most {occ['walkers_per_sm']} walkers resident per "
+            "SM")
 
 
 def device_rows(prof):

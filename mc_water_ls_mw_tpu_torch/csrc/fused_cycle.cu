@@ -3,13 +3,15 @@
 // Wang-Landau or unbiased-histogram updates of the cycle.  Three
 // kernels, one per branch of the TPU kernel:
 //
-// * fused_cycle_kernel: static neighbour tables, one trial per move
-//   (the shared molecule schedule, the displacement wall);
-// * fused_cycle_dense_kernel: dense candidates (no tables): each walker
-//   moves its own molecule and every molecule under every folded image
-//   shift is a candidate, no wall;
-// * fused_cycle_multi_kernel: static tables, T > 1 anchored-window
-//   trials per shared mover on one fetch of its table rows.
+// * fused_cycle (fused_warp_kernel<T, TABLE>): static neighbour tables,
+//   one trial per move (the shared molecule schedule, the displacement
+//   wall);
+// * fused_cycle_dense (fused_warp_kernel<T, DENSE>): dense candidates
+//   (no tables): each walker moves its own molecule and every molecule
+//   under every folded image shift is a candidate, no wall;
+// * fused_cycle_multi (fused_kernel<T, MULTI>): static tables, T > 1
+//   anchored-window trials per shared mover on one fetch of its table
+//   rows.
 //
 // Replaces the TPU kernel FusedCycle._kernel with its branches
 // _do_translation_tbl, _do_translation and _do_translation_tbl_multi
@@ -20,41 +22,80 @@
 // _translation, _translation_tbl_multi) and switch.
 //
 // What bounds them on the H100: latency.  Each walker's chain is a
-// sequence of dependent steps.  A table step reads the scheduled
+// sequence of N dependent steps.  A table step reads the scheduled
 // molecule's ~28 table partners in both lattices (3 coordinates, then
-// 10 moments once the partner is in range: two dependent loads per
-// partner) and does a few 10^3 operations, so neither the card's bytes
-// (~229 MB per cycle at N=216, W=4096 in f32) nor its operations
-// (~6*10^9) come near their limits in the time one thread needs to walk
-// its steps (on an H100 at 700 W: 23 ms per cycle against a 0.09 ms
-// bound).  A dense step tests all N molecules under S shifts at both
-// points instead (N*S*2 folded distance tests per lattice), which makes
-// its operation count N/M times larger.  Design: one thread per walker
-// runs all steps with its per-walker scalars, cell matrices and their
-// inverses in registers; the state stays in device memory in the
-// walker-last layout, so a warp's loads of one row of r or of the
-// moments are coalesced 128-byte lines: the dense kernel's threads walk
-// the candidates j = 0..N-1 in lock step although their molecules
-// differ.  What is uniform across the block is staged in shared memory
-// once per block: the tables (2*216*32 int32 = 55 KB), frac0, the bin
-// grid, the folded shifts and the schedule, so every index fetch is a
-// broadcast.  The one-hot eta and bin-width lookups of the TPU kernel
-// become direct indexing weight[k*W + w]; the sentinel table index N is
-// skipped explicitly instead of reading a zeroed pad row.  W = 4096
-// gives 32 blocks of 128 threads on 132 SMs: the card is under-occupied
-// by design in this first version (warp-cooperative candidate loops are
-// the way to more parallelism per walker).  It is built without FMA
-// contraction (cuda_build.py), so each step rounds as the plain
-// version's elementwise ops do and float32 accept decisions near their
-// threshold rarely come out otherwise.
+// 10 moments of the partners in range) and does a few 10^3 operations;
+// a dense step tests all N molecules under S shifts at both points
+// (N/M times the operations).  Neither the bytes (~229 MB per cycle at
+// N=216, W=4096 in f32) nor the operations (~6*10^9) come near the
+// card's limits (0.09 ms): the time is the length of one walker's chain
+// of dependent loads and arithmetic, divided by how many chains the
+// card runs at once.
 //
-// The dense kernel writes only the rows a move changed: a row with no
-// leg in range of either point keeps st - 0 + 0 = st exactly.  The
-// multi-trial kernel holds no copy of the mover's table rows: every
-// trial re-reads the original rows (the state is not written until the
-// mover's store), and the store recomputes the rows of the last
-// accepted point, or skips them when no trial was accepted (the JAX
-// kernel then stores the original rows unchanged).
+// The first design (one thread per walker, the state in device memory
+// in the walker-last layout, 128-thread blocks) took 22.9 ms per cycle
+// (table) and 211 ms (dense, S=1) at N=216, W=4096 in f32 on an H100
+// 80GB HBM3 at 700 W (scripts/bench_torch_fused.py): 32 blocks on 132
+// SMs, ~112 dependent device-memory round trips per table step, and in
+// the dense kernel a warp of 32 walkers paid the leg and wing work of a
+// candidate wherever one of them had it in range.
+//
+// This design (table and dense branches): one warp per walker, the
+// walker's state in shared memory for the whole cycle.  On the same card
+// it takes 4.7-4.8 ms per table cycle (4.8x) and 11.3-11.5 ms per dense
+// cycle at S=1 (18.6x), 2.7-2.8 ms at N=48, S=3 (5.8x).  What bounds it
+// now is still latency: a table step of one walker takes ~5.5 us (its
+// chain of dependent arithmetic, shuffles and shared and L2 loads), and
+// an SM holds only 8 such chains (219 registers a thread in f32; the
+// states of 10 walkers fill its shared memory), so W=4096 runs in 4
+// waves of ~1.2 ms (a wave of 6-walker blocks takes ~1.1 ms).
+//
+// * Lanes: the table slots of the scheduled molecule map one to a lane
+//   (slot m on lane m mod 32), the same slot of both lattices on one
+//   lane, computed without branches (a leg out of range adds exact
+//   zeros), so the two lattices' work interleaves; the dense candidates
+//   j are strided over the lanes, first as cheap in-range tests only: a
+//   ballot compacts the rows with a leg in range of either point into a
+//   per-walker list in shared memory, and the lanes then share that
+//   short list for the leg, wing and moment work (the centre's own
+//   images as before).  Each lane sums its partners' pair terms, moments
+//   and wing terms for the old and new points; the warp reduces the 26
+//   sums of a lattice with xor shuffles in recursive halving (each level
+//   keeps half of the values, 31 shuffles for 32 values, then one
+//   broadcast shuffle per value, in place of a butterfly's 5 per value):
+//   every lane ends with the same bits and takes the same accept
+//   decision, WL lookup and switch.  Lane 0 alone writes the WL arrays
+//   and trans_per_mol, with fire-and-forget atomics (one writer per
+//   entry, so they round as a plain +=).  eta(mu) of the current point
+//   is carried from step to step while the weight view cannot change (a
+//   sample run, or no WL update).  An accepted move's rewrite of the
+//   partners' rows is spread over the lanes as well.
+// * Shared memory: r [2,3,N] and the moments [10,2,N] of the block's
+//   walkers are staged once from the walker-last device layout
+//   (coalesced over the block's walkers) into a walker-contiguous layout
+//   and written back once at the end; all N steps run out of shared
+//   memory (26*N values a walker: 22.5 KB at N=216 in f32).  The
+//   walkers per block (warps) come from that budget and the kernels'
+//   register bound (mcmc/fused.launch_plan: 8 in f32, 5 in f64 at
+//   N=216).  Where even one walker's state does not fit, the same body
+//   runs on the device layout (accessors over a base pointer and a
+//   stride).  The tables, frac0, the WL arrays and the uniforms stay in
+//   device memory: the table row and frac0 of a step are the same for
+//   every walker (L1 hits), the WL arrays and uniforms are touched once
+//   per step, the next step's uniforms loaded ahead.
+//
+// The multi-trial kernel keeps the first design (one thread per walker,
+// 128-thread blocks, the tables in shared memory): it holds no copy of
+// the mover's table rows, every trial re-reads the original rows, and
+// the store recomputes the rows of the last accepted point or skips
+// them when no trial was accepted.
+//
+// All are built without FMA contraction (cuda_build.py), so each step
+// rounds as the plain version's elementwise ops do; the warp sums add in
+// another order than the plain versions, so float32 accept decisions
+// within round-off of their threshold can come out otherwise.  A row
+// with no leg in range of either point keeps st - 0 + 0 = st exactly and
+// is not written.
 //
 // In-place: r, mom, e, wgt, hist, uh, tpm, wf and wi are updated where
 // they lie.
@@ -103,6 +144,10 @@ struct FusedArgs {
   double beta, betaP, pressure, nwater, log_norm, wall2, av_bw;
   double cpos, cneg, a_pos, a_neg, lnr_pos, lnr_neg;  // mu_to_bin
   SWConsts sw;
+  // launch plan of the warp kernels (mcmc/fused.launch_plan; unread by
+  // the multi-trial kernel): walkers (warps) per block, and whether
+  // their state is staged in shared memory (1) or read in place (0)
+  int wpb, state_smem;
 };
 
 template <typename T>
@@ -123,7 +168,8 @@ struct Consts {
   }
 };
 
-// Per-walker view of the state and its constants.
+// Per-walker view of the state and its constants (the multi-trial
+// kernel's thread; the warp kernels extend it as WarpWalker).
 template <typename T>
 struct Walker {
   int w, W, N, M;
@@ -131,8 +177,8 @@ struct Walker {
   T* mom;
   int* tpm;
   WLView<T> wl;  // the WL arrays, the bin grid and the walker's window
-  const T* s_frac0;
-  const int* s_tbl;
+  const T* frac0;   // [L*3*N] (table modes; shared or device memory)
+  const int* tbl;   // [L*N*M] (table modes; shared or device memory)
   const int* s_shifts;  // [S*3]
   int S;
   T H[2][3][3];  // cell matrices
@@ -148,6 +194,22 @@ struct Walker {
   }
   __device__ __forceinline__ T& mm(int fld, int l, int j) {
     return mom[((size_t)(fld * 2 + l) * N + j) * W + w];
+  }
+};
+
+// The walker as a warp kernel sees it: its coordinates and moments at a
+// base pointer with a stride between molecules, its block in shared
+// memory (stride 1) or its column of the walker-last device layout
+// (stride W).
+template <typename T>
+struct WarpWalker : Walker<T> {
+  int rs;
+
+  __device__ __forceinline__ T& rr(int l, int a, int j) {
+    return this->r[(size_t)((l * 3 + a) * this->N + j) * rs];
+  }
+  __device__ __forceinline__ T& mm(int fld, int l, int j) {
+    return this->mom[(size_t)((fld * 2 + l) * this->N + j) * rs];
   }
 };
 
@@ -255,88 +317,364 @@ __device__ __forceinline__ bool in_wall(const Walker<T>& s, int l, int imol,
   T dw2 = 0;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const T ref = s.H[l][k][0] * s.s_frac0[(l * 3 + 0) * N + imol]
-                + s.H[l][k][1] * s.s_frac0[(l * 3 + 1) * N + imol]
-                + s.H[l][k][2] * s.s_frac0[(l * 3 + 2) * N + imol];
+    const T ref = s.H[l][k][0] * s.frac0[(l * 3 + 0) * N + imol]
+                + s.H[l][k][1] * s.frac0[(l * 3 + 1) * N + imol]
+                + s.H[l][k][2] * s.frac0[(l * 3 + 2) * N + imol];
     const T dk = p[k] - ref;
     dw2 += dk * dk;
   }
   return dw2 <= c.wall2;
 }
 
-// One table-mode translation of the shared molecule imol
-// (Engine._translation_tbl; mc_moves.F90:966-1213).
+// ---- one warp per walker: the table and dense-candidate branches -------
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// One level of the warp's recursive halving over v[0..2H): lanes with
+// bit H clear keep v[0..H), the others v[H..2H), each adding its xor
+// partner's copy of the half it keeps.
+template <int H, typename T>
+__device__ __forceinline__ void halve(T (&v)[32], int lane) {
+  const bool hi = (lane & H) != 0;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const T send = hi ? v[k] : v[k + H];
+    const T keep = hi ? v[k + H] : v[k];
+    v[k] = keep + __shfl_xor_sync(FULL, send, H);
+  }
+}
+
+// One lattice's sums of a translation over the partners a lane holds:
+// the pair terms, the centre's moments (and sum of w^2) and the wing
+// terms at the old and the new point.
 template <typename T>
-__device__ void translation(Walker<T>& s, const T* u, int imol,
-                            const Consts<T>& c, const SW<T>& sw,
-                            const FusedArgs& a) {
+struct Local {
+  Mom<T> oo, on;
+  T pair_o, pair_n, e3j_o, e3j_n;
+
+  __device__ __forceinline__ void zero() {
+    oo.zero();
+    on.zero();
+    pair_o = pair_n = e3j_o = e3j_n = (T)0;
+  }
+
+  __device__ __forceinline__ void pack(T (&v)[32]) const {
+    v[0] = pair_o;
+    v[1] = pair_n;
+    v[2] = e3j_o;
+    v[3] = e3j_n;
+#pragma unroll
+    for (int f = 0; f < 10; ++f) {
+      v[4 + f] = oo.m[f];
+      v[15 + f] = on.m[f];
+    }
+    v[14] = oo.w2;
+    v[25] = on.w2;
+#pragma unroll
+    for (int q = 26; q < 32; ++q) v[q] = (T)0;
+  }
+
+  // the sums from lane q's value q (after the halving), in every lane
+  __device__ __forceinline__ void unpack(T mine) {
+    pair_o = __shfl_sync(FULL, mine, 0);
+    pair_n = __shfl_sync(FULL, mine, 1);
+    e3j_o = __shfl_sync(FULL, mine, 2);
+    e3j_n = __shfl_sync(FULL, mine, 3);
+#pragma unroll
+    for (int f = 0; f < 10; ++f) {
+      oo.m[f] = __shfl_sync(FULL, mine, 4 + f);
+      on.m[f] = __shfl_sync(FULL, mine, 15 + f);
+    }
+    oo.w2 = __shfl_sync(FULL, mine, 14);
+    on.w2 = __shfl_sync(FULL, mine, 25);
+  }
+
+  // Replace each of the 26 sums by its sum over the warp, in every lane.
+  // Recursive halving with xor shuffles: at each level a lane keeps half
+  // of its values and adds its partner's copy of that half, so after 5
+  // levels lane q holds the sum of value q (a fixed pairwise tree); one
+  // broadcast shuffle per value then gives every lane the same bits.
+  __device__ __forceinline__ void warp_sum(int lane) {
+    T v[32];
+    pack(v);
+    halve<16>(v, lane);
+    halve<8>(v, lane);
+    halve<4>(v, lane);
+    halve<2>(v, lane);
+    halve<1>(v, lane);
+    unpack(v[0]);
+  }
+
+  __device__ __forceinline__ T e_old(const SW<T>& sw) const {
+    return pair_o + sw.lam_eps * (e3_closed_form(oo.m, oo.w2, sw) + e3j_o);
+  }
+  __device__ __forceinline__ T e_new(const SW<T>& sw) const {
+    return pair_n + sw.lam_eps * (e3_closed_form(on.m, on.w2, sw) + e3j_n);
+  }
+};
+
+// Both lattices' sums reduced together (Local::warp_sum, the two
+// halvings interleaved).
+template <typename T>
+__device__ __forceinline__ void warp_sum2(Local<T>& a, Local<T>& b,
+                                          int lane) {
+  T u[32], v[32];
+  a.pack(u);
+  b.pack(v);
+  halve<16>(u, lane);
+  halve<16>(v, lane);
+  halve<8>(u, lane);
+  halve<8>(v, lane);
+  halve<4>(u, lane);
+  halve<4>(v, lane);
+  halve<2>(u, lane);
+  halve<2>(v, lane);
+  halve<1>(u, lane);
+  halve<1>(v, lane);
+  a.unpack(u[0]);
+  b.unpack(v[0]);
+}
+
+// m[lane] for lanes 0..9 (a select per field, no local memory), else 0.
+template <typename T>
+__device__ __forceinline__ T lane_field(const T m[10], int lane) {
+  T v = (T)0;
+#pragma unroll
+  for (int f = 0; f < 10; ++f)
+    if (lane == f) v = m[f];
+  return v;
+}
+
+// The centre's own row after an accepted move: coordinates from lanes
+// 0..2, moments from lanes 0..9 (own = lane_field of its new moments).
+template <typename T>
+__device__ __forceinline__ void store_centre(WarpWalker<T>& s, int l,
+                                             int imol, const T p[3], T own,
+                                             int lane) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    if (lane == k) s.rr(l, k, imol) = p[k];
+  if (lane < 10) s.mm(lane, l, imol) = own;
+}
+
+// eta(mu) of the walker's current mu, carried from step to step while
+// the arrays it reads do not change: in a sample run, or with the WL
+// update off (the weight view is fixed for the cycle), until a switch
+// moves mu.
+template <typename T>
+struct EtaCarry {
+  T val;
+  bool ok;
+};
+
+template <typename T>
+__device__ __forceinline__ T eta_current(const Walker<T>& s,
+                                         const EtaCarry<T>& ec,
+                                         const Consts<T>& c) {
+  return ec.ok ? ec.val : eta_of(s.wl, s.mu, c.bin);
+}
+
+// After a performed translation: eta of the walker's mu is the old or the
+// new point's.
+template <typename T>
+__device__ __forceinline__ void eta_carry(EtaCarry<T>& ec, bool accept,
+                                          T eta_old, T eta_new,
+                                          const FusedArgs& a) {
+  ec.val = accept ? eta_new : eta_old;
+  ec.ok = a.samplerun || !a.wl_active;
+}
+
+// Acceptance of a translation (trans_decision) with eta(mu) of the
+// walker's current mu given: every lane computes it at the start of the
+// step, so its loads overlap the step's leg work.  Returns also
+// eta(mu_new).
+template <typename T>
+__device__ __forceinline__ bool warp_decision(const Walker<T>& s,
+                                              const T dE[2], T u_acc,
+                                              bool extra_ok,
+                                              const Consts<T>& c, T eta_old,
+                                              T& mu_new, T& dmu, T& eta_new) {
+  dmu = (dE[0] - dE[1]) * c.beta;
+  mu_new = s.mu + dmu;
+  eta_new = eta_of(s.wl, mu_new, c.bin);
+  const T dE_ls = s.ls == 0 ? dE[0] : dE[1];
+  const T diffkT = c.beta * dE_ls + eta_new - eta_old;
+  const bool ok = isfinite(diffkT) & isfinite(mu_new) & extra_ok;
+  return ok && (u_acc < exp(-diffkT));
+}
+
+// wl_update of the walker's lane 0 with eta(mu) known (the sample run's
+// weight of the performed move: eta_new if accepted, else eta_old, read
+// from the same arrays), its additions fire-and-forget atomics (a
+// walker's entries have one writer, so they round as a plain +=).
+template <typename T>
+__device__ __forceinline__ void warp_wl_update(const WLView<T>& s, T mu, T f,
+                                               bool healthy, T eta_val,
+                                               const BinConsts<T>& c) {
+  const int B = s.B, W = s.W, w = s.w;
+  const long long k = mu_to_bin(mu, B, c);
+  const bool upd = (k >= 0) & (k < B) & healthy;
+  if (!upd) return;
+  const int kc = (int)k;
+  const T incr = c.av_bw / s.binw[kc];
+  atomicAdd(s.hist + kc * W + w, incr);
+  if (s.samplerun) {
+    // mask before the exp and gate walled entries out entirely
+    if (eta_val < (T)1e29) {
+      const T arg = eta_val - c.log_norm;
+      atomicAdd(s.uh + kc * W + w, incr * exp(fmin(arg, (T)60)));
+    }
+  } else {
+    atomicAdd(s.wgt + kc * W + w, incr * f);
+  }
+}
+
+// Counters and the per-move WL update after a performed translation
+// (trans_bookkeeping): every lane updates its copy of the walker's
+// scalars, lane 0 writes trans_per_mol and the WL arrays.
+template <typename T>
+__device__ __forceinline__ void warp_bookkeeping(WarpWalker<T>& s, int imol,
+                                                 bool accept, T mu_new,
+                                                 T dmu, const T dE[2],
+                                                 T eta_old, T eta_new,
+                                                 const Consts<T>& c,
+                                                 const FusedArgs& a,
+                                                 int lane) {
+  __syncwarp();  // every lane has read the WL arrays for this step
+  if (accept) {
+    s.e[0] = s.e[0] + dE[0];
+    s.e[1] = s.e[1] + dE[1];
+    s.mu = mu_new;
+    const T admu = fabs(dmu);
+    if (admu < s.min_dmu) s.min_dmu = admu;
+    if (admu > s.max_dmu) s.max_dmu = admu;
+  }
+  s.att[TRANS] += 1;
+  s.acc[TRANS] += accept ? 1 : 0;
+  if (lane == 0) {
+    atomicAdd(s.tpm + (size_t)imol * s.W + s.w, 1);
+    // health gate: finite energies in both lattices
+    if (a.wl_active)
+      warp_wl_update(s.wl, s.mu, s.f, isfinite(s.e[0]) & isfinite(s.e[1]),
+                     accept ? eta_new : eta_old, c.bin);
+  }
+  __syncwarp();  // the step's writes are seen by every lane
+}
+
+// Leg g where in, else the null leg (its terms add exact zeros).
+template <typename T>
+__device__ __forceinline__ Leg<T> leg_if(bool in, const Leg<T>& g) {
+  Leg<T> r;
+  r.in = in;
+  r.pair = in ? g.pair : (T)0;
+  r.w = in ? g.w : (T)0;
+  r.ux = in ? g.ux : (T)0;
+  r.uy = in ? g.uy : (T)0;
+  r.uz = in ? g.uz : (T)0;
+  return r;
+}
+
+// Old and new legs of the partner at c from p_old and p_new (leg_of),
+// computed without branches: the terms of a leg out of range (or of a
+// padded slot, valid false) are zeros.
+template <typename T>
+__device__ __forceinline__ void slot_legs(const T c[3], const T p_old[3],
+                                          const T p_new[3], const T H[3][3],
+                                          const T A[3][3], const SW<T>& sw,
+                                          bool valid, Leg<T>& go,
+                                          Leg<T>& gn) {
+  T d0[3] = {c[0] - p_old[0], c[1] - p_old[1], c[2] - p_old[2]};
+  T d1[3] = {c[0] - p_new[0], c[1] - p_new[1], c[2] - p_new[2]};
+  mic_fold(d0, H, A);
+  mic_fold(d1, H, A);
+  const T r0 = d0[0] * d0[0] + d0[1] * d0[1] + d0[2] * d0[2];
+  const T r1 = d1[0] * d1[0] + d1[1] * d1[1] + d1[2] * d1[2];
+  go = leg_if(valid & (r0 < sw.rc2) & (r0 > (T)1e-8),
+              leg_in_range(d0, r0, sw));
+  gn = leg_if(valid & (r1 < sw.rc2) & (r1 > (T)1e-8),
+              leg_in_range(d1, r1, sw));
+}
+
+// One table slot's terms in lattice l (the body of the first design's
+// loop, branch-free): its pair terms, the centre's moments and the wing
+// terms, the new one on the partner's moved moments.
+template <typename T>
+__device__ __forceinline__ void table_slot(WarpWalker<T>& s, int l,
+                                           int j_raw, const T p_old[3],
+                                           const T p_new[3],
+                                           const SW<T>& sw, Local<T>& q) {
+  const bool valid = j_raw < s.N;  // sentinel N: padded table slot
+  const int j = valid ? j_raw : 0;
+  const T cj[3] = {s.rr(l, 0, j), s.rr(l, 1, j), s.rr(l, 2, j)};
+  Leg<T> go, gn;
+  slot_legs(cj, p_old, p_new, s.H[l], s.A[l], sw, valid, go, gn);
+  T mj[10];
+#pragma unroll
+  for (int fld = 0; fld < 10; ++fld) mj[fld] = s.mm(fld, l, j);
+  q.pair_o += go.pair;
+  q.oo.add(go.w, go.ux, go.uy, go.uz);
+  const T wo = wing(go, mj, sw);
+  q.e3j_o += go.in ? wo : (T)0;
+  q.pair_n += gn.pair;
+  q.on.add(gn.w, gn.ux, gn.uy, gn.uz);
+  moved_moments(mj, go, gn);
+  const T wn = wing(gn, mj, sw);
+  q.e3j_n += gn.in ? wn : (T)0;
+}
+
+// One table-mode translation of the shared molecule imol
+// (Engine._translation_tbl; mc_moves.F90:966-1213) by the walker's warp:
+// each lane takes the same table slot in both lattices, the two
+// lattices' sums are reduced together.
+template <typename T>
+__device__ void translation_warp(WarpWalker<T>& s, const T* u, int imol,
+                                 const Consts<T>& c, const SW<T>& sw,
+                                 const FusedArgs& a, int lane,
+                                 EtaCarry<T>& ec) {
   const int N = s.N, M = s.M;
+  const T eta_old = eta_current(s, ec, c);
   T tv[2][3];
   trial_vectors(s, u, tv);
 
-  T dE[2], p_new[2][3], own_n[2][10];
+  T p_old[2][3], p_new[2][3];
   bool wall_ok = true;
 #pragma unroll
   for (int l = 0; l < 2; ++l) {
-    T p_old[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      p_old[k] = s.rr(l, k, imol);
-      p_new[l][k] = p_old[k] + tv[l][k];
+      p_old[l][k] = s.rr(l, k, imol);
+      p_new[l][k] = p_old[l][k] + tv[l][k];
     }
-    Mom<T> oo, on;
-    oo.zero();
-    on.zero();
-    T pair_o = 0, pair_n = 0, e3j_o = 0, e3j_n = 0;
-    const int* row = s.s_tbl + (l * N + imol) * M;
-    for (int m = 0; m < M; ++m) {
-      const int j = row[m];
-      if (j >= N) continue;  // sentinel: padded table slot
-      const T cj[3] = {s.rr(l, 0, j), s.rr(l, 1, j), s.rr(l, 2, j)};
-      const Leg<T> go = leg_of(cj, p_old, s.H[l], s.A[l], sw);
-      const Leg<T> gn = leg_of(cj, p_new[l], s.H[l], s.A[l], sw);
-      // a partner out of range in both positions contributes exactly 0
-      if (!go.in && !gn.in) continue;
-      T mj[10];
-#pragma unroll
-      for (int fld = 0; fld < 10; ++fld) mj[fld] = s.mm(fld, l, j);
-      if (go.in) {
-        pair_o += go.pair;
-        oo.add(go.w, go.ux, go.uy, go.uz);
-        e3j_o += wing(go, mj, sw);
-      }
-      if (gn.in) {
-        pair_n += gn.pair;
-        on.add(gn.w, gn.ux, gn.uy, gn.uz);
-        moved_moments(mj, go, gn);
-        e3j_n += wing(gn, mj, sw);
-      }
-    }
-    const T e_old = pair_o + sw.lam_eps * (e3_closed_form(oo.m, oo.w2, sw)
-                                           + e3j_o);
-    const T e_new = pair_n + sw.lam_eps * (e3_closed_form(on.m, on.w2, sw)
-                                           + e3j_n);
-    dE[l] = e_new - e_old;
-#pragma unroll
-    for (int fld = 0; fld < 10; ++fld) own_n[l][fld] = on.m[fld];
     wall_ok = wall_ok & in_wall(s, l, imol, p_new[l], c);
   }
+  Local<T> q0, q1;
+  q0.zero();
+  q1.zero();
+  const int* row0 = s.tbl + imol * M;
+  const int* row1 = s.tbl + (N + imol) * M;
+  for (int m = lane; m < M; m += 32) {
+    const int j0 = __ldg(row0 + m), j1 = __ldg(row1 + m);
+    table_slot(s, 0, j0, p_old[0], p_new[0], sw, q0);
+    table_slot(s, 1, j1, p_old[1], p_new[1], sw, q1);
+  }
+  warp_sum2(q0, q1, lane);
+  T dE[2] = {q0.e_new(sw) - q0.e_old(sw), q1.e_new(sw) - q1.e_old(sw)};
+  const T own[2] = {lane_field(q0.on.m, lane), lane_field(q1.on.m, lane)};
 
-  T mu_new, dmu;
-  const bool accept = trans_decision(s, dE, u[5], wall_ok, c, mu_new, dmu);
-  if (accept) {
+  T mu_new, dmu, eta_new;
+  const bool accept = warp_decision(s, dE, u[5], wall_ok, c, eta_old,
+                                    mu_new, dmu, eta_new);
+  if (accept) {  // the same in every lane
 #pragma unroll
     for (int l = 0; l < 2; ++l) {
-      T p_old[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) p_old[k] = s.rr(l, k, imol);
-      // candidate moments: recomputed exactly as in the first pass
-      const int* row = s.s_tbl + (l * N + imol) * M;
-      for (int m = 0; m < M; ++m) {
-        const int j = row[m];
+      // candidate moments: recomputed exactly as in the first pass, each
+      // lane its own slots
+      const int* row = s.tbl + (l * N + imol) * M;
+      for (int m = lane; m < M; m += 32) {
+        const int j = __ldg(row + m);
         if (j >= N) continue;
         const T cj[3] = {s.rr(l, 0, j), s.rr(l, 1, j), s.rr(l, 2, j)};
-        const Leg<T> go = leg_of(cj, p_old, s.H[l], s.A[l], sw);
+        const Leg<T> go = leg_of(cj, p_old[l], s.H[l], s.A[l], sw);
         const Leg<T> gn = leg_of(cj, p_new[l], s.H[l], s.A[l], sw);
         if (!go.in && !gn.in) continue;
         T mj[10];
@@ -346,14 +684,12 @@ __device__ void translation(Walker<T>& s, const T* u, int imol,
 #pragma unroll
         for (int fld = 0; fld < 10; ++fld) s.mm(fld, l, j) = mj[fld];
       }
-#pragma unroll
-      for (int k = 0; k < 3; ++k) s.rr(l, k, imol) = p_new[l][k];
-#pragma unroll
-      for (int fld = 0; fld < 10; ++fld) s.mm(fld, l, imol) = own_n[l][fld];
+      store_centre(s, l, imol, p_new[l], own[l], lane);
     }
   }
-  s.tpm[(size_t)imol * s.W + s.w] += 1;
-  trans_bookkeeping(s, accept, mu_new, dmu, dE, c, a);
+  warp_bookkeeping(s, imol, accept, mu_new, dmu, dE, eta_old, eta_new, c, a,
+                   lane);
+  eta_carry(ec, accept, eta_old, eta_new, a);
 }
 
 // ---- dense candidates -------------------------------------------------
@@ -370,24 +706,34 @@ __device__ __forceinline__ void image_of(const Walker<T>& s, int l, int sh,
     img[k] = s0 * s.H[l][k][0] + s1 * s.H[l][k][1] + s2 * s.H[l][k][2];
 }
 
-// Leg of the folded displacement f under shift sh: in range when
-// r2 < rc^2; the null image of the centre itself (self) is excluded
-// (molint.F90:196-198, 532).  The null shift adds nothing.
+// d = the folded displacement f under shift sh (the null shift adds
+// nothing); returns |d|^2.
 template <typename T>
-__device__ __forceinline__ Leg<T> dense_leg(const Walker<T>& s, int l, int sh,
-                                            const T f[3], bool self,
-                                            const SW<T>& sw) {
-  T d[3] = {f[0], f[1], f[2]};
+__device__ __forceinline__ T dense_r2(const Walker<T>& s, int l, int sh,
+                                      const T f[3], T d[3]) {
+  d[0] = f[0];
+  d[1] = f[1];
+  d[2] = f[2];
   if (sh > 0) {
     T img[3];
     image_of(s, l, sh, img);
     d[0] = f[0] + img[0];
     d[1] = f[1] + img[1];
     d[2] = f[2] + img[2];
-  } else if (self) {
-    return leg_none<T>();
   }
-  const T r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  return d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+}
+
+// Leg of the folded displacement f under shift sh: in range when
+// r2 < rc^2; the null image of the centre itself (self) is excluded
+// (molint.F90:196-198, 532).
+template <typename T>
+__device__ __forceinline__ Leg<T> dense_leg(const Walker<T>& s, int l, int sh,
+                                            const T f[3], bool self,
+                                            const SW<T>& sw) {
+  if (sh == 0 && self) return leg_none<T>();
+  T d[3];
+  const T r2 = dense_r2(s, l, sh, f, d);
   if (!(r2 < sw.rc2)) return leg_none<T>();
   return leg_in_range(d, r2, sw);
 }
@@ -395,7 +741,7 @@ __device__ __forceinline__ Leg<T> dense_leg(const Walker<T>& s, int l, int sh,
 // Folded displacements of candidate j from the old and the new centre;
 // the centre's own row holds the centre itself (ops/dense._candidates).
 template <typename T>
-__device__ __forceinline__ void dense_folds(Walker<T>& s, int l, int j,
+__device__ __forceinline__ void dense_folds(WarpWalker<T>& s, int l, int j,
                                             bool self, const T p_old[3],
                                             const T p_new[3], T fo[3],
                                             T fn[3]) {
@@ -407,6 +753,39 @@ __device__ __forceinline__ void dense_folds(Walker<T>& s, int l, int j,
   }
   mic_fold(fo, s.H[l], s.A[l]);
   mic_fold(fn, s.H[l], s.A[l]);
+}
+
+// The rows j (the centre's own row too when with_self) with a leg in
+// range of either point in lattice l, in increasing j, into the walker's
+// list; returns their count.  The candidates are strided over the lanes
+// and only tested here (the same r2 as dense_leg), so the leg and wing
+// work that follows runs on the short list.
+template <typename T>
+__device__ int dense_rows(WarpWalker<T>& s, int l, int imol, bool with_self,
+                          const T p_old[3], const T p_new[3],
+                          const SW<T>& sw, int lane,
+                          unsigned short* list) {
+  const int N = s.N, S = s.S;
+  int n = 0;
+  for (int j0 = 0; j0 < N; j0 += 32) {
+    const int j = j0 + lane;
+    bool any = false;
+    if (j < N && (with_self || j != imol)) {
+      const bool self = j == imol;
+      T fo[3], fn[3];
+      dense_folds(s, l, j, self, p_old, p_new, fo, fn);
+      for (int sh = self ? 1 : 0; sh < S; ++sh) {
+        T d[3];
+        any = any | (dense_r2(s, l, sh, fo, d) < sw.rc2)
+                  | (dense_r2(s, l, sh, fn, d) < sw.rc2);
+      }
+    }
+    const unsigned b = __ballot_sync(FULL, any);
+    if (any) list[n + __popc(b & ((1u << lane) - 1u))] = (unsigned short)j;
+    n += __popc(b);
+  }
+  __syncwarp();  // the list is seen by every lane
+  return n;
 }
 
 // Row j's moments after the move, st - delta_o + delta_n, from the sums
@@ -431,36 +810,39 @@ __device__ __forceinline__ void add_sums(Mom<T>& acc, const Mom<T>& R) {
 
 // One dense-candidate translation of the walker's own molecule
 // (Engine._translation; mc_moves.F90:966-1213; the JAX package's
-// fused._do_translation).
+// fused._do_translation) by the walker's warp.
 template <typename T>
-__device__ void translation_dense(Walker<T>& s, const T* u,
-                                  const Consts<T>& c, const SW<T>& sw,
-                                  const FusedArgs& a) {
+__device__ void translation_dense_warp(WarpWalker<T>& s, const T* u,
+                                       const Consts<T>& c, const SW<T>& sw,
+                                       const FusedArgs& a, int lane,
+                                       unsigned short* list,
+                                       EtaCarry<T>& ec) {
   const int N = s.N, S = s.S;
   // the molecule: int32(u0 * N) with the product in the working type
   int imol = (int)(u[0] * (T)N);
   if (imol > N - 1) imol = N - 1;
+  const T eta_old = eta_current(s, ec, c);
   T tv[2][3];
   trial_vectors(s, u, tv);
 
-  T dE[2], p_new[2][3], own_n[2][10];
+  T dE[2], p_old[2][3], p_new[2][3], own[2];
 #pragma unroll
   for (int l = 0; l < 2; ++l) {
-    T p_old[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      p_old[k] = s.rr(l, k, imol);
-      p_new[l][k] = p_old[k] + tv[l][k];
+      p_old[l][k] = s.rr(l, k, imol);
+      p_new[l][k] = p_old[l][k] + tv[l][k];
     }
-    Mom<T> oo, on;
-    oo.zero();
-    on.zero();
-    T pair_o = 0, pair_n = 0, e3j_o = 0, e3j_n = 0;
+    const int n = dense_rows(s, l, imol, true, p_old[l], p_new[l], sw, lane,
+                             list);
+    Local<T> q;
+    q.zero();
     bool self_new = false;  // a non-null image of the centre in range
-    for (int j = 0; j < N; ++j) {
+    for (int i = lane; i < n; i += 32) {
+      const int j = list[i];
       const bool self = j == imol;
       T fo[3], fn[3];
-      dense_folds(s, l, j, self, p_old, p_new[l], fo, fn);
+      dense_folds(s, l, j, self, p_old[l], p_new[l], fo, fn);
       Mom<T> Ro, Rn;
       Ro.zero();
       Rn.zero();
@@ -474,22 +856,21 @@ __device__ void translation_dense(Walker<T>& s, const T* u,
             for (int fld = 0; fld < 10; ++fld) mj[fld] = s.mm(fld, l, j);
             any = true;
           }
-          pair_o += go.pair;
+          q.pair_o += go.pair;
           Ro.add(go.w, go.ux, go.uy, go.uz);
-          e3j_o += wing(go, mj, sw);
+          q.e3j_o += wing(go, mj, sw);
         }
         const Leg<T> gn = dense_leg(s, l, sh, fn, self, sw);
         if (gn.in) {
-          pair_n += gn.pair;
+          q.pair_n += gn.pair;
           Rn.add(gn.w, gn.ux, gn.uy, gn.uz);
           any_n = true;
         }
       }
-      if (!any && !any_n) continue;  // the row contributes exactly 0
       if (any_n) {
         if (self) {
           // wing terms of the centre's own images need its new
-          // moments: added after the loop
+          // moments: added after the warp's sum
           self_new = true;
         } else {
           if (!any) {
@@ -499,60 +880,50 @@ __device__ void translation_dense(Walker<T>& s, const T* u,
           moved_rows(mj, Ro, Rn);
           for (int sh = 0; sh < S; ++sh) {
             const Leg<T> gn = dense_leg(s, l, sh, fn, self, sw);
-            if (gn.in) e3j_n += wing(gn, mj, sw);
+            if (gn.in) q.e3j_n += wing(gn, mj, sw);
           }
         }
       }
-      add_sums(oo, Ro);
-      add_sums(on, Rn);
+      add_sums(q.oo, Ro);
+      add_sums(q.on, Rn);
     }
+    self_new = __any_sync(FULL, self_new);
+    q.warp_sum(lane);
     if (self_new) {
-      T fn[3] = {0, 0, 0};  // the folded zero displacement
+      T fz[3] = {0, 0, 0};  // the folded zero displacement
       for (int sh = 1; sh < S; ++sh) {
-        const Leg<T> gn = dense_leg(s, l, sh, fn, true, sw);
-        if (gn.in) e3j_n += wing(gn, on.m, sw);
+        const Leg<T> gn = dense_leg(s, l, sh, fz, true, sw);
+        if (gn.in) q.e3j_n += wing(gn, q.on.m, sw);
       }
     }
-    const T e_old = pair_o + sw.lam_eps * (e3_closed_form(oo.m, oo.w2, sw)
-                                           + e3j_o);
-    const T e_new = pair_n + sw.lam_eps * (e3_closed_form(on.m, on.w2, sw)
-                                           + e3j_n);
-    dE[l] = e_new - e_old;
-#pragma unroll
-    for (int fld = 0; fld < 10; ++fld) own_n[l][fld] = on.m[fld];
+    dE[l] = q.e_new(sw) - q.e_old(sw);
+    own[l] = lane_field(q.on.m, lane);
+    __syncwarp();  // the list is rebuilt for the next lattice
   }
 
-  T mu_new, dmu;
-  const bool accept = trans_decision(s, dE, u[5], true, c, mu_new, dmu);
-  if (accept) {
+  T mu_new, dmu, eta_new;
+  const bool accept = warp_decision(s, dE, u[5], true, c, eta_old, mu_new,
+                                    dmu, eta_new);
+  if (accept) {  // the same in every lane
     // second pass: write the rows the move changed, recomputed exactly
     // as in the first
 #pragma unroll
     for (int l = 0; l < 2; ++l) {
-      T p_old[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) p_old[k] = s.rr(l, k, imol);
-      for (int j = 0; j < N; ++j) {
-        if (j == imol) continue;
+      const int n = dense_rows(s, l, imol, false, p_old[l], p_new[l], sw,
+                               lane, list);
+      for (int i = lane; i < n; i += 32) {
+        const int j = list[i];
         T fo[3], fn[3];
-        dense_folds(s, l, j, false, p_old, p_new[l], fo, fn);
+        dense_folds(s, l, j, false, p_old[l], p_new[l], fo, fn);
         Mom<T> Ro, Rn;
         Ro.zero();
         Rn.zero();
-        bool any = false;
         for (int sh = 0; sh < S; ++sh) {
           const Leg<T> go = dense_leg(s, l, sh, fo, false, sw);
-          if (go.in) {
-            Ro.add(go.w, go.ux, go.uy, go.uz);
-            any = true;
-          }
+          if (go.in) Ro.add(go.w, go.ux, go.uy, go.uz);
           const Leg<T> gn = dense_leg(s, l, sh, fn, false, sw);
-          if (gn.in) {
-            Rn.add(gn.w, gn.ux, gn.uy, gn.uz);
-            any = true;
-          }
+          if (gn.in) Rn.add(gn.w, gn.ux, gn.uy, gn.uz);
         }
-        if (!any) continue;
         T mj[10];
 #pragma unroll
         for (int fld = 0; fld < 10; ++fld) mj[fld] = s.mm(fld, l, j);
@@ -560,14 +931,13 @@ __device__ void translation_dense(Walker<T>& s, const T* u,
 #pragma unroll
         for (int fld = 0; fld < 10; ++fld) s.mm(fld, l, j) = mj[fld];
       }
-#pragma unroll
-      for (int k = 0; k < 3; ++k) s.rr(l, k, imol) = p_new[l][k];
-#pragma unroll
-      for (int fld = 0; fld < 10; ++fld) s.mm(fld, l, imol) = own_n[l][fld];
+      store_centre(s, l, imol, p_new[l], own[l], lane);
+      __syncwarp();  // the list is rebuilt for the next lattice
     }
   }
-  s.tpm[(size_t)imol * s.W + s.w] += 1;
-  trans_bookkeeping(s, accept, mu_new, dmu, dE, c, a);
+  warp_bookkeeping(s, imol, accept, mu_new, dmu, dE, eta_old, eta_new, c, a,
+                   lane);
+  eta_carry(ec, accept, eta_old, eta_new, a);
 }
 
 // Lattice switch attempt (Engine._switch; mc_moves.F90:1536-1594).
@@ -610,7 +980,7 @@ __device__ T table_point_energy(Walker<T>& s, int l, int imol,
   Mom<T> on;
   on.zero();
   T pair = 0, e3j = 0;
-  const int* row = s.s_tbl + (l * N + imol) * M;
+  const int* row = s.tbl + (l * N + imol) * M;
   for (int m = 0; m < M; ++m) {
     const int j = row[m];
     if (j >= N) continue;
@@ -704,7 +1074,7 @@ __device__ void mover_multi(Walker<T>& s, const T* u, const int* codes,
   if (acc_t >= 0) {
 #pragma unroll
     for (int l = 0; l < 2; ++l) {
-      const int* row = s.s_tbl + (l * N + imol) * M;
+      const int* row = s.tbl + (l * N + imol) * M;
       for (int m = 0; m < M; ++m) {
         const int j = row[m];
         if (j >= N) continue;
@@ -733,69 +1103,27 @@ __device__ void mover_multi(Walker<T>& s, const T* u, const int* codes,
 
 enum Branch { TABLE = 0, DENSE = 1, MULTI = 2 };
 
-constexpr int TB = 128;  // threads (walkers) per block
-
-// Dynamic shared memory of a block: frac0 (table modes), bin widths and
-// centres, then the tables (table modes), the schedule (codes and, in
-// the table modes, the molecule schedule) and the folded shifts.
+// The walker's scalars, cells and WL view from the per-walker rows (every
+// thread of the walker holds a copy).
 template <typename T>
-static size_t smem_bytes(int branch, int N, int B, int M,
-                                      int S, int n_steps) {
-  const bool tbl = branch != DENSE;
-  return sizeof(T) * ((tbl ? 2 * 3 * N : 0) + 2 * B)
-         + sizeof(int) * ((tbl ? 2 * N * M + n_steps : 0) + N + 3 * S);
-}
-
-template <typename T, int BR>
-__global__ void __launch_bounds__(TB) fused_kernel(const FusedArgs a) {
-  const int N = a.N, W = a.W, B = a.B, M = a.M, S = a.S;
-  const bool tbl = BR != DENSE;
-  const int n_steps = BR == MULTI ? N / a.T : N;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_frac0 = reinterpret_cast<T*>(smem);
-  T* s_binw = s_frac0 + (tbl ? 2 * 3 * N : 0);
-  T* s_mub = s_binw + B;
-  int* s_tbl = reinterpret_cast<int*>(s_mub + B);
-  int* s_sched = s_tbl + (tbl ? 2 * N * M : 0);
-  int* s_shifts = s_sched + N + (tbl ? n_steps : 0);
-  if (tbl) {
-    for (int i = threadIdx.x; i < 2 * 3 * N; i += blockDim.x)
-      s_frac0[i] = static_cast<const T*>(a.frac0)[i];
-    for (int i = threadIdx.x; i < 2 * N * M; i += blockDim.x)
-      s_tbl[i] = static_cast<const int*>(a.tbl)[i];
-  }
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
-    s_binw[i] = static_cast<const T*>(a.binw)[i];
-    s_mub[i] = static_cast<const T*>(a.mub)[i];
-  }
-  for (int i = threadIdx.x; i < N + (tbl ? n_steps : 0); i += blockDim.x)
-    s_sched[i] = static_cast<const int*>(a.sched)[i];
-  for (int i = threadIdx.x; i < 3 * S; i += blockDim.x)
-    s_shifts[i] = static_cast<const int*>(a.shifts)[i];
-  __syncthreads();
-
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;  // ragged edge: W need not be a multiple of 128
-
-  const Consts<T> c(a);
-  const SW<T> sw(a.sw);
+__device__ __forceinline__ void load_walker(Walker<T>& s, const FusedArgs& a,
+                                            int w, const T* s_binw,
+                                            const T* s_mub,
+                                            const int* s_shifts) {
+  const int W = a.W;
   const T* h = static_cast<const T*>(a.h);
   const T* volp = static_cast<const T*>(a.vol);
-  T* ep = static_cast<T*>(a.e);
-  T* wf = static_cast<T*>(a.wf);
-  int* wi = static_cast<int*>(a.wi);
-
-  Walker<T> s;
+  const T* ep = static_cast<const T*>(a.e);
+  const T* wf = static_cast<const T*>(a.wf);
+  const int* wi = static_cast<const int*>(a.wi);
   s.w = w;
   s.W = W;
-  s.N = N;
-  s.M = M;
-  s.S = S;
-  s.r = static_cast<T*>(a.r);
-  s.mom = static_cast<T*>(a.mom);
+  s.N = a.N;
+  s.M = a.M;
+  s.S = a.S;
   s.wl.w = w;
   s.wl.W = W;
-  s.wl.B = B;
+  s.wl.B = a.B;
   s.wl.wgt = static_cast<T*>(a.wgt);
   s.wl.hist = static_cast<T*>(a.hist);
   s.wl.uh = static_cast<T*>(a.uh);
@@ -807,8 +1135,6 @@ __global__ void __launch_bounds__(TB) fused_kernel(const FusedArgs a) {
   s.wl.samplerun = a.samplerun;
   s.tpm = static_cast<int*>(a.tpm);
   s.recip = static_cast<const T*>(a.recip);
-  s.s_frac0 = s_frac0;
-  s.s_tbl = s_tbl;
   s.s_shifts = s_shifts;
 #pragma unroll
   for (int l = 0; l < 2; ++l) {
@@ -838,29 +1164,15 @@ __global__ void __launch_bounds__(TB) fused_kernel(const FusedArgs a) {
   s.wl.start_bin = wi[WI_START * W + w];
   s.wl.end_bin = wi[WI_END * W + w];
   s.wl.in_window = wi[WI_INWIN * W + w];
+}
 
-  const T* cu = static_cast<const T*>(a.cu);
-  if (BR == MULTI) {
-    const int n_u = 4 + 5 * a.T;
-    for (int t = 0; t < n_steps; ++t)
-      mover_multi(s, cu + (size_t)t * n_u * W + w, s_sched + t * a.T,
-                  s_sched[N + t], c, sw, a);
-  } else {
-    for (int t = 0; t < N; ++t) {
-      const int code = s_sched[t];
-      T u[7];
-#pragma unroll
-      for (int k = 0; k < 7; ++k) u[k] = cu[((size_t)t * 7 + k) * W + w];
-      if (code == TRANS) {
-        if (BR == DENSE)
-          translation_dense(s, u, c, sw, a);
-        else
-          translation(s, u, s_sched[N + t], c, sw, a);
-      }
-      if (switch_on(code, a)) lattice_switch(s, u[6], c);
-    }
-  }
-
+template <typename T>
+__device__ __forceinline__ void store_walker(const Walker<T>& s,
+                                             const FusedArgs& a) {
+  const int W = a.W, w = s.w;
+  T* ep = static_cast<T*>(a.e);
+  T* wf = static_cast<T*>(a.wf);
+  int* wi = static_cast<int*>(a.wi);
 #pragma unroll
   for (int l = 0; l < 2; ++l) ep[l * W + w] = s.e[l];
   wf[WF_MU * W + w] = s.mu;
@@ -874,44 +1186,288 @@ __global__ void __launch_bounds__(TB) fused_kernel(const FusedArgs a) {
   }
 }
 
+// -- the multi-trial kernel: one thread per walker ------------------------
+
+constexpr int TB = 128;  // threads (walkers) per block
+
+// Dynamic shared memory of a block: frac0, bin widths and centres, the
+// tables, the schedule (codes and the molecule schedule) and the folded
+// shifts.
+template <typename T>
+static size_t smem_bytes(int N, int B, int M, int S, int n_steps) {
+  return sizeof(T) * (2 * 3 * N + 2 * B)
+         + sizeof(int) * (2 * N * M + n_steps + N + 3 * S);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TB) fused_kernel(const FusedArgs a) {
+  const int N = a.N, W = a.W, B = a.B, M = a.M, S = a.S;
+  const int n_steps = N / a.T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_frac0 = reinterpret_cast<T*>(smem);
+  T* s_binw = s_frac0 + 2 * 3 * N;
+  T* s_mub = s_binw + B;
+  int* s_tbl = reinterpret_cast<int*>(s_mub + B);
+  int* s_sched = s_tbl + 2 * N * M;
+  int* s_shifts = s_sched + N + n_steps;
+  for (int i = threadIdx.x; i < 2 * 3 * N; i += blockDim.x)
+    s_frac0[i] = static_cast<const T*>(a.frac0)[i];
+  for (int i = threadIdx.x; i < 2 * N * M; i += blockDim.x)
+    s_tbl[i] = static_cast<const int*>(a.tbl)[i];
+  for (int i = threadIdx.x; i < B; i += blockDim.x) {
+    s_binw[i] = static_cast<const T*>(a.binw)[i];
+    s_mub[i] = static_cast<const T*>(a.mub)[i];
+  }
+  for (int i = threadIdx.x; i < N + n_steps; i += blockDim.x)
+    s_sched[i] = static_cast<const int*>(a.sched)[i];
+  for (int i = threadIdx.x; i < 3 * S; i += blockDim.x)
+    s_shifts[i] = static_cast<const int*>(a.shifts)[i];
+  __syncthreads();
+
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;  // ragged edge: W need not be a multiple of 128
+
+  const Consts<T> c(a);
+  const SW<T> sw(a.sw);
+  Walker<T> s;
+  load_walker(s, a, w, s_binw, s_mub, s_shifts);
+  s.r = static_cast<T*>(a.r);
+  s.mom = static_cast<T*>(a.mom);
+  s.frac0 = s_frac0;
+  s.tbl = s_tbl;
+
+  const T* cu = static_cast<const T*>(a.cu);
+  const int n_u = 4 + 5 * a.T;
+  for (int t = 0; t < n_steps; ++t)
+    mover_multi(s, cu + (size_t)t * n_u * W + w, s_sched + t * a.T,
+                s_sched[N + t], c, sw, a);
+  store_walker(s, a);
+}
+
+// -- the table and dense kernels: one warp per walker ---------------------
+
+// Walkers (warps) per block at most: the kernels' register bound
+// (__launch_bounds__(32 * WarpCap)), mirrored by mcmc/fused.WARP_CAP.
+template <typename T> struct WarpCap;
+template <> struct WarpCap<float> { static constexpr int value = 8; };
+template <> struct WarpCap<double> { static constexpr int value = 5; };
+
+constexpr int STATE_ROWS = 26;  // r [2,3] and moments [10,2] rows of N
+
+// Dynamic shared memory of a block (mcmc/fused.smem_bytes): bin widths
+// and centres, the walkers' states (state_smem), the schedule (codes,
+// and the molecule schedule in table mode), the folded shifts, and in
+// dense mode each walker's list of rows.
+template <typename T>
+static size_t warp_smem_bytes(int branch, int N, int B, int S, int wpb,
+                              int state_smem) {
+  const bool tbl = branch == TABLE;
+  return sizeof(T) * (2 * (size_t)B
+                      + (state_smem ? (size_t)wpb * STATE_ROWS * N : 0))
+         + sizeof(int) * ((tbl ? 2 * (size_t)N : N) + 3 * (size_t)S)
+         + (tbl ? 0 : sizeof(unsigned short) * (size_t)wpb * N);
+}
+
+template <typename T, int BR>
+__global__ void __launch_bounds__(32 * WarpCap<T>::value)
+    fused_warp_kernel(const FusedArgs a) {
+  const int N = a.N, W = a.W, B = a.B, S = a.S, wpb = a.wpb;
+  const bool tbl = BR == TABLE;
+  const bool st = a.state_smem != 0;
+  const int rows = STATE_ROWS * N;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_binw = reinterpret_cast<T*>(smem);
+  T* s_mub = s_binw + B;
+  T* s_state = s_mub + B;  // [wpb][26N] when st
+  int* s_sched = reinterpret_cast<int*>(s_state + (st ? wpb * rows : 0));
+  int* s_shifts = s_sched + (tbl ? 2 * N : N);
+  unsigned short* s_list =
+      reinterpret_cast<unsigned short*>(s_shifts + 3 * S);  // [wpb][N]
+
+  const int w0 = blockIdx.x * wpb;
+  const int nw = min(wpb, W - w0);  // ragged edge: the last block's walkers
+  for (int i = threadIdx.x; i < B; i += blockDim.x) {
+    s_binw[i] = static_cast<const T*>(a.binw)[i];
+    s_mub[i] = static_cast<const T*>(a.mub)[i];
+  }
+  for (int i = threadIdx.x; i < (tbl ? 2 * N : N); i += blockDim.x)
+    s_sched[i] = static_cast<const int*>(a.sched)[i];
+  for (int i = threadIdx.x; i < 3 * S; i += blockDim.x)
+    s_shifts[i] = static_cast<const int*>(a.shifts)[i];
+  const T* gr = static_cast<const T*>(a.r);
+  const T* gm = static_cast<const T*>(a.mom);
+  if (st) {
+    // rows of the walker-last layout: the block's nw walkers are nw
+    // consecutive values of each row; four loads in flight per thread
+    const int n = rows * nw, nt = blockDim.x;
+    for (int i0 = threadIdx.x; i0 < n; i0 += 4 * nt) {
+      T v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = i0 + q * nt;
+        if (i < n) {
+          const int row = i / nw, k = i - row * nw;
+          v[q] = row < 6 * N ? gr[(size_t)row * W + w0 + k]
+                             : gm[(size_t)(row - 6 * N) * W + w0 + k];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = i0 + q * nt;
+        if (i < n) {
+          const int row = i / nw, k = i - row * nw;
+          s_state[(size_t)k * rows + row] = v[q];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < nw) {
+    const int w = w0 + warp;
+    const Consts<T> c(a);
+    const SW<T> sw(a.sw);
+    WarpWalker<T> s;
+    load_walker<T>(s, a, w, s_binw, s_mub, s_shifts);
+    if (st) {
+      s.r = s_state + (size_t)warp * rows;
+      s.mom = s.r + 6 * N;
+      s.rs = 1;
+    } else {
+      s.r = static_cast<T*>(a.r) + w;
+      s.mom = static_cast<T*>(a.mom) + w;
+      s.rs = W;
+    }
+    s.frac0 = static_cast<const T*>(a.frac0);
+    s.tbl = static_cast<const int*>(a.tbl);
+    unsigned short* list = s_list + (size_t)warp * N;
+
+    // the uniforms of step t, those of step t + 1 loaded ahead
+    const T* cu = static_cast<const T*>(a.cu) + w;
+    T u[7], un[7];
+#pragma unroll
+    for (int k = 0; k < 7; ++k) u[k] = cu[(size_t)k * W];
+    EtaCarry<T> ec;
+    ec.val = (T)0;
+    ec.ok = false;
+    for (int t = 0; t < N; ++t) {
+      if (t + 1 < N) {
+#pragma unroll
+        for (int k = 0; k < 7; ++k) un[k] = cu[((size_t)(t + 1) * 7 + k) * W];
+      }
+      const int code = s_sched[t];
+      if (code == TRANS) {
+        if constexpr (BR == DENSE)
+          translation_dense_warp(s, u, c, sw, a, lane, list, ec);
+        else
+          translation_warp(s, u, s_sched[N + t], c, sw, a, lane, ec);
+      }
+      if (switch_on(code, a)) {
+        const int ls = s.ls;
+        lattice_switch(s, u[6], c);
+        ec.ok = ec.ok & (s.ls == ls);  // an accepted switch moves mu
+      }
+#pragma unroll
+      for (int k = 0; k < 7; ++k) u[k] = un[k];
+    }
+    if (lane == 0) store_walker(s, a);
+  }
+  __syncthreads();
+  if (st) {
+    T* r = static_cast<T*>(a.r);
+    T* mom = static_cast<T*>(a.mom);
+    for (int i = threadIdx.x; i < rows * nw; i += blockDim.x) {
+      const int row = i / nw, k = i - row * nw;
+      const T v = s_state[(size_t)k * rows + row];
+      if (row < 6 * N)
+        r[(size_t)row * W + w0 + k] = v;
+      else
+        mom[(size_t)(row - 6 * N) * W + w0 + k] = v;
+    }
+  }
+}
+
+// -- launches and occupancy ------------------------------------------------
+
+template <typename T, int BR>
+static const void* kernel_of() {
+  if constexpr (BR == MULTI)
+    return reinterpret_cast<const void*>(fused_kernel<T>);
+  else
+    return reinterpret_cast<const void*>(fused_warp_kernel<T, BR>);
+}
+
+// (threads per block, dynamic shared bytes, blocks) of a launch, or
+// false for a plan the warp kernels do not take.
+template <typename T, int BR>
+static bool geometry(const FusedArgs* a, int& threads, size_t& smem,
+                     int& blocks) {
+  if (BR == MULTI) {
+    threads = TB;
+    smem = smem_bytes<T>(a->N, a->B, a->M, a->S, a->N / a->T);
+    blocks = (a->W + TB - 1) / TB;
+    return true;
+  }
+  if (a->wpb < 1 || a->wpb > WarpCap<T>::value || a->N > 65535) return false;
+  threads = 32 * a->wpb;
+  smem = warp_smem_bytes<T>(BR, a->N, a->B, a->S, a->wpb, a->state_smem);
+  blocks = (a->W + a->wpb - 1) / a->wpb;
+  return true;
+}
+
 template <typename T, int BR>
 static int launch(const FusedArgs* a, cudaStream_t stream) {
-  const int n_steps = BR == MULTI ? a->N / a->T : a->N;
-  const size_t smem = smem_bytes<T>(BR, a->N, a->B, a->M, a->S, n_steps);
+  int threads, blocks;
+  size_t smem;
+  if (!geometry<T, BR>(a, threads, smem, blocks))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = kernel_of<T, BR>();
   cudaError_t err = cudaFuncSetAttribute(
-      fused_kernel<T, BR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_kernel<T, BR><<<(a->W + TB - 1) / TB, TB, smem, stream>>>(*a);
+  if constexpr (BR == MULTI)
+    fused_kernel<T><<<blocks, threads, smem, stream>>>(*a);
+  else
+    fused_warp_kernel<T, BR><<<blocks, threads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
-// out = {registers per thread, local (spill) bytes per thread, blocks
-// of TB threads that can be resident on one SM}.
+// out = {registers per thread, local (spill) bytes per thread, walkers
+// resident on one SM, dynamic shared bytes per block, walkers per
+// block, blocks} of the launch of a (only its shape and plan are read).
 template <typename T, int BR>
-static int occupancy(int N, int B, int M, int S, int n_steps, int* out) {
+static int occupancy(const FusedArgs* a, int* out) {
+  int threads, blocks;
+  size_t smem;
+  if (!geometry<T, BR>(a, threads, smem, blocks))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = kernel_of<T, BR>();
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fused_kernel<T, BR>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes<T>(BR, N, B, M, S, n_steps);
-  err = cudaFuncSetAttribute(fused_kernel<T, BR>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], fused_kernel<T, BR>, TB, smem);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                      smem);
+  const int wpb = BR == MULTI ? TB : a->wpb;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
+  out[2] = per_sm * wpb;
+  out[3] = (int)smem;
+  out[4] = wpb;
+  out[5] = blocks;
   return (int)err;
 }
 
 template <typename T>
-static int occupancy_of(int branch, int N, int B, int M, int S,
-                        int n_steps, int* out) {
+static int occupancy_of(int branch, const FusedArgs* a, int* out) {
   switch (branch) {
-    case TABLE: return occupancy<T, TABLE>(N, B, M, S, n_steps, out);
-    case DENSE: return occupancy<T, DENSE>(N, B, M, S, n_steps, out);
-    default: return occupancy<T, MULTI>(N, B, M, S, n_steps, out);
+    case TABLE: return occupancy<T, TABLE>(a, out);
+    case DENSE: return occupancy<T, DENSE>(a, out);
+    default: return occupancy<T, MULTI>(a, out);
   }
 }
 
@@ -941,10 +1497,10 @@ int fused_cycle_multi_f64(const FusedArgs* a, void* stream) {
   return launch<double, MULTI>(a, (cudaStream_t)stream);
 }
 
-int fused_cycle_occupancy(int branch, int f64, int N, int B, int M, int S,
-                          int n_steps, int* out) {
-  return f64 ? occupancy_of<double>(branch, N, B, M, S, n_steps, out)
-             : occupancy_of<float>(branch, N, B, M, S, n_steps, out);
+int fused_cycle_occupancy(int branch, int f64, const FusedArgs* a,
+                          int* out) {
+  return f64 ? occupancy_of<double>(branch, a, out)
+             : occupancy_of<float>(branch, a, out);
 }
 
 }  // extern "C"

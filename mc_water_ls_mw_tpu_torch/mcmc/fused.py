@@ -25,7 +25,11 @@ move codes [N] and the molecule schedule ([N/T], none in dense mode)
 are uniform across walkers.
 
 The kernels are in ``csrc/fused_cycle.cu`` (its header says what bounds
-them on the H100 and how the design answers that).  The plain versions
+them on the H100 and how the design answers that).  The table and dense
+kernels run one warp per walker with the walker's state staged in shared
+memory; ``launch_plan`` chooses the walkers per block from the shared
+memory budget (or reads the state in place where one walker's state
+does not fit).  The plain versions
 are Python loops over the steps on tensors that call the engine's own
 steps (``Engine._translation_tbl``, ``_translation``,
 ``_translation_tbl_multi`` and ``_switch``).  The wrapper takes the
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -75,7 +80,64 @@ class FusedArgs(ctypes.Structure):
             "av_bw", "cpos", "cneg", "a_pos", "a_neg", "lnr_pos",
             "lnr_neg")]
         + [("sw", cuda_build.SWConsts)]
+        + [(n, ctypes.c_int) for n in ("wpb", "state_smem")]
     )
+
+
+# Shared memory one block can use on the H100 (227 KB).
+SMEM_BLOCK_MAX = 232448
+# Walkers (warps) per block at most, by element size: the warp kernels'
+# register bound (WarpCap in csrc/fused_cycle.cu).
+WARP_CAP = {4: 8, 8: 5}
+# rows of N values in one walker's state: r [2,3] and the moments [10,2]
+STATE_ROWS = 26
+
+
+class LaunchPlan(NamedTuple):
+    """Geometry of a warp-kernel launch: ``wpb`` walkers (warps) per
+    block, their state staged in shared memory (``state_smem``) or read
+    in place in device memory, ``smem`` dynamic shared bytes per block,
+    ``blocks`` blocks."""
+
+    wpb: int
+    state_smem: bool
+    smem: int
+    blocks: int
+
+
+def smem_bytes(kernel, itemsize, N, B, S, wpb, state_smem):
+    """Dynamic shared bytes of a block of the table (``fused_cycle``) or
+    dense (``fused_cycle_dense``) kernel (warp_smem_bytes in
+    csrc/fused_cycle.cu): the bin widths and centres, the walkers' states
+    when staged, the schedule (the codes, and the molecule schedule in
+    table mode), the folded shifts, and in dense mode a list of N uint16
+    rows per walker."""
+    table = kernel == "fused_cycle"
+    return (itemsize * (2 * B + (wpb * STATE_ROWS * N if state_smem else 0))
+            + 4 * ((2 * N if table else N) + 3 * S)
+            + (0 if table else 2 * wpb * N))
+
+
+def launch_plan(kernel, itemsize, N, B, S, W):
+    """The launch of the table or dense kernel for N molecules, B bins,
+    S folded shifts and W walkers in elements of ``itemsize`` bytes: the
+    most walkers per block (up to WARP_CAP and W) whose states fit in
+    one block's shared memory; where not even one walker's state fits,
+    the state is read in place and the block holds only the rest.
+    Raises where neither fits."""
+    if kernel not in ("fused_cycle", "fused_cycle_dense"):
+        raise ValueError(f"launch_plan: no warp kernel {kernel!r}")
+    cap = min(WARP_CAP[itemsize], W)
+    if kernel == "fused_cycle_dense" and N > 65535:
+        cap = 0                       # the row lists hold uint16 indices
+    for state_smem in (True, False):
+        for wpb in range(cap, 0, -1):
+            nbytes = smem_bytes(kernel, itemsize, N, B, S, wpb, state_smem)
+            if nbytes <= SMEM_BLOCK_MAX:
+                return LaunchPlan(wpb, state_smem, nbytes, -(-W // wpb))
+    raise ValueError(
+        f"{kernel}: N={N}, B={B}, S={S} in {itemsize}-byte elements do not "
+        f"fit one block's {SMEM_BLOCK_MAX} bytes of shared memory")
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,29 +221,67 @@ class FusedCycle:
             )
         return self._dev[key]
 
-    def occupancy(self, dtype):
-        """(registers per thread, spill bytes per thread, resident blocks
-        of 128 walkers per SM) of the engine's kernel, from the CUDA
-        runtime."""
-        fn = cuda_build.bind("fused_cycle", "fused_cycle_occupancy",
-                             [ctypes.c_int] * 7
-                             + [ctypes.POINTER(ctypes.c_int)])
-        out = (ctypes.c_int * 3)()
+    def plan(self, dtype, W):
+        """The launch plan of the engine's table or dense kernel at W
+        walkers, or None for the multi-trial kernel (blocks of 128
+        walkers, a thread each)."""
+        if self.kernel == "fused_cycle_multi":
+            return None
         eng = self.eng
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        return launch_plan(self.kernel, itemsize, eng.prm.nwater,
+                           eng.grid.nbins, len(eng.fold_shifts), W)
+
+    def _shape_args(self, dtype, W):
+        """FusedArgs with the shape and launch plan only (no pointers)."""
+        eng = self.eng
+        plan = self.plan(dtype, W)
+        return FusedArgs(
+            N=eng.prm.nwater, W=W, B=eng.grid.nbins,
+            M=0 if eng.dense else eng.tbl.shape[-1],
+            S=len(eng.fold_shifts), T=eng.dT,
+            wpb=0 if plan is None else plan.wpb,
+            state_smem=0 if plan is None else int(plan.state_smem))
+
+    def occupancy(self, dtype, W):
+        """The engine's kernel at W walkers, from the CUDA runtime: a dict
+        of registers and spill (local) bytes per thread, walkers resident
+        on one SM, dynamic shared bytes per block, walkers per block and
+        blocks."""
+        fn = cuda_build.bind("fused_cycle", "fused_cycle_occupancy",
+                             [ctypes.c_int, ctypes.c_int,
+                              ctypes.POINTER(FusedArgs),
+                              ctypes.POINTER(ctypes.c_int)])
+        out = (ctypes.c_int * 6)()
         branch = ("fused_cycle", "fused_cycle_dense",
                   "fused_cycle_multi").index(self.kernel)
-        M = 0 if eng.dense else eng.tbl.shape[-1]
-        N = eng.prm.nwater
-        err = fn(branch, int(dtype == torch.float64), N, eng.grid.nbins, M,
-                 len(eng.fold_shifts), N // eng.dT, out)
+        args = self._shape_args(dtype, W)
+        err = fn(branch, int(dtype == torch.float64), ctypes.byref(args), out)
         cuda_build.check(err, "fused_cycle occupancy")
-        return tuple(out)
+        return dict(zip(("registers", "spill_bytes", "walkers_per_sm",
+                         "smem_bytes", "walkers_per_block", "blocks"),
+                        out))
 
     def __call__(self, s, codes, sched_mol, cycle_u, wl_active,
                  switch_ok):
         if not s.r.is_cuda:
             return self.plain(s, codes, sched_mol, cycle_u, wl_active,
                               switch_ok)
+        args, wf, wi, keep = self.launch_args(s, codes, sched_mol, cycle_u,
+                                              wl_active, switch_ok)
+        stream = torch.cuda.current_stream(s.r.device).cuda_stream
+        err = _entry(self.kernel, s.r.dtype)(ctypes.byref(args), stream)
+        cuda_build.check(err, self.kernel)
+        self.launches += 1
+        del keep
+        return self.finish(s, wf, wi)
+
+    def launch_args(self, s, codes, sched_mol, cycle_u, wl_active,
+                    switch_ok):
+        """(args, wf, wi, keep) of one launch on the CUDA state ``s``:
+        the FusedArgs (pointers, constants, launch plan), the packed
+        per-walker rows the kernel updates, and the tensors the pointers
+        reference (keep them alive until the launch is enqueued)."""
         eng, prm, grid = self.eng, self.eng.prm, self.eng.grid
         L, _, N, W = s.r.shape
         T = eng.dT
@@ -206,6 +306,7 @@ class FusedCycle:
                 f"{tuple(cycle_u.shape)}, codes {tuple(codes.shape)}, "
                 f"moments {tuple(s.moments.shape)}, sched_mol "
                 f"{None if sched_mol is None else tuple(sched_mol.shape)}")
+        plan = self.plan(dtype, W)
         tbl, frac0, shifts, binw, mub = self._constants(dev, dtype)
         wf = torch.stack([s.mu, s.f, s.sumhist, s.min_dmu, s.max_dmu,
                           s.max_trans, s.my_mu_min, s.my_mu_max])
@@ -245,11 +346,14 @@ class FusedCycle:
             lnr_pos=float(np.log(grid.r_pos)),
             lnr_neg=float(np.log(grid.r_neg)),
             sw=cuda_build.SWConsts.of(m),
+            wpb=0 if plan is None else plan.wpb,
+            state_smem=0 if plan is None else int(plan.state_smem),
         )
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry(self.kernel, dtype)(ctypes.byref(args), stream)
-        cuda_build.check(err, self.kernel)
-        self.launches += 1
+        return args, wf, wi, (tbl, frac0, shifts, binw, mub, basew, sched)
+
+    @staticmethod
+    def finish(s, wf, wi):
+        """The updated per-walker rows back into the state's fields."""
         s.mu, s.f, s.sumhist = wf[WF_MU], wf[WF_F], wf[WF_SUMHIST]
         s.min_dmu, s.max_dmu = wf[WF_MIN_DMU], wf[WF_MAX_DMU]
         s.ls = wi[WI_LS]

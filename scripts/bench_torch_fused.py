@@ -1,0 +1,178 @@
+#!/usr/bin/env python3
+"""Time the PyTorch/CUDA port's table and dense fused-cycle kernels
+against another version of csrc/fused_cycle.cu, in one process on one
+card.
+
+    python3 scripts/bench_torch_fused.py --other PATH/fused_cycle.cu \\
+        [--out OUT.json]
+
+The other source is compiled with the port's nvcc flags (cuda_build)
+into build/torch_kernels/ (its includes from the port's csrc/) and bound
+with the same FusedArgs: the structure of an earlier version is a prefix
+of the current one, which only appends the launch plan.  For each case
+of chip_smoke.py's phases 4, 4b and 4c at W=4096 in float32 (the table
+kernel at N=216; the dense kernel at N=216 with one folded shift and at
+N=48 with three; the multi-trial kernel at T=8), from the state after
+two cycles and one cycle's draws: each kernel's cycle by CUDA events
+over ``reps`` cycles, in the order other, this, this, other; how many
+walkers' integer outcomes differ between the two kernels and the
+largest continuous difference on the rest; this kernel at fewer
+walkers per block (WPB_TRIES); its registers, walkers per block and
+resident walkers per SM.  Prints one JSON line (and writes it to
+--out).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+# fewer walkers per block than the plan's, timed beside it
+WPB_TRIES = (8, 6)
+CASES = (("fused_cycle", "table", 5), ("fused_cycle_dense", "n216", 3),
+         ("fused_cycle_dense", "n48", 5), ("fused_cycle_multi", "t8", 5))
+
+
+def build_other(src):
+    from mc_water_ls_mw_tpu_torch import cuda_build
+
+    data = open(src, "rb").read()
+    tag = hashlib.sha256(data + " ".join(cuda_build.NVCC_FLAGS).encode())
+    out = cuda_build.BUILD_DIR / f"other_fused_cycle-{tag.hexdigest()[:16]}.so"
+    if not out.exists():
+        cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+                        "-I", str(cuda_build.CSRC), "-o", str(out), src],
+                       check=True)
+    return ctypes.CDLL(str(out))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other", required=True)
+    ap.add_argument("--out", default=None)
+    opt = ap.parse_args()
+
+    import torch
+
+    import chip_smoke
+    from mc_water_ls_mw_tpu_torch import cuda_build
+    from mc_water_ls_mw_tpu_torch.mcmc import fused
+    from mc_water_ls_mw_tpu_torch.mcmc.fused import FusedArgs
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    cuda_build.build_all(("fused_cycle",))
+    lib = build_other(opt.other)
+    W = chip_smoke.W_MAIN
+    rows = []
+    for kernel, case, reps in CASES:
+        if case == "table":
+            prm = chip_smoke.sample_params(W, "float32", eq_mc_cycles=0)
+        elif case == "t8":
+            prm = chip_smoke.multi_params(W, "float32", chip_smoke.MULTI_T,
+                                          eq_mc_cycles=0)
+        else:
+            prm = chip_smoke.dense_params(W, "float32", case,
+                                          samplerun=case == "n216",
+                                          eq_mc_cycles=0)
+        eng, s = chip_smoke.make_engine(prm, paper_pair=case == "t8")
+        fc = eng.fused_cycle
+        assert fc.kernel == kernel
+        eng.run_cycles(s, 2)
+        draws = chip_smoke.kernel_draws(eng, s, 7)
+        fn = getattr(lib, f"{kernel}_f32")
+        fn.argtypes = [ctypes.POINTER(FusedArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def other(st):
+            args, wf, wi, keep = fc.launch_args(st, *draws, True, True)
+            stream = torch.cuda.current_stream().cuda_stream
+            cuda_build.check(fn(ctypes.byref(args), stream), "other kernel")
+            fc.finish(st, wf, wi)
+
+        def this(st):
+            fc(st, *draws, True, True)
+
+        def this_at(wpb):
+            """This kernel with ``wpb`` walkers per block (fewer than the
+            plan's: the state still fits)."""
+            def run(st):
+                args, wf, wi, keep = fc.launch_args(st, *draws, True, True)
+                args.wpb = wpb
+                stream = torch.cuda.current_stream().cuda_stream
+                err = fused._entry(kernel, torch.float32)(ctypes.byref(args),
+                                                          stream)
+                cuda_build.check(err, kernel)
+                fc.finish(st, wf, wi)
+            return run
+
+        # one cycle of each from the same state: their outcomes
+        so, sn = s.clone(), s.clone()
+        for st, run in ((so, other), (sn, this)):
+            st.cycle += 1
+            run(st)
+        torch.cuda.synchronize()
+        differ = so.ls != sn.ls
+        for name in ("att", "acc", "trans_per_mol"):
+            differ |= (getattr(so, name) != getattr(sn, name)).any(dim=0)
+        err = chip_smoke.fused_max_err(sn, so, ~differ,
+                                       ("r", "moments", "energy", "mu"))
+        times = {}
+        for label, run in (("other", other), ("this", this),
+                           ("this", this), ("other", other)):
+            st = s.clone()
+
+            def one_cycle(st=st, run=run):
+                st.cycle += 1
+                run(st)
+
+            times.setdefault(label, []).append(chip_smoke.cuda_ms(one_cycle,
+                                                                  reps))
+        by_wpb = {}
+        plan = fc.plan(torch.float32, W)
+        for wpb in WPB_TRIES if plan is not None else ():
+            if wpb < plan.wpb:
+                st = s.clone()
+
+                def one_cycle(st=st, run=this_at(wpb)):
+                    st.cycle += 1
+                    run(st)
+
+                by_wpb[wpb] = chip_smoke.cuda_ms(one_cycle, reps)
+        occ = fc.occupancy(torch.float32, W)
+        row = dict(kernel=kernel, case=case, W=W, N=prm.nwater,
+                   S=len(eng.fold_shifts), reps=reps,
+                   other_ms=times["other"], this_ms=times["this"],
+                   speedup=min(times["other"]) / min(times["this"]),
+                   this_ms_by_wpb=by_wpb,
+                   walkers_differ=int(differ.sum()),
+                   max_rel_state_diff=err, **occ)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del eng, s, so, sn
+        torch.cuda.empty_cache()
+    result = dict(card=card, kind=torch.cuda.get_device_name(0), rows=rows)
+    line = json.dumps(result)
+    if opt.out:
+        os.makedirs(os.path.dirname(os.path.abspath(opt.out)), exist_ok=True)
+        with open(opt.out, "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

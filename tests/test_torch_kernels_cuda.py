@@ -108,6 +108,35 @@ def test_fused_cycle_dense_kernel_fp64(card, case):
     assert eng.fused_cycle.launches == 3
 
 
+@pytest.mark.parametrize("Wr", [37, 1])
+@pytest.mark.parametrize("branch", ["table-sample", "table-wl", "dense-n48",
+                                    "dense-n216"])
+def test_fused_cycle_warp_kernels_ragged_fp64(card, branch, Wr):
+    """The warp-per-walker kernels (table and dense) at a walker count
+    that is not a multiple of the walkers per block (37) and below one
+    block (1): the last block's missing walkers are masked."""
+    kind, case = branch.split("-")
+    over = dict(samplerun=case == "sample",
+                wl_factor=0.0 if case == "sample" else 0.005,
+                eq_mc_cycles=0)
+    if kind == "table":
+        prm = chip_smoke.sample_params(Wr, "float64", **over)
+    else:
+        prm = chip_smoke.dense_params(Wr, "float64", case, **over)
+    eng, s = chip_smoke.make_engine(prm)
+    kernel = "fused_cycle" if kind == "table" else "fused_cycle_dense"
+    assert eng.fused_cycle.kernel == kernel
+    plan = eng.fused_cycle.plan(torch.float64, Wr)
+    assert plan.state_smem and (Wr == 1) == (plan.blocks * plan.wpb == Wr)
+    eng.run_cycles(s, 2)
+    draws = chip_smoke.kernel_draws(eng, s, 14)
+    sk, sp, differ = chip_smoke.fused_compare(eng, s, draws)
+    assert not differ.any()
+    assert chip_smoke.fused_max_err(sk, sp, ~differ) <= 1e-10
+    assert int((sk.acc[0] - s.acc[0]).sum()) > 0
+    assert eng.fused_cycle.launches == 3
+
+
 def test_fused_cycle_multi_kernel_fp64(card):
     prm = chip_smoke.multi_params(W, "float64", 8, eq_mc_cycles=0)
     eng, s = chip_smoke.make_engine(prm, paper_pair=True)
