@@ -19,8 +19,9 @@ Phases (each exits non-zero on failure):
    outcomes and continuous state within 1e-10; float32 at W=4096: at
    most 1% of walkers differ in any integer outcome); 4b. likewise its
    dense-candidate kernel at N=216 (nbr_table='off', one shift) and at
-   N=48 (three shifts); 4c. likewise its multi-trial kernel at
-   dense_trials=8; each with its time and bound;
+   N=48 (three shifts); 4c. likewise its multi-trial kernel (float64 at
+   dense_trials=8; float32 at 2, 4 and 8, path C's trial counts); each
+   with its time and bound, registers and walkers per block;
 5. the N=216 main path: the N=216 Ih/Ic stacking pair, W=4096,
    float32, a sample run from runs/n216_sample/eta_weights.dat with
    delta-syncs every 5 and chain resyncs every 10 cycles; 20 warm-up and
@@ -76,7 +77,10 @@ Phases (each exits non-zero on failure):
    sub-step of the N=8064 pair after a cycle of sampling (float64 at
    W=16: every integer output identical, energies and own moments
    within 1e-10; float32 at W=128: the tolerances below), with their
-   times and bounds;
+   times and bounds, and the mover-apply kernel at this shape (phase
+   9's) with the chain's accepts (float64 also with every mover
+   accepted and every mover rejected: moment rows within 1e-10, every
+   other slab entry bitwise equal);
 9. the front-end path: runs/n8064_wl/ice.input with its run.py
    overrides (128 walkers, float32, cell_trials=8; parallel_strategy
    'mw' in place of 'dd'; FRONTEND_CUTS lists every interval cut)
@@ -94,7 +98,9 @@ Phases (each exits non-zero on failure):
    merged histogram;
 11. one JSON line with every kernel's launches (summed over the main
    paths of phases 5, 5b, 5c, 7, 7b, 9 and 10), error against its plain
-   version, times and bound;
+   version, times and bound; the multi-trial kernel has a line for each
+   T of path C, the mover-apply kernel one for phase 7's shape
+   ("mover_apply") and one for phase 9's;
 12. as the last line, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds ("[time]").
@@ -159,8 +165,12 @@ F32_CHAIN_RTOL = 1e-6
 # ---- the multi-trial sub-step (cell_trials = 8, the Wang-Landau
 # production runs runs/n8064_wl and runs/n8064_wl2)
 MT_TRIALS = 8
-# the dense multi-trial branch (dense_trials = 8, path C)
+# the dense multi-trial branch (dense_trials = 8, path C at 2, 4, 8)
 MULTI_T = 8
+MULTI_TS = (2, 4, MULTI_T)
+# the kernels line's name of the apply kernel at the multi-trial
+# front-end path's shape (128 walkers, T=8; phase 7's is "mover_apply")
+APPLY_MT = "mover_apply[W=128,T=8]"
 W_MT = 128              # walkers of runs/n8064_wl, the f32 checks
 W_MT_FP64 = 16          # walkers of the float64 checks
 # f32 energy audit of the cell engine, one cycle after a chain resync:
@@ -202,6 +212,13 @@ OPS_WING = 45
 # a candidate slot's moment deltas new - old: two leg contributions (13
 # each) and ten differences
 OPS_DELTA = 36
+
+
+def multi_name(T):
+    """The kernels line's name of the multi-trial kernel at T trials per
+    mover ("fused_cycle_multi" at MULTI_T, path C's main case)."""
+    return ("fused_cycle_multi" if T == MULTI_T
+            else f"fused_cycle_multi[T={T}]")
 
 
 def fail(msg: str) -> None:
@@ -987,27 +1004,14 @@ def cell_substep_compare(eng, s, tbl, seed, time_reps=0):
 
     # -- apply with the chain kernel's accepts
     accf = ck_["joh"].view(K, 2, W)[:, 1]
-    pk_k = [pk.clone() for pk in pks]
-    pk_p = [pk.clone() for pk in pks]
-    aargs = (s.h, cand, off, fc, trial.rank, accf, trial.p_old, trial.p_new,
-             trial.own_new)
-    eng.apply_kernel(pk_k, *aargs)
-    eng.apply_kernel.plain(pk_p, *aargs)
-    torch.cuda.synchronize()
-    acc = accf > 0.5
-    out["mover_apply"] = dict(
-        mom_err=max(_max_abs(a[:, :10], b[:, :10])
-                    for a, b in zip(pk_k, pk_p)),
-        rest_equal=all(torch.equal(a[:, 10:], b[:, 10:])
-                       for a, b in zip(pk_k, pk_p)),
-        changed=int(sum((a != b).sum() for a, b in zip(pk_k, pks))),
-        n_acc=int(acc.sum()), n_occ_acc=int(n_occ[acc].sum()),
-        n_in_acc=int(n_in[acc].sum()))
+    out["mover_apply"] = apply_compare(
+        eng, pks, (s.h, cand, off, fc, trial.rank, accf, trial.p_old,
+                   trial.p_new, trial.own_new), n_occ, n_in, time_reps)
 
     if time_reps:
         # kernels: device time (the host runs ahead); plain versions: as
-        # a caller sees them.  The chain and the apply stage run in place
-        # on their buffers, pass after pass.
+        # a caller sees them.  The chain runs in place on its buffers,
+        # pass after pass.
         t = out["mover_energies"]
         t["ms"] = cuda_ms(lambda: eng.mover_kernel(*margs), time_reps, True)
         t["plain_ms"] = cuda_ms(lambda: eng.mover_kernel.plain(*margs), 3)
@@ -1016,10 +1020,40 @@ def cell_substep_compare(eng, s, tbl, seed, time_reps=0):
         t["ms"] = cuda_ms(lambda: chain(eng.chain_kernel, bk), time_reps,
                           True)
         t["plain_ms"] = cuda_ms(lambda: chain(eng.chain_kernel.plain, bp), 3)
-        t = out["mover_apply"]
-        t["ms"] = cuda_ms(lambda: eng.apply_kernel(pk_k, *aargs), time_reps,
-                          True)
-        t["plain_ms"] = cuda_ms(
+    return out
+
+
+def apply_compare(eng, pks, aargs, n_occ, n_in, time_reps=0):
+    """The apply kernel against its plain version on clones of the packed
+    slabs ``pks`` with the arguments ``aargs`` (h, cand, off, fc, rank,
+    accf, p_old, p_new, own_new).  Returns the moment rows' error, whether
+    every other slab entry is bitwise equal, the slab entries the kernel
+    changed, the accepted movers and their occupied and in-range slots
+    (from the [K,W] counts ``n_occ``, ``n_in``), the inputs themselves
+    (``args``: pks and aargs) and, with ``time_reps``, milliseconds of
+    kernel and plain version (each applied in place on its clones, pass
+    after pass)."""
+    import torch
+
+    accf = aargs[5]
+    pk_k = [pk.clone() for pk in pks]
+    pk_p = [pk.clone() for pk in pks]
+    eng.apply_kernel(pk_k, *aargs)
+    eng.apply_kernel.plain(pk_p, *aargs)
+    torch.cuda.synchronize()
+    acc = accf if accf.dtype == torch.bool else accf > 0.5
+    out = dict(
+        mom_err=max(_max_abs(a[:, :10], b[:, :10])
+                    for a, b in zip(pk_k, pk_p)),
+        rest_equal=all(torch.equal(a[:, 10:], b[:, 10:])
+                       for a, b in zip(pk_k, pk_p)),
+        changed=int(sum((a != b).sum() for a, b in zip(pk_k, pks))),
+        n_acc=int(acc.sum()), n_occ_acc=int(n_occ[acc].sum()),
+        n_in_acc=int(n_in[acc].sum()), args=(pks, aargs))
+    if time_reps:
+        out["ms"] = cuda_ms(lambda: eng.apply_kernel(pk_k, *aargs),
+                            time_reps, True)
+        out["plain_ms"] = cuda_ms(
             lambda: eng.apply_kernel.plain(pk_p, *aargs), 3)
     return out
 
@@ -1034,25 +1068,33 @@ def cell_bounds(eng, s, cmp):
     range are read once, the movers' inputs read and their energies and
     own moments written; every occupied slot costs the image shift and
     two distance tests, every slot in range its legs and wings.
-    mover_apply: the same reads for the accepted movers only, and the
-    moment rows of their in-range neighbours and their own slots
-    written.  chain_wl: its tables read, its rows read and written, and
-    per enabled trial ~16 slab entries (two eta lookups of three bins in
-    two slabs, the histogram and weight update)."""
-    L, W = 2, s.r.shape[-1]
-    K, CF, cap = eng.K, eng.mover_kernel.CF, eng.cellgrid.cap
-    b = s.r.element_size()
+    mover_apply: ``apply_bound``.  chain_wl: its tables read, its rows
+    read and written, and per enabled trial ~16 slab entries (two eta
+    lookups of three bins in two slabs, the histogram and weight
+    update)."""
+    W, b = s.r.shape[-1], s.r.element_size()
     me, ma, ch = cmp["mover_energies"], cmp["mover_apply"], cmp["chain_wl"]
+    return {"mover_energies": mover_energies_bound(eng, s, me),
+            "mover_apply": apply_bound(eng, s, ma),
+            "chain_wl": chain_bound(eng, W, b, 2, ch["n_enabled"])}
+
+
+def apply_bound(eng, s, ma):
+    """(ms, bound_by) of one apply launch from the counts ``ma`` of
+    ``apply_compare``: for the accepted movers only, the occupied flag
+    of every candidate slot, the three coordinate rows of the occupied
+    slots and the ten moment rows of the in-range ones read, those moment
+    rows and the movers' own slots written; the movers' inputs read."""
+    L, W = 2, s.r.shape[-1]
+    K, CF, cap = eng.K, eng.apply_kernel.CF, eng.cellgrid.cap
+    b = s.r.element_size()
     small = (9 * L + 6 * L * K) * W * b + K * W * 4 + K * CF * 16
     ops_slot = 3 + 2 * 9              # image shift, two distance tests
-    out = {"mover_energies": mover_energies_bound(eng, s, me)}
     nbytes = (L * CF * cap * ma["n_acc"] + 3 * ma["n_occ_acc"]
               + 20 * ma["n_in_acc"] + 13 * L * ma["n_acc"]) * b + small \
         + (K + 10 * L * K) * W * b
     ops = ma["n_occ_acc"] * ops_slot + ma["n_in_acc"] * (2 * OPS_LEG + 20)
-    out["mover_apply"] = _bound(nbytes, ops)
-    out["chain_wl"] = chain_bound(eng, W, b, 2, ch["n_enabled"])
-    return out
+    return _bound(nbytes, ops)
 
 
 def mover_energies_bound(eng, s, me, deltas=False):
@@ -1112,7 +1154,8 @@ def _occupancy_counts(eng, s, pks, trial, cand, off, fc):
     n_in = torch.zeros((K, W), dtype=torch.int64, device=DEVICE)
     for l, pk in enumerate(pks):
         n_occ += (pk[:, PK_VALID][cand.long()] > 0.5).sum(dim=(1, 2))
-        _, _, co, cn = eng.mover_kernel._candidates(
+        kern = eng.mover_kernel if eng.T == 1 else eng.apply_kernel
+        _, _, co, cn = kern._candidates(
             pk, s.h[l], cand, off, fc, trial.rank, trial.p_old[l],
             trial.p_new[l])
         n_in += ((co.w > 0) | (cn.w > 0)).sum(dim=1)
@@ -1309,6 +1352,56 @@ def multitrial_compare(eng, s, tbl, seed, time_reps=0):
                           True)
         t["plain_ms"] = cuda_ms(lambda: chain(eng.chain_kernel.plain, bp), 3)
     return out
+
+
+def multitrial_apply_compare(eng, s, tbl, seed, mode, time_reps=0):
+    """The apply stage of a multi-trial sub-step (an engine at
+    cell_trials = T > 1) against its plain version, with the arguments
+    the engine's ``_apply_tm`` gives it: each mover's final point and
+    own moments from the engine's own proposal of table row ``tbl`` and
+    a one-hot of its accepted point.  ``mode``: 'chain', the chain
+    kernel's one-hot; 'all', every mover (of a cell that has one) at its
+    point 1; 'none', every mover at point 0 (all rejected).  ``s`` is
+    left as it is.  Returns ``apply_compare``'s dict."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.mcmc.chain_kernel import SWITCH
+
+    K, T, W = eng.K, eng.T, s.r.shape[-1]
+    P = T + 1
+    dtype = s.r.dtype
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    u = torch.rand((4 + 3 * T, K, W), generator=gen, dtype=dtype,
+                   device=DEVICE)
+    pks = eng._pack(s)
+    rows = eng._loop_rows(s)
+    fc, cand, off = eng._tables(tbl)
+    trial = eng._propose_tm(s, pks, tbl, u, rows)
+    if mode == "chain":
+        ua, uz = torch.rand((2, K * T, W), generator=gen, dtype=dtype,
+                            device=DEVICE)
+        codes = torch.zeros((K * T,), dtype=torch.int32, device=DEVICE)
+        codes[K * T // 2] = SWITCH
+        _, _, ck_ = chain_compare(eng, s, rows, trial.e, trial.inc,
+                                  trial.hasm, codes, ua, uz)
+        joh = ck_["joh"].view(K, P, W)
+    else:
+        moved = (trial.hasm > 0.5) & (mode == "all")
+        joh = torch.zeros((K, P, W), dtype=dtype, device=DEVICE)
+        joh[:, 0] = (~moved).to(dtype)
+        joh[:, 1] = moved.to(dtype)
+    p_fin = torch.sum(trial.pts * joh.transpose(0, 1)[:, None, None], dim=0)
+    own_fin = torch.sum(trial.own * joh[None, :, :, None], dim=2)
+    accf = joh[:, 0] < 0.5
+    n_occ, n_in = _occupancy_counts(
+        eng, s, pks, SimpleNamespace(rank=trial.rank, p_old=trial.pts[0],
+                                     p_new=p_fin), cand, off, fc)
+    return apply_compare(eng, pks, (s.h, cand, off, fc, trial.rank, accf,
+                                    trial.pts[0], p_fin, own_fin),
+                         n_occ, n_in, time_reps)
 
 
 def multitrial_bounds(eng, s, cmp):
@@ -2083,12 +2176,13 @@ def main() -> int:
                 report["fused_cycle_dense"] = out
     phase_time("4b. dense-candidate kernel")
 
-    for Wk, dt in ((W_FP64, "float64"), (W, "float32")):
-        out = fused_kernel_check(
-            multi_params(Wk, dt, MULTI_T, eq_mc_cycles=0), "multi",
-            reps=5 if dt == "float32" else 0, paper_pair=True)
-        if out is not None:
-            report["fused_cycle_multi"] = out
+    fused_kernel_check(multi_params(W_FP64, "float64", MULTI_T,
+                                    eq_mc_cycles=0), "multi",
+                       paper_pair=True)
+    for T in MULTI_TS:             # path C's trial counts, T=8 last
+        report[multi_name(T)] = fused_kernel_check(
+            multi_params(W, "float32", T, eq_mc_cycles=0), "multi", reps=5,
+            paper_pair=True)
     torch.cuda.empty_cache()
     phase_time("4c. multi-trial kernel")
 
@@ -2186,7 +2280,7 @@ def main() -> int:
     phase_time("5b. path B (N=216, nbr_table='off')")
 
     # ---- 5c. path C: N=216 Wang-Landau at dense_trials = 1, 2, 4, 8
-    for T in (1, 2, 4, MULTI_T):
+    for T in (1,) + MULTI_TS:
         prm = multi_params(W, "float32", T)
         eng, s = make_engine(prm, paper_pair=True)
         eng.run_cycles(s, 5)                 # warm-up, WL live
@@ -2209,8 +2303,9 @@ def main() -> int:
         if n_launch != 20 or not torch.isfinite(samples["E_ls"]).all():
             fail(f"path C at T={T}: {n_launch} launches or non-finite "
                  "samples")
+        if T > 1:
+            launches[multi_name(T)] = n_launch
         if T == MULTI_T:
-            launches["fused_cycle_multi"] = n_launch
             eng.resync_chains(s)
             eng.run_cycles(s, 5)
             s, drift = eng.audit_energy(s, n_walkers=64)
@@ -2459,6 +2554,33 @@ def main() -> int:
                       f"{t['ms']:.4f} ms/launch, plain {t['plain_ms']:.3f} "
                       f"ms, bound {bounds[name][0]:.6f} ms "
                       f"({bounds[name][1]})", flush=True)
+        # the apply kernel at this shape (the front-end path's), with the
+        # chain kernel's accepts; in float64 also with every mover
+        # accepted and with every mover rejected
+        f64 = dtype == "float64"
+        for mode in ("chain", "all", "none") if f64 else ("chain",):
+            ma = multitrial_apply_compare(eng, s, 5, seed=400, mode=mode,
+                                          time_reps=0 if f64 else 20)
+            print(f"[multi] mover_apply {dtype} W={Wm} T={eng.T} "
+                  f"({mode}): moment rows err {ma['mom_err']:.3e}, other "
+                  f"rows equal {ma['rest_equal']}, {ma['changed']} slab "
+                  f"entries changed, {ma['n_acc']} movers accepted",
+                  flush=True)
+            if not (ma["mom_err"] <= (1e-10 if f64 else F32_MOVER_MOM_ATOL)
+                    and ma["rest_equal"]
+                    and (ma["changed"] == 0) == (mode == "none")):
+                fail(f"mover_apply {dtype} at T={eng.T} ({mode}) disagrees "
+                     "with its plain version")
+            if not f64:
+                bound_ms, bound_by = apply_bound(eng, s, ma)
+                report[APPLY_MT] = dict(
+                    max_abs_err=ma["mom_err"], ms=ma["ms"],
+                    plain_ms=ma["plain_ms"], bound_ms=bound_ms,
+                    bound_by=bound_by)
+                print(f"[multi] mover_apply f32 W={Wm} T={eng.T}: kernel "
+                      f"{ma['ms']:.4f} ms/launch, plain "
+                      f"{ma['plain_ms']:.3f} ms, bound {bound_ms:.6f} ms "
+                      f"({bound_by})", flush=True)
         del eng, s
         torch.cuda.empty_cache()
     phase_time("8. multi-trial kernels")
@@ -2466,6 +2588,8 @@ def main() -> int:
     # ---- 9. the front-end path: run_input_file at T = 8
     fe = frontend_run()
     for name, n in fe["launches"].items():
+        # the apply kernel at this path's shape is a line of its own
+        name = APPLY_MT if name == "mover_apply" else name
         launches[name] = launches.get(name, 0) + n
     phase_time("9. front-end path")
 
@@ -2488,11 +2612,13 @@ def main() -> int:
              replaces="mc_water_ls_mw_tpu/mcmc/fused.py:584",
              launches=launches["fused_cycle_dense"], library_ms=None,
              **report["fused_cycle_dense"]),
-        dict(name="fused_cycle_multi", route="cuda",
+    ] + [
+        dict(name=multi_name(T), route="cuda",
              source="mc_water_ls_mw_tpu_torch/csrc/fused_cycle.cu",
              replaces="mc_water_ls_mw_tpu/mcmc/fused.py:856",
-             launches=launches["fused_cycle_multi"], library_ms=None,
-             **report["fused_cycle_multi"]),
+             launches=launches[multi_name(T)], library_ms=None,
+             **report[multi_name(T)]) for T in MULTI_TS
+    ] + [
         dict(name="full_energy", route="cuda",
              source="mc_water_ls_mw_tpu_torch/csrc/full_energy.cu",
              replaces="mc_water_ls_mw_tpu/ops/pallas_energy.py:44",
@@ -2503,11 +2629,13 @@ def main() -> int:
              replaces="mc_water_ls_mw_tpu/ops/cell_pallas.py:88",
              launches=launches["mover_energies"], library_ms=None,
              **report["mover_energies"]),
-        dict(name="mover_apply", route="cuda",
+    ] + [
+        dict(name=name, route="cuda",
              source="mc_water_ls_mw_tpu_torch/csrc/cell_movers.cu",
              replaces="mc_water_ls_mw_tpu/ops/cell_pallas.py:624",
-             launches=launches["mover_apply"], library_ms=None,
-             **report["mover_apply"]),
+             launches=launches[name], library_ms=None, **report[name])
+        for name in ("mover_apply", APPLY_MT)
+    ] + [
         dict(name="chain_wl", route="cuda",
              source="mc_water_ls_mw_tpu_torch/csrc/chain_wl.cu",
              replaces="mc_water_ls_mw_tpu/mcmc/chain_pallas.py:92",

@@ -63,12 +63,35 @@
 // its bytes (10*K*CF*cap*W per lattice, 393 MB at K=32, CF=75, cap=32,
 // W=128 in f32), so it is bound by them.
 // mover_apply needs no reduction and no atomics: same-colour stencils
-// are disjoint, so no two movers touch one cell, and a mover's own slot
-// is never read as a neighbour (it is self-masked), so its coordinates
-// may be overwritten while other warps still walk the stencil.  The TPU
-// kernel's grid over (walker block, mover, candidate cell), its copy of
-// every visited block through an aliased output and its scalar prefetch
-// of the tables have no counterpart here.
+// are disjoint, so no two movers touch one cell (nor one mover a cell
+// twice), a mover's own slot is never read as a neighbour (it is
+// self-masked), and a slot's deltas depend only on its own coordinates
+// and the mover's two points.  So every (lattice, mover, candidate cell,
+// slot, walker) is written by exactly one thread whatever the split of
+// the stencil over blocks.  Its first design (a block per (mover,
+// lattice, 32 walkers), each warp walking 27 cells x 4 slots one after
+// another) took 0.134-0.138 ms per launch at N=8064, K=8, W=512 in f32
+// on an H100 80GB HBM3 at 700 W: 256 blocks on 132 SMs (64 at W=128),
+// each slot's loads issued only after the previous slot's branch
+// resolved, and an in-range slot's ten moment rows read and written one
+// after another (the compiler cannot tell the rows apart, so each
+// read waited for the previous write).  What bounds it is bytes: every
+// candidate slot's flag and coordinates for the accepted walkers (a
+// 32-byte sector holds 8 walkers, so nearly every sector is read: 113
+// MB at W=512, 34 us at 3.35 TB/s).  Design:
+// the grid also runs over the candidate cells, (W/32, K*CF, L), a block
+// per (walker tile, mover, candidate cell, lattice): 6912 blocks at K=8,
+// CF=27, W=512.  Each of its warps takes APPLY_SPW slots of the cell and
+// issues their flag and coordinate loads together, first thing (they
+// depend only on the cell); meanwhile warp 0 loads what the tile's
+// walkers need of their mover (accept flag, both points, the cell's
+// image shift) into shared memory once for the block.  A lane whose
+// mover was rejected then returns (a warp when none of its walkers
+// accepted); the few slots in range of either point (~2% of the
+// occupied ones) read all ten moment rows before writing any.  Held to
+// 64 registers, four blocks (32 warps) share an SM.  The TPU kernel's
+// copy of every visited block through an aliased output and its scalar
+// prefetch of the tables have no counterpart here.
 //
 // Built without FMA contraction (cuda_build.py): every product and sum
 // rounds as the plain versions' elementwise ops do.
@@ -81,6 +104,9 @@ namespace {
 constexpr int PK_R0 = 10, PK_VALID = 13, PK_ROWS = 14;
 constexpr int NW = 8;     // warps per block (candidate-slot split)
 constexpr int NACC = 26;  // pair o/n, w2 o/n, wing o/n, own o[10]/n[10]
+// slots of one candidate cell a warp of mover_apply takes at a time,
+// their loads in flight together (ops/cell_kernels.APPLY_SLOTS_PER_WARP)
+constexpr int APPLY_SPW = 4;
 
 }  // namespace
 
@@ -101,6 +127,7 @@ struct MoverArgs {
   long long acc_stride;
   int L, K, CF, cap, W;
   SWConsts sw;
+  int apply_warps;  // mover_apply: warps per block (apply_geometry)
 };
 
 // What a thread needs of its (mover, lattice, walker).
@@ -297,50 +324,116 @@ mover_energies_kernel(const MoverArgs a) {
   for (int f = 0; f < 10; ++f) own[(size_t)f * W] = mn[f];
 }
 
+// The occupied flags and coordinates of slots j0 + q nw (q < APPLY_SPW)
+// of a cell (slot j at cell[j * W], rows ``row`` apart), loaded together;
+// a slot beyond cap reads as empty.
 template <typename T>
-__global__ void __launch_bounds__(32 * NW)
-mover_apply_kernel(const MoverArgs a) {
-  const int lane = threadIdx.x, wy = threadIdx.y;
-  const int k = blockIdx.y, l = blockIdx.z;
-  const int W = a.W, K = a.K, CF = a.CF, cap = a.cap;
-  const int w = blockIdx.x * 32 + lane;
-  if (w >= W) return;
-  const T acc = static_cast<const T*>(a.accf)[(size_t)k * a.acc_stride + w];
-  if (!(acc > (T)0.5)) return;  // rejected: the slab stays as it is
-  const SW<T> sw(a.sw);
-  MoverCtx<T> c;
-  load_ctx(c, a, l, k, w);
-  T* pk = static_cast<T*>(a.pk[l]);
-  const int* cand = static_cast<const int*>(a.cand) + (size_t)k * CF;
-  const int* off = static_cast<const int*>(a.off) + (size_t)k * CF * 3;
-  const size_t row = (size_t)cap * W;
+__device__ __forceinline__ void apply_slots(const T* cell, int j0, int nw,
+                                            int cap, int W, size_t row,
+                                            T valid[APPLY_SPW],
+                                            T cj[APPLY_SPW][3]) {
+#pragma unroll
+  for (int q = 0; q < APPLY_SPW; ++q) {
+    const int j = j0 + q * nw;
+    const T* at = cell + (size_t)(j < cap ? j : 0) * W;
+    valid[q] = j < cap ? at[PK_VALID * row] : (T)0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) cj[q][i] = at[(PK_R0 + i) * row];
+  }
+}
 
-  for (int ci = 0; ci < CF; ++ci) {
-    const int cid = cand[ci];
-    const bool self_cell = cid == c.fcell;
+// One block per (32-walker tile, mover k and candidate cell ci, lattice
+// l); warp y of nw takes the cell's slots y + nw (q + APPLY_SPW i)
+// (ops/cell_kernels.apply_geometry mirrors the split).  At most 64
+// registers a thread, so that four blocks share an SM.
+template <typename T>
+__global__ void __launch_bounds__(32 * NW, 4)
+mover_apply_kernel(const MoverArgs a) {
+  // what the tile's walkers need of their mover, loaded once by warp 0:
+  // the accept flag, the old and the new point, the cell's image shift
+  __shared__ T s_ctx[10][32];
+  __shared__ int s_rank[32];
+  const int lane = threadIdx.x, wy = threadIdx.y, nw = blockDim.y;
+  const int W = a.W, K = a.K, CF = a.CF, cap = a.cap;
+  const int k = blockIdx.y / CF, ci = blockIdx.y - k * CF, l = blockIdx.z;
+  const int w_raw = blockIdx.x * 32 + lane;
+  // ragged edge: lanes beyond W repeat the last walker and store nothing
+  const int w = w_raw < W ? w_raw : W - 1;
+  const int cid = __ldg(static_cast<const int*>(a.cand) + (size_t)k * CF + ci);
+  const bool self_cell = cid == __ldg(static_cast<const int*>(a.fc) + k);
+  const size_t row = (size_t)cap * W;
+  T* cell = static_cast<T*>(a.pk[l]) + (size_t)cid * PK_ROWS * row + w;
+
+  // the flags and coordinates of this warp's first slots, in flight
+  // while warp 0 loads the tile's context
+  T valid[APPLY_SPW], cj[APPLY_SPW][3];
+  apply_slots(cell, wy, nw, cap, W, row, valid, cj);
+  if (wy == 0) {
+    MoverCtx<T> c;
+    load_ctx(c, a, l, k, w);
     T sh[3];
-    cell_shift(c, off + ci * 3, sh);
-    for (int j = wy; j < cap; j += NW) {
-      const size_t base = ((size_t)cid * PK_ROWS * cap + j) * W + w;
-      if (self_cell && j == c.rank) {
+    cell_shift(c, static_cast<const int*>(a.off) + ((size_t)k * CF + ci) * 3,
+               sh);
+    s_ctx[0][lane] = static_cast<const T*>(a.accf)[(size_t)k * a.acc_stride
+                                                   + w];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      s_ctx[1 + i][lane] = c.po[i];
+      s_ctx[4 + i][lane] = c.pn[i];
+      s_ctx[7 + i][lane] = sh[i];
+    }
+    s_rank[lane] = c.rank;
+  }
+  __syncthreads();
+  if (w_raw >= W || !(s_ctx[0][lane] > (T)0.5))
+    return;  // rejected: the slab stays as it is
+  const SW<T> sw(a.sw);
+  T po[3], pn[3], sh[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    po[i] = s_ctx[1 + i][lane];
+    pn[i] = s_ctx[4 + i][lane];
+    sh[i] = s_ctx[7 + i][lane];
+  }
+  const int rank = s_rank[lane];
+
+  for (int j0 = wy;;) {
+#pragma unroll
+    for (int q = 0; q < APPLY_SPW; ++q) {
+      const int j = j0 + q * nw;
+      T* at = cell + (size_t)j * W;
+      // (every row is read before any is written: the compiler cannot
+      // tell the rows apart, and would otherwise wait for each read in
+      // turn)
+      T m[10];
+      if (self_cell && j == rank) {
         // the mover's own slot: new own moments, new position
         const T* own = static_cast<const T*>(a.own)
                      + ((size_t)l * K + k) * 10 * W + w;
 #pragma unroll
-        for (int f = 0; f < 10; ++f) pk[base + f * row] = own[(size_t)f * W];
+        for (int f = 0; f < 10; ++f) m[f] = own[(size_t)f * W];
 #pragma unroll
-        for (int i = 0; i < 3; ++i) pk[base + (PK_R0 + i) * row] = c.pn[i];
+        for (int f = 0; f < 10; ++f) at[f * row] = m[f];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) at[(PK_R0 + i) * row] = pn[i];
         continue;
       }
-      Leg<T> go, gn;
-      if (!slot_legs(c, cid, j, self_cell, sh, sw, go, gn)) continue;
+      if (!(valid[q] > (T)0.5)) continue;  // empty (or beyond cap)
+      const T p[3] = {cj[q][0] + sh[0], cj[q][1] + sh[1], cj[q][2] + sh[2]};
+      const Leg<T> go = leg_at(p, po, sw);
+      const Leg<T> gn = leg_at(p, pn, sw);
+      if (!go.in && !gn.in) continue;
+#pragma unroll
+      for (int f = 0; f < 10; ++f) m[f] = at[f * row];
       T dlo[10], dln[10];
       leg_delta(go, dlo);
       leg_delta(gn, dln);
 #pragma unroll
-      for (int f = 0; f < 10; ++f)
-        pk[base + f * row] = pk[base + f * row] + (dln[f] - dlo[f]);
+      for (int f = 0; f < 10; ++f) at[f * row] = m[f] + (dln[f] - dlo[f]);
     }
+    j0 += nw * APPLY_SPW;
+    if (j0 >= cap) break;
+    apply_slots(cell, j0, nw, cap, W, row, valid, cj);
   }
 }
 
@@ -528,7 +621,11 @@ static int launch_energies(const MoverArgs* a, cudaStream_t stream) {
 
 template <typename T>
 static int launch_apply(const MoverArgs* a, cudaStream_t stream) {
-  const dim3 grid((a->W + 31) / 32, a->K, a->L), block(32, NW);
+  if (a->apply_warps < 1 || a->apply_warps > NW
+      || (long long)a->K * a->CF > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((a->W + 31) / 32, a->K * a->CF, a->L),
+      block(32, a->apply_warps);
   mover_apply_kernel<T><<<grid, block, 0, stream>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,16 @@
 // One cycle of the lattice-switch sampler for every walker: all
 // translations (two lattices), switch attempts and per-move
 // Wang-Landau or unbiased-histogram updates of the cycle.  Three
-// kernels, one per branch of the TPU kernel:
+// kernels, one per branch of the TPU kernel, all one warp per walker
+// (fused_warp_kernel<T, BR>):
 //
-// * fused_cycle (fused_warp_kernel<T, TABLE>): static neighbour tables,
-//   one trial per move (the shared molecule schedule, the displacement
-//   wall);
-// * fused_cycle_dense (fused_warp_kernel<T, DENSE>): dense candidates
-//   (no tables): each walker moves its own molecule and every molecule
-//   under every folded image shift is a candidate, no wall;
-// * fused_cycle_multi (fused_kernel<T, MULTI>): static tables, T > 1
-//   anchored-window trials per shared mover on one fetch of its table
-//   rows.
+// * fused_cycle (BR = TABLE): static neighbour tables, one trial per
+//   move (the shared molecule schedule, the displacement wall);
+// * fused_cycle_dense (BR = DENSE): dense candidates (no tables): each
+//   walker moves its own molecule and every molecule under every folded
+//   image shift is a candidate, no wall;
+// * fused_cycle_multi (BR = MULTI): static tables, T > 1 anchored-window
+//   trials per shared mover on one fetch of its table rows.
 //
 // Replaces the TPU kernel FusedCycle._kernel with its branches
 // _do_translation_tbl, _do_translation and _do_translation_tbl_multi
@@ -84,11 +83,29 @@
 //   every walker (L1 hits), the WL arrays and uniforms are touched once
 //   per step, the next step's uniforms loaded ahead.
 //
-// The multi-trial kernel keeps the first design (one thread per walker,
-// 128-thread blocks, the tables in shared memory): it holds no copy of
-// the mover's table rows, every trial re-reads the original rows, and
-// the store recomputes the rows of the last accepted point or skips
-// them when no trial was accepted.
+// The multi-trial branch runs on the same warps and the same staged
+// state.  The first design (one thread per walker, 128-thread blocks,
+// the tables in shared memory) re-read the mover's rows for every trial
+// and took 13.1 ms per cycle at N=216, T=8, W=4096 in f32 on the same
+// card: 32 blocks on 132 SMs.  Here a mover's rows are read once: every
+// trial point's energy depends only on the original rows (the JAX
+// branch's eff_t = st - d0 + dt against the rows it gathered once), so
+// each lane keeps its slots' coordinates and moments less the point-0
+// leg (st - d0) in registers for all T + 1 points, and the accept / WL
+// chain over the trials runs on broadcast scalars.  The two lattices'
+// 13 sums of a point are reduced together; each half of the warp then
+// gathers one lattice's sums and computes its energy, so lane 16 l + f
+// holds the centre's moment f in lattice l (kept for the accepted
+// point).  The store recomputes the rows of the last accepted point
+// from the same registers, or is skipped when no trial was accepted.
+// The points are evaluated in the chain's order, each just before its
+// decision: a switch accepted between two trials changes the active
+// lattice, and with it the later trials' points (Engine._map_disp).  On
+// the same card this takes 4.3 ms per cycle at T=8 (3.2x), 4.2 ms at
+// T=4 (3.8x) and 4.6 ms at T=2 (4.3x), 214 registers in f32 and 8
+// walkers a block as above: a trial (its point, then the decision, the
+// WL update and the bookkeeping, a chain of dependent arithmetic,
+// shuffles and L2 loads) takes ~4.4 us of one walker's warp.
 //
 // All are built without FMA contraction (cuda_build.py), so each step
 // rounds as the plain version's elementwise ops do; the warp sums add in
@@ -144,9 +161,9 @@ struct FusedArgs {
   double beta, betaP, pressure, nwater, log_norm, wall2, av_bw;
   double cpos, cneg, a_pos, a_neg, lnr_pos, lnr_neg;  // mu_to_bin
   SWConsts sw;
-  // launch plan of the warp kernels (mcmc/fused.launch_plan; unread by
-  // the multi-trial kernel): walkers (warps) per block, and whether
-  // their state is staged in shared memory (1) or read in place (0)
+  // launch plan (mcmc/fused.launch_plan): walkers (warps) per block,
+  // and whether their state is staged in shared memory (1) or read in
+  // place (0)
   int wpb, state_smem;
 };
 
@@ -168,8 +185,8 @@ struct Consts {
   }
 };
 
-// Per-walker view of the state and its constants (the multi-trial
-// kernel's thread; the warp kernels extend it as WarpWalker).
+// Per-walker view of the state and its constants (every lane of the
+// walker's warp holds a copy; WarpWalker adds the state's accessors).
 template <typename T>
 struct Walker {
   int w, W, N, M;
@@ -188,13 +205,6 @@ struct Walker {
   T e[2];
   T mu, f, min_dmu, max_dmu, max_trans;
   int ls, att[3], acc[3];
-
-  __device__ __forceinline__ T& rr(int l, int a, int j) {
-    return r[((size_t)(l * 3 + a) * N + j) * W + w];
-  }
-  __device__ __forceinline__ T& mm(int fld, int l, int j) {
-    return mom[((size_t)(fld * 2 + l) * N + j) * W + w];
-  }
 };
 
 // The walker as a warp kernel sees it: its coordinates and moments at a
@@ -264,49 +274,6 @@ __device__ __forceinline__ void trial_vectors(const Walker<T>& s,
   map_disp(s, v, tv);
 }
 
-// Acceptance of a translation with energy changes dE
-// (Engine._trans_decision; mc_moves.F90:1113-1146) with the
-// finite-state guard and the table modes' wall.
-template <typename T>
-__device__ __forceinline__ bool trans_decision(const Walker<T>& s,
-                                               const T dE[2], T u_acc,
-                                               bool extra_ok,
-                                               const Consts<T>& c,
-                                               T& mu_new, T& dmu) {
-  dmu = (dE[0] - dE[1]) * c.beta;
-  mu_new = s.mu + dmu;
-  const T eta_old = eta_of(s.wl, s.mu, c.bin);
-  const T eta_new = eta_of(s.wl, mu_new, c.bin);
-  const T dE_ls = s.ls == 0 ? dE[0] : dE[1];
-  const T diffkT = c.beta * dE_ls + eta_new - eta_old;
-  const bool ok = isfinite(diffkT) & isfinite(mu_new) & extra_ok;
-  return ok && (u_acc < exp(-diffkT));
-}
-
-// Energies, mu, counters and the per-move WL update after a performed
-// translation (Engine._trans_bookkeeping).
-template <typename T>
-__device__ __forceinline__ void trans_bookkeeping(Walker<T>& s, bool accept,
-                                                  T mu_new, T dmu,
-                                                  const T dE[2],
-                                                  const Consts<T>& c,
-                                                  const FusedArgs& a) {
-  if (accept) {
-    s.e[0] = s.e[0] + dE[0];
-    s.e[1] = s.e[1] + dE[1];
-    s.mu = mu_new;
-    const T admu = fabs(dmu);
-    if (admu < s.min_dmu) s.min_dmu = admu;
-    if (admu > s.max_dmu) s.max_dmu = admu;
-  }
-  s.att[TRANS] += 1;
-  s.acc[TRANS] += accept ? 1 : 0;
-  // health gate: finite energies in both lattices
-  if (a.wl_active)
-    wl_update(s.wl, s.mu, s.f, isfinite(s.e[0]) & isfinite(s.e[1]),
-              c.bin);
-}
-
 // Displacement-wall test of the point p in lattice l: reference site =
 // H . frac0 (reference positions hold their fractional coordinates
 // through volume moves, mc_volume:1284-1350).
@@ -326,7 +293,7 @@ __device__ __forceinline__ bool in_wall(const Walker<T>& s, int l, int imol,
   return dw2 <= c.wall2;
 }
 
-// ---- one warp per walker: the table and dense-candidate branches -------
+// ---- one warp per walker: the shared pieces and the table branch --------
 
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -484,9 +451,11 @@ __device__ __forceinline__ void eta_carry(EtaCarry<T>& ec, bool accept,
   ec.ok = a.samplerun || !a.wl_active;
 }
 
-// Acceptance of a translation (trans_decision) with eta(mu) of the
-// walker's current mu given: every lane computes it at the start of the
-// step, so its loads overlap the step's leg work.  Returns also
+// Acceptance of a translation with energy changes dE
+// (Engine._trans_decision; mc_moves.F90:1113-1146) with the
+// finite-state guard and the table modes' wall (extra_ok), eta(mu) of
+// the walker's current mu given: every lane computes it at the start of
+// the step, so its loads overlap the step's leg work.  Returns also
 // eta(mu_new).
 template <typename T>
 __device__ __forceinline__ bool warp_decision(const Walker<T>& s,
@@ -529,9 +498,10 @@ __device__ __forceinline__ void warp_wl_update(const WLView<T>& s, T mu, T f,
   }
 }
 
-// Counters and the per-move WL update after a performed translation
-// (trans_bookkeeping): every lane updates its copy of the walker's
-// scalars, lane 0 writes trans_per_mol and the WL arrays.
+// Energies, mu, counters and the per-move WL update after a performed
+// translation (Engine._trans_bookkeeping): every lane updates its copy
+// of the walker's scalars, lane 0 writes trans_per_mol and the WL
+// arrays.
 template <typename T>
 __device__ __forceinline__ void warp_bookkeeping(WarpWalker<T>& s, int imol,
                                                  bool accept, T mu_new,
@@ -968,135 +938,313 @@ __device__ __forceinline__ bool switch_on(int code, const FusedArgs& a) {
 
 // ---- multi-trial table mode -------------------------------------------
 
-// One pass over the mover's table partners in lattice l against the
-// original rows: the local energy at point p, with (when p0 is given)
-// each partner's moments moved from p0 to p (st - delta(p0) +
-// delta(p)), and the centre's own moments at p.
+// Leg of the partner at c from point p (leg_of), computed without
+// branches: the terms of a leg out of range (or of a padded slot, valid
+// false) are zeros.
 template <typename T>
-__device__ T table_point_energy(Walker<T>& s, int l, int imol,
-                                const T* p0, const T p[3], const SW<T>& sw,
-                                T own[10]) {
-  const int N = s.N, M = s.M;
-  Mom<T> on;
-  on.zero();
-  T pair = 0, e3j = 0;
-  const int* row = s.tbl + (l * N + imol) * M;
-  for (int m = 0; m < M; ++m) {
-    const int j = row[m];
-    if (j >= N) continue;
-    const T cj[3] = {s.rr(l, 0, j), s.rr(l, 1, j), s.rr(l, 2, j)};
-    const Leg<T> gt = leg_of(cj, p, s.H[l], s.A[l], sw);
-    if (!gt.in) continue;  // its wing term is exactly 0
-    T mj[10];
-#pragma unroll
-    for (int fld = 0; fld < 10; ++fld) mj[fld] = s.mm(fld, l, j);
-    if (p0 != nullptr) {
-      const Leg<T> g0 = leg_of(cj, p0, s.H[l], s.A[l], sw);
-      moved_moments(mj, g0, gt);
-    }
-    pair += gt.pair;
-    on.add(gt.w, gt.ux, gt.uy, gt.uz);
-    e3j += wing(gt, mj, sw);
-  }
-#pragma unroll
-  for (int fld = 0; fld < 10; ++fld) own[fld] = on.m[fld];
-  return pair + sw.lam_eps * (e3_closed_form(on.m, on.w2, sw) + e3j);
+__device__ __forceinline__ Leg<T> slot_leg(const T c[3], const T p[3],
+                                           const T H[3][3], const T A[3][3],
+                                           const SW<T>& sw, bool valid) {
+  T d[3] = {c[0] - p[0], c[1] - p[1], c[2] - p[2]};
+  mic_fold(d, H, A);
+  const T r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  return leg_if(valid & (r2 < sw.rc2) & (r2 > (T)1e-8),
+                leg_in_range(d, r2, sw));
 }
 
-// T anchored-window trials of the shared mover imol on one fetch of its
-// rows (Engine._translation_tbl_multi; the JAX package's
-// fused._do_translation_tbl_multi).  u points at the mover's uniforms
-// (slot k at u[k * W]); codes at the codes of its T trials.
+// m - delta(o) and a + delta(n): the two halves of moved_moments, in its
+// association ((m - delta_o) + delta_n), so that a partner's moments
+// less its point-0 leg are computed once per mover.
 template <typename T>
-__device__ void mover_multi(Walker<T>& s, const T* u, const int* codes,
-                            int imol, const Consts<T>& c, const SW<T>& sw,
-                            const FusedArgs& a) {
-  const int N = s.N, M = s.M, TT = a.T, W = s.W;
-  T p0[2][3], e_cur[2], own[10];
+__device__ __forceinline__ void less_leg(T m[10], const Leg<T>& o) {
+  const T owx = o.w * o.ux, owy = o.w * o.uy, owz = o.w * o.uz;
+  m[0] = m[0] - o.w;
+  m[1] = m[1] - (-owx);
+  m[2] = m[2] - (-owy);
+  m[3] = m[3] - (-owz);
+  m[4] = m[4] - owx * o.ux;
+  m[5] = m[5] - owy * o.uy;
+  m[6] = m[6] - owz * o.uz;
+  m[7] = m[7] - owx * o.uy;
+  m[8] = m[8] - owx * o.uz;
+  m[9] = m[9] - owy * o.uz;
+}
+
+template <typename T>
+__device__ __forceinline__ void plus_leg(const T a[10], const Leg<T>& n,
+                                         T m[10]) {
+  const T nwx = n.w * n.ux, nwy = n.w * n.uy, nwz = n.w * n.uz;
+  m[0] = a[0] + n.w;
+  m[1] = a[1] + (-nwx);
+  m[2] = a[2] + (-nwy);
+  m[3] = a[3] + (-nwz);
+  m[4] = a[4] + nwx * n.ux;
+  m[5] = a[5] + nwy * n.uy;
+  m[6] = a[6] + nwz * n.uz;
+  m[7] = a[7] + nwx * n.uy;
+  m[8] = a[8] + nwx * n.uz;
+  m[9] = a[9] + nwy * n.uz;
+}
+
+// A lane's table slots of the mover in both lattices (slot m = lane +
+// 32 k, k < SL, the same slot of both lattices on one lane), read once
+// per mover: the partner (N for a padded slot), its coordinates, its
+// moments less the mover's point-0 leg (st - d0) and whether that leg
+// is in range.
+template <typename T, int SL>
+struct MoverRows {
+  int j[SL][2];
+  bool in0[SL][2];
+  T c[SL][2][3];
+  T a[SL][2][10];
+};
+
+// One lattice's sums of one point over the partners a lane holds: the
+// pair terms, the wing terms and the centre's moments (and sum of w^2).
+template <typename T>
+struct PointSums {
+  T pair, e3j;
+  Mom<T> on;
+
+  __device__ __forceinline__ void zero() {
+    pair = e3j = (T)0;
+    on.zero();
+  }
+  __device__ __forceinline__ void add_leg(const Leg<T>& g, T wg) {
+    pair += g.pair;
+    on.add(g.w, g.ux, g.uy, g.uz);
+    e3j += g.in ? wg : (T)0;
+  }
+};
+
+// Point 0 (the stored position p0) of the mover imol: each lane reads
+// its slots' rows into R and sums their terms at p0 against the
+// original moments.
+template <typename T, int SL>
+__device__ __forceinline__ void rows_point0(WarpWalker<T>& s, int imol,
+                                            const T p0[2][3],
+                                            const SW<T>& sw, int lane,
+                                            MoverRows<T, SL>& R,
+                                            PointSums<T> q[2]) {
+  const int N = s.N, M = s.M;
+  q[0].zero();
+  q[1].zero();
+#pragma unroll
+  for (int k = 0; k < SL; ++k) {
+    const int m = lane + 32 * k;
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      const int jr = m < M ? __ldg(s.tbl + (l * N + imol) * M + m) : N;
+      const bool valid = jr < N;  // sentinel N: padded table slot
+      const int j = valid ? jr : 0;
+      R.j[k][l] = jr;
+      T mj[10];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) R.c[k][l][a] = s.rr(l, a, j);
+#pragma unroll
+      for (int fld = 0; fld < 10; ++fld) mj[fld] = s.mm(fld, l, j);
+      const Leg<T> g = slot_leg(R.c[k][l], p0[l], s.H[l], s.A[l], sw, valid);
+      R.in0[k][l] = g.in;
+      q[l].add_leg(g, wing(g, mj, sw));
+      less_leg(mj, g);
+#pragma unroll
+      for (int fld = 0; fld < 10; ++fld) R.a[k][l][fld] = mj[fld];
+    }
+  }
+}
+
+// A trial point p of the mover from the rows in R: the legs at p and the
+// wing terms on the partners' moments moved from p0 to p,
+// (st - d0) + dt (_do_translation_tbl_multi's eff_t).
+template <typename T, int SL>
+__device__ __forceinline__ void rows_point(const WarpWalker<T>& s,
+                                           const MoverRows<T, SL>& R,
+                                           const T p[2][3], const SW<T>& sw,
+                                           PointSums<T> q[2]) {
+  q[0].zero();
+  q[1].zero();
+#pragma unroll
+  for (int k = 0; k < SL; ++k) {
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      const Leg<T> g = slot_leg(R.c[k][l], p[l], s.H[l], s.A[l], sw,
+                                R.j[k][l] < s.N);
+      T eff[10];
+      plus_leg(R.a[k][l], g, eff);
+      q[l].add_leg(g, wing(g, eff, sw));
+    }
+  }
+}
+
+// The two lattices' 13 sums of a point reduced over the warp (recursive
+// halving, as Local::warp_sum: lane q ends with the sum of value q);
+// each half of the warp then gathers one lattice's sums and computes its
+// local energy.  Returns e[2] in every lane, and in lane 16 l + f (f <
+// 10) the centre's moment f in lattice l.
+template <typename T>
+__device__ __forceinline__ T point_energies(const PointSums<T> q[2],
+                                            const SW<T>& sw, int lane,
+                                            T e[2]) {
+  T v[32];
 #pragma unroll
   for (int l = 0; l < 2; ++l) {
+    v[13 * l] = q[l].pair;
+    v[13 * l + 1] = q[l].e3j;
+    v[13 * l + 2] = q[l].on.w2;
+#pragma unroll
+    for (int f = 0; f < 10; ++f) v[13 * l + 3 + f] = q[l].on.m[f];
+  }
+#pragma unroll
+  for (int i = 26; i < 32; ++i) v[i] = (T)0;
+  halve<16>(v, lane);
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  const int base = lane < 16 ? 0 : 13;
+  T x[13];
+#pragma unroll
+  for (int i = 0; i < 13; ++i) x[i] = __shfl_sync(FULL, v[0], base + i);
+  const T eh = x[0] + sw.lam_eps * (e3_closed_form(x + 3, x[2], sw) + x[1]);
+  e[0] = __shfl_sync(FULL, eh, 0);
+  e[1] = __shfl_sync(FULL, eh, 16);
+  return lane_field(x + 3, lane & 15);
+}
+
+// The pre-drawn uniforms of one mover (n_u = 4 + 5T rows): rows lane and
+// lane + 32 held by each lane (loaded a mover ahead), broadcast by a
+// shuffle where a row is needed; rows from 64 on (T > 12) read where
+// needed.
+template <typename T>
+struct MoverUniforms {
+  T lo, hi;
+  const T* base;  // the mover's row 0 of the walker, rows W apart
+  int W;
+
+  __device__ __forceinline__ void load(const T* b, int n_u, int w_stride,
+                                       int lane) {
+    base = b;
+    W = w_stride;
+    lo = lane < n_u ? b[(size_t)lane * W] : (T)0;
+    hi = lane + 32 < n_u ? b[(size_t)(lane + 32) * W] : (T)0;
+  }
+  // row ``row`` (the same in every lane)
+  __device__ __forceinline__ T operator()(int row) const {
+    if (row < 64) return __shfl_sync(FULL, row < 32 ? lo : hi, row & 31);
+    return base[(size_t)row * W];
+  }
+};
+
+// T anchored-window trials of the shared mover imol on one read of its
+// rows (Engine._translation_tbl_multi; the JAX package's
+// fused._do_translation_tbl_multi) by the walker's warp.  Every trial
+// point is evaluated against the original rows and the energy of point
+// 0, the accept / WL chain runs on broadcast values (every lane takes
+// the same decisions), and the rows of the last accepted point are
+// stored once at the end.  codes: the move codes of the mover's T
+// trials.
+template <typename T, int SL>
+__device__ void translation_multi_warp(WarpWalker<T>& s,
+                                       const MoverUniforms<T>& u,
+                                       const int* codes, int imol,
+                                       const Consts<T>& c, const SW<T>& sw,
+                                       const FusedArgs& a, int lane,
+                                       EtaCarry<T>& ec) {
+  const int N = s.N, TT = a.T;
+  T p0[2][3];
+#pragma unroll
+  for (int l = 0; l < 2; ++l)
 #pragma unroll
     for (int k = 0; k < 3; ++k) p0[l][k] = s.rr(l, k, imol);
-    // point 0: the mover's current local energy
-    e_cur[l] = table_point_energy<T>(s, l, imol, nullptr, p0[l], sw, own);
-  }
+  MoverRows<T, SL> R;
+  PointSums<T> q[2];
+  rows_point0(s, imol, p0, sw, lane, R, q);
+  T e_cur[2];
+  point_energies(q, sw, lane, e_cur);
   T anc[3];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) anc[k] = (T)2 * u[(1 + k) * W] - (T)1;
-  int acc_t = -1;  // the last accepted trial
-  T p_cur[2][3], own_cur[2][10];
-  int n_en = 0;
+  for (int k = 0; k < 3; ++k) anc[k] = (T)2 * u(1 + k) - (T)1;
+
+  bool moved = false;  // a trial was accepted
+  T p_cur[2][3], own_cur = (T)0;
   for (int t = 0; t < TT; ++t) {
     const int code = codes[t];
     if (code == TRANS) {
-      ++n_en;
+      const T eta_old = eta_current(s, ec, c);
       // anchored-window candidate: v_t = (a + b_t) * max_trans
       T v[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k)
-        v[k] = (anc[k] + ((T)2 * u[(4 + 3 * t + k) * W] - (T)1))
-               * s.max_trans;
-      T tv[2][3];
+        v[k] = (anc[k] + ((T)2 * u(4 + 3 * t + k) - (T)1)) * s.max_trans;
+      T tv[2][3], p_t[2][3];
       map_disp(s, v, tv);
-      T p_t[2][3], e_t[2], dE[2], own_t[2][10];
       bool wall_ok = true;
 #pragma unroll
       for (int l = 0; l < 2; ++l) {
 #pragma unroll
         for (int k = 0; k < 3; ++k) p_t[l][k] = p0[l][k] + tv[l][k];
-        e_t[l] = table_point_energy<T>(s, l, imol, p0[l], p_t[l], sw,
-                                       own_t[l]);
-        dE[l] = e_t[l] - e_cur[l];
         // displacement wall on the candidate point
         wall_ok = wall_ok & in_wall(s, l, imol, p_t[l], c);
       }
-      T mu_new, dmu;
-      const bool accept = trans_decision(s, dE, u[(4 + 3 * TT + t) * W],
-                                         wall_ok, c, mu_new, dmu);
-      trans_bookkeeping(s, accept, mu_new, dmu, dE, c, a);
-      if (accept) {
-        acc_t = t;
+      rows_point(s, R, p_t, sw, q);
+      T e_t[2];
+      const T own_t = point_energies(q, sw, lane, e_t);
+      const T dE[2] = {e_t[0] - e_cur[0], e_t[1] - e_cur[1]};
+      T mu_new, dmu, eta_new;
+      const bool accept = warp_decision(s, dE, u(4 + 3 * TT + t), wall_ok,
+                                        c, eta_old, mu_new, dmu, eta_new);
+      if (accept) {  // the same in every lane
+        moved = true;
+        own_cur = own_t;
 #pragma unroll
         for (int l = 0; l < 2; ++l) {
           e_cur[l] = e_t[l];
 #pragma unroll
           for (int k = 0; k < 3; ++k) p_cur[l][k] = p_t[l][k];
-#pragma unroll
-          for (int fld = 0; fld < 10; ++fld) own_cur[l][fld] = own_t[l][fld];
         }
       }
+      warp_bookkeeping(s, imol, accept, mu_new, dmu, dE, eta_old, eta_new,
+                       c, a, lane);
+      eta_carry(ec, accept, eta_old, eta_new, a);
     }
-    if (switch_on(code, a)) lattice_switch(s, u[(4 + 4 * TT + t) * W], c);
+    if (switch_on(code, a)) {
+      const int ls = s.ls;
+      lattice_switch(s, u(4 + 4 * TT + t), c);
+      ec.ok = ec.ok & (s.ls == ls);  // an accepted switch moves mu
+    }
   }
+  if (!moved) return;  // every row keeps its value
 
-  // one store per T trials: the rows of the last accepted point; with
-  // none accepted, every row keeps its value
-  if (acc_t >= 0) {
+  // one store per T trials: the rows of the last accepted point,
+  // recomputed from R exactly as in its trial; a row with no leg in
+  // range of either point keeps st and is not written
+#pragma unroll
+  for (int k = 0; k < SL; ++k) {
 #pragma unroll
     for (int l = 0; l < 2; ++l) {
-      const int* row = s.tbl + (l * N + imol) * M;
-      for (int m = 0; m < M; ++m) {
-        const int j = row[m];
-        if (j >= N) continue;
-        const T cj[3] = {s.rr(l, 0, j), s.rr(l, 1, j), s.rr(l, 2, j)};
-        const Leg<T> g0 = leg_of(cj, p0[l], s.H[l], s.A[l], sw);
-        const Leg<T> gn = leg_of(cj, p_cur[l], s.H[l], s.A[l], sw);
-        if (!g0.in && !gn.in) continue;
-        T mj[10];
+      const int j = R.j[k][l];
+      if (j >= N) continue;
+      const Leg<T> g = slot_leg(R.c[k][l], p_cur[l], s.H[l], s.A[l], sw,
+                                true);
+      if (!(R.in0[k][l] || g.in)) continue;
+      T eff[10];
+      plus_leg(R.a[k][l], g, eff);
 #pragma unroll
-        for (int fld = 0; fld < 10; ++fld) mj[fld] = s.mm(fld, l, j);
-        moved_moments(mj, g0, gn);
-#pragma unroll
-        for (int fld = 0; fld < 10; ++fld) s.mm(fld, l, j) = mj[fld];
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k) s.rr(l, k, imol) = p_cur[l][k];
-#pragma unroll
-      for (int fld = 0; fld < 10; ++fld)
-        s.mm(fld, l, imol) = own_cur[l][fld];
+      for (int fld = 0; fld < 10; ++fld) s.mm(fld, l, j) = eff[fld];
     }
   }
-  s.tpm[(size_t)imol * W + s.w] += n_en;
+  // the centre: lane 16 l + f writes its coordinate f (f < 3) and moment
+  // f (f < 10) in lattice l
+  const int lc = lane >> 4, f = lane & 15;
+  T pc = (T)0;
+#pragma unroll
+  for (int l = 0; l < 2; ++l)
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      if (l == lc && k == f) pc = p_cur[l][k];
+  if (f < 3) s.rr(lc, f, imol) = pc;
+  if (f < 10) s.mm(f, lc, imol) = own_cur;
+  __syncwarp();  // the stored rows are seen by every lane
 }
 
 // ---- the kernels --------------------------------------------------------
@@ -1186,65 +1334,7 @@ __device__ __forceinline__ void store_walker(const Walker<T>& s,
   }
 }
 
-// -- the multi-trial kernel: one thread per walker ------------------------
-
-constexpr int TB = 128;  // threads (walkers) per block
-
-// Dynamic shared memory of a block: frac0, bin widths and centres, the
-// tables, the schedule (codes and the molecule schedule) and the folded
-// shifts.
-template <typename T>
-static size_t smem_bytes(int N, int B, int M, int S, int n_steps) {
-  return sizeof(T) * (2 * 3 * N + 2 * B)
-         + sizeof(int) * (2 * N * M + n_steps + N + 3 * S);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(TB) fused_kernel(const FusedArgs a) {
-  const int N = a.N, W = a.W, B = a.B, M = a.M, S = a.S;
-  const int n_steps = N / a.T;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_frac0 = reinterpret_cast<T*>(smem);
-  T* s_binw = s_frac0 + 2 * 3 * N;
-  T* s_mub = s_binw + B;
-  int* s_tbl = reinterpret_cast<int*>(s_mub + B);
-  int* s_sched = s_tbl + 2 * N * M;
-  int* s_shifts = s_sched + N + n_steps;
-  for (int i = threadIdx.x; i < 2 * 3 * N; i += blockDim.x)
-    s_frac0[i] = static_cast<const T*>(a.frac0)[i];
-  for (int i = threadIdx.x; i < 2 * N * M; i += blockDim.x)
-    s_tbl[i] = static_cast<const int*>(a.tbl)[i];
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
-    s_binw[i] = static_cast<const T*>(a.binw)[i];
-    s_mub[i] = static_cast<const T*>(a.mub)[i];
-  }
-  for (int i = threadIdx.x; i < N + n_steps; i += blockDim.x)
-    s_sched[i] = static_cast<const int*>(a.sched)[i];
-  for (int i = threadIdx.x; i < 3 * S; i += blockDim.x)
-    s_shifts[i] = static_cast<const int*>(a.shifts)[i];
-  __syncthreads();
-
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;  // ragged edge: W need not be a multiple of 128
-
-  const Consts<T> c(a);
-  const SW<T> sw(a.sw);
-  Walker<T> s;
-  load_walker(s, a, w, s_binw, s_mub, s_shifts);
-  s.r = static_cast<T*>(a.r);
-  s.mom = static_cast<T*>(a.mom);
-  s.frac0 = s_frac0;
-  s.tbl = s_tbl;
-
-  const T* cu = static_cast<const T*>(a.cu);
-  const int n_u = 4 + 5 * a.T;
-  for (int t = 0; t < n_steps; ++t)
-    mover_multi(s, cu + (size_t)t * n_u * W + w, s_sched + t * a.T,
-                s_sched[N + t], c, sw, a);
-  store_walker(s, a);
-}
-
-// -- the table and dense kernels: one warp per walker ---------------------
+// -- the kernels: one warp per walker ---------------------------------------
 
 // Walkers (warps) per block at most: the kernels' register bound
 // (__launch_bounds__(32 * WarpCap)), mirrored by mcmc/fused.WARP_CAP.
@@ -1254,25 +1344,34 @@ template <> struct WarpCap<double> { static constexpr int value = 5; };
 
 constexpr int STATE_ROWS = 26;  // r [2,3] and moments [10,2] rows of N
 
-// Dynamic shared memory of a block (mcmc/fused.smem_bytes): bin widths
-// and centres, the walkers' states (state_smem), the schedule (codes,
-// and the molecule schedule in table mode), the folded shifts, and in
-// dense mode each walker's list of rows.
-template <typename T>
-static size_t warp_smem_bytes(int branch, int N, int B, int S, int wpb,
-                              int state_smem) {
-  const bool tbl = branch == TABLE;
-  return sizeof(T) * (2 * (size_t)B
-                      + (state_smem ? (size_t)wpb * STATE_ROWS * N : 0))
-         + sizeof(int) * ((tbl ? 2 * (size_t)N : N) + 3 * (size_t)S)
-         + (tbl ? 0 : sizeof(unsigned short) * (size_t)wpb * N);
+// Table slots a lane of the multi-trial branch holds at most (SL <= 2:
+// M <= 64), mirrored by mcmc/fused.MULTI_SLOTS_MAX.
+constexpr int MULTI_SL_MAX = 2;
+
+// Ints of the schedule in shared memory: the move codes [N], then the
+// molecule schedule ([N] in table mode, [N/T] movers in multi-trial
+// mode, none in dense mode).
+__host__ __device__ __forceinline__ int sched_ints(int branch, int N, int T) {
+  return branch == TABLE ? 2 * N : branch == MULTI ? N + N / T : N;
 }
 
-template <typename T, int BR>
+// Dynamic shared memory of a block (mcmc/fused.smem_bytes): bin widths
+// and centres, the walkers' states (state_smem), the schedule, the
+// folded shifts, and in dense mode each walker's list of rows.
+template <typename T>
+static size_t warp_smem_bytes(int branch, int N, int B, int S, int T_,
+                              int wpb, int state_smem) {
+  return sizeof(T) * (2 * (size_t)B
+                      + (state_smem ? (size_t)wpb * STATE_ROWS * N : 0))
+         + sizeof(int) * ((size_t)sched_ints(branch, N, T_) + 3 * (size_t)S)
+         + (branch == DENSE ? sizeof(unsigned short) * (size_t)wpb * N : 0);
+}
+
+template <typename T, int BR, int SL>
 __global__ void __launch_bounds__(32 * WarpCap<T>::value)
     fused_warp_kernel(const FusedArgs a) {
   const int N = a.N, W = a.W, B = a.B, S = a.S, wpb = a.wpb;
-  const bool tbl = BR == TABLE;
+  const int n_sched = sched_ints(BR, N, a.T);
   const bool st = a.state_smem != 0;
   const int rows = STATE_ROWS * N;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1280,7 +1379,7 @@ __global__ void __launch_bounds__(32 * WarpCap<T>::value)
   T* s_mub = s_binw + B;
   T* s_state = s_mub + B;  // [wpb][26N] when st
   int* s_sched = reinterpret_cast<int*>(s_state + (st ? wpb * rows : 0));
-  int* s_shifts = s_sched + (tbl ? 2 * N : N);
+  int* s_shifts = s_sched + n_sched;
   unsigned short* s_list =
       reinterpret_cast<unsigned short*>(s_shifts + 3 * S);  // [wpb][N]
 
@@ -1290,7 +1389,7 @@ __global__ void __launch_bounds__(32 * WarpCap<T>::value)
     s_binw[i] = static_cast<const T*>(a.binw)[i];
     s_mub[i] = static_cast<const T*>(a.mub)[i];
   }
-  for (int i = threadIdx.x; i < (tbl ? 2 * N : N); i += blockDim.x)
+  for (int i = threadIdx.x; i < n_sched; i += blockDim.x)
     s_sched[i] = static_cast<const int*>(a.sched)[i];
   for (int i = threadIdx.x; i < 3 * S; i += blockDim.x)
     s_shifts[i] = static_cast<const int*>(a.shifts)[i];
@@ -1341,35 +1440,50 @@ __global__ void __launch_bounds__(32 * WarpCap<T>::value)
     }
     s.frac0 = static_cast<const T*>(a.frac0);
     s.tbl = static_cast<const int*>(a.tbl);
-    unsigned short* list = s_list + (size_t)warp * N;
-
-    // the uniforms of step t, those of step t + 1 loaded ahead
-    const T* cu = static_cast<const T*>(a.cu) + w;
-    T u[7], un[7];
-#pragma unroll
-    for (int k = 0; k < 7; ++k) u[k] = cu[(size_t)k * W];
     EtaCarry<T> ec;
     ec.val = (T)0;
     ec.ok = false;
-    for (int t = 0; t < N; ++t) {
-      if (t + 1 < N) {
+    const T* cu = static_cast<const T*>(a.cu) + w;
+
+    if constexpr (BR == MULTI) {
+      // N/T movers; the uniforms of mover t + 1 loaded ahead
+      const int n_steps = N / a.T, n_u = 4 + 5 * a.T;
+      MoverUniforms<T> u, un;
+      u.load(cu, n_u, W, lane);
+      for (int t = 0; t < n_steps; ++t) {
+        if (t + 1 < n_steps)
+          un.load(cu + (size_t)(t + 1) * n_u * W, n_u, W, lane);
+        translation_multi_warp<T, SL>(s, u, s_sched + t * a.T,
+                                      s_sched[N + t], c, sw, a, lane, ec);
+        if (t + 1 < n_steps) u = un;
+      }
+    } else {
+      unsigned short* list = s_list + (size_t)warp * N;
+      // the uniforms of step t, those of step t + 1 loaded ahead
+      T u[7], un[7];
 #pragma unroll
-        for (int k = 0; k < 7; ++k) un[k] = cu[((size_t)(t + 1) * 7 + k) * W];
-      }
-      const int code = s_sched[t];
-      if (code == TRANS) {
-        if constexpr (BR == DENSE)
-          translation_dense_warp(s, u, c, sw, a, lane, list, ec);
-        else
-          translation_warp(s, u, s_sched[N + t], c, sw, a, lane, ec);
-      }
-      if (switch_on(code, a)) {
-        const int ls = s.ls;
-        lattice_switch(s, u[6], c);
-        ec.ok = ec.ok & (s.ls == ls);  // an accepted switch moves mu
-      }
+      for (int k = 0; k < 7; ++k) u[k] = cu[(size_t)k * W];
+      for (int t = 0; t < N; ++t) {
+        if (t + 1 < N) {
 #pragma unroll
-      for (int k = 0; k < 7; ++k) u[k] = un[k];
+          for (int k = 0; k < 7; ++k)
+            un[k] = cu[((size_t)(t + 1) * 7 + k) * W];
+        }
+        const int code = s_sched[t];
+        if (code == TRANS) {
+          if constexpr (BR == DENSE)
+            translation_dense_warp(s, u, c, sw, a, lane, list, ec);
+          else
+            translation_warp(s, u, s_sched[N + t], c, sw, a, lane, ec);
+        }
+        if (switch_on(code, a)) {
+          const int ls = s.ls;
+          lattice_switch(s, u[6], c);
+          ec.ok = ec.ok & (s.ls == ls);  // an accepted switch moves mu
+        }
+#pragma unroll
+        for (int k = 0; k < 7; ++k) u[k] = un[k];
+      }
     }
     if (lane == 0) store_walker(s, a);
   }
@@ -1390,30 +1504,31 @@ __global__ void __launch_bounds__(32 * WarpCap<T>::value)
 
 // -- launches and occupancy ------------------------------------------------
 
-template <typename T, int BR>
-static const void* kernel_of() {
-  if constexpr (BR == MULTI)
-    return reinterpret_cast<const void*>(fused_kernel<T>);
-  else
-    return reinterpret_cast<const void*>(fused_warp_kernel<T, BR>);
-}
-
 // (threads per block, dynamic shared bytes, blocks) of a launch, or
-// false for a plan the warp kernels do not take.
+// false for a plan or a shape the kernels do not take.
 template <typename T, int BR>
 static bool geometry(const FusedArgs* a, int& threads, size_t& smem,
                      int& blocks) {
-  if (BR == MULTI) {
-    threads = TB;
-    smem = smem_bytes<T>(a->N, a->B, a->M, a->S, a->N / a->T);
-    blocks = (a->W + TB - 1) / TB;
-    return true;
-  }
   if (a->wpb < 1 || a->wpb > WarpCap<T>::value || a->N > 65535) return false;
+  if (BR == MULTI && (a->T < 2 || a->N % a->T != 0 || a->M < 1
+                      || a->M > 32 * MULTI_SL_MAX))
+    return false;
   threads = 32 * a->wpb;
-  smem = warp_smem_bytes<T>(BR, a->N, a->B, a->S, a->wpb, a->state_smem);
+  smem = warp_smem_bytes<T>(BR, a->N, a->B, a->S, a->T, a->wpb,
+                            a->state_smem);
   blocks = (a->W + a->wpb - 1) / a->wpb;
   return true;
+}
+
+// The kernel of a launch: the multi-trial branch's by the table slots a
+// lane holds (SL = ceil(M / 32)).
+template <typename T, int BR>
+static const void* kernel_of(const FusedArgs* a) {
+  if constexpr (BR == MULTI) {
+    if (a->M > 32)
+      return reinterpret_cast<const void*>(fused_warp_kernel<T, BR, 2>);
+  }
+  return reinterpret_cast<const void*>(fused_warp_kernel<T, BR, 1>);
 }
 
 template <typename T, int BR>
@@ -1422,14 +1537,17 @@ static int launch(const FusedArgs* a, cudaStream_t stream) {
   size_t smem;
   if (!geometry<T, BR>(a, threads, smem, blocks))
     return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_of<T, BR>();
+  const void* fn = kernel_of<T, BR>(a);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if constexpr (BR == MULTI)
-    fused_kernel<T><<<blocks, threads, smem, stream>>>(*a);
-  else
-    fused_warp_kernel<T, BR><<<blocks, threads, smem, stream>>>(*a);
+  bool two = false;  // two table slots a lane
+  if constexpr (BR == MULTI) {
+    two = a->M > 32;
+    if (two)
+      fused_warp_kernel<T, BR, 2><<<blocks, threads, smem, stream>>>(*a);
+  }
+  if (!two) fused_warp_kernel<T, BR, 1><<<blocks, threads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
@@ -1442,7 +1560,7 @@ static int occupancy(const FusedArgs* a, int* out) {
   size_t smem;
   if (!geometry<T, BR>(a, threads, smem, blocks))
     return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_of<T, BR>();
+  const void* fn = kernel_of<T, BR>(a);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
@@ -1452,12 +1570,11 @@ static int occupancy(const FusedArgs* a, int* out) {
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
                                                       smem);
-  const int wpb = BR == MULTI ? TB : a->wpb;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
-  out[2] = per_sm * wpb;
+  out[2] = per_sm * a->wpb;
   out[3] = (int)smem;
-  out[4] = wpb;
+  out[4] = a->wpb;
   out[5] = blocks;
   return (int)err;
 }

@@ -25,11 +25,11 @@ move codes [N] and the molecule schedule ([N/T], none in dense mode)
 are uniform across walkers.
 
 The kernels are in ``csrc/fused_cycle.cu`` (its header says what bounds
-them on the H100 and how the design answers that).  The table and dense
-kernels run one warp per walker with the walker's state staged in shared
-memory; ``launch_plan`` chooses the walkers per block from the shared
-memory budget (or reads the state in place where one walker's state
-does not fit).  The plain versions
+them on the H100 and how the design answers that).  All three run one
+warp per walker with the walker's state staged in shared memory;
+``launch_plan`` chooses the walkers per block from the shared memory
+budget (or reads the state in place where one walker's state does not
+fit).  The plain versions
 are Python loops over the steps on tensors that call the engine's own
 steps (``Engine._translation_tbl``, ``_translation``,
 ``_translation_tbl_multi`` and ``_switch``).  The wrapper takes the
@@ -91,6 +91,10 @@ SMEM_BLOCK_MAX = 232448
 WARP_CAP = {4: 8, 8: 5}
 # rows of N values in one walker's state: r [2,3] and the moments [10,2]
 STATE_ROWS = 26
+# table slots (M) the multi-trial kernel takes at most: two a lane
+# (MULTI_SL_MAX in csrc/fused_cycle.cu)
+MULTI_SLOTS_MAX = 64
+KERNELS = ("fused_cycle", "fused_cycle_dense", "fused_cycle_multi")
 
 
 class LaunchPlan(NamedTuple):
@@ -105,34 +109,38 @@ class LaunchPlan(NamedTuple):
     blocks: int
 
 
-def smem_bytes(kernel, itemsize, N, B, S, wpb, state_smem):
-    """Dynamic shared bytes of a block of the table (``fused_cycle``) or
-    dense (``fused_cycle_dense``) kernel (warp_smem_bytes in
-    csrc/fused_cycle.cu): the bin widths and centres, the walkers' states
-    when staged, the schedule (the codes, and the molecule schedule in
-    table mode), the folded shifts, and in dense mode a list of N uint16
-    rows per walker."""
-    table = kernel == "fused_cycle"
+def smem_bytes(kernel, itemsize, N, B, S, wpb, state_smem, T=1):
+    """Dynamic shared bytes of a block of the table (``fused_cycle``),
+    dense (``fused_cycle_dense``) or multi-trial (``fused_cycle_multi``,
+    T trials per mover) kernel (warp_smem_bytes in csrc/fused_cycle.cu):
+    the bin widths and centres, the walkers' states when staged, the
+    schedule (the N codes, then the molecule schedule: N molecules in
+    table mode, N/T movers in multi-trial mode), the folded shifts, and
+    in dense mode a list of N uint16 rows per walker."""
+    sched = {"fused_cycle": 2 * N, "fused_cycle_dense": N,
+             "fused_cycle_multi": N + N // T}[kernel]
     return (itemsize * (2 * B + (wpb * STATE_ROWS * N if state_smem else 0))
-            + 4 * ((2 * N if table else N) + 3 * S)
-            + (0 if table else 2 * wpb * N))
+            + 4 * (sched + 3 * S)
+            + (2 * wpb * N if kernel == "fused_cycle_dense" else 0))
 
 
-def launch_plan(kernel, itemsize, N, B, S, W):
-    """The launch of the table or dense kernel for N molecules, B bins,
-    S folded shifts and W walkers in elements of ``itemsize`` bytes: the
-    most walkers per block (up to WARP_CAP and W) whose states fit in
-    one block's shared memory; where not even one walker's state fits,
-    the state is read in place and the block holds only the rest.
-    Raises where neither fits."""
-    if kernel not in ("fused_cycle", "fused_cycle_dense"):
+def launch_plan(kernel, itemsize, N, B, S, W, T=1):
+    """The launch of a fused-cycle kernel (``KERNELS``; the multi-trial
+    one at T trials per mover) for N molecules, B bins, S folded shifts
+    and W walkers in elements of ``itemsize`` bytes: the most walkers
+    per block (up to WARP_CAP and W) whose states fit in one block's
+    shared memory; where not even one walker's state fits, the state is
+    read in place and the block holds only the rest.  Raises where
+    neither fits."""
+    if kernel not in KERNELS:
         raise ValueError(f"launch_plan: no warp kernel {kernel!r}")
     cap = min(WARP_CAP[itemsize], W)
     if kernel == "fused_cycle_dense" and N > 65535:
         cap = 0                       # the row lists hold uint16 indices
     for state_smem in (True, False):
         for wpb in range(cap, 0, -1):
-            nbytes = smem_bytes(kernel, itemsize, N, B, S, wpb, state_smem)
+            nbytes = smem_bytes(kernel, itemsize, N, B, S, wpb, state_smem,
+                                T)
             if nbytes <= SMEM_BLOCK_MAX:
                 return LaunchPlan(wpb, state_smem, nbytes, -(-W // wpb))
     raise ValueError(
@@ -222,15 +230,17 @@ class FusedCycle:
         return self._dev[key]
 
     def plan(self, dtype, W):
-        """The launch plan of the engine's table or dense kernel at W
-        walkers, or None for the multi-trial kernel (blocks of 128
-        walkers, a thread each)."""
-        if self.kernel == "fused_cycle_multi":
-            return None
+        """The launch plan of the engine's kernel at W walkers.  Raises
+        for a multi-trial table wider than MULTI_SLOTS_MAX."""
         eng = self.eng
+        if self.kernel == "fused_cycle_multi" and \
+                eng.tbl.shape[-1] > MULTI_SLOTS_MAX:
+            raise ValueError(
+                f"fused_cycle_multi: {eng.tbl.shape[-1]} table slots, at "
+                f"most {MULTI_SLOTS_MAX}")
         itemsize = torch.empty((), dtype=dtype).element_size()
         return launch_plan(self.kernel, itemsize, eng.prm.nwater,
-                           eng.grid.nbins, len(eng.fold_shifts), W)
+                           eng.grid.nbins, len(eng.fold_shifts), W, eng.dT)
 
     def _shape_args(self, dtype, W):
         """FusedArgs with the shape and launch plan only (no pointers)."""
@@ -240,8 +250,7 @@ class FusedCycle:
             N=eng.prm.nwater, W=W, B=eng.grid.nbins,
             M=0 if eng.dense else eng.tbl.shape[-1],
             S=len(eng.fold_shifts), T=eng.dT,
-            wpb=0 if plan is None else plan.wpb,
-            state_smem=0 if plan is None else int(plan.state_smem))
+            wpb=plan.wpb, state_smem=int(plan.state_smem))
 
     def occupancy(self, dtype, W):
         """The engine's kernel at W walkers, from the CUDA runtime: a dict
@@ -253,8 +262,7 @@ class FusedCycle:
                               ctypes.POINTER(FusedArgs),
                               ctypes.POINTER(ctypes.c_int)])
         out = (ctypes.c_int * 6)()
-        branch = ("fused_cycle", "fused_cycle_dense",
-                  "fused_cycle_multi").index(self.kernel)
+        branch = KERNELS.index(self.kernel)
         args = self._shape_args(dtype, W)
         err = fn(branch, int(dtype == torch.float64), ctypes.byref(args), out)
         cuda_build.check(err, "fused_cycle occupancy")
@@ -346,8 +354,7 @@ class FusedCycle:
             lnr_pos=float(np.log(grid.r_pos)),
             lnr_neg=float(np.log(grid.r_neg)),
             sw=cuda_build.SWConsts.of(m),
-            wpb=0 if plan is None else plan.wpb,
-            state_smem=0 if plan is None else int(plan.state_smem),
+            wpb=plan.wpb, state_smem=int(plan.state_smem),
         )
         return args, wf, wi, (tbl, frac0, shifts, binw, mub, basew, sched)
 

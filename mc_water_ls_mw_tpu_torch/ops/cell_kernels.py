@@ -67,7 +67,27 @@ class MoverArgs(ctypes.Structure):
         + [("acc_stride", ctypes.c_longlong)]
         + [(n, ctypes.c_int) for n in ("L", "K", "CF", "cap", "W")]
         + [("sw", cuda_build.SWConsts)]
+        + [("apply_warps", ctypes.c_int)]
     )
+
+
+# The apply kernel's split of a candidate cell's slots: a warp takes
+# APPLY_SLOTS_PER_WARP of them at a time (APPLY_SPW in
+# csrc/cell_movers.cu), a block at most APPLY_WARPS_MAX warps.
+APPLY_SLOTS_PER_WARP = 4
+APPLY_WARPS_MAX = 8
+
+
+def apply_geometry(L, K, CF, cap, W):
+    """(grid, block) of the apply kernel: a block per (32-walker tile,
+    mover x candidate cell, lattice), grid (ceil(W/32), K*CF, L), of
+    (32, nw) threads, nw warps enough for the cell's ``cap`` slots at
+    APPLY_SLOTS_PER_WARP each (at most APPLY_WARPS_MAX).  Block (x, y, z)
+    takes the walkers 32 x + lane of mover y // CF at candidate cell
+    y % CF in lattice z; its warp wy the slots wy + nw (q +
+    APPLY_SLOTS_PER_WARP i), q < APPLY_SLOTS_PER_WARP, below cap."""
+    nw = max(1, min(APPLY_WARPS_MAX, -(-cap // APPLY_SLOTS_PER_WARP)))
+    return (-(-W // 32), K * CF, L), (32, nw)
 
 
 class PointsArgs(ctypes.Structure):
@@ -323,6 +343,17 @@ class MoverApplyKernel(_MoverKernel):
         if not pks[0].is_cuda:
             return self.plain(pks, h, cand, off, fc, rank, accf, p_old,
                               p_new, own_new)
+        args, keep = self.launch_args(pks, h, cand, off, fc, rank, accf,
+                                      p_old, p_new, own_new)
+        self._launch("apply", args, pks[0].dtype, pks[0].device)
+        del keep
+        return pks
+
+    def launch_args(self, pks, h, cand, off, fc, rank, accf, p_old, p_new,
+                    own_new):
+        """(args, keep) of one launch on CUDA tensors: the checked
+        MoverArgs and the tensor its accept-flag pointer references
+        (keep it alive until the launch is enqueued)."""
         args = self._args(pks, h, cand, off, fc, rank, p_old, p_new)
         L, K, W = args.L, args.K, args.W
         dtype, dev = pks[0].dtype, pks[0].device
@@ -339,5 +370,5 @@ class MoverApplyKernel(_MoverKernel):
                 "[L,K,10,W] on the slabs' device")
         args.accf, args.acc_stride = accf.data_ptr(), accf.stride(0)
         args.own = own_new.data_ptr()
-        self._launch("apply", args, dtype, dev)
-        return pks
+        args.apply_warps = apply_geometry(L, K, self.CF, self.cap, W)[1][1]
+        return args, accf

@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's table and dense fused-cycle kernels
-against another version of csrc/fused_cycle.cu, in one process on one
-card.
+"""Time the PyTorch/CUDA port's fused-cycle kernels against another
+version of csrc/fused_cycle.cu, in one process on one card.
 
     python3 scripts/bench_torch_fused.py --other PATH/fused_cycle.cu \\
         [--out OUT.json]
@@ -12,8 +11,8 @@ with the same FusedArgs: the structure of an earlier version is a prefix
 of the current one, which only appends the launch plan.  For each case
 of chip_smoke.py's phases 4, 4b and 4c at W=4096 in float32 (the table
 kernel at N=216; the dense kernel at N=216 with one folded shift and at
-N=48 with three; the multi-trial kernel at T=8), from the state after
-two cycles and one cycle's draws: each kernel's cycle by CUDA events
+N=48 with three; the multi-trial kernel at T=2, 4 and 8, path C's
+runs), from the state after two cycles and one cycle's draws: each kernel's cycle by CUDA events
 over ``reps`` cycles, in the order other, this, this, other; how many
 walkers' integer outcomes differ between the two kernels and the
 largest continuous difference on the rest; this kernel at fewer
@@ -38,15 +37,19 @@ sys.path.insert(0, ROOT)
 # fewer walkers per block than the plan's, timed beside it
 WPB_TRIES = (8, 6)
 CASES = (("fused_cycle", "table", 5), ("fused_cycle_dense", "n216", 3),
-         ("fused_cycle_dense", "n48", 5), ("fused_cycle_multi", "t8", 5))
+         ("fused_cycle_dense", "n48", 5), ("fused_cycle_multi", "t2", 5),
+         ("fused_cycle_multi", "t4", 5), ("fused_cycle_multi", "t8", 5))
 
 
 def build_other(src):
+    """Compile another version of a csrc/ source (its includes from the
+    port's csrc/) and load it."""
     from mc_water_ls_mw_tpu_torch import cuda_build
 
     data = open(src, "rb").read()
     tag = hashlib.sha256(data + " ".join(cuda_build.NVCC_FLAGS).encode())
-    out = cuda_build.BUILD_DIR / f"other_fused_cycle-{tag.hexdigest()[:16]}.so"
+    stem = os.path.splitext(os.path.basename(src))[0]
+    out = cuda_build.BUILD_DIR / f"other_{stem}-{tag.hexdigest()[:16]}.so"
     if not out.exists():
         cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
@@ -81,14 +84,14 @@ def main() -> int:
     for kernel, case, reps in CASES:
         if case == "table":
             prm = chip_smoke.sample_params(W, "float32", eq_mc_cycles=0)
-        elif case == "t8":
-            prm = chip_smoke.multi_params(W, "float32", chip_smoke.MULTI_T,
+        elif case.startswith("t"):
+            prm = chip_smoke.multi_params(W, "float32", int(case[1:]),
                                           eq_mc_cycles=0)
         else:
             prm = chip_smoke.dense_params(W, "float32", case,
                                           samplerun=case == "n216",
                                           eq_mc_cycles=0)
-        eng, s = chip_smoke.make_engine(prm, paper_pair=case == "t8")
+        eng, s = chip_smoke.make_engine(prm, paper_pair=case.startswith("t"))
         fc = eng.fused_cycle
         assert fc.kernel == kernel
         eng.run_cycles(s, 2)
@@ -143,7 +146,7 @@ def main() -> int:
                                                                   reps))
         by_wpb = {}
         plan = fc.plan(torch.float32, W)
-        for wpb in WPB_TRIES if plan is not None else ():
+        for wpb in WPB_TRIES:
             if wpb < plan.wpb:
                 st = s.clone()
 

@@ -5,6 +5,7 @@ error where neither fits.  CPU only: the plan is computed in Python."""
 
 import ctypes
 
+import numpy as np
 import pytest
 import torch
 
@@ -78,9 +79,43 @@ def test_plan_raises_where_nothing_fits(kernel, N):
         launch_plan(kernel, 4, N, B, 1, 4096)
 
 
-def test_plan_is_for_the_warp_kernels_only():
-    with pytest.raises(ValueError):
-        launch_plan("fused_cycle_multi", 4, 216, B, 1, 4096)
+@pytest.mark.parametrize("kernel,itemsize,N,T,wpb,staged", [
+    ("fused_cycle_scan", 4, 216, 1, None, None),
+    ("fused_cycle_multi", 4, 216, 8, 8, True),
+    ("fused_cycle_multi", 8, 216, 8, 5, True),
+    ("fused_cycle_multi", 4, 216, 2, 8, True),
+    ("fused_cycle_multi", 8, 1200, 8, 5, False),
+    ("fused_cycle_multi", 4, 2400, 4, 8, False),
+])
+def test_plan_is_for_the_warp_kernels_only(kernel, itemsize, N, T, wpb,
+                                           staged):
+    """The three fused-cycle kernels are warp kernels, the multi-trial
+    one too: its walkers per block come from the same shared-memory
+    budget (its schedule holds the N codes and N/T movers), at N=216 8
+    in float32 and 5 in float64 with the states staged, and the state is
+    read in place where one walker's does not fit (N=1200 in float64,
+    N=2400 in float32).  Any other kernel has no plan."""
+    W = 4096
+    if wpb is None:
+        with pytest.raises(ValueError):
+            launch_plan(kernel, itemsize, N, B, 1, W, T)
+        return
+    plan = launch_plan(kernel, itemsize, N, B, 1, W, T)
+    assert (plan.wpb, plan.state_smem) == (wpb, staged)
+    assert plan.smem == smem_bytes(kernel, itemsize, N, B, 1, wpb, staged, T)
+    assert plan.smem <= SMEM_BLOCK_MAX
+    assert plan.blocks == -(-W // wpb)
+    # the schedule: N codes and N/T movers in place of the table
+    # kernel's N codes and N molecules
+    assert plan.smem == smem_bytes("fused_cycle", itemsize, N, B, 1, wpb,
+                                   staged) - 4 * (N - N // T)
+    if staged:
+        assert (wpb == WARP_CAP[itemsize]
+                or smem_bytes(kernel, itemsize, N, B, 1, wpb + 1, True, T)
+                > SMEM_BLOCK_MAX)
+    else:
+        assert smem_bytes(kernel, itemsize, N, B, 1, 1, True, T) \
+            > SMEM_BLOCK_MAX
 
 
 def test_fused_args_extends_the_earlier_layout():
@@ -123,3 +158,44 @@ def test_wrapper_plans_its_engine():
             assert plan.wpb == wpb and plan.state_smem
             args = fc._shape_args(dtype, 37)
             assert (args.wpb, args.state_smem, args.W) == (wpb, 1, 37)
+
+
+def _multi_engine(dtype_name, W):
+    from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR, AUP_TO_ATM
+    from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
+    from mc_water_ls_mw_tpu_torch.mcmc.config import RunParams
+    from mc_water_ls_mw_tpu_torch.mcmc.engine import Engine
+    from mc_water_ls_mw_tpu_torch.mcmc.state import init_state
+    from mc_water_ls_mw_tpu_torch.models.lattices import switch_pair_216
+    from mc_water_ls_mw_tpu_torch.models.sw import MW
+
+    prm = RunParams(nwater=216, num_lattices=2, temperature=200.0,
+                    pressure=1.0 / AUP_TO_ATM,
+                    mc_max_trans=1.1 * ANG_TO_BOHR, nbins=201,
+                    mu_min=-1800.0, mu_max=1800.0, n_walkers=W,
+                    dtype=dtype_name, dense_trials=8)
+    grid = build_bin_grid(prm.nbins, prm.mu_min, prm.mu_max)
+    r0, H0 = switch_pair_216()
+    _, aux = init_state(prm, MW, r0, H0, grid, device="cpu")
+    return Engine(prm, MW, grid, aux, device="cpu")
+
+
+def test_wrapper_plans_the_multi_trial_engine():
+    """FusedCycle.plan on the N=216 engine at dense_trials=8 (the
+    multi-trial kernel, path C's run), on the CPU: the plan of its T,
+    and an error for a table wider than two slots a lane."""
+    eng = _multi_engine("float32", 2)
+    fc = eng.fused_cycle
+    assert fc.kernel == "fused_cycle_multi" and eng.dT == 8
+    for dtype, wpb in ((torch.float32, 8), (torch.float64, 5)):
+        plan = fc.plan(dtype, 37)
+        assert plan == launch_plan("fused_cycle_multi", dtype.itemsize, 216,
+                                   201, 1, 37, 8)
+        assert plan.wpb == wpb and plan.state_smem
+        args = fc._shape_args(dtype, 37)
+        assert (args.wpb, args.state_smem, args.T, args.M) == \
+            (wpb, 1, 8, eng.tbl.shape[-1])
+    assert eng.tbl.shape[-1] <= fused.MULTI_SLOTS_MAX
+    eng.tbl = np.full((2, 216, fused.MULTI_SLOTS_MAX + 8), 216, np.int32)
+    with pytest.raises(ValueError, match="table slots"):
+        fc.plan(torch.float32, 37)
