@@ -41,8 +41,10 @@ Phases (each exits non-zero on failure):
    N=8064 stacking pair after a cycle of sampling (float64 at W=64:
    every integer output identical, energies and slabs within 1e-10;
    float32 at W=512: the tolerances below, the chain's rows and WL
-   slabs held on the walkers whose integer outcomes agree), with their
-   times;
+   slabs held on the walkers whose integer outcomes agree), the chain
+   also in a sample run (samplerun=True, wl_factor=0: the unbiased
+   histogram's branch of the WL update) in both types, with their
+   times, registers, spills and blocks per SM;
 7. the N=8064 main path: the cell engine at W=512, float32, Wang-Landau
    live, one warm-up and 3 timed cycles in which a rebin, scheduled
    volume moves, a delta-sync and a chain resync fall; seconds per
@@ -66,7 +68,8 @@ Phases (each exits non-zero on failure):
    left to 'auto' (they must resolve to 'on' and the chain kernel): a
    warm-up cycle, the checks of 6b in float32 on its state (at most 1%
    of walkers with differing integer outcomes, the tolerances below),
-   the delta kernel's time and bound, then 2 timed cycles holding a
+   the delta kernel's and the K=32 chain's times and bounds, then 2
+   timed cycles holding a
    rebin, volume moves, a delta-sync and a chain resync (FLAG_CUTS lists
    the cuts); seconds per cycle, trials/s, launches, slab overflow (must
    be 0), a torch.profiler trace of one more cycle (device time per
@@ -100,7 +103,8 @@ Phases (each exits non-zero on failure):
    paths of phases 5, 5b, 5c, 7, 7b, 9 and 10), error against its plain
    version, times and bound; the multi-trial kernel has a line for each
    T of path C, the mover-apply kernel one for phase 7's shape
-   ("mover_apply") and one for phase 9's;
+   ("mover_apply") and one for phase 9's, the chain kernel one for each
+   of phases 7 ("chain_wl"), 7b and 9;
 12. as the last line, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds ("[time]").
@@ -172,6 +176,11 @@ MULTI_TS = (2, 4, MULTI_T)
 # front-end path's shape (128 walkers, T=8; phase 7's is "mover_apply")
 APPLY_MT = "mover_apply[W=128,T=8]"
 W_MT = 128              # walkers of runs/n8064_wl, the f32 checks
+# the kernels line's names of the chain kernel at the flagship's shape
+# (K=32, 128 walkers) and at the front-end path's (T=8, 128 walkers;
+# phase 7's K=8, 512 walkers is "chain_wl")
+CHAIN_FLAG = "chain_wl_flagship"
+CHAIN_T8 = "chain_wl_t8"
 W_MT_FP64 = 16          # walkers of the float64 checks
 # f32 energy audit of the cell engine, one cycle after a chain resync:
 # the tracked and the recomputed total (-159 Hartree, ulp 1.5e-5) each
@@ -691,8 +700,17 @@ def fused_kernel_check(prm, tag, reps=0, paper_pair=False):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def occupancy_keys(occ):
+    """What the kernels line keeps of a cell kernel's occupancy (the
+    ``occupancy`` of MoverEnergiesKernel or ChainWLKernel)."""
+    return {k: occ[k] for k in ("registers", "spill_bytes", "blocks_per_sm")}
+
+
 def occupancy_text(occ):
-    """One line of FusedCycle.occupancy's report."""
+    """One line of a kernel's registers, spills and residency."""
+    if "blocks_per_sm" in occ:
+        return (f"{occ['registers']} registers, {occ['spill_bytes']} spill "
+                f"bytes per thread, {occ['blocks_per_sm']} blocks per SM")
     return (f"{occ['registers']} registers, {occ['spill_bytes']} spill "
             f"bytes per thread; {occ['walkers_per_block']} walkers per "
             f"block ({occ['smem_bytes']} shared bytes), {occ['blocks']} "
@@ -951,8 +969,44 @@ def chain_compare(eng, s, rows, e, inc, hasm, codes, ua, uz):
                    for n in slabs),
         n_acc=int((1.0 - cp["joh"].view(K, P, W)[:, 0]).sum()),
         n_enabled=int(cp["cnt"][0].sum()),
-        hist_grew=float((cp["hist"] - s.hist).sum()))
+        hist_grew=float((cp["hist"] - s.hist).sum()),
+        uh_grew=float((cp["uh"] - s.uhist).sum()))
     return out, chain, ck_
+
+
+def samplerun_chain_compare(eng, s, tbl, seed):
+    """The chain kernel of a sample run (samplerun=True, wl_factor=0: the
+    unbiased-histogram branch of the WL update, with its third eta
+    lookup) against its plain version on one sub-step of the engine
+    ``eng`` (a Wang-Landau run) on its state ``s``: the point table of
+    the engine's own proposal of table row ``tbl``, the WL slabs of
+    ``s`` (``chain_compare``'s dict)."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.mcmc.chain_kernel import (
+        SWITCH,
+        ChainWLKernel,
+    )
+
+    K, W = eng.K, s.r.shape[-1]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    u = torch.rand((7, K, W), generator=gen, dtype=s.r.dtype, device=DEVICE)
+    codes = torch.zeros((K,), dtype=torch.int32, device=DEVICE)
+    codes[K // 2] = SWITCH
+    pks = eng._pack(s)
+    rows = eng._loop_rows(s)
+    trial = eng._propose_t1(s, pks, tbl, u, rows)
+    ck_ = eng.chain_kernel
+    kern = ChainWLKernel(
+        dataclasses.replace(eng.prm, samplerun=True, wl_factor=0.0),
+        eng.grid, ck_.K, ck_.T, ck_.log_norm)
+    return chain_compare(SimpleNamespace(chain_kernel=kern), s, rows,
+                         trial.e, rows.inc, trial.hasm, codes, u[5],
+                         u[6])[0]
 
 
 def cell_substep_compare(eng, s, tbl, seed, time_reps=0):
@@ -1219,8 +1273,8 @@ def scatter_substep_compare(eng, s, tbl, seed, time_reps=0):
         n_dlt=int((pdlt != 0).any(dim=3).sum()),
         n_occ=int(n_occ.sum()), n_in=int(n_in.sum()),
         dE_max=float(torch.max(torch.abs(pe[:, :, 1] - pe[:, :, 0]))))
-    out["chain_wl"] = chain_compare(eng, s, rows, trial.e, rows.inc,
-                                    trial.hasm, codes, u[5], u[6])[0]
+    out["chain_wl"], chain, _ = chain_compare(
+        eng, s, rows, trial.e, rows.inc, trial.hasm, codes, u[5], u[6])
 
     def substep(plain):
         st = s.clone()
@@ -1270,6 +1324,11 @@ def scatter_substep_compare(eng, s, tbl, seed, time_reps=0):
         t["scatter_ms"] = cuda_ms(
             lambda: eng._scatter_moments(pk_t, tbl, trial, accf), time_reps,
             True)
+        t = out["chain_wl"]
+        bk, bp = chain(None), chain(None)
+        t["ms"] = cuda_ms(lambda: chain(eng.chain_kernel, bk), time_reps,
+                          True)
+        t["plain_ms"] = cuda_ms(lambda: chain(eng.chain_kernel.plain, bp), 3)
     return out
 
 
@@ -1956,6 +2015,17 @@ def flagship_run(kind, card):
           f"{bound[0]:.6f} ms ({bound[1]}); the scatter of one sub-step "
           f"(_scatter_moments, both lattices) {d['scatter_ms']:.4f} ms",
           flush=True)
+    cbound = chain_bound(eng, W_FLAG, s.r.element_size(), 2,
+                         ch["n_enabled"])
+    chain_line = dict(max_abs_err=max(ch["cf_err"], ch["wl_err"]),
+                      ms=ch["ms"], plain_ms=ch["plain_ms"],
+                      bound_ms=cbound[0], bound_by=cbound[1],
+                      **occupancy_keys(eng.chain_kernel.occupancy(
+                          s.r.dtype, W_FLAG)))
+    print(f"[flagship] chain_wl f32 W={W_FLAG} K={eng.K}: kernel "
+          f"{ch['ms']:.4f} ms/launch, plain {ch['plain_ms']:.3f} ms, bound "
+          f"{cbound[0]:.6f} ms ({cbound[1]}); {occupancy_text(chain_line)}",
+          flush=True)
     del cmp, d, sub
 
     flag_kernels = {"mover_energies_deltas": eng.mover_kernel,
@@ -2003,7 +2073,7 @@ def flagship_run(kind, card):
         fail("flagship energy audit drift")
     if not (np.isfinite(hist.sum()) and hist.sum() > 0):
         fail("the flagship's merged histogram is empty or not finite")
-    return {"launches": flag_launches, "report": line}
+    return {"launches": flag_launches, "report": line, "chain": chain_line}
 
 
 def require_scatter_modes(eng):
@@ -2355,6 +2425,18 @@ def main() -> int:
         if not (ma["mom_err"] <= 1e-10 and ma["rest_equal"]
                 and ma["changed"] > 0):
             fail("mover_apply fp64 disagrees with its plain version")
+    sr = samplerun_chain_compare(eng, s, 5, seed=105)
+    print(f"[cell] fp64 W={W_CELL_FP64} table 5, sample run: chain "
+          f"{int(sr['differ'].sum())} walkers differ, cf err "
+          f"{sr['cf_err']:.3e}, WL slabs err {sr['wl_err']:.3e}, "
+          f"{sr['n_acc']} of {sr['n_enabled']} trials accepted, uhist grew "
+          f"{sr['uh_grew']:.3e}", flush=True)
+    if sr["differ"].any() or not (sr["cf_err"] <= 1e-10
+                                  and sr["wl_err"] <= 1e-10
+                                  and 0 < sr["n_acc"] < sr["n_enabled"]
+                                  and sr["uh_grew"] > 0):
+        fail("chain_wl fp64 in a sample run disagrees with its plain "
+             "version")
     del eng, s
     torch.cuda.empty_cache()
 
@@ -2408,6 +2490,22 @@ def main() -> int:
     if not (ma["mom_err"] <= F32_MOVER_MOM_ATOL and ma["rest_equal"]
             and ma["changed"] > 0):
         fail("mover_apply f32 disagrees with its plain version")
+    sr = samplerun_chain_compare(eng, s, 5, seed=8)
+    frac = float(sr["differ"].float().mean())
+    print(f"[cell] f32 W={Wc}, sample run: chain {frac:.4%} of walkers "
+          f"differ (limit {F32_MAX_DIFF_FRAC:.0%}), on the rest chain rows "
+          f"relative err {sr['cf_rel']:.3e}, WL slabs relative err "
+          f"{sr['wl_rel']:.3e} (limit {F32_CHAIN_RTOL:g}), {sr['n_acc']} of "
+          f"{sr['n_enabled']} trials accepted, uhist grew "
+          f"{sr['uh_grew']:.3e}", flush=True)
+    if frac > F32_MAX_DIFF_FRAC or not (
+            sr["cf_rel"] <= F32_CHAIN_RTOL and sr["wl_rel"] <= F32_CHAIN_RTOL
+            and 0 < sr["n_acc"] < sr["n_enabled"] and sr["uh_grew"] > 0):
+        fail("chain_wl f32 in a sample run disagrees with its plain version")
+    occ = {"mover_energies": eng.mover_kernel.occupancy(torch.float32, 2,
+                                                        eng.K, Wc),
+           "chain_wl": eng.chain_kernel.occupancy(torch.float32, Wc),
+           "mover_apply": None}
     for name, err in (("mover_energies", me["e_err"]),
                       ("chain_wl", max(ch["cf_err"], ch["wl_err"])),
                       ("mover_apply", ma["mom_err"])):
@@ -2416,9 +2514,13 @@ def main() -> int:
                             plain_ms=t["plain_ms"],
                             bound_ms=bounds[name][0],
                             bound_by=bounds[name][1])
+        if occ[name]:
+            report[name].update(occupancy_keys(occ[name]))
         print(f"[cell] {name} f32 W={Wc}: kernel {t['ms']:.4f} ms/launch, "
               f"plain {t['plain_ms']:.3f} ms, bound {bounds[name][0]:.6f} "
-              f"ms ({bounds[name][1]})", flush=True)
+              f"ms ({bounds[name][1]})"
+              + (f"; {occupancy_text(occ[name])}" if occ[name] else ""),
+              flush=True)
 
     phase_time("6. cell kernels")
 
@@ -2491,8 +2593,11 @@ def main() -> int:
     # ---- 7b. the N=24192 flagship on its front-end grid
     flag = flagship_run(kind, card)
     for name, n in flag["launches"].items():
+        # the chain kernel at this path's shape is a line of its own
+        name = CHAIN_FLAG if name == "chain_wl" else name
         launches[name] = launches.get(name, 0) + n
     report["mover_energies_deltas"] = flag["report"]
+    report[CHAIN_FLAG] = flag["chain"]
     torch.cuda.empty_cache()
     phase_time("7b. N=24192 flagship (scatter path)")
 
@@ -2548,6 +2653,11 @@ def main() -> int:
                 max_abs_err=max(mp["e_err"], mp["own_err"]), ms=mp["ms"],
                 plain_ms=mp["plain_ms"], bound_ms=bounds["mover_points"][0],
                 bound_by=bounds["mover_points"][1])
+            report[CHAIN_T8] = dict(
+                max_abs_err=max(ch["cf_err"], ch["wl_err"]), ms=ch["ms"],
+                plain_ms=ch["plain_ms"], bound_ms=bounds["chain_wl"][0],
+                bound_by=bounds["chain_wl"][1], **occupancy_keys(
+                    eng.chain_kernel.occupancy(torch.float32, Wm)))
             for name in ("mover_points", "chain_wl"):
                 t = cmp[name]
                 print(f"[multi] {name} f32 W={Wm} T={eng.T}: kernel "
@@ -2588,8 +2698,9 @@ def main() -> int:
     # ---- 9. the front-end path: run_input_file at T = 8
     fe = frontend_run()
     for name, n in fe["launches"].items():
-        # the apply kernel at this path's shape is a line of its own
-        name = APPLY_MT if name == "mover_apply" else name
+        # the apply and chain kernels at this path's shape are lines of
+        # their own
+        name = {"mover_apply": APPLY_MT, "chain_wl": CHAIN_T8}.get(name, name)
         launches[name] = launches.get(name, 0) + n
     phase_time("9. front-end path")
 
@@ -2636,11 +2747,12 @@ def main() -> int:
              launches=launches[name], library_ms=None, **report[name])
         for name in ("mover_apply", APPLY_MT)
     ] + [
-        dict(name="chain_wl", route="cuda",
+        dict(name=name, route="cuda",
              source="mc_water_ls_mw_tpu_torch/csrc/chain_wl.cu",
              replaces="mc_water_ls_mw_tpu/mcmc/chain_pallas.py:92",
-             launches=launches["chain_wl"], library_ms=None,
-             **report["chain_wl"]),
+             launches=launches[name], library_ms=None, **report[name])
+        for name in ("chain_wl", CHAIN_FLAG, CHAIN_T8)
+    ] + [
         dict(name="mover_points", route="cuda",
              source="mc_water_ls_mw_tpu_torch/csrc/cell_movers.cu",
              replaces="mc_water_ls_mw_tpu/ops/cell_pallas.py:388",

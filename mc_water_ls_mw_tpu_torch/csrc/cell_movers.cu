@@ -45,23 +45,44 @@
 // W=512 in f32) and the three coordinate rows of the occupied slots
 // (about half of them), but only the few slots within the cutoff of one
 // of the two positions need their ten moment rows; the arithmetic is
-// ~10^9 operations.  Design: a block is one
-// (mover, lattice, tile of 32 walkers); lane = walker, so every row
-// access of a warp is one coalesced 128-byte line (f32).  K*L*W is only
-// 8192 (mover, lattice, walker) triples, so the candidate slots of a
-// triple are split over the NW warps of its block (warp y takes slots
-// y, y+NW, ... of every cell); the flag and coordinate rows are loaded
-// unconditionally (independent loads the hardware overlaps), the moment
-// rows only where a leg is in range.  mover_energies reduces the 26
-// partial sums of the NW warps through shared memory in a fixed order
-// (no float atomics: accept decisions must not depend on scheduling).
-// mover_energies_deltas adds the output [L, K, CF, 10, cap, W] (per
+// ~10^9 operations.  Lane = walker throughout, so every row access of
+// a warp is one coalesced 128-byte line (f32); the flag and coordinate
+// rows are loaded unconditionally (independent loads the hardware
+// overlaps), the moment rows only where a leg is in range.
+// mover_energies_deltas (kernel 3b): a block is one (mover, lattice,
+// tile of 32 walkers), the candidate slots of a triple split over the
+// NW warps of its block (warp y takes slots y, y+NW, ... of every
+// cell), the 26 partial sums of the NW warps reduced through shared
+// memory in a fixed order (no float atomics: accept decisions must not
+// depend on scheduling).  It adds the output [L, K, CF, 10, cap, W] (per
 // lattice the rows of the packed slab's moment block, so the engine's
 // scatter reads it as it is) and writes EVERY slot of it, zeros where
 // the slot is masked or out of range of both positions: a single pass
 // with no memset, whose coalesced stores (lane = walker) are the bulk of
 // its bytes (10*K*CF*cap*W per lattice, 393 MB at K=32, CF=75, cap=32,
 // W=128 in f32), so it is bound by them.
+// mover_energies (kernel 3) ran on that body too: 0.1007 ms per launch
+// at N=8064, K=8, W=512 in f32 on an H100 80GB HBM3 at 700 W, against a
+// bound of 0.022 ms: 256 blocks on 132 SMs, each warp walking 27 cells
+// x 4 slots one after another, each slot's loads issued only after the
+// previous slot's branch resolved; nearly every 32-byte sector of the
+// flag and coordinate rows is read (~113 MB, 34 us at 3.35 TB/s).
+// Design: each warp streams its slots through a ring of shared memory
+// with asynchronous copies (cp.async), in passes of EN_SPW slots of one
+// candidate cell: a pass's occupied flags are copied EN_FLAG_LEAD
+// passes ahead of its use and, once they have landed, the coordinates
+// of the occupied slots only, EN_COORD_LEAD passes ahead (about half of
+// the candidate slots are empty, most of them in every walker of a
+// warp, so ~40% of the sectors are never fetched), while warp 0 puts the
+// tile's context (both points, rank, the image shifts) in shared memory;
+// the slots in range of either point then read their ten moment rows.
+// A block is one (walker tile, mover, lattice), as before
+// (ops/cell_kernels.energies_geometry), its warps' 26 x 32 partial sums
+// reduced in a fixed order.  A split of each stencil over several
+// blocks, the groups' sums added by the last block to finish, ran
+// slower at the main path's shape (256 blocks on 132 SMs: groups of 9
+// cells 0.070 ms, of 3 cells 0.090 ms, against 0.051 for none; H100
+// 80GB HBM3, 700 W) and is not kept.
 // mover_apply needs no reduction and no atomics: same-colour stencils
 // are disjoint, so no two movers touch one cell (nor one mover a cell
 // twice), a mover's own slot is never read as a neighbour (it is
@@ -97,6 +118,7 @@
 // rounds as the plain versions' elementwise ops do.
 #include <cstdint>
 
+#include "cp_async.cuh"
 #include "sw_common.cuh"
 
 namespace {
@@ -104,6 +126,14 @@ namespace {
 constexpr int PK_R0 = 10, PK_VALID = 13, PK_ROWS = 14;
 constexpr int NW = 8;     // warps per block (candidate-slot split)
 constexpr int NACC = 26;  // pair o/n, w2 o/n, wing o/n, own o[10]/n[10]
+// (cell, slot) items of a group a warp of mover_energies takes at a
+// time, their copies in flight together
+// (ops/cell_kernels.ENERGIES_SLOTS_PER_WARP)
+constexpr int EN_SPW = 4;
+// a pass's flags are copied EN_FLAG_LEAD passes ahead of its use, its
+// coordinates EN_COORD_LEAD; the ring holds EN_FLAG_LEAD + 1 passes
+constexpr int EN_FLAG_LEAD = 3, EN_COORD_LEAD = 2;
+constexpr int EN_STAGES = EN_FLAG_LEAD + 1;
 // slots of one candidate cell a warp of mover_apply takes at a time,
 // their loads in flight together (ops/cell_kernels.APPLY_SLOTS_PER_WARP)
 constexpr int APPLY_SPW = 4;
@@ -128,6 +158,7 @@ struct MoverArgs {
   int L, K, CF, cap, W;
   SWConsts sw;
   int apply_warps;  // mover_apply: warps per block (apply_geometry)
+  int en_warps;     // mover_energies: warps per block (energies_geometry)
 };
 
 // What a thread needs of its (mover, lattice, walker).
@@ -219,9 +250,9 @@ __device__ __forceinline__ void leg_delta(const Leg<T>& g, T d[10]) {
   d[9] = wuy * g.uz;
 }
 
-template <typename T, bool DELTAS>
+template <typename T>
 __global__ void __launch_bounds__(32 * NW)
-mover_energies_kernel(const MoverArgs a) {
+mover_energies_deltas_kernel(const MoverArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* red = reinterpret_cast<T*>(smem);  // [NW][NACC][32]
   const int lane = threadIdx.x, wy = threadIdx.y;
@@ -248,7 +279,7 @@ mover_energies_kernel(const MoverArgs a) {
     for (int j = wy; j < cap; j += NW) {
       Leg<T> go, gn;
       const bool in = slot_legs(c, cid, j, self_cell, sh, sw, go, gn);
-      if (DELTAS && w_raw < W) {
+      if (w_raw < W) {
         // this slot's deltas new - old (zero where no leg is in range)
         T* d = static_cast<T*>(a.dlt)
              + ((((size_t)l * K + k) * CF + ci) * 10 * cap + j) * W + w;
@@ -298,6 +329,238 @@ mover_energies_kernel(const MoverArgs a) {
   for (int i = wy * 32 + lane; i < NACC * 32; i += NW * 32) {
     T sum = red[i];
     for (int y = 1; y < NW; ++y) sum += red[(size_t)y * NACC * 32 + i];
+    red[i] = sum;
+  }
+  __syncthreads();
+  if (wy != 0 || w_raw >= W) return;
+
+  T mo[10], mn[10];
+#pragma unroll
+  for (int f = 0; f < 10; ++f) {
+    mo[f] = red[(6 + f) * 32 + lane];
+    mn[f] = red[(16 + f) * 32 + lane];
+  }
+  const T e_old = red[0 * 32 + lane]
+      + sw.lam_eps * (e3_closed_form(mo, red[2 * 32 + lane], sw)
+                      + red[4 * 32 + lane]);
+  const T e_new = red[1 * 32 + lane]
+      + sw.lam_eps * (e3_closed_form(mn, red[3 * 32 + lane], sw)
+                      + red[5 * 32 + lane]);
+  // the layout of the chain kernel's point table (P = 2)
+  T* e = static_cast<T*>(a.e) + ((size_t)l * K + k) * 2 * W + w;
+  e[0] = e_old;
+  e[W] = e_new;
+  T* own = static_cast<T*>(a.own) + ((size_t)l * K + k) * 10 * W + w;
+#pragma unroll
+  for (int f = 0; f < 10; ++f) own[(size_t)f * W] = mn[f];
+}
+
+// A warp's pass over slots j0 + q nw (q < EN_SPW, below cap) of cell
+// cid, copied into its ring stage [EN_SPW][4][32] (flag, x, y, z of this
+// lane's walker) in two groups of copies: the occupied flags
+// (energies_flags), then, once they have landed, the coordinates of the
+// occupied slots only (energies_coords).  Each closes its group (empty
+// where ``live`` is false).
+template <typename T>
+__device__ __forceinline__ void energies_flags(T* stage, const T* pk, int cid,
+                                               int j0, int nw, bool live,
+                                               int cap, int W, size_t row,
+                                               int lane) {
+  if (live) {
+    const T* cell = pk + (size_t)cid * PK_ROWS * row + PK_VALID * row;
+#pragma unroll
+    for (int q = 0; q < EN_SPW; ++q) {
+      const int j = j0 + q * nw;
+      if (j < cap)
+        cp_async_elem(stage + (q * 4) * 32 + lane, cell + (size_t)j * W);
+    }
+  }
+  cp_async_commit();
+}
+
+template <typename T>
+__device__ __forceinline__ void energies_coords(T* stage, const T* pk,
+                                                int cid, int j0, int nw,
+                                                bool live, int cap, int W,
+                                                size_t row, int lane) {
+  if (live) {
+    const T* cell = pk + (size_t)cid * PK_ROWS * row + PK_R0 * row;
+#pragma unroll
+    for (int q = 0; q < EN_SPW; ++q) {
+      const int j = j0 + q * nw;
+      if (j < cap && stage[(q * 4) * 32 + lane] > (T)0.5) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          cp_async_elem(stage + (q * 4 + 1 + i) * 32 + lane,
+                        cell + i * row + (size_t)j * W);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// Dynamic shared memory of a mover_energies block of nw warps over CF
+// candidate cells: the warps' rings [nw][EN_STAGES][EN_SPW][4][32],
+// whose space then holds their partial sums [nw][NACC][32], the tile's
+// context [6 + 3 CF][32] (old point, new point, the cells' image
+// shifts) and the ranks [32].
+template <typename T>
+static size_t energies_smem_bytes(int nw, int CF) {
+  const size_t ring = (size_t)nw * EN_STAGES * EN_SPW * 4 * 32;
+  const size_t red = (size_t)nw * NACC * 32;
+  return sizeof(T) * ((ring > red ? ring : red) + 32 * (6 + 3 * (size_t)CF))
+         + sizeof(int) * 32;
+}
+
+// One block per (32-walker tile, mover k, lattice l); warp y of nw
+// takes slots y + nw q (q < EN_SPW) of each candidate cell in turn, in
+// ceil(cap / (nw EN_SPW)) passes a cell (ops/cell_kernels.
+// energies_geometry mirrors the grid), streamed through its ring of
+// EN_STAGES passes.
+template <typename T>
+__global__ void __launch_bounds__(32 * NW, 2)
+mover_energies_kernel(const MoverArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x, wy = threadIdx.y, nw = blockDim.y;
+  const int tid = wy * 32 + lane, nthreads = nw * 32;
+  const int W = a.W, K = a.K, CF = a.CF, cap = a.cap;
+  const int k = blockIdx.y, l = blockIdx.z;
+  const int span = nw * EN_SPW, ppc = (cap + span - 1) / span;
+  const int n_st = CF * ppc;  // passes of this warp
+  const size_t ring_sz = (size_t)nw * EN_STAGES * EN_SPW * 4 * 32;
+  const size_t red_sz = (size_t)nw * NACC * 32;
+  const int stage_sz = EN_SPW * 4 * 32;
+  T* ring = reinterpret_cast<T*>(smem) + (size_t)wy * EN_STAGES * stage_sz;
+  T* red = reinterpret_cast<T*>(smem);  // [nw][NACC][32], after the rings
+  T* s_ctx = reinterpret_cast<T*>(smem) + (ring_sz > red_sz ? ring_sz
+                                                            : red_sz);
+  int* s_rank = reinterpret_cast<int*>(s_ctx + (size_t)(6 + 3 * CF) * 32);
+  const int w_raw = blockIdx.x * 32 + lane;
+  // ragged edge: lanes beyond W repeat the last walker and store nothing
+  const int w = w_raw < W ? w_raw : W - 1;
+  const size_t row = (size_t)cap * W;
+  const T* pk = static_cast<const T*>(a.pk[l]) + w;
+  const int* cand = static_cast<const int*>(a.cand) + (size_t)k * CF;
+  const int fcell = __ldg(static_cast<const int*>(a.fc) + k);
+
+  // the tile's context, loaded by warp 0 while the other warps start
+  // their passes
+  if (wy == 0) {
+    MoverCtx<T> c;
+    load_ctx(c, a, l, k, w);
+    const int* off = static_cast<const int*>(a.off) + (size_t)k * CF * 3;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      s_ctx[i * 32 + lane] = c.po[i];
+      s_ctx[(3 + i) * 32 + lane] = c.pn[i];
+    }
+    for (int ci = 0; ci < CF; ++ci) {
+      T sh[3];
+      cell_shift(c, off + ci * 3, sh);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) s_ctx[(6 + 3 * ci + i) * 32 + lane] = sh[i];
+    }
+    s_rank[lane] = c.rank;
+  }
+
+  // pass st of this warp: cell st / ppc, its slots from
+  // (st % ppc) * span + wy.  Each pass commits the flags of pass st +
+  // EN_FLAG_LEAD, waits for those of st + EN_COORD_LEAD, commits the
+  // coordinates of that pass's occupied slots, and waits for those of
+  // pass st; passes below 0 only start the pipeline
+  auto flags = [&](int st) {
+    const bool live = st < n_st;
+    const int ci = ppc == 1 ? st : st / ppc;
+    energies_flags(ring + (st % EN_STAGES) * stage_sz, pk,
+                   live ? __ldg(cand + ci) : 0, (st - ci * ppc) * span + wy,
+                   nw, live, cap, W, row, lane);
+  };
+  auto coords = [&](int st) {
+    const bool live = st >= 0 && st < n_st;
+    const int sc = live ? st : 0, ci = ppc == 1 ? sc : sc / ppc;
+    energies_coords(ring + (sc % EN_STAGES) * stage_sz, pk,
+                    live ? __ldg(cand + ci) : 0, (sc - ci * ppc) * span + wy,
+                    nw, live, cap, W, row, lane);
+  };
+  for (int st = -EN_FLAG_LEAD; st < 0; ++st) {
+    flags(st + EN_FLAG_LEAD);
+    cp_async_wait_group<2 * (EN_FLAG_LEAD - EN_COORD_LEAD)>();
+    coords(st + EN_COORD_LEAD);
+  }
+  __syncthreads();
+  const SW<T> sw(a.sw);
+  T po[3], pn[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    po[i] = s_ctx[i * 32 + lane];
+    pn[i] = s_ctx[(3 + i) * 32 + lane];
+  }
+  const int rank = s_rank[lane];
+
+  Mom<T> oo, on;
+  oo.zero();
+  on.zero();
+  T pair_o = 0, pair_n = 0, e3j_o = 0, e3j_n = 0;
+  for (int st = 0; st < n_st; ++st) {
+    flags(st + EN_FLAG_LEAD);
+    cp_async_wait_group<2 * (EN_FLAG_LEAD - EN_COORD_LEAD)>();
+    coords(st + EN_COORD_LEAD);
+    const int ci = ppc == 1 ? st : st / ppc;
+    const int j0 = (st - ci * ppc) * span + wy;
+    const int cid = __ldg(cand + ci);
+    const T* sh = s_ctx + (6 + 3 * ci) * 32 + lane;
+    const T sx = sh[0], sy = sh[32], sz = sh[64];
+    cp_async_wait_group<2 * EN_COORD_LEAD>();  // pass st has landed
+    const T* b = ring + (st % EN_STAGES) * stage_sz + lane;
+#pragma unroll
+    for (int q = 0; q < EN_SPW; ++q) {
+      const int j = j0 + q * nw;
+      if (j >= cap) break;
+      if (!(b[(q * 4) * 32] > (T)0.5)) continue;  // empty
+      if (cid == fcell && j == rank) continue;     // the mover itself
+      const T p[3] = {b[(q * 4 + 1) * 32] + sx, b[(q * 4 + 2) * 32] + sy,
+                      b[(q * 4 + 3) * 32] + sz};
+      const Leg<T> go = leg_at(p, po, sw);
+      const Leg<T> gn = leg_at(p, pn, sw);
+      if (!go.in && !gn.in) continue;
+      const T* at = pk + ((size_t)cid * PK_ROWS * cap + j) * W;
+      T mj[10];
+#pragma unroll
+      for (int f = 0; f < 10; ++f) mj[f] = __ldg(at + (size_t)f * row);
+      if (go.in) {
+        pair_o += go.pair;
+        oo.add(go.w, go.ux, go.uy, go.uz);
+        e3j_o += wing(go, mj, sw);
+      }
+      if (gn.in) {
+        pair_n += gn.pair;
+        on.add(gn.w, gn.ux, gn.uy, gn.uz);
+        moved_moments(mj, go, gn);
+        e3j_n += wing(gn, mj, sw);
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every ring is drained: its space takes the sums
+
+  // partial sums of this warp -> shared memory
+  T* mine = red + (size_t)wy * NACC * 32;
+  mine[0 * 32 + lane] = pair_o;
+  mine[1 * 32 + lane] = pair_n;
+  mine[2 * 32 + lane] = oo.w2;
+  mine[3 * 32 + lane] = on.w2;
+  mine[4 * 32 + lane] = e3j_o;
+  mine[5 * 32 + lane] = e3j_n;
+#pragma unroll
+  for (int f = 0; f < 10; ++f) {
+    mine[(6 + f) * 32 + lane] = oo.m[f];
+    mine[(16 + f) * 32 + lane] = on.m[f];
+  }
+  __syncthreads();
+  // each (sum, walker) pair is reduced by one thread, warps in order
+  for (int i = tid; i < NACC * 32; i += nthreads) {
+    T sum = red[i];
+    for (int y = 1; y < nw; ++y) sum += red[(size_t)y * NACC * 32 + i];
     red[i] = sum;
   }
   __syncthreads();
@@ -606,17 +869,70 @@ static int launch_points(const PointsArgs* a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool DELTAS>
-static int launch_energies(const MoverArgs* a, cudaStream_t stream) {
-  if (DELTAS && a->dlt == nullptr) return (int)cudaErrorInvalidValue;
+template <typename T>
+static int launch_energies_deltas(const MoverArgs* a, cudaStream_t stream) {
+  if (a->dlt == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(T) * NW * NACC * 32;
   cudaError_t err = cudaFuncSetAttribute(
-      mover_energies_kernel<T, DELTAS>,
+      mover_energies_deltas_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a->W + 31) / 32, a->K, a->L), block(32, NW);
-  mover_energies_kernel<T, DELTAS><<<grid, block, smem, stream>>>(*a);
+  mover_energies_deltas_kernel<T><<<grid, block, smem, stream>>>(*a);
   return (int)cudaGetLastError();
+}
+
+// (grid, block, dynamic shared bytes) of a mover_energies launch, or
+// false for a block it does not take.
+template <typename T>
+static bool energies_geometry(const MoverArgs* a, dim3& grid, dim3& block,
+                              size_t& smem) {
+  if (a->en_warps < 1 || a->en_warps > NW) return false;
+  grid = dim3((a->W + 31) / 32, a->K, a->L);
+  block = dim3(32, a->en_warps);
+  smem = energies_smem_bytes<T>(a->en_warps, a->CF);
+  return true;
+}
+
+template <typename T>
+static int launch_energies(const MoverArgs* a, cudaStream_t stream) {
+  dim3 grid, block;
+  size_t smem;
+  if (!energies_geometry<T>(a, grid, block, smem))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mover_energies_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  mover_energies_kernel<T><<<grid, block, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// out = {registers per thread, local (spill) bytes per thread, blocks
+// resident on one SM, dynamic shared bytes per block, blocks} of a
+// mover_energies launch (only its shape and warps are read).
+template <typename T>
+static int energies_occupancy(const MoverArgs* a, int* out) {
+  dim3 grid, block;
+  size_t smem;
+  if (!energies_geometry<T>(a, grid, block, smem))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = reinterpret_cast<const void*>(mover_energies_kernel<T>);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, (int)(block.x * block.y), smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = per_sm;
+  out[3] = (int)smem;
+  out[4] = (int)(grid.x * grid.y * grid.z);
+  return (int)err;
 }
 
 template <typename T>
@@ -633,19 +949,24 @@ static int launch_apply(const MoverArgs* a, cudaStream_t stream) {
 extern "C" {
 
 int mover_energies_f32(const MoverArgs* a, void* stream) {
-  return launch_energies<float, false>(a, (cudaStream_t)stream);
+  return launch_energies<float>(a, (cudaStream_t)stream);
 }
 
 int mover_energies_f64(const MoverArgs* a, void* stream) {
-  return launch_energies<double, false>(a, (cudaStream_t)stream);
+  return launch_energies<double>(a, (cudaStream_t)stream);
+}
+
+int mover_energies_occupancy(int f64, const MoverArgs* a, int* out) {
+  return f64 ? energies_occupancy<double>(a, out)
+             : energies_occupancy<float>(a, out);
 }
 
 int mover_energies_deltas_f32(const MoverArgs* a, void* stream) {
-  return launch_energies<float, true>(a, (cudaStream_t)stream);
+  return launch_energies_deltas<float>(a, (cudaStream_t)stream);
 }
 
 int mover_energies_deltas_f64(const MoverArgs* a, void* stream) {
-  return launch_energies<double, true>(a, (cudaStream_t)stream);
+  return launch_energies_deltas<double>(a, (cudaStream_t)stream);
 }
 
 int mover_apply_f32(const MoverArgs* a, void* stream) {

@@ -472,7 +472,7 @@ __device__ __forceinline__ bool warp_decision(const Walker<T>& s,
   return ok && (u_acc < exp(-diffkT));
 }
 
-// wl_update of the walker's lane 0 with eta(mu) known (the sample run's
+// wl_update_at of the walker's lane 0 with eta(mu) known (the sample run's
 // weight of the performed move: eta_new if accepted, else eta_old, read
 // from the same arrays), its additions fire-and-forget atomics (a
 // walker's entries have one writer, so they round as a plain +=).

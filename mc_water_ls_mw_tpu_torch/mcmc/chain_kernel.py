@@ -39,6 +39,10 @@ non-finite, and so rejected.
 The kernel is ``csrc/chain_wl.cu`` (its header says what bounds it on
 the H100 and how the design answers that); it shares ``eta_of`` and
 ``wl_update`` with the N=216 whole-cycle kernel (csrc/wl_common.cuh).
+``chain_plan`` chooses its launch from the shapes: the walkers per block
+whose WL columns and tables fit one block's shared memory, where the
+chain then runs, or, where one walker's do not fit, the branch that
+reads them in place.
 The plain version is a loop over the K x T trials on [W] tensors, with
 ``bins.eta_lookup`` / ``bins.wl_move_update`` as the engines use them.
 The wrapper takes the plain version only for tensors on the CPU; for
@@ -49,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -94,7 +99,78 @@ class ChainArgs(ctypes.Structure):
         + [(n, ctypes.c_double) for n in (
             "beta", "av_bw", "log_norm", "cpos", "cneg", "a_pos", "a_neg",
             "lnr_pos", "lnr_neg")]
+        + [(n, ctypes.c_int) for n in ("wpb", "staged")]
     )
+
+
+# Shared memory one block can use on the H100 (227 KB).
+SMEM_BLOCK_MAX = 232448
+# A block has a warp per walker (lane 0 runs its chain, all threads copy
+# the columns in and out): CHAIN_WPB walkers in the staged branch, one
+# for each of an SM's four warp schedulers (the plan passes wpb to the
+# kernel; 8 ran 3-12% slower on an H100, two chains sharing a
+# scheduler's issue slots; the kernel takes up to CHAIN_WPB_MAX),
+# INPLACE_WPB in the in-place branch (constants of csrc/chain_wl.cu).
+CHAIN_WPB = 4
+CHAIN_WPB_MAX = 8
+INPLACE_WPB = 8
+
+
+class ChainPlan(NamedTuple):
+    """Geometry of a chain launch: ``wpb`` walkers per block, their
+    columns staged in shared memory (``staged``) or read in place,
+    ``threads`` per block, ``smem`` dynamic shared bytes per block,
+    ``blocks`` blocks."""
+
+    wpb: int
+    staged: bool
+    threads: int
+    smem: int
+    blocks: int
+
+
+def staged_rows(B, K, T, samplerun):
+    """Rows of one walker's staged columns (staged_rows in
+    csrc/chain_wl.cu): the WL slabs wgt, basew, hist (and uhist in a
+    sample run), the point energies of both lattices, the in-cell flags,
+    the mover flags and both uniform rows."""
+    P = T + 1
+    return (4 if samplerun else 3) * B + 3 * K * P + K + 2 * K * T
+
+
+def chain_smem_bytes(itemsize, B, K, T, samplerun, wpb, staged):
+    """Dynamic shared bytes of a chain block (chain_smem_bytes in
+    csrc/chain_wl.cu): the bin widths and centres, the walkers' staged
+    columns, the K*T move codes."""
+    cols = wpb * staged_rows(B, K, T, samplerun) if staged else 0
+    return itemsize * (2 * B + cols) + 4 * K * T
+
+
+def chain_plan(itemsize, B, K, T, W, samplerun):
+    """The launch of the chain kernel for B bins, K movers of T trials
+    and W walkers in elements of ``itemsize`` bytes: the most walkers
+    per block, up to CHAIN_WPB and W, whose columns fit one block's
+    shared memory, a warp each; where not even one walker's fit, the
+    in-place branch (INPLACE_WPB walkers a block, only the bin grid and
+    the codes in shared memory).  Raises where neither fits."""
+    for wpb in range(min(CHAIN_WPB, W), 0, -1):
+        n = chain_smem_bytes(itemsize, B, K, T, samplerun, wpb, True)
+        if n <= SMEM_BLOCK_MAX:
+            return ChainPlan(wpb, True, 32 * wpb, n, -(-W // wpb))
+    return in_place_plan(itemsize, B, K, T, W, samplerun)
+
+
+def in_place_plan(itemsize, B, K, T, W, samplerun):
+    """The in-place branch's launch (``chain_plan``'s arguments): the
+    columns read where they lie.  Raises where not even the bin grid
+    and the codes fit one block's shared memory."""
+    n = chain_smem_bytes(itemsize, B, K, T, samplerun, INPLACE_WPB, False)
+    if n <= SMEM_BLOCK_MAX:
+        return ChainPlan(INPLACE_WPB, False, 32 * INPLACE_WPB, n,
+                         -(-W // INPLACE_WPB))
+    raise ValueError(
+        f"chain_wl: B={B}, K={K}, T={T} in {itemsize}-byte elements do "
+        f"not fit one block's {SMEM_BLOCK_MAX} bytes of shared memory")
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,6 +200,7 @@ class ChainWLKernel:
         self.log_norm = float(log_norm)
         self.do_switch = prm.mc_always_switch or prm.allow_switch
         self._grid_dev = {}
+        self._plans = {}
         # kernel launches (one per call on CUDA tensors)
         self.launches = 0
 
@@ -135,6 +212,34 @@ class ChainWLKernel:
                 torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
                 for a in (self.grid.binwidth, self.grid.mu_bin))
         return self._grid_dev[key]
+
+    def plan(self, dtype, W) -> ChainPlan:
+        """The launch plan of the kernel at W walkers (``chain_plan``),
+        computed once per shape."""
+        key = (dtype, W)
+        if key not in self._plans:
+            itemsize = 8 if dtype == torch.float64 else 4
+            self._plans[key] = chain_plan(itemsize, self.grid.nbins, self.K,
+                                          self.T, W, self.prm.samplerun)
+        return self._plans[key]
+
+    def occupancy(self, dtype, W):
+        """The kernel at W walkers, from the CUDA runtime: a dict of
+        registers and spill (local) bytes per thread, blocks resident on
+        one SM, dynamic shared bytes per block, walkers per block and
+        blocks."""
+        fn = cuda_build.bind("chain_wl", "chain_wl_occupancy",
+                             [ctypes.c_int, ctypes.POINTER(ChainArgs),
+                              ctypes.POINTER(ctypes.c_int)])
+        plan = self.plan(dtype, W)
+        args = ChainArgs(K=self.K, Tn=self.T, W=W, B=self.grid.nbins,
+                         samplerun=int(self.prm.samplerun), wpb=plan.wpb,
+                         staged=int(plan.staged))
+        out = (ctypes.c_int * 6)()
+        err = fn(int(dtype == torch.float64), ctypes.byref(args), out)
+        cuda_build.check(err, "chain_wl occupancy")
+        return dict(zip(("registers", "spill_bytes", "blocks_per_sm",
+                         "smem_bytes", "walkers_per_block", "blocks"), out))
 
     def plain(self, codes, wl_active, cf, ci, wgt, hist, uh, basew, e,
               inc, hasm, ua, uz):
@@ -261,6 +366,20 @@ class ChainWLKernel:
             joh, cnt_p = self.plain(codes, wl_active, cf, ci, wgt, hist, uh,
                                     basew, e, inc, hasm, ua, uz)
             return joh, (cnt_p if cnt is None else cnt.copy_(cnt_p))
+        args, joh, cnt = self.launch_args(codes, wl_active, cf, ci, wgt,
+                                          hist, uh, basew, e, inc, hasm, ua,
+                                          uz, cnt)
+        stream = torch.cuda.current_stream(cf.device).cuda_stream
+        err = _entry(cf.dtype)(ctypes.byref(args), stream)
+        cuda_build.check(err, "chain_wl")
+        self.launches += 1
+        return joh, cnt
+
+    def launch_args(self, codes, wl_active, cf, ci, wgt, hist, uh, basew, e,
+                    inc, hasm, ua, uz, cnt=None):
+        """(args, joh, cnt) of one launch on CUDA tensors: the checked
+        ChainArgs with the launch plan, and the outputs its pointers
+        reference (``cnt`` allocated unless given)."""
         prm, grid = self.prm, self.grid
         K, T, P = self.K, self.T, self.P
         B, W = wgt.shape
@@ -307,8 +426,6 @@ class ChainWLKernel:
             lnr_pos=float(np.log(grid.r_pos)),
             lnr_neg=float(np.log(grid.r_neg)),
         )
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry(dtype)(ctypes.byref(args), stream)
-        cuda_build.check(err, "chain_wl")
-        self.launches += 1
-        return joh, cnt
+        plan = self.plan(dtype, W)
+        args.wpb, args.staged = plan.wpb, int(plan.staged)
+        return args, joh, cnt

@@ -67,7 +67,7 @@ class MoverArgs(ctypes.Structure):
         + [("acc_stride", ctypes.c_longlong)]
         + [(n, ctypes.c_int) for n in ("L", "K", "CF", "cap", "W")]
         + [("sw", cuda_build.SWConsts)]
-        + [("apply_warps", ctypes.c_int)]
+        + [(n, ctypes.c_int) for n in ("apply_warps", "en_warps")]
     )
 
 
@@ -88,6 +88,27 @@ def apply_geometry(L, K, CF, cap, W):
     APPLY_SLOTS_PER_WARP i), q < APPLY_SLOTS_PER_WARP, below cap."""
     nw = max(1, min(APPLY_WARPS_MAX, -(-cap // APPLY_SLOTS_PER_WARP)))
     return (-(-W // 32), K * CF, L), (32, nw)
+
+
+# The energies kernel's block: a warp takes ENERGIES_SLOTS_PER_WARP
+# slots of a cell a pass (EN_SPW in csrc/cell_movers.cu), a block at
+# most ENERGIES_WARPS_MAX warps.
+ENERGIES_SLOTS_PER_WARP = 4
+ENERGIES_WARPS_MAX = 8
+
+
+def energies_geometry(L, K, CF, cap, W):
+    """(grid, block) of the energies kernel: a block per (32-walker
+    tile, mover, lattice), grid (ceil(W/32), K, L), of (32, nw) threads,
+    nw warps enough for a cell's cap slots at ENERGIES_SLOTS_PER_WARP
+    each (at most ENERGIES_WARPS_MAX).  Block (x, y, z) takes the
+    walkers 32 x + lane of mover y in lattice z; its warp wy, cell after
+    cell, the slots p nw S + wy + nw q (q < S = ENERGIES_SLOTS_PER_WARP)
+    below cap of pass p < ceil(cap / (nw S)).  The warps' sums are added
+    in warp order."""
+    nw = max(1, min(ENERGIES_WARPS_MAX,
+                    -(-cap // ENERGIES_SLOTS_PER_WARP)))
+    return (-(-W // 32), K, L), (32, nw)
 
 
 class PointsArgs(ctypes.Structure):
@@ -212,6 +233,24 @@ class MoverEnergiesKernel(_MoverKernel):
         self.with_deltas = bool(with_deltas)
         self.name = ("mover_energies_deltas" if self.with_deltas
                      else "mover_energies")
+        # warps per block of the energies kernel (energies_geometry)
+        self.en_warps = energies_geometry(1, 1, self.CF, self.cap, 1)[1][1]
+
+    def occupancy(self, dtype, L, K, W):
+        """The energies kernel (without deltas) at L lattices, K movers
+        and W walkers, from the CUDA runtime: a dict of registers and
+        spill (local) bytes per thread, blocks resident on one SM,
+        dynamic shared bytes per block and blocks."""
+        fn = cuda_build.bind("cell_movers", "mover_energies_occupancy",
+                             [ctypes.c_int, ctypes.POINTER(MoverArgs),
+                              ctypes.POINTER(ctypes.c_int)])
+        args = MoverArgs(L=L, K=K, CF=self.CF, cap=self.cap, W=W,
+                         en_warps=self.en_warps)
+        out = (ctypes.c_int * 5)()
+        err = fn(int(dtype == torch.float64), ctypes.byref(args), out)
+        cuda_build.check(err, "mover_energies occupancy")
+        return dict(zip(("registers", "spill_bytes", "blocks_per_sm",
+                         "smem_bytes", "blocks"), out))
 
     def plain(self, pks, h, cand, off, fc, rank, p_old, p_new):
         e, own, dlt = [], [], []
@@ -236,6 +275,7 @@ class MoverEnergiesKernel(_MoverKernel):
         own = torch.empty((L, K, 10, W), dtype=dtype, device=dev)
         args.e, args.own = e.data_ptr(), own.data_ptr()
         if not self.with_deltas:
+            args.en_warps = self.en_warps
             self._launch("energies", args, dtype, dev)
             return e, own
         # every slot is written by the kernel: no zero fill

@@ -48,6 +48,7 @@ from mc_water_ls_mw_tpu_torch.ops.cell_kernels import (
 from mc_water_ls_mw_tpu_torch.ops.cells import PK_ROWS, PK_VALID
 
 from .test_torch_cells import cell_run_params, jax_cell_system, jitter_slab, tt
+from .test_torch_chain_plan import chain_inputs, poison_point
 
 
 def pack_lattice(st, cg, l):
@@ -212,63 +213,6 @@ def test_mover_apply_plain_matches_pallas(movers):
                        tt(m["p_old"]), tt(m["p_new"]), own)
     for l in range(2):
         assert torch.equal(again[l], pks[l])
-
-
-def chain_inputs(K, T, W, B, seed):
-    """Random but plausible inputs of one chain pass (numpy dict)."""
-    rng = np.random.default_rng(seed)
-    P = T + 1
-    beta = 1.0 / (3.1668114e-6 * 200.0)
-    cf = np.zeros((ck.CF_ROWS, W))
-    cf[ck.CF_MU] = rng.normal(0, 8.0, W)
-    cf[ck.CF_E0] = -159.0 + rng.normal(0, 0.01, W)
-    cf[ck.CF_E1] = -159.0 + rng.normal(0, 0.01, W)
-    cf[ck.CF_E0E] = rng.normal(0, 1e-9, W)
-    cf[ck.CF_E1E] = rng.normal(0, 1e-9, W)
-    cf[ck.CF_F] = 0.05
-    cf[ck.CF_MIN_DMU] = np.inf
-    cf[ck.CF_MU_MIN], cf[ck.CF_MU_MAX] = -1200.0, 1200.0
-    cf[ck.CF_CMU] = rng.normal(0, 1.0, W)
-    cf[ck.CF_SWC] = -cf[ck.CF_CMU]
-    ci = np.zeros((ck.CI_ROWS, W), np.int32)
-    ci[ck.CI_LS] = rng.integers(0, 2, W)
-    ci[ck.CI_END] = B - 1
-    ci[ck.CI_INWIN] = 1
-    ci[ck.CI_OCCOK] = 1
-    ci[ck.CI_OCCOK, -1] = 0           # one walker with an overflowed slab
-    ci[ck.CI_SWOK] = 1
-    e = -0.05 + rng.normal(0, 1.0 / beta, (2, K, P, W))
-    if T == 1:
-        # an overlap proposal: never accepted (with more points per mover
-        # a non-finite point poisons all of the mover's trials:
-        # test_chain_nonfinite_point_matches_pallas)
-        e[0, 0, 1, 0] = np.inf
-    codes = rng.choice([0, 0, 0, 0, 2, 1, 3], K * T).astype(np.int32)
-    codes[:2] = (0, 2)
-    return dict(
-        codes=codes, cf=cf, ci=ci,
-        wgt=rng.uniform(0, 0.3, (B, W)), hist=rng.uniform(0, 5, (B, W)),
-        uh=rng.uniform(0, 5, (B, W)),
-        basew=np.repeat(2e-4 * (np.arange(B) - B // 2.0)[:, None] ** 2, W, 1),
-        baseh=np.zeros((B, W)),
-        e=e.reshape(2 * K * P, W),
-        inc=(rng.uniform(size=(K * P, W)) < 0.9).astype(float),
-        hasm=(rng.uniform(size=(K, W)) < 0.9).astype(float),
-        ua=rng.uniform(size=(K * T, W)), uz=rng.uniform(size=(K * T, W)))
-
-
-def poison_point(x, K, T):
-    """Give point 2 of mover 1 of walker 0 an infinite energy in the
-    chain inputs ``x`` (T >= 2), with both of that mover's trials
-    enabled translations inside the cell and its first accept uniform 0:
-    a direct read of the current point's energy would accept that first
-    trial, the JAX kernel's one-hot sum over the points poisons it."""
-    P = T + 1
-    x["e"].reshape(2, K, P, -1)[0, 1, 2, 0] = np.inf
-    x["codes"][T:2 * T] = 0                           # mover 1: translations
-    x["inc"].reshape(K, P, -1)[1, :, 0] = 1.0
-    x["hasm"][1, 0] = 1.0
-    x["ua"][1 * T, 0] = 0.0
 
 
 @functools.lru_cache(maxsize=None)

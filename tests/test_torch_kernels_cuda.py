@@ -317,3 +317,108 @@ def test_mover_energies_deltas_kernel_fp64(scatter_engine, tbl):
     assert sub["cf_rel"] <= 1e-10 and sub["wl_rel"] <= 1e-10
     assert 0 < sub["n_acc"] < sub["n_enabled"]
     assert sub["repeat_equal"]                  # the scatter's determinism
+
+
+# ---- the chain + WL kernel on synthetic point tables (chain_inputs of
+# tests/test_torch_chain_plan.py), float64, at card width: a walker count
+# that is a multiple of neither the staged plan's walkers per block (4)
+# nor the in-place branch's (32), so both ragged edges are masked
+
+W_CHAIN = 517
+
+
+def _edge_walkers(x, B):
+    """Walkers at the edges of the bin grid and of their windows in the
+    chain inputs ``x``: mu beyond the bin range on both sides (inside
+    and outside the walker's window), windows a few mu units wide that
+    the trials cross, a walker outside its window, and one whose window
+    ends at interior bins (eta's one-sided gradients there)."""
+    from mc_water_ls_mw_tpu_torch.mcmc import chain_kernel as ck
+
+    cf, ci = x["cf"], x["ci"]
+    cf[ck.CF_MU, 1:5] = (1300.0, -1300.0, 1250.0, -1250.0)
+    cf[ck.CF_MU_MAX, 3], cf[ck.CF_MU_MIN, 4] = 1400.0, -1400.0
+    mu = cf[ck.CF_MU, 5:40]
+    cf[ck.CF_MU_MIN, 5:40], cf[ck.CF_MU_MAX, 5:40] = mu - 1.5, mu + 1.5
+    ci[ck.CI_INWIN, 40] = 0
+    ci[ck.CI_START, 41:60], ci[ck.CI_END, 41:60] = B // 2 - 3, B // 2 + 3
+
+
+def _chain_on_card(samplerun, T, K, in_place):
+    import numpy as np
+
+    from mc_water_ls_mw_tpu_torch.mcmc import chain_kernel as ck
+    from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
+
+    from tests.test_torch_chain_plan import chain_inputs, poison_point
+
+    B = 201
+    x = chain_inputs(K, T, W_CHAIN, B, seed=31 + T + K)
+    if T >= 2:
+        poison_point(x, K, T)
+    _edge_walkers(x, B)
+    prm = chip_smoke.cell_params(W_CHAIN, "float64", samplerun=samplerun,
+                                 wl_factor=0.0 if samplerun else 0.05,
+                                 cell_trials=T)
+    kern = ck.ChainWLKernel(prm, build_bin_grid(B, -1200.0, 1200.0), K, T,
+                            3.0)
+    plan = kern.plan(torch.float64, W_CHAIN)
+    assert plan.staged and plan.wpb == 4
+    if in_place:
+        inplace = ck.in_place_plan(8, B, K, T, W_CHAIN, samplerun)
+        kern.plan = lambda dtype, W_: inplace
+    dev = chip_smoke.DEVICE
+    t = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+         for k, v in x.items()}
+    kk = {k: v.clone() for k, v in t.items()}
+    pp = {k: v.clone() for k, v in t.items()}
+    names = ("codes", "cf", "ci", "wgt", "hist", "uh", "basew", "e", "inc",
+             "hasm", "ua", "uz")
+    joh_k, cnt_k = kern(kk["codes"], True, *(kk[n] for n in names[1:]))
+    joh_p, cnt_p = kern.plain(pp["codes"], True, *(pp[n] for n in names[1:]))
+    torch.cuda.synchronize()
+    assert kern.launches == 1
+    assert torch.equal(kk["ci"], pp["ci"])
+    assert torch.equal(cnt_k, cnt_p) and torch.equal(joh_k, joh_p)
+    for n in ("cf", "wgt", "hist", "uh"):
+        assert chip_smoke._max_abs(kk[n], pp[n]) <= 1e-10, n
+    # the pass did something of every kind
+    c = cnt_p.cpu().numpy()
+    assert c[ck.CN_EN].sum() > c[ck.CN_ACC].sum() > 0
+    assert c[ck.CN_SWEN].sum() > 0
+    grew = (kk["hist"] != t["hist"]).any(dim=0).cpu().numpy()
+    assert not grew[-1]                        # the overflowed walker
+    slab, still = ("uh", "wgt") if samplerun else ("wgt", "uh")
+    assert not torch.equal(kk[slab], t[slab])
+    assert torch.equal(kk[still], t[still])
+    if T >= 2:                                 # the poisoned mover
+        P = T + 1
+        assert joh_k.view(K, P, -1)[1, :, 0].tolist() == [1.0] + [0.0] * T
+
+
+@pytest.mark.parametrize("in_place", [False, True], ids=["staged",
+                                                         "in_place"])
+@pytest.mark.parametrize("samplerun,T,K", [
+    (False, 1, 8), (True, 1, 8), (False, 1, 32), (False, 8, 8),
+    (True, 8, 8)], ids=["wl_live", "samplerun", "k32", "t8",
+                        "t8_samplerun"])
+def test_chain_wl_kernel_synthetic_fp64(card, samplerun, T, K, in_place):
+    _chain_on_card(samplerun, T, K, in_place)
+
+
+def test_chain_wl_launch_after_a_smaller_plans_occupancy(card):
+    """The dynamic shared-memory limit is an attribute of the kernel
+    function, which the occupancy query sets to its own plan's bytes: a
+    query at a small plan (21 bins, one mover) must not keep a later
+    launch of a larger one (201 bins, 8 movers) from running right."""
+    from mc_water_ls_mw_tpu_torch.mcmc import chain_kernel as ck
+    from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
+
+    small = ck.ChainWLKernel(chip_smoke.cell_params(4, "float64"),
+                             build_bin_grid(21, -1200.0, 1200.0), 1, 1, 3.0)
+    occ = small.occupancy(torch.float64, 4)
+    assert occ["smem_bytes"] < ck.ChainWLKernel(
+        chip_smoke.cell_params(W_CHAIN, "float64"),
+        build_bin_grid(201, -1200.0, 1200.0), 8, 1, 3.0).plan(
+            torch.float64, W_CHAIN).smem
+    _chain_on_card(False, 1, 8, False)
