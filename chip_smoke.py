@@ -79,8 +79,11 @@ Phases (each exits non-zero on failure):
    the chain + WL kernel at T=8 against their plain versions on one
    sub-step of the N=8064 pair after a cycle of sampling (float64 at
    W=16: every integer output identical, energies and own moments
-   within 1e-10; float32 at W=128: the tolerances below), with their
-   times and bounds, and the mover-apply kernel at this shape (phase
+   within 1e-10; float32 at W=128: the tolerances below; the points
+   kernel launched twice with bitwise-equal results), with their
+   times and bounds, the points kernel also at 3 and 5 points (T = 2
+   and 4) on the first points of that proposal, and the mover-apply
+   kernel at this shape (phase
    9's) with the chain's accepts (float64 also with every mover
    accepted and every mover rejected: moment rows within 1e-10, every
    other slab entry bitwise equal);
@@ -169,6 +172,9 @@ F32_CHAIN_RTOL = 1e-6
 # ---- the multi-trial sub-step (cell_trials = 8, the Wang-Landau
 # production runs runs/n8064_wl and runs/n8064_wl2)
 MT_TRIALS = 8
+# the points kernel's point counts checked beside T + 1 = 9 (cell_trials
+# 2 and 4)
+MT_POINTS = (3, 5)
 # the dense multi-trial branch (dense_trials = 8, path C at 2, 4, 8)
 MULTI_T = 8
 MULTI_TS = (2, 4, MULTI_T)
@@ -1373,6 +1379,8 @@ def multitrial_compare(eng, s, tbl, seed, time_reps=0):
         fail("the proposal did not launch the mover-points kernel")
     pargs = (pks, s.h, cand, off, fc, trial.rank, trial.pts)
     pe, pown = eng.points_kernel.plain(*pargs)
+    # launched again: the groups' sums are added in a fixed order
+    re_, rown = eng.points_kernel(*pargs)
     torch.cuda.synchronize()
     # what the bound needs, summed over (lattice, mover, walker)
     n_occ = n_any = n_legs = 0
@@ -1394,6 +1402,8 @@ def multitrial_compare(eng, s, tbl, seed, time_reps=0):
         n_any += int(anyp.sum())
     out["mover_points"] = dict(
         e_err=_max_abs(trial.e, pe), own_err=_max_abs(trial.own, pown),
+        repeat_equal=torch.equal(trial.e, re_) and torch.equal(trial.own,
+                                                               rown),
         n_occ=n_occ, n_any=n_any, n_legs=n_legs,
         n_movers=int(trial.hasm.sum()),
         dE_max=float(torch.max(torch.abs(pe[:, :, 1:] - pe[:, :, :1]))))
@@ -1410,6 +1420,42 @@ def multitrial_compare(eng, s, tbl, seed, time_reps=0):
         t["ms"] = cuda_ms(lambda: chain(eng.chain_kernel, bk), time_reps,
                           True)
         t["plain_ms"] = cuda_ms(lambda: chain(eng.chain_kernel.plain, bp), 3)
+    return out
+
+
+def points_compare(eng, s, tbl, seed, P, time_reps=0):
+    """The points kernel at P <= T + 1 points (cell_trials P - 1) on the
+    first P points of the engine's own proposal of table row ``tbl`` (an
+    engine at cell_trials = T > 1) against its plain version, launched
+    twice (the groups' sums are added in a fixed order: the two results
+    must be bitwise equal).  ``s`` is left as it is.  Returns the
+    errors, the repeat's equality, the plan and, with ``time_reps``,
+    milliseconds of kernel and plain version."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.ops.cell_kernels import MoverPointsKernel
+
+    K, T, W = eng.K, eng.T, s.r.shape[-1]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    u = torch.rand((4 + 3 * T, K, W), generator=gen, dtype=s.r.dtype,
+                   device=DEVICE)
+    pks = eng._pack(s)
+    fc, cand, off = eng._tables(tbl)
+    trial = eng._propose_tm(s, pks, tbl, u, eng._loop_rows(s))
+    kern = MoverPointsKernel(eng.model, eng.cellgrid, P)
+    args = (pks, s.h, cand, off, fc, trial.rank,
+            trial.pts[:P].contiguous())
+    e, own = kern(*args)
+    e2, own2 = kern(*args)
+    pe, pown = kern.plain(*args)
+    torch.cuda.synchronize()
+    out = dict(e_err=_max_abs(e, pe), own_err=_max_abs(own, pown),
+               repeat_equal=torch.equal(e, e2) and torch.equal(own, own2),
+               plan=kern.plan(s.r.dtype, len(pks), K, W))
+    if time_reps:
+        out["ms"] = cuda_ms(lambda: kern(*args), time_reps, True)
+        out["plain_ms"] = cuda_ms(lambda: kern.plain(*args), 3)
     return out
 
 
@@ -2192,13 +2238,15 @@ def main() -> int:
     fe_plain_ms = cuda_ms(lambda: fe.plain(r3, H), 3)
     fe_bound_ms, fe_bound_by = full_energy_bound(r3, H, len(shifts))
     e_k, _ = fe(r3, H)
+    fe_occ = fe.occupancy(torch.float32, r3.shape[1], W)
     report["full_energy"] = dict(
         max_abs_err=float(torch.max(torch.abs(e_k - e_p))),
         ms=fe_ms, plain_ms=fe_plain_ms, bound_ms=fe_bound_ms,
-        bound_by=fe_bound_by)
+        bound_by=fe_bound_by, **occupancy_keys(fe_occ))
     print(f"[full_energy] f32 W={W}: kernel {fe_ms:.3f} ms, plain "
           f"{fe_plain_ms:.3f} ms, bound {fe_bound_ms:.4f} ms "
-          f"({fe_bound_by})", flush=True)
+          f"({fe_bound_by}); {fe.plan(torch.float32, r3.shape[1], W)}; "
+          f"{occupancy_text(fe_occ)}", flush=True)
 
     # three folded shifts: the N=48 cells of the (1,2,6) stacking pair
     shifts48 = reduced_shift_set(stacking_switch_pair(1, 2, 6)[1], MW)
@@ -2629,7 +2677,7 @@ def main() -> int:
                   "trials accepted", flush=True)
             if dtype == "float64":
                 if not (mp["e_err"] <= 1e-10 and mp["own_err"] <= 1e-10
-                        and mp["dE_max"] > 0):
+                        and mp["dE_max"] > 0 and mp["repeat_equal"]):
                     fail("mover_points fp64 disagrees with its plain "
                          "version")
                 if ch["differ"].any() or not (
@@ -2641,7 +2689,7 @@ def main() -> int:
                 continue
             if not (mp["e_err"] <= F32_MOVER_E_ATOL
                     and mp["own_err"] <= F32_MOVER_MOM_ATOL
-                    and mp["dE_max"] > 0):
+                    and mp["dE_max"] > 0 and mp["repeat_equal"]):
                 fail("mover_points f32 disagrees with its plain version")
             if frac > F32_MAX_DIFF_FRAC or not (
                     ch["cf_rel"] <= F32_CHAIN_RTOL
@@ -2652,7 +2700,9 @@ def main() -> int:
             report["mover_points"] = dict(
                 max_abs_err=max(mp["e_err"], mp["own_err"]), ms=mp["ms"],
                 plain_ms=mp["plain_ms"], bound_ms=bounds["mover_points"][0],
-                bound_by=bounds["mover_points"][1])
+                bound_by=bounds["mover_points"][1], **occupancy_keys(
+                    eng.points_kernel.occupancy(torch.float32, 2, eng.K,
+                                                Wm)))
             report[CHAIN_T8] = dict(
                 max_abs_err=max(ch["cf_err"], ch["wl_err"]), ms=ch["ms"],
                 plain_ms=ch["plain_ms"], bound_ms=bounds["chain_wl"][0],
@@ -2664,6 +2714,24 @@ def main() -> int:
                       f"{t['ms']:.4f} ms/launch, plain {t['plain_ms']:.3f} "
                       f"ms, bound {bounds[name][0]:.6f} ms "
                       f"({bounds[name][1]})", flush=True)
+        # the points kernel at P = 3 and 5 (cell_trials 2 and 4) on the
+        # first points of the engine's own proposal
+        for P in MT_POINTS:
+            pc = points_compare(eng, s, 5, seed=500 + P, P=P,
+                                time_reps=reps)
+            print(f"[multi] mover_points {dtype} W={Wm} T={P - 1}: energies "
+                  f"err {pc['e_err']:.3e} Hartree, own moments err "
+                  f"{pc['own_err']:.3e}, repeat bitwise equal "
+                  f"{pc['repeat_equal']}"
+                  + (f"; kernel {pc['ms']:.4f} ms/launch, plain "
+                     f"{pc['plain_ms']:.3f} ms; {pc['plan']}"
+                     if reps else ""), flush=True)
+            tol_e, tol_m = ((1e-10, 1e-10) if dtype == "float64"
+                            else (F32_MOVER_E_ATOL, F32_MOVER_MOM_ATOL))
+            if not (pc["e_err"] <= tol_e and pc["own_err"] <= tol_m
+                    and pc["repeat_equal"]):
+                fail(f"mover_points {dtype} at T={P - 1} disagrees with its "
+                     "plain version")
         # the apply kernel at this shape (the front-end path's), with the
         # chain kernel's accepts; in float64 also with every mover
         # accepted and with every mover rejected

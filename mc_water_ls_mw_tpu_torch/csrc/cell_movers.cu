@@ -703,24 +703,50 @@ mover_apply_kernel(const MoverArgs a) {
 // ---------------------------------------------------------------------
 // mover_points: the multi-trial sub-step's energies at P points.
 //
-// What bounds it on the H100: at P = 9 the operations more than the
-// bytes.  The stencil is read as by mover_energies (every candidate
-// slot's flag, the coordinates of the occupied ones, the moment rows of
-// the slots in range of some point) and ONCE for all P points: a warp
-// loads a slot's rows, then tests the slot against each point; only the
-// ~13 slots in range of a point cost a leg and a wing term there.  The
-// TPU kernel keeps 13 running sums per point in VMEM scratch (13 P rows
-// of [cap, walker block]); here they would be 117 registers a thread at
-// P = 9 (234 in float64) and spill, so each thread keeps its partial
-// sums in its own column of shared memory, [warp][point][13][lane]
-// (touched only for in-range legs), and the points of its walker there
-// too.  The warps of a block are reduced in a fixed order as in
-// mover_energies; warp y then finishes points y, y + nw, ...  The number
-// of warps nw is chosen by the host so that the block's shared memory
-// stays under ~108 KB (two blocks per SM).
+// What bounds it on the H100: bytes, then latency.  The stencil is read
+// as by mover_energies (every candidate slot's flag, the coordinates of
+// the occupied ones, the moment rows of the slots in range of some
+// point) and ONCE for all P points; only the ~13 slots in range of a
+// point cost a leg and a wing term there.
+//
+// Its first design (a block per (32-walker tile, mover, lattice), 7
+// warps at P = 9 each walking 27 cells x 5 slots one after another and
+// keeping its P x 13 running sums per lane in shared memory) took 0.154
+// ms per launch at K=8, CF=27, cap=32, T=8, W=128 in f32 on an H100 80GB
+// HBM3 at 700 W, against a bound of 0.0056 ms: 64 blocks on 132 SMs,
+// and each slot's loads issued only after the previous slot's branch
+// resolved.
+//
+// Design: the grid also runs over groups of ``cpg`` candidate cells, a
+// block per (walker tile, mover x cell group, lattice)
+// (ops/cell_kernels.points_geometry mirrors it): 576 blocks at that
+// shape.  The block stages its group's slots in shared memory: every
+// thread issues the flag copies of its slots together (cp.async), then,
+// once they have landed, the coordinates of its occupied slots only,
+// and lists the slots within rc + (the farthest point's distance from
+// point 0) of point 0 (by the triangle inequality, every slot in range
+// of some point is among them).  Each warp then owns points t = wy, wy
+// + nw, ... and keeps that point's 13 sums (pair, w^2, wing, own
+// moments) in registers while it walks its lane's near slots (every
+// staging thread's list in turn): the warp takes its lanes' n-th near
+// slots together, whatever slots they are.  Lane = walker, and each
+// walker packs its cells in its own slot order, so walking the slots
+// themselves diverged: for nearly every occupied slot some lane was in
+// range, and the warp paid the leg arithmetic for it (0.071 ms without
+// the lists, 0.054 with them).  A near slot in range of the point
+// reads its ten moment rows.  The group's sums go to a scratch buffer
+// [L, K, groups, P, 13, W]; the last block of a (tile, mover, lattice)
+// to finish (an atomic ticket after __threadfence, reset by that block)
+// adds the groups in index order, their loads in flight together, and
+// writes e and own, so the result does not depend on which block
+// finishes last, in one launch.  At least 8 warps stage (T = 2 and 4
+// have fewer points than that), at most 9; at most 72 registers in f32,
+// so that three blocks share an SM.  The arithmetic per leg is the
+// first design's; only the order of the sums over slots changed.
 // ---------------------------------------------------------------------
 
 constexpr int NPA = 13;  // per point: pair, w^2, wing, own moments [10]
+constexpr int PT_WARPS_MAX = 9;
 
 // Mirror of the ctypes structure PointsArgs in ops/cell_kernels.py.
 struct PointsArgs {
@@ -735,119 +761,230 @@ struct PointsArgs {
   void* own;    // [L,K,P,10,W] out: own moments at every point
   int L, K, CF, cap, W, P, nw;
   SWConsts sw;
+  void* part;   // [L,K,ng,P,NPA,W] scratch: the groups' sums
+  int* ticket;  // [L,K,tiles] blocks done; 0 between launches
+  int cpg, ng;  // candidate cells per group, groups per mover
 };
 
+// At most 72 registers a thread in f32, so that three blocks of 9 warps
+// share an SM.
 template <typename T>
-__global__ void __launch_bounds__(32 * NW)
+__global__ void __launch_bounds__(32 * PT_WARPS_MAX, sizeof(T) == 4 ? 3 : 2)
 mover_points_kernel(const PointsArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int P = a.P, nw = a.nw;
+  __shared__ int s_last;
+  const int P = a.P, nw = a.nw, cpg = a.cpg, ng = a.ng;
   const int lane = threadIdx.x, wy = threadIdx.y;
-  const int k = blockIdx.y, l = blockIdx.z;
   const int W = a.W, K = a.K, L = a.L, CF = a.CF, cap = a.cap;
-  const size_t nacc = (size_t)P * NPA * 32;  // one warp's partial sums
-  T* acc = reinterpret_cast<T*>(smem);        // [nw][P][NPA][32]
-  T* spt = acc + nw * nacc;                   // [P][3][32]
+  const int k = blockIdx.y / ng, g = blockIdx.y - k * ng, l = blockIdx.z;
+  const int c0 = g * cpg, nc = min(cpg, CF - c0), nslot = nc * cap;
+  const int qmax = (cpg * cap + nw - 1) / nw;  // slots a thread stages
+  T* s_flag = reinterpret_cast<T*>(smem);             // [cpg cap][32]
+  T* s_xyz = s_flag + (size_t)cpg * cap * 32;         // [cpg cap][3][32]
+  T* s_sh = s_xyz + (size_t)cpg * cap * 3 * 32;       // [cpg][3][32]
+  T* s_d2 = s_sh + (size_t)cpg * 3 * 32;              // [nw][32]
+  int* s_cnt = reinterpret_cast<int*>(s_d2 + (size_t)nw * 32);  // [nw][32]
+  unsigned short* s_near =
+      reinterpret_cast<unsigned short*>(s_cnt + nw * 32);  // [nw][qmax][32]
   const int w_raw = blockIdx.x * 32 + lane;
   // ragged edge: lanes beyond W repeat the last walker and store nothing
   const int w = w_raw < W ? w_raw : W - 1;
+  const size_t row = (size_t)cap * W;
+  const T* pk = static_cast<const T*>(a.pk[l]) + w;
+  const int* cand = static_cast<const int*>(a.cand) + (size_t)k * CF + c0;
+
+  // the flags of this thread's slots s = wy + nw q (cell s / cap, slot
+  // s % cap), all in flight together, then the coordinates of the
+  // occupied ones
+  for (int s = wy; s < nslot; s += nw) {
+    const int ci = s / cap, j = s - ci * cap;
+    cp_async_elem(s_flag + (size_t)s * 32 + lane,
+                  pk + ((size_t)__ldg(cand + ci) * PK_ROWS + PK_VALID) * row
+                      + (size_t)j * W);
+  }
+  cp_async_commit();
   const SW<T> sw(a.sw);
-  const T* pk = static_cast<const T*>(a.pk[l]);
-  const int rank = static_cast<const int*>(a.rank)[(size_t)k * W + w];
-  const int fcell = static_cast<const int*>(a.fc)[k];
-  const int* cand = static_cast<const int*>(a.cand) + (size_t)k * CF;
-  const int* off = static_cast<const int*>(a.off) + (size_t)k * CF * 3;
-  MoverCtx<T> c;  // for cell_shift: the cell matrix
-  const T* h = static_cast<const T*>(a.h);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      c.H[i][j] = h[((size_t)(l * 3 + i) * 3 + j) * W + w];
+  const int rank = __ldg(static_cast<const int*>(a.rank) + (size_t)k * W + w);
+  const int fcell = __ldg(static_cast<const int*>(a.fc) + k);
+  const int* off = static_cast<const int*>(a.off) + ((size_t)k * CF + c0) * 3;
   const T* pts = static_cast<const T*>(a.pts);
-  for (int i = wy; i < 3 * P; i += nw)
-    spt[i * 32 + lane] =
-        pts[(((size_t)(i / 3) * L + l) * 3 + i % 3) * K * W + (size_t)k * W + w];
-  T* mine = acc + wy * nacc + lane;
-  for (int i = 0; i < P * NPA; ++i) mine[i * 32] = (T)0;
+  auto point = [&](int t, T p[3]) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      p[i] = pts[(((size_t)t * L + l) * 3 + i) * K * W + (size_t)k * W + w];
+  };
+  T p0[3];
+  point(0, p0);
+  T reach2;  // a slot in range of any point is within this of point 0
+  {
+    MoverCtx<T> c;  // for cell_shift: the cell matrix
+    const T* h = static_cast<const T*>(a.h);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        c.H[i][j] = h[((size_t)(l * 3 + i) * 3 + j) * W + w];
+    if (wy == 0) {
+      for (int ci = 0; ci < nc; ++ci) {
+        T sh[3];
+        cell_shift(c, off + ci * 3, sh);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) s_sh[(ci * 3 + i) * 32 + lane] = sh[i];
+      }
+    }
+    // the farthest point from point 0, squared: each warp its own
+    // points, then the block's maximum (the flags are in flight)
+    T d2 = (T)0;
+    for (int t = wy; t < P; t += nw) {
+      T pt[3];
+      point(t, pt);
+      const T d[3] = {pt[0] - p0[0], pt[1] - p0[1], pt[2] - p0[2]};
+      d2 = fmax(d2, d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+    }
+    s_d2[wy * 32 + lane] = d2;
+    __syncthreads();
+    for (int y = 0; y < nw; ++y) d2 = fmax(d2, s_d2[y * 32 + lane]);
+    // (triangle inequality, widened far beyond round-off)
+    const T reach = sw.rc + sqrt(d2);
+    reach2 = reach * reach * (T)1.001;
+    cp_async_wait_all();
+    for (int s = wy; s < nslot; s += nw) {
+      if (!(s_flag[(size_t)s * 32 + lane] > (T)0.5)) continue;
+      const int ci = s / cap, j = s - ci * cap;
+      const T* at = pk + ((size_t)__ldg(cand + ci) * PK_ROWS + PK_R0) * row
+                    + (size_t)j * W;
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        cp_async_elem(s_xyz + ((size_t)s * 3 + i) * 32 + lane, at + i * row);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    // this thread's occupied slots near point 0 (not the mover itself),
+    // in order: the points' warps take only these
+    int n = 0;
+    int ci_sh = -1;
+    T sh[3];
+    for (int s = wy; s < nslot; s += nw) {
+      if (!(s_flag[(size_t)s * 32 + lane] > (T)0.5)) continue;
+      const int ci = s / cap, j = s - ci * cap;
+      if (__ldg(cand + ci) == fcell && j == rank) continue;  // the mover
+      if (ci != ci_sh) {
+        cell_shift(c, off + ci * 3, sh);
+        ci_sh = ci;
+      }
+      const T* xyz = s_xyz + (size_t)s * 3 * 32 + lane;
+      const T d[3] = {xyz[0] + sh[0] - p0[0], xyz[32] + sh[1] - p0[1],
+                      xyz[64] + sh[2] - p0[2]};
+      if (d[0] * d[0] + d[1] * d[1] + d[2] * d[2] < reach2)
+        s_near[((size_t)wy * qmax + n++) * 32 + lane] = (unsigned short)s;
+    }
+    s_cnt[wy * 32 + lane] = n;
+  }
   __syncthreads();
 
-  const size_t row = (size_t)cap * W;
-  for (int ci = 0; ci < CF; ++ci) {
-    const int cid = cand[ci];
-    const bool self_cell = cid == fcell;
-    T sh[3];
-    cell_shift(c, off + ci * 3, sh);
-    for (int j = wy; j < cap; j += nw) {
-      const size_t base = ((size_t)cid * PK_ROWS * cap + j) * W + w;
-      const T valid = pk[base + PK_VALID * row];
-      const T cj[3] = {pk[base + (PK_R0 + 0) * row] + sh[0],
-                       pk[base + (PK_R0 + 1) * row] + sh[1],
-                       pk[base + (PK_R0 + 2) * row] + sh[2]};
-      if (!(valid > (T)0.5) || (self_cell && j == rank)) continue;
-      const T p0[3] = {spt[0 * 32 + lane], spt[1 * 32 + lane],
-                       spt[2 * 32 + lane]};
-      const Leg<T> g0 = leg_at(cj, p0, sw);
-      T mj[10];
-      bool loaded = false;
-      for (int t = 0; t < P; ++t) {
-        Leg<T> g = g0;
-        if (t > 0) {
-          const T pt[3] = {spt[(3 * t + 0) * 32 + lane],
-                           spt[(3 * t + 1) * 32 + lane],
-                           spt[(3 * t + 2) * 32 + lane]};
-          g = leg_at(cj, pt, sw);
-        }
-        if (!g.in) continue;
-        if (!loaded) {
+  T* part = static_cast<T*>(a.part)
+          + ((size_t)(l * K + k) * ng + g) * P * NPA * W + w;
+  for (int t = wy; t < P; t += nw) {
+    T pt[3];
+    point(t, pt);
+    T acc[NPA];
 #pragma unroll
-          for (int f = 0; f < 10; ++f) mj[f] = pk[base + (size_t)f * row];
-          loaded = true;
-        }
-        T* at = mine + (size_t)t * NPA * 32;
-        at[0] += g.pair;
-        at[32] += g.w * g.w;
-        if (t == 0) {
-          at[64] += wing(g, mj, sw);
-        } else {
-          // world(t): the neighbour's moments with the mover's leg moved
-          // from point 0 to point t
-          T eff[10];
-#pragma unroll
-          for (int f = 0; f < 10; ++f) eff[f] = mj[f];
-          moved_moments(eff, g0, g);
-          at[64] += wing(g, eff, sw);
-        }
-        const T wux = g.w * g.ux, wuy = g.w * g.uy, wuz = g.w * g.uz;
-        at[3 * 32] += g.w;
-        at[4 * 32] += wux;
-        at[5 * 32] += wuy;
-        at[6 * 32] += wuz;
-        at[7 * 32] += wux * g.ux;
-        at[8 * 32] += wuy * g.uy;
-        at[9 * 32] += wuz * g.uz;
-        at[10 * 32] += wux * g.uy;
-        at[11 * 32] += wux * g.uz;
-        at[12 * 32] += wuy * g.uz;
+    for (int f = 0; f < NPA; ++f) acc[f] = (T)0;
+    // the near slots of this lane, every staging thread's list in turn:
+    // the warp takes its lanes' n-th slots together, whatever they are
+    int total = 0;
+    for (int y = 0; y < nw; ++y) total += s_cnt[y * 32 + lane];
+    const int n_max = __reduce_max_sync(0xffffffffu, total);
+    for (int n = 0, y = 0, q = 0; n < n_max; ++n) {
+      if (n >= total) continue;
+      while (q >= s_cnt[y * 32 + lane]) {
+        ++y;
+        q = 0;
       }
+      const int s = s_near[((size_t)y * qmax + q++) * 32 + lane];
+      const int ci = s / cap, j = s - ci * cap;
+      const T* xyz = s_xyz + (size_t)s * 3 * 32 + lane;
+      const T* sh = s_sh + ci * 3 * 32 + lane;
+      const T cj[3] = {xyz[0] + sh[0], xyz[32] + sh[32], xyz[64] + sh[64]};
+      // leg_at(cj, pt), its moment rows requested before its arithmetic
+      const T d[3] = {cj[0] - pt[0], cj[1] - pt[1], cj[2] - pt[2]};
+      const T r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+      if (!(r2 < sw.rc2)) continue;
+      T mj[10];
+      const T* at = pk + (size_t)__ldg(cand + ci) * PK_ROWS * row
+                  + (size_t)j * W;
+#pragma unroll
+      for (int f = 0; f < 10; ++f) mj[f] = __ldg(at + (size_t)f * row);
+      const Leg<T> gl = leg_in_range(d, r2, sw);
+      acc[0] += gl.pair;
+      acc[1] += gl.w * gl.w;
+      if (t == 0) {
+        acc[2] += wing(gl, mj, sw);
+      } else {
+        // world(t): the neighbour's moments with the mover's leg moved
+        // from point 0 to point t
+        moved_moments(mj, leg_at(cj, p0, sw), gl);
+        acc[2] += wing(gl, mj, sw);
+      }
+      const T wux = gl.w * gl.ux, wuy = gl.w * gl.uy, wuz = gl.w * gl.uz;
+      acc[3] += gl.w;
+      acc[4] += wux;
+      acc[5] += wuy;
+      acc[6] += wuz;
+      acc[7] += wux * gl.ux;
+      acc[8] += wuy * gl.uy;
+      acc[9] += wuz * gl.uz;
+      acc[10] += wux * gl.uy;
+      acc[11] += wux * gl.uz;
+      acc[12] += wuy * gl.uz;
+    }
+    if (w_raw < W) {
+#pragma unroll
+      for (int f = 0; f < NPA; ++f)
+        part[((size_t)t * NPA + f) * W] = acc[f];
     }
   }
 
-  // the warps' partial sums, reduced in a fixed order
+  // the last block of this (tile, mover, lattice) adds the groups in
+  // index order
+  __threadfence();
   __syncthreads();
-  for (size_t i = (size_t)wy * 32 + lane; i < nacc; i += (size_t)nw * 32) {
-    T sum = acc[i];
-    for (int y = 1; y < nw; ++y) sum += acc[(size_t)y * nacc + i];
-    acc[i] = sum;
+  int* ticket = a.ticket + ((size_t)l * K + k) * gridDim.x + blockIdx.x;
+  if (wy == 0 && lane == 0) {
+    const int done = atomicAdd(ticket, 1);
+    s_last = done == ng - 1;
+    if (s_last) *ticket = 0;  // ready for the next launch
   }
   __syncthreads();
-  if (w_raw >= W) return;
+  if (!s_last || w_raw >= W) return;
+  __threadfence();
+  const T* first = static_cast<const T*>(a.part)
+                 + (size_t)(l * K + k) * ng * P * NPA * W + w;
   for (int t = wy; t < P; t += nw) {
-    const T* r = acc + (size_t)t * NPA * 32 + lane;
+    // the 13 sums of point t over the groups, in group order, three
+    // groups' loads in flight at a time
+    T r[NPA];
+#pragma unroll
+    for (int f = 0; f < NPA; ++f) r[f] = (T)0;
+    for (int g0 = 0; g0 < ng; g0 += 3) {
+      T v[3][NPA];
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+#pragma unroll
+        for (int f = 0; f < NPA; ++f)
+          v[b][f] = g0 + b < ng
+              ? __ldcg(first + (((size_t)(g0 + b) * P + t) * NPA + f) * W)
+              : (T)0;
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+#pragma unroll
+        for (int f = 0; f < NPA; ++f)
+          if (g0 + b < ng) r[f] += v[b][f];
+    }
     T m[10];
 #pragma unroll
-    for (int f = 0; f < 10; ++f) m[f] = r[(3 + f) * 32];
-    const T e_t = r[0] + sw.lam_eps * (e3_closed_form(m, r[32], sw) + r[64]);
+    for (int f = 0; f < 10; ++f) m[f] = r[3 + f];
+    const T e_t = r[0] + sw.lam_eps * (e3_closed_form(m, r[1], sw) + r[2]);
     static_cast<T*>(a.e)[(((size_t)l * K + k) * P + t) * W + w] = e_t;
     T* own = static_cast<T*>(a.own) + (((size_t)l * K + k) * P + t) * 10 * W + w;
 #pragma unroll
@@ -855,18 +992,64 @@ mover_points_kernel(const PointsArgs a) {
   }
 }
 
+// (grid, block, dynamic shared bytes) of a mover_points launch, or
+// false for a plan it does not take.
+template <typename T>
+static bool points_geometry(const PointsArgs* a, dim3& grid, dim3& block,
+                            size_t& smem) {
+  if (a->nw < 1 || a->nw > PT_WARPS_MAX || a->cpg < 1 || a->ng < 1
+      || (long long)a->cpg * a->ng < a->CF
+      || (long long)a->cpg * (a->ng - 1) >= a->CF
+      || (long long)a->K * a->ng > 65535 || (long long)a->cpg * a->cap > 65535)
+    return false;
+  grid = dim3((a->W + 31) / 32, a->K * a->ng, a->L);
+  block = dim3(32, a->nw);
+  const size_t qmax = ((size_t)a->cpg * a->cap + a->nw - 1) / a->nw;
+  smem = sizeof(T) * 32 * (4 * (size_t)a->cpg * a->cap + 3 * (size_t)a->cpg
+                           + a->nw)
+       + sizeof(int) * 32 * a->nw + sizeof(unsigned short) * 32 * a->nw * qmax;
+  return true;
+}
+
 template <typename T>
 static int launch_points(const PointsArgs* a, cudaStream_t stream) {
-  if (a->nw < 1 || a->nw > NW) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(T) * 32 * ((size_t)a->nw * a->P * NPA + 3 * (size_t)a->P);
+  dim3 grid, block;
+  size_t smem;
+  if (!points_geometry<T>(a, grid, block, smem))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       mover_points_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a->W + 31) / 32, a->K, a->L), block(32, a->nw);
   mover_points_kernel<T><<<grid, block, smem, stream>>>(*a);
   return (int)cudaGetLastError();
+}
+
+// out = {registers per thread, local (spill) bytes per thread, blocks
+// resident on one SM, dynamic shared bytes per block, blocks} of a
+// mover_points launch (only its shape and plan are read).
+template <typename T>
+static int points_occupancy(const PointsArgs* a, int* out) {
+  dim3 grid, block;
+  size_t smem;
+  if (!points_geometry<T>(a, grid, block, smem))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = reinterpret_cast<const void*>(mover_points_kernel<T>);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, (int)(block.x * block.y), smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = per_sm;
+  out[3] = (int)smem;
+  out[4] = (int)(grid.x * grid.y * grid.z);
+  return (int)err;
 }
 
 template <typename T>
@@ -983,6 +1166,11 @@ int mover_points_f32(const PointsArgs* a, void* stream) {
 
 int mover_points_f64(const PointsArgs* a, void* stream) {
   return launch_points<double>(a, (cudaStream_t)stream);
+}
+
+int mover_points_occupancy(int f64, const PointsArgs* a, int* out) {
+  return f64 ? points_occupancy<double>(a, out)
+             : points_occupancy<float>(a, out);
 }
 
 }  // extern "C"

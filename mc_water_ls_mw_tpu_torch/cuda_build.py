@@ -28,6 +28,9 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "build" / \
     "torch_kernels"
 KERNELS = ("full_energy", "fused_cycle", "cell_movers", "chain_wl")
+# Shared memory one block can use on the H100 (227 KB): the launch plans
+# keep their blocks under it.
+SMEM_BLOCK_MAX = 232448
 # -fmad=false: every product and sum is rounded on its own, as in the
 # plain versions' elementwise PyTorch ops.  With nvcc's default
 # contraction into FMAs, a float32 fused cycle rounded each step's

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from .. import cuda_build
+from ..cuda_build import SMEM_BLOCK_MAX
 from ..ops.dsfloat import _two_sum
 from .bins import BinGrid, eta_lookup, wl_move_update
 from .config import RunParams
@@ -103,8 +104,6 @@ class ChainArgs(ctypes.Structure):
     )
 
 
-# Shared memory one block can use on the H100 (227 KB).
-SMEM_BLOCK_MAX = 232448
 # A block has a warp per walker (lane 0 runs its chain, all threads copy
 # the columns in and out): CHAIN_WPB walkers in the staged branch, one
 # for each of an SM's four warp schedulers (the plan passes wpb to the

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import cuda_build
+from ..cuda_build import SMEM_BLOCK_MAX
 from ..ops.dsfloat import ds_value
 
 TRANS, VOL, SWITCH, NOOP = 0, 1, 2, 3
@@ -84,8 +85,6 @@ class FusedArgs(ctypes.Structure):
     )
 
 
-# Shared memory one block can use on the H100 (227 KB).
-SMEM_BLOCK_MAX = 232448
 # Walkers (warps) per block at most, by element size: the warp kernels'
 # register bound (WarpCap in csrc/fused_cycle.cu).
 WARP_CAP = {4: 8, 8: 5}

@@ -45,11 +45,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import cuda_build
+from ..cuda_build import SMEM_BLOCK_MAX
 from ..models.sw import SWParams
 from .cell_energy import mover_energies, mover_point_energies
 from .cells import PK_R0, PK_ROWS, PK_VALID, CellGrid
@@ -121,7 +123,66 @@ class PointsArgs(ctypes.Structure):
         + [(n, ctypes.c_int) for n in ("L", "K", "CF", "cap", "W", "P",
                                        "nw")]
         + [("sw", cuda_build.SWConsts)]
+        + [(n, ctypes.c_void_p) for n in ("part", "ticket")]
+        + [(n, ctypes.c_int) for n in ("cpg", "ng")]
     )
+
+
+# The points kernel's block: a warp per point, at least POINTS_WARPS_MIN
+# (they stage the slots) and at most POINTS_WARPS_MAX (PT_WARPS_MAX in
+# csrc/cell_movers.cu), POINTS_CELLS_PER_GROUP candidate cells, fewer
+# where their staged slots would keep two blocks off one SM
+POINTS_WARPS_MIN = 8
+POINTS_WARPS_MAX = 9
+POINTS_CELLS_PER_GROUP = 3
+POINTS_SMEM_TARGET = SMEM_BLOCK_MAX // 2    # two blocks an SM
+
+
+class PointsPlan(NamedTuple):
+    """A launch of the points kernel: ``grid`` (ceil(W/32), K ng, L) of
+    (32, nw) threads, ``cpg`` candidate cells per group, ``ng`` groups
+    per mover, ``smem`` dynamic shared bytes (``points_smem_bytes``)."""
+
+    grid: tuple
+    nw: int
+    cpg: int
+    ng: int
+    smem: int
+
+
+def points_smem_bytes(cpg, cap, nw, itemsize) -> int:
+    """Shared memory of a points block: the group's staged slots (flag
+    and coordinates, [cpg cap][4][32]), its cells' image shifts
+    ([cpg][3][32]), and per thread its points' farthest distance from
+    point 0, the count and the int16 indices of its near slots ([nw][32]
+    each and [nw][ceil(cpg cap / nw)][32])."""
+    qmax = -(-cpg * cap // nw)
+    return (itemsize * 32 * (4 * cpg * cap + 3 * cpg + nw) + 4 * 32 * nw
+            + 2 * 32 * nw * qmax)
+
+
+def points_geometry(L, K, CF, cap, W, P, itemsize) -> PointsPlan:
+    """The points kernel's split: block (x, y, z) takes the walkers 32 x
+    + lane of mover y // ng in lattice z, and the candidate cells g cpg
+    ... min(CF, (g + 1) cpg) - 1 of group g = y % ng; its thread (wy,
+    lane) stages the slots s = wy + nw q (cell s // cap, slot s % cap)
+    of the group and lists those near point 0; its warp wy owns the
+    points wy + nw q, walking every thread's list of its lane in order
+    (thread 0's first).  nw = P warps, at least POINTS_WARPS_MIN and at
+    most POINTS_WARPS_MAX (the points spread evenly above); the last
+    block of a (tile, mover, lattice) adds the ng groups' sums in index
+    order."""
+    nw = max(POINTS_WARPS_MIN, -(-P // -(-P // POINTS_WARPS_MAX)))
+    cpg = min(POINTS_CELLS_PER_GROUP, CF)
+    while (cpg > 1 and points_smem_bytes(cpg, cap, nw, itemsize)
+           > POINTS_SMEM_TARGET):
+        cpg -= 1
+    smem = points_smem_bytes(cpg, cap, nw, itemsize)
+    if smem > SMEM_BLOCK_MAX:
+        raise ValueError(f"mover_points: a cell of {cap} slots does not fit "
+                         "one block's shared memory")
+    ng = -(-CF // cpg)
+    return PointsPlan((-(-W // 32), K * ng, L), nw, cpg, ng, smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -291,23 +352,49 @@ class MoverPointsKernel(_MoverKernel):
     each (the multi-trial sub-step)."""
 
     name = "mover_points"
-    # shared-memory budget of one block (bytes): two blocks per SM
-    SMEM_BUDGET = 110592
 
     def __init__(self, model: SWParams, cg: CellGrid, n_points: int):
         super().__init__(model, cg)
         if n_points < 2:
             raise ValueError("MoverPointsKernel needs n_points >= 2")
         self.P = int(n_points)
+        # per (dtype, L, K, W, device): the plan, the groups' sums
+        # [L,K,ng,P,13,W] and the tickets [L,K,tiles] (zero between
+        # launches)
+        self._shapes = {}
 
-    def warps(self, dtype) -> int:
-        """Warps per block: as many as the shared-memory budget allows
-        (13 running sums per point and lane, and the points), at most
-        8."""
-        per_warp = self.P * 13 * 32 * (8 if dtype == torch.float64 else 4)
-        spare = self.SMEM_BUDGET - self.P * 3 * 32 * (
-            8 if dtype == torch.float64 else 4)
-        return max(1, min(8, spare // per_warp))
+    def plan(self, dtype, L, K, W) -> PointsPlan:
+        return points_geometry(L, K, self.CF, self.cap, W, self.P,
+                               torch.empty((), dtype=dtype).element_size())
+
+    def _shape(self, dtype, L, K, W, dev):
+        key = (dtype, L, K, W, dev)
+        if key not in self._shapes:
+            plan = self.plan(dtype, L, K, W)
+            self._shapes[key] = (
+                plan,
+                torch.empty((L, K, plan.ng, self.P, 13, W), dtype=dtype,
+                            device=dev),
+                torch.zeros((L, K, plan.grid[0]), dtype=torch.int32,
+                            device=dev))
+        return self._shapes[key]
+
+    def occupancy(self, dtype, L, K, W):
+        """The points kernel at L lattices, K movers and W walkers, from
+        the CUDA runtime: a dict of registers and spill (local) bytes per
+        thread, blocks resident on one SM, dynamic shared bytes per block
+        and blocks."""
+        fn = cuda_build.bind("cell_movers", "mover_points_occupancy",
+                             [ctypes.c_int, ctypes.POINTER(PointsArgs),
+                              ctypes.POINTER(ctypes.c_int)])
+        plan = self.plan(dtype, L, K, W)
+        args = PointsArgs(L=L, K=K, CF=self.CF, cap=self.cap, W=W, P=self.P,
+                          nw=plan.nw, cpg=plan.cpg, ng=plan.ng)
+        out = (ctypes.c_int * 5)()
+        err = fn(int(dtype == torch.float64), ctypes.byref(args), out)
+        cuda_build.check(err, "mover_points occupancy")
+        return dict(zip(("registers", "spill_bytes", "blocks_per_sm",
+                         "smem_bytes", "blocks"), out))
 
     def plain(self, pks, h, cand, off, fc, rank, pts):
         mover_slot = fc.long()[:, None] * self.cap + rank.long()
@@ -323,24 +410,33 @@ class MoverPointsKernel(_MoverKernel):
                 [torch.stack(list(m), dim=1) for m in owns], dim=1))
         return torch.stack(e), torch.stack(own)    # [L,K,P,W], [L,K,P,10,W]
 
-    def __call__(self, pks, h, cand, off, fc, rank, pts):
-        if not pks[0].is_cuda:
-            return self.plain(pks, h, cand, off, fc, rank, pts)
+    def launch_args(self, pks, h, cand, off, fc, rank, pts):
+        """(args, (e, own)) of one launch on CUDA tensors: the checked
+        PointsArgs and the output tensors it points to."""
         L, W = len(pks), pks[0].shape[-1]
         K, P = cand.shape[0], self.P
         self._check(pks, h, cand, off, fc, rank, (pts,), (P, L, 3, K, W))
         dtype, dev = pks[0].dtype, pks[0].device
+        plan, part, ticket = self._shape(dtype, L, K, W, dev)
         e = torch.empty((L, K, P, W), dtype=dtype, device=dev)
         own = torch.empty((L, K, P, 10, W), dtype=dtype, device=dev)
         a = PointsArgs(
             h=h.data_ptr(), cand=cand.data_ptr(), off=off.data_ptr(),
             fc=fc.data_ptr(), rank=rank.data_ptr(), pts=pts.data_ptr(),
             e=e.data_ptr(), own=own.data_ptr(), L=L, K=K, CF=self.CF,
-            cap=self.cap, W=W, P=P, nw=self.warps(dtype), sw=self.consts)
+            cap=self.cap, W=W, P=P, nw=plan.nw, sw=self.consts,
+            part=part.data_ptr(), ticket=ticket.data_ptr(), cpg=plan.cpg,
+            ng=plan.ng)
         for l, pk in enumerate(pks):
             a.pk[l] = pk.data_ptr()
-        self._launch("points", a, dtype, dev)
-        return e, own
+        return a, (e, own)
+
+    def __call__(self, pks, h, cand, off, fc, rank, pts):
+        if not pks[0].is_cuda:
+            return self.plain(pks, h, cand, off, fc, rank, pts)
+        args, out = self.launch_args(pks, h, cand, off, fc, rank, pts)
+        self._launch("points", args, pks[0].dtype, pks[0].device)
+        return out
 
 
 class MoverApplyKernel(_MoverKernel):

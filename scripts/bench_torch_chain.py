@@ -20,7 +20,13 @@ those of chip_smoke.py's main paths, float32:
   own proposal (the N=8064 engines after one cycle of sampling, the
   flagship from its initial state);
 * ``mover_energies``: N=8064, K=8, CF=27, 512 walkers, and 128 walkers;
-* ``mover_energies_deltas``: the flagship, K=32, CF=75, 128 walkers.
+* ``mover_energies_deltas``: the flagship, K=32, CF=75, 128 walkers;
+* ``mover_points``: N=8064, K=8, CF=27, 128 walkers at P = 9 points
+  (T=8, phase 9's shape) and at the first 3 and 5 of them (T = 2 and 4),
+  bound with PointsArgs, whose earlier version is a prefix of the
+  current one (which appends the scratch, the tickets and the cell
+  groups); the other kernel gets its own warps per block
+  (``old_points_warps``, the first design's rule), set on the args.
 
 For each: the two versions' outputs on the same inputs (the chain on
 clones of its rows and WL slabs: integer outputs equal, largest
@@ -31,7 +37,9 @@ for the chain also the host's microseconds per call (its wrapper, its
 argument checks and the launch, the device kept busy ahead).  With
 ``--variants`` the current chain kernel is also timed at other launch
 plans, set on its ChainArgs: 1, 2 and 8 walkers per block and its
-in-place branch.  Prints one JSON line per row and one of all (also
+in-place branch, and the points kernel at other cell groups and warps
+per block (POINTS_VARIANTS), set on its PointsArgs with scratch of their
+own.  Prints one JSON line per row and one of all (also
 written to --out).
 """
 
@@ -51,6 +59,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 REPS = 50
 TABLE = 5          # the table row of the sub-step (as in phase 6)
+# this points kernel at other plans: (candidate cells a group, warps)
+POINTS_VARIANTS = ((1, 9), (2, 9), (5, 9), (9, 9), (3, 5), (3, 3))
+
+
+def old_points_warps(P, itemsize):
+    """Warps per block of the points kernel's first design: as many as
+    its 13 P running sums a lane (and the points) left room for in
+    110592 bytes, at most 8."""
+    spare = 110592 - P * 3 * 32 * itemsize
+    return max(1, min(8, spare // (P * 13 * 32 * itemsize)))
 
 
 def bind(lib, sym, struct):
@@ -231,6 +249,7 @@ def energies_rows(eng, s, case, old_fn, deltas):
 
     def other():
         args = kern._args(*margs)
+        args.en_warps = kern.en_warps
         e = torch.empty((L, K, 2, W), dtype=dtype, device=dev)
         own = torch.empty((L, K, 10, W), dtype=dtype, device=dev)
         args.e, args.own = e.data_ptr(), own.data_ptr()
@@ -268,6 +287,91 @@ def energies_rows(eng, s, case, old_fn, deltas):
     return [row]
 
 
+def points_rows(eng, s, case, old_fn, variants):
+    import torch
+
+    import chip_smoke
+    from mc_water_ls_mw_tpu_torch import cuda_build
+    from mc_water_ls_mw_tpu_torch.ops.cell_kernels import (
+        MoverPointsKernel,
+        _entry,
+        points_geometry,
+    )
+
+    _, pks, trial = chain_inputs(eng, s, seed=7)
+    fc, cand, off = eng._tables(TABLE)
+    L, K, W = len(pks), eng.K, s.r.shape[-1]
+    dtype, dev = s.r.dtype, s.r.device
+    stream = torch.cuda.current_stream().cuda_stream
+    out = []
+    for P in (eng.T + 1, 3, 5):
+        kern = (eng.points_kernel if P == eng.T + 1
+                else MoverPointsKernel(eng.model, eng.cellgrid, P))
+        pargs = (pks, s.h, cand, off, fc, trial.rank,
+                 trial.pts[:P].contiguous())
+
+        def other():
+            args, res = kern.launch_args(*pargs)
+            args.nw = old_points_warps(P, s.r.element_size())
+            cuda_build.check(old_fn(ctypes.byref(args), stream),
+                             "other points")
+            return list(res)
+
+        def this():
+            return list(kern(*pargs))
+
+        ro, rn = other(), this()
+        pe, pown = kern.plain(*pargs)
+        torch.cuda.synchronize()
+        times = time_pair(other, this, REPS)
+        row = dict(kernel="mover_points", case=case, W=W, K=K, P=P,
+                   CF=kern.CF, cap=kern.cap, reps=REPS,
+                   other_ms=times["other"], this_ms=times["this"],
+                   speedup=min(times["other"]) / min(times["this"]),
+                   bitwise_equal=all(torch.equal(a, b)
+                                     for a, b in zip(rn, ro)),
+                   max_abs_diff=max(chip_smoke._max_abs(a, b)
+                                    for a, b in zip(rn, ro)),
+                   other_err=max(chip_smoke._max_abs(ro[0], pe),
+                                 chip_smoke._max_abs(ro[1], pown)),
+                   this_err=max(chip_smoke._max_abs(rn[0], pe),
+                                chip_smoke._max_abs(rn[1], pown)),
+                   plan=kern.plan(dtype, L, K, W)._asdict(),
+                   occupancy=kern.occupancy(dtype, L, K, W))
+        if P == eng.T + 1:
+            mp = chip_smoke.multitrial_compare(eng, s, TABLE, seed=7)
+            row["bound_ms"], row["bound_by"] = chip_smoke.multitrial_bounds(
+                eng, s, mp)["mover_points"]
+        out.append(row)
+        for cpg, nw in POINTS_VARIANTS if variants else ():
+            plan = points_geometry(L, K, kern.CF, kern.cap, W, P,
+                                   s.r.element_size())
+            ng = -(-kern.CF // cpg)
+            part = torch.empty((L, K, ng, P, 13, W), dtype=dtype, device=dev)
+            ticket = torch.zeros((L, K, plan.grid[0]), dtype=torch.int32,
+                                 device=dev)
+
+            def variant(cpg=cpg, nw=nw, ng=ng, part=part, ticket=ticket):
+                args, res = kern.launch_args(*pargs)
+                args.cpg, args.ng, args.nw = cpg, ng, nw
+                args.part, args.ticket = part.data_ptr(), ticket.data_ptr()
+                cuda_build.check(_entry("points", dtype)(ctypes.byref(args),
+                                                         stream),
+                                 "points variant")
+                return list(res)
+
+            rv = variant()
+            torch.cuda.synchronize()
+            out.append(dict(kernel="mover_points", case=case, P=P,
+                            variant=dict(cpg=cpg, ng=ng, nw=nw),
+                            this_ms=chip_smoke.cuda_ms(variant, REPS, True),
+                            max_abs_diff=max(chip_smoke._max_abs(a, b)
+                                             for a, b in zip(rv, rn)),
+                            err=max(chip_smoke._max_abs(rv[0], pe),
+                                    chip_smoke._max_abs(rv[1], pown))))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other-chain", required=True)
@@ -283,7 +387,10 @@ def main() -> int:
     from mc_water_ls_mw_tpu_torch import cuda_build
     from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
     from mc_water_ls_mw_tpu_torch.mcmc.chain_kernel import ChainArgs
-    from mc_water_ls_mw_tpu_torch.ops.cell_kernels import MoverArgs
+    from mc_water_ls_mw_tpu_torch.ops.cell_kernels import (
+        MoverArgs,
+        PointsArgs,
+    )
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -296,6 +403,7 @@ def main() -> int:
     old_movers = build_other(opt.other_movers)
     old_en = bind(old_movers, "mover_energies_f32", MoverArgs)
     old_dl = bind(old_movers, "mover_energies_deltas_f32", MoverArgs)
+    old_pt = bind(old_movers, "mover_points_f32", PointsArgs)
     rows = []
 
     def emit(new):
@@ -320,6 +428,8 @@ def main() -> int:
             emit(chain_rows(eng, s, case, old_chain, opt.variants))
         if case.startswith("K8-W"):
             emit(energies_rows(eng, s, case, old_en, False))
+        if case == "K8-T8-W128":
+            emit(points_rows(eng, s, case, old_pt, opt.variants))
         if case.endswith("flagship"):
             emit(energies_rows(eng, s, case, old_dl, True))
         del eng, s

@@ -79,11 +79,13 @@ def kernel_versions(other_chain, other_movers):
     """{'this': switch, 'other': switch}: each switch makes the chain
     and mover wrappers launch this version's kernels or the other
     sources' (``_entry`` of mcmc/chain_kernel and ops/cell_kernels
-    replaced; float32)."""
+    replaced; float32; the other points kernel gets its own warps per
+    block, bench_torch_chain.old_points_warps)."""
     import ctypes
 
     import torch
 
+    from bench_torch_chain import old_points_warps
     from bench_torch_fused import build_other
     from mc_water_ls_mw_tpu_torch.mcmc import chain_kernel as ck
     from mc_water_ls_mw_tpu_torch.ops import cell_kernels as ckl
@@ -105,9 +107,15 @@ def kernel_versions(other_chain, other_movers):
         assert dtype == torch.float32
         return chain
 
+    def other_points(args, stream):
+        # the other points kernel's own warps per block (an earlier
+        # PointsArgs is a prefix of this version's)
+        args._obj.nw = old_points_warps(args._obj.P, 4)
+        return movers["points"](args, stream)
+
     def other_mover_entry(which, dtype):
         assert dtype == torch.float32
-        return movers[which]
+        return other_points if which == "points" else movers[which]
 
     def use(entries):
         ck._entry, ckl._entry = entries

@@ -93,6 +93,41 @@ def test_full_energy_kernel_three_shifts(card):
                 assert merr <= chip_smoke.F32_MOM_ATOL
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("stack", [(3, 3, 6), (1, 2, 6)])
+@pytest.mark.parametrize("Wr", [1, 37, 4100])
+def test_full_energy_kernel_ragged(card, Wr, stack, dtype):
+    """W below one tile (1), not a multiple of the tile (37; 32 walkers
+    a tile in f32, 16 in f64) and a ragged main-path width (4100), at one
+    folded shift (N=216) and three (N=48): the gates of chip_smoke.py,
+    and a second launch on the same scratch and tickets bitwise equal
+    (the centres' terms are summed in a fixed order)."""
+    from mc_water_ls_mw_tpu_torch.models.stacking import (
+        stacking_switch_pair,
+    )
+    from mc_water_ls_mw_tpu_torch.models.sw import MW
+    from mc_water_ls_mw_tpu_torch.ops.dense import reduced_shift_set
+    from mc_water_ls_mw_tpu_torch.ops.full_energy import FullEnergyKernel
+
+    kern = FullEnergyKernel(
+        MW, reduced_shift_set(stacking_switch_pair(*stack)[1], MW))
+    r3, H = chip_smoke.jittered_cells(Wr, dtype, seed=5, stack=stack)[0]
+    plan = kern.plan(dtype, r3.shape[1], Wr)
+    assert Wr % plan.tw != 0
+    rel, merr, mscale = chip_smoke.full_energy_errors(kern, r3, H)
+    if dtype == torch.float64:
+        assert rel <= 1e-12 and merr <= 1e-12 * max(1.0, mscale)
+    else:
+        assert rel <= chip_smoke.F32_E_RTOL
+        assert merr <= chip_smoke.F32_MOM_ATOL
+    e1, m1 = kern(r3, H)
+    e2, m2 = kern(r3, H)
+    torch.cuda.synchronize()
+    assert torch.equal(e1, e2)
+    assert all(torch.equal(a, b) for a, b in zip(m1, m2))
+    assert kern.launches == 3
+
+
 @pytest.mark.parametrize("case", list(chip_smoke.DENSE_CASES))
 def test_fused_cycle_dense_kernel_fp64(card, case):
     prm = chip_smoke.dense_params(W, "float64", case, samplerun=False,
@@ -275,10 +310,23 @@ def test_mover_points_and_chain_kernels_fp64(multitrial_engine, tbl):
     cmp = chip_smoke.multitrial_compare(eng, s, tbl, seed=tbl)
     mp, ch = cmp["mover_points"], cmp["chain_wl"]
     assert mp["e_err"] <= 1e-10 and mp["own_err"] <= 1e-10
-    assert mp["dE_max"] > 0 and mp["n_legs"] > 0
+    assert mp["dE_max"] > 0 and mp["n_legs"] > 0 and mp["repeat_equal"]
     assert not ch["differ"].any()
     assert ch["cf_err"] <= 1e-10 and ch["wl_err"] <= 1e-10
     assert 0 < ch["n_acc"] < ch["n_enabled"] and ch["hist_grew"] > 0
+
+
+@pytest.mark.parametrize("P", [3, 5, 9])
+def test_mover_points_kernel_fp64(multitrial_engine, P):
+    """The points kernel at T = P - 1 = 2, 4 and 8 on the first P points
+    of the engine's own proposal, W=200 walkers (not a multiple of the
+    32-walker tile): within 1e-10 of its plain version, and a second
+    launch on the same scratch and tickets bitwise equal."""
+    eng, s, _ = multitrial_engine
+    assert s.r.shape[-1] % 32 != 0
+    pc = chip_smoke.points_compare(eng, s, 11, seed=P, P=P)
+    assert pc["e_err"] <= 1e-10 and pc["own_err"] <= 1e-10
+    assert pc["repeat_equal"] and pc["plan"].ng > 1
 
 
 def test_multitrial_engine_on_card_runs_its_kernels(multitrial_engine):
