@@ -22,6 +22,17 @@ Phases (each exits non-zero on failure):
    N=48 (three shifts); 4c. likewise its multi-trial kernel (float64 at
    dense_trials=8; float32 at 2, 4 and 8, path C's trial counts); each
    with its time and bound, registers and walkers per block;
+   4d. the kernels with 'dd' mu windows, on states reached by a few
+   cycles of the engine, one before the equilibration boundary (walkers
+   before their windows, switches shut) and one after it (walkers beyond
+   their walls): the table kernel of the fused cycle on
+   runs/n216_sample_dd (8 windows, float64 at W=16, float32 at W=4096),
+   then a cycle in which half the walkers sit just beyond their window's
+   upper wall, whose sample-run increments must stay out of uhist, and
+   the per-window delta merge run twice (bitwise equal); the mover-points,
+   chain + WL and mover-apply kernels of the multi-trial sub-step on
+   runs/n8064_wl (16 windows, T=8, float64 at W=16, float32 at W=128),
+   and the merge again; the gates of phases 4 and 8;
 5. the N=216 main path: the N=216 Ih/Ic stacking pair, W=4096,
    float32, a sample run from runs/n216_sample/eta_weights.dat with
    delta-syncs every 5 and chain resyncs every 10 cycles; 20 warm-up and
@@ -36,6 +47,14 @@ Phases (each exits non-zero on failure):
    scripts/bench_dense_multitrial.py at dense_trials = 1, 2, 4 and 8,
    20 timed cycles each (trials/s against T), the audit and the merged
    histogram at T=8;
+   5d. runs/n216_sample_dd through the port's run_input_file (4096
+   walkers over 8 windows, float32, its committed weights, a sample run;
+   DD216_CUTS lists the interval cuts, eq_mc_cycles stays 1000) in
+   build/chip_smoke_dd216: 2000 cycles, then 500 resumed from the
+   checkpoint; moves/s, walkers in their window per window at the
+   boundary and at the end (none may be empty), the stitched Delta G
+   and unbiased_histogram.dat (finite), the per-window dumps
+   uhist_windows_*.dat;
 6. the three kernels of the large-N cell engine (mover energies, chain +
    WL, mover apply) against their plain versions on one sub-step of the
    N=8064 stacking pair after a cycle of sampling (float64 at W=64:
@@ -88,12 +107,13 @@ Phases (each exits non-zero on failure):
    accepted and every mover rejected: moment rows within 1e-10, every
    other slab entry bitwise equal);
 9. the front-end path: runs/n8064_wl/ice.input with its run.py
-   overrides (128 walkers, float32, cell_trials=8; parallel_strategy
-   'mw' in place of 'dd'; FRONTEND_CUTS lists every interval cut)
+   overrides (128 walkers, float32, cell_trials=8, 'dd' over 16 windows
+   with overlap 2; FRONTEND_CUTS lists every interval cut)
    through the port's run_input_file in build/chip_smoke_frontend: 6
    cycles that hold volume moves, delta-syncs, monitor_stats with
-   eq_adjust_mc, check_flatness, checkpoints and rebins, then a second
-   call that resumes from the checkpoint for 2 more; seconds per cycle,
+   eq_adjust_mc and its per-window rows, the equilibration boundary,
+   check_flatness, checkpoints and rebins, then a second call that
+   resumes from the checkpoint for 2 more; seconds per cycle,
    trials/s, launches, slab overflow (must be 0), an energy audit of 64
    walkers and a torch.profiler trace of one more cycle;
 10. path A: the reference's own N=48 example, runs/n216_sample/ice.input
@@ -103,7 +123,7 @@ Phases (each exits non-zero on failure):
    checkpoint; ms per cycle, moves/s, launches, an energy audit and the
    merged histogram;
 11. one JSON line with every kernel's launches (summed over the main
-   paths of phases 5, 5b, 5c, 7, 7b, 9 and 10), error against its plain
+   paths of phases 5, 5b, 5c, 5d, 7, 7b, 9 and 10), error against its plain
    version, times and bound; the multi-trial kernel has a line for each
    T of path C, the mover-apply kernel one for phase 7's shape
    ("mover_apply") and one for phase 9's, the chain kernel one for each
@@ -302,11 +322,11 @@ def sample_params(W, dtype, **over):
     return RunParams(**kw)
 
 
-def make_engine(prm, stream=None, paper_pair=False):
+def make_engine(prm, stream=None, paper_pair=False, weights="n216_sample"):
     """(engine, state): the stacking pair of ``prm.stack`` from the
-    committed weights (runs/n216_sample/eta_weights.dat), or with
+    committed weights (runs/<weights>/eta_weights.dat), or with
     ``paper_pair`` the paper's N=216 pair (models/lattices.switch_pair_216)
-    from flat weights."""
+    from flat weights; in 'dd' over ``prm.n_windows`` windows."""
     from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
     from mc_water_ls_mw_tpu_torch.mcmc.engine import Engine
     from mc_water_ls_mw_tpu_torch.mcmc.state import init_state
@@ -322,11 +342,12 @@ def make_engine(prm, stream=None, paper_pair=False):
         w0 = None
     else:
         r0, H0 = stacking_switch_pair(*prm.stack)
-        w0 = np.loadtxt(os.path.join(ROOT, "runs", "n216_sample",
+        w0 = np.loadtxt(os.path.join(ROOT, "runs", weights,
                                      "eta_weights.dat"), skiprows=1)[:, 1]
         if len(w0) != grid.nbins:
             fail(f"eta_weights.dat has {len(w0)} bins, grid {grid.nbins}")
-    s, aux = init_state(prm, MW, r0, H0, grid, weight0=w0, device=DEVICE)
+    s, aux = init_state(prm, MW, r0, H0, grid, weight0=w0,
+                        n_windows=n_windows(prm), device=DEVICE)
     return Engine(prm, MW, grid, aux, device=DEVICE, stream=stream), s
 
 
@@ -419,8 +440,10 @@ def full_energy_errors(kern, r3, H):
 
 def fused_compare(eng, s, draws):
     """One cycle of FusedCycle's kernel and of its plain version from
-    clones of ``s`` with the same draws.  Returns (kernel state, plain
-    state, [W] bool of walkers whose integer outcomes differ)."""
+    clones of ``s`` with the same draws, the WL phase and the switch gate
+    of the cycle after ``s``'s as the engine decides them.  Returns
+    (kernel state, plain state, [W] bool of walkers whose integer
+    outcomes differ)."""
     import torch
 
     codes, sched, cu = draws
@@ -428,8 +451,9 @@ def fused_compare(eng, s, draws):
     for st in (sk, sp):
         st.cycle += 1
     wl_active = sk.cycle >= eng.prm.eq_mc_cycles
-    eng.fused_cycle(sk, codes, sched, cu, wl_active, True)
-    eng.fused_cycle.plain(sp, codes, sched, cu, wl_active, True)
+    switch_ok = eng._switch_ok(sk.cycle)
+    eng.fused_cycle(sk, codes, sched, cu, wl_active, switch_ok)
+    eng.fused_cycle.plain(sp, codes, sched, cu, wl_active, switch_ok)
     torch.cuda.synchronize()
     differ = (sk.ls != sp.ls)
     for name in ("att", "acc", "trans_per_mol"):
@@ -887,10 +911,17 @@ def cell_params(W, dtype, stack=CELL_STACK, **over):
     return RunParams(**kw)
 
 
+def n_windows(prm):
+    """The windows the front end gives a run (app.py's setup)."""
+    if prm.parallel_strategy != "dd":
+        return 1
+    return max(2, min(prm.n_walkers, prm.n_windows))
+
+
 def make_cell_engine(prm):
     """(engine, state) of the stacking pair ``prm.stack`` on the cell
     grid the front end picks for it (app.py: choose_grid_shape without
-    prefer_disjoint)."""
+    prefer_disjoint); in 'dd' over ``prm.n_windows`` windows."""
     from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
     from mc_water_ls_mw_tpu_torch.mcmc.cellengine import (
         CellEngine,
@@ -912,7 +943,8 @@ def make_cell_engine(prm):
     shape = choose_grid_shape(H0, MW, mx)
     cg = build_grid(shape, cap_for_positions(r0, H0, shape), H0, MW, mx)
     grid = build_bin_grid(prm.nbins, prm.mu_min, prm.mu_max)
-    s, aux, caux = init_cell_state(prm, MW, r0, H0, grid, cg, device=DEVICE)
+    s, aux, caux = init_cell_state(prm, MW, r0, H0, grid, cg,
+                                   n_windows=n_windows(prm), device=DEVICE)
     return CellEngine(prm, MW, grid, aux, cg, caux, device=DEVICE), s
 
 
@@ -932,18 +964,22 @@ def _max_abs(a, b, relative=False):
     return float(d.max())
 
 
-def chain_compare(eng, s, rows, e, inc, hasm, codes, ua, uz):
+def chain_compare(eng, s, rows, e, inc, hasm, codes, ua, uz,
+                  wl_active=True):
     """The chain + WL kernel against its plain version on one sub-step's
     point table (energies ``e`` [L,K,P,W], in-cell flags ``inc``
     [K,P,W], trial flags ``hasm`` [K,W]), each on fresh clones of the
-    chain rows ``rows`` and the WL slabs of ``s``.
+    chain rows ``rows`` (their switch gate among them) and the WL slabs
+    of ``s``, with the WL phase ``wl_active``.
 
     Returns (a dict: the [W] bool of walkers whose integer outcomes
     differ, the rows' and slabs' errors on the rest, accepted and enabled
-    trials, the histogram's growth; ``chain(fn, b)``, which runs one pass
+    trials, switch attempts, the histogram's growth; ``chain(fn, b)``, which runs one pass
     of ``fn`` in place on the buffers ``b``, or returns fresh buffers
     when ``fn`` is None; the kernel's pass)."""
     import torch
+
+    from mc_water_ls_mw_tpu_torch.mcmc.chain_kernel import CN_EN, CN_SWEN
 
     K, P, W = inc.shape
     tables = (e.view(-1, W), inc.view(-1, W), hasm)
@@ -954,9 +990,9 @@ def chain_compare(eng, s, rows, e, inc, hasm, codes, ua, uz):
                      wgt=s.weight.clone(), hist=s.hist.clone(),
                      uh=s.uhist.clone())
         if fn is not None:
-            b["joh"], b["cnt"] = fn(codes, True, b["cf"], b["ci"], b["wgt"],
-                                    b["hist"], b["uh"], rows.basew, *tables,
-                                    ua, uz)
+            b["joh"], b["cnt"] = fn(codes, wl_active, b["cf"], b["ci"],
+                                    b["wgt"], b["hist"], b["uh"], rows.basew,
+                                    *tables, ua, uz)
         return b
 
     ck_, cp = chain(eng.chain_kernel), chain(eng.chain_kernel.plain)
@@ -974,7 +1010,8 @@ def chain_compare(eng, s, rows, e, inc, hasm, codes, ua, uz):
         wl_rel=max(_max_abs(ck_[n][:, ok], cp[n][:, ok], relative=True)
                    for n in slabs),
         n_acc=int((1.0 - cp["joh"].view(K, P, W)[:, 0]).sum()),
-        n_enabled=int(cp["cnt"][0].sum()),
+        n_enabled=int(cp["cnt"][CN_EN].sum()),
+        n_sw=int(cp["cnt"][CN_SWEN].sum()),
         hist_grew=float((cp["hist"] - s.hist).sum()),
         uh_grew=float((cp["uh"] - s.uhist).sum()))
     return out, chain, ck_
@@ -1338,6 +1375,14 @@ def scatter_substep_compare(eng, s, tbl, seed, time_reps=0):
     return out
 
 
+def cycle_rows(eng, s):
+    """(the sub-step loop's rows, wl_active) of the cycle after ``s``'s:
+    its switch gate and WL phase as the engine decides them."""
+    cycle = s.cycle + 1
+    return (eng._loop_rows(s, eng._switch_ok(cycle)),
+            cycle >= eng.prm.eq_mc_cycles)
+
+
 def multitrial_compare(eng, s, tbl, seed, time_reps=0):
     """One multi-trial sub-step's points kernel and its chain pass (an
     engine at cell_trials = T > 1) against their plain versions, at the
@@ -1369,7 +1414,7 @@ def multitrial_compare(eng, s, tbl, seed, time_reps=0):
     codes = torch.zeros((K * T,), dtype=torch.int32, device=DEVICE)
     codes[K * T // 2] = SWITCH
     pks = eng._pack(s)
-    rows = eng._loop_rows(s)
+    rows, wl_active = cycle_rows(eng, s)
     fc, cand, off = eng._tables(tbl)
     out = {}
 
@@ -1409,7 +1454,8 @@ def multitrial_compare(eng, s, tbl, seed, time_reps=0):
         dE_max=float(torch.max(torch.abs(pe[:, :, 1:] - pe[:, :, :1]))))
 
     out["chain_wl"], chain, _ = chain_compare(
-        eng, s, rows, trial.e, trial.inc, trial.hasm, codes, ua, uz)
+        eng, s, rows, trial.e, trial.inc, trial.hasm, codes, ua, uz,
+        wl_active)
 
     if time_reps:
         t = out["mover_points"]
@@ -1482,7 +1528,7 @@ def multitrial_apply_compare(eng, s, tbl, seed, mode, time_reps=0):
     u = torch.rand((4 + 3 * T, K, W), generator=gen, dtype=dtype,
                    device=DEVICE)
     pks = eng._pack(s)
-    rows = eng._loop_rows(s)
+    rows, wl_active = cycle_rows(eng, s)
     fc, cand, off = eng._tables(tbl)
     trial = eng._propose_tm(s, pks, tbl, u, rows)
     if mode == "chain":
@@ -1491,7 +1537,7 @@ def multitrial_apply_compare(eng, s, tbl, seed, mode, time_reps=0):
         codes = torch.zeros((K * T,), dtype=torch.int32, device=DEVICE)
         codes[K * T // 2] = SWITCH
         _, _, ck_ = chain_compare(eng, s, rows, trial.e, trial.inc,
-                                  trial.hasm, codes, ua, uz)
+                                  trial.hasm, codes, ua, uz, wl_active)
         joh = ck_["joh"].view(K, P, W)
     else:
         moved = (trial.hasm > 0.5) & (mode == "all")
@@ -1563,13 +1609,11 @@ N8064_WL = dict(
     chkpt_dump_int=250, timer_qtime=9000.0, timer_closetime=420,
     max_mc_cycles=100_000_000,
 )
-# what the smoke run changes: the strategy ('dd' mu windows are not
-# ported; n_windows and window_overlap go with it) and, to fit rebins,
-# volume moves, delta-syncs, monitor_stats with eq_adjust_mc,
-# check_flatness and a checkpoint into 6 + 2 cycles, these cycle counts
-# and intervals (the run's own values in the comments)
+# what the smoke run cuts, to fit rebins, volume moves, delta-syncs,
+# monitor_stats with eq_adjust_mc, the equilibration boundary of the 16
+# 'dd' windows, check_flatness and a checkpoint into 6 + 2 cycles: these
+# cycle counts and intervals (the run's own values in the comments)
 FRONTEND_CUTS = dict(
-    parallel_strategy="mw",
     eq_mc_cycles=3,             # 400
     list_update_int=3,          # 10
     monitor_int=2,              # 500
@@ -1635,8 +1679,7 @@ def frontend_run():
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
     shutil.copy(os.path.join(ROOT, "runs", "n8064_wl", "ice.input"), d)
-    over = {k: v for k, v in {**N8064_WL, **FRONTEND_CUTS}.items()
-            if k not in ("n_windows", "window_overlap")}
+    over = {**N8064_WL, **FRONTEND_CUTS}
     path = os.path.join(d, "ice.input")
     cwd, original = os.getcwd(), app_mod.Application
     app_mod.Application = Recorded
@@ -1685,6 +1728,7 @@ def frontend_run():
                 if ln.endswith(" box moves"))
     need = {
         "monitor_stats with eq_adjust_mc": "# Max molecule translation",
+        "the per-window monitor rows": "# window  walkers in-win",
         "check_flatness": "# Checking flatness of histogram at cycle",
         "the restart": f"# Restarting from cycle {FRONTEND_CYCLES[0]} (",
     }
@@ -1692,13 +1736,20 @@ def frontend_run():
         if text not in node + glog:
             fail(f"front-end run: no trace of {what} in the logs")
     files = set(os.listdir(d))
+    nwin = s.master_eta.hi.shape[0]
     want = {"checkpoint000.npz.1", "checkpoint000.npz.2", "eta_weights.dat",
-            "histogram.dat", "unbiased_histogram.dat", "mW.psf", "mW.dcd",
-            "mc.log", "node000.log"} | {
+            "mW.psf", "mW.dcd", "mc.log", "node000.log"} | {
                 f"ice{w:03d}_therm.dat"
-                for w in range(min(prm.therm_walkers, W))}
-    if not want <= files:
-        fail(f"front-end run: missing files {sorted(want - files)}")
+                for w in range(min(prm.therm_walkers, W))} | {
+                f"{k}_{w:03d}.dat" for w in range(nwin)
+                for k in ("eta_weights", "histogram",
+                          "unbiased_histogram")}
+    if nwin != N8064_WL["n_windows"] or not want <= files:
+        fail(f"front-end run: {nwin} windows, missing files "
+             f"{sorted(want - files)}")
+    inside = (s.mu > s.my_mu_min) & (s.mu < s.my_mu_max)
+    per_win = torch.bincount(s.window_id[inside].long(),
+                             minlength=nwin).tolist()
     overflow = int(s.occ_overflow.max())
     # the energy audit right after one more cycle's sub-step loop (an
     # accepted volume move, hoisted after the loop, recomputes a
@@ -1718,9 +1769,11 @@ def frontend_run():
     rate = eng.trials_per_cycle * W * n / disp
     kind = torch.cuda.get_device_name(0)
     print(f"[frontend] runs/n8064_wl through run_input_file, overrides "
-          f"but {sorted(FRONTEND_CUTS)} (cut) and n_windows/window_overlap "
-          f"(dropped): N={prm.nwater} W={W} float32 T={eng.T}, "
-          f"{n_sub} sub-steps/cycle, {eng.trials_per_cycle} trials/cycle",
+          f"but {sorted(FRONTEND_CUTS)} (cut): N={prm.nwater} W={W} float32 "
+          f"T={eng.T}, '{prm.parallel_strategy}' over {nwin} windows "
+          f"(overlap {prm.window_overlap}), {n_sub} sub-steps/cycle, "
+          f"{eng.trials_per_cycle} trials/cycle; walkers inside their "
+          f"window's bounds at cycle {ended} per window {per_win}",
           flush=True)
     print(f"[frontend] {n} cycles over both calls: {disp / n:.3f} s/cycle "
           f"in the cycle loop ({tot / n:.3f} s/cycle with the block "
@@ -1908,6 +1961,464 @@ def dense48_run():
     return {"launches": {k: first["launches"][k] + second["launches"][k]
                          for k in first["launches"]},
             "s_per_cycle": s_cycle, "rate": rate}
+
+
+# ----------------------------------------------------------------------
+# the 'dd' mu windows: kernels against their plain versions with windows
+# ----------------------------------------------------------------------
+
+# runs/n216_sample_dd/run.py's windows (8 over the trimmed 101-bin grid,
+# overlap 2 from its ice.input)
+DD216_WINDOWS = dict(parallel_strategy="dd", n_windows=8, window_overlap=2)
+# the dd kernel phase's states: (walkers, type) of the N=216 pair and of
+# the N=8064 pair (runs/n8064_wl's 16 windows)
+DD_W216 = ((16, "float64"), (W_MAIN, "float32"))
+DD_W8064 = ((W_MT_FP64, "float64"), (W_MT, "float32"))
+# cycles run before each compared cycle: the first compared cycle falls
+# before eq_mc_cycles (switches suppressed, walkers tracked into their
+# windows), the second after it (every walker in its window, walls live)
+DD_EQ = 4
+DD_RUNS = (2, 3)
+
+
+def dd_counts(s):
+    """(walkers before their window, walkers beyond their walls) of a
+    'dd' state."""
+    out = (s.mu < s.my_mu_min) | (s.mu > s.my_mu_max)
+    return int((~s.in_window).sum()), int((s.in_window & out).sum())
+
+
+def merge_repeat(eng, s):
+    """The per-window delta merge of the state's per-walker histograms,
+    run twice: (bitwise equal, largest relative error of the merged rows
+    against a float64 sum on the host, windows).  Fails where the
+    histograms hold no growth to merge."""
+    import torch
+
+    if not bool((s.hist != 0).any()):
+        fail("merge check: the per-walker histograms are empty")
+    got = [eng._delta_merge(s.hist, s.master_hist, s.window_id)
+           for _ in range(2)]
+    equal = all(torch.equal(getattr(got[0][0], f), getattr(got[1][0], f))
+                for f in ("hi", "lo"))
+    hist = s.hist.double().cpu().numpy()                     # [B, W]
+    wid = s.window_id.cpu().numpy()
+    nwin = s.master_hist.hi.shape[0]
+    base = (s.master_hist.hi.double() + s.master_hist.lo.double()).cpu()
+    want = base.numpy() + np.stack([hist[:, wid == w].sum(axis=1)
+                                    for w in range(nwin)])
+    m = got[0][0]
+    have = (m.hi.double() + m.lo.double()).cpu().numpy()
+    rel = float(np.max(np.abs(have - want) / np.maximum(np.abs(want), 1.0)))
+    return equal, rel, nwin
+
+
+def walled_increment_check(eng, s, seed):
+    """The sample-run increment of a walled walker stays out of uhist
+    (wl_update_at in csrc/wl_common.cuh; the f32 edge-bin fault of the
+    JAX engine, engine.py:379-390 of the JAX package).  From the state
+    ``s`` after the boundary (every walker in its window), every other
+    walker is put just beyond its window's upper wall (the largest of
+    the next 8 representable mu whose bin is still the window's end bin,
+    else the next one), the rest at their window's centre; one cycle of
+    translation trials that leave the displacement wall (rejected, mu
+    stays) with switches shut then runs through the kernel and the plain
+    version.  Returns a dict: walled walkers whose uhist grew, walled
+    walkers in the grid, those whose bin is the window's edge bin, how
+    many of them had their visit counted, in-window walkers whose uhist
+    did not grow, and the kernel's [W] integer disagreement and relative
+    uhist/hist error against the plain version."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.mcmc.bins import mu_to_bin
+    from mc_water_ls_mw_tpu_torch.mcmc.engine import TRANS
+
+    st = s.clone()
+    W = st.mu.shape[0]
+    B = eng.grid.nbins
+    walled = torch.arange(W, device=DEVICE) % 2 == 0
+    cand, m = [], st.my_mu_max
+    for _ in range(8):
+        m = torch.nextafter(m, torch.full_like(m, float("inf")))
+        cand.append(m)
+    cand = torch.stack(cand)                                 # [8, W]
+    in_edge = mu_to_bin(eng.grid, cand) == st.end_bin.long()[None]
+    pick = torch.where(in_edge.any(dim=0),
+                       7 - torch.argmax(in_edge.flip(0).to(torch.int8),
+                                        dim=0), 0)
+    edge = torch.gather(cand, 0, pick[None])[0]
+    st.mu = torch.where(walled, edge,
+                        0.5 * (st.my_mu_min + st.my_mu_max))
+    st.in_window = torch.ones_like(st.in_window)
+    st.max_trans = torch.full_like(st.max_trans, 1e3)        # Bohr
+    for name in ("weight", "hist", "uhist"):
+        setattr(st, name, torch.zeros_like(getattr(st, name)))
+    _, sched, cu = kernel_draws(eng, st, seed)
+    codes = torch.full((st.r.shape[2],), TRANS, dtype=torch.int64)
+    sk, sp = st.clone(), st.clone()
+    for x in (sk, sp):
+        x.cycle += 1
+    eng.fused_cycle(sk, codes, sched, cu, True, False)
+    eng.fused_cycle.plain(sp, codes, sched, cu, True, False)
+    torch.cuda.synchronize()
+    still = (sk.acc[0] == st.acc[0]) & (sp.acc[0] == st.acc[0])
+    k = mu_to_bin(eng.grid, st.mu)
+    in_grid = (k >= 0) & (k < B)
+    sel = walled & still & in_grid
+    edge_bin = sel & (k == st.end_bin.long())
+    uh_k, h_k = sk.uhist.sum(dim=0), sk.hist.sum(dim=0)
+    differ = (sk.acc != sp.acc).any(dim=0) | (sk.ls != sp.ls)
+    ok = ~differ
+    return dict(
+        walled_grew=int((sel & (uh_k != 0)).sum()), walled=int(sel.sum()),
+        edge=int(edge_bin.sum()),
+        edge_counted=int((edge_bin & (h_k > 0)).sum()),
+        inside_flat=int((~walled & still & (uh_k <= 0)).sum()),
+        inside=int((~walled & still).sum()), differ=differ,
+        err=fused_max_err(sk, sp, ok, ("hist", "uhist")))
+
+
+def dd_fused_checks():
+    """4d: the table kernel of the fused cycle against its plain version
+    on 'dd' states of runs/n216_sample_dd (8 windows, its committed
+    weights, a sample run): before the equilibration boundary (walkers
+    before their windows, switches shut, no WL update) and after it
+    (walls live, walled walkers gated out of uhist), float64 at W=16
+    (identical integers, state within 1e-10) and float32 at W=4096 (at
+    most F32_MAX_DIFF_FRAC of walkers with a differing integer outcome);
+    the walled-increment check and the per-window merge on the state
+    after the boundary."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.mcmc.engine import SWITCH
+
+    for W, dtype in DD_W216:
+        prm = sample_params(W, dtype, eq_mc_cycles=DD_EQ, mpi_sync_int=1,
+                            latt_sync_int=10_000, **DD216_WINDOWS)
+        eng, s = make_engine(prm, weights="n216_sample_dd")
+        f64 = dtype == "float64"
+        for n_run in DD_RUNS:
+            eng.run_cycles(s, n_run)
+            cycle = s.cycle + 1
+            pre, beyond = dd_counts(s)
+            draws = kernel_draws(eng, s, 20 + cycle)
+            sk, sp, differ = fused_compare(eng, s, draws)
+            frac = float(differ.float().mean())
+            ok = ~differ
+            err = fused_max_err(sk, sp, ok, None if f64 else
+                                ("r", "moments", "energy", "mu"))
+            sw_att = int((sk.att[2] - s.att[2]).sum())
+            n_sw = int((draws[0] == SWITCH).sum())
+            n_acc = int((sk.acc[0] - s.acc[0]).sum())
+            print(f"[dd-fused] {dtype} W={W} cycle {cycle} (eq_mc_cycles "
+                  f"{DD_EQ}, switch_ok {eng._switch_ok(cycle)}): {pre} "
+                  f"walkers before their window, {beyond} beyond their "
+                  f"walls; {int(differ.sum())} walkers differ "
+                  f"({frac:.4%}), on the rest relative state err "
+                  f"{err:.3e}; {n_acc} accepted translations, {sw_att} "
+                  f"switch attempts ({n_sw} scheduled switches)",
+                  flush=True)
+            if n_acc == 0:
+                fail("dd fused_cycle: no translation accepted")
+            if f64:
+                if differ.any() or not err <= 1e-10:
+                    fail("fused_cycle fp64 with windows disagrees with its "
+                         "plain version")
+            elif frac > F32_MAX_DIFF_FRAC:
+                fail("fused_cycle f32 with windows differs from its plain "
+                     "version on too many walkers")
+            if cycle < DD_EQ:
+                if pre == 0 or sw_att != 0:
+                    fail(f"dd state before the boundary: {pre} walkers "
+                         f"before their window, {sw_att} switch attempts")
+            elif beyond == 0 or sw_att == 0 or pre != 0:
+                fail(f"dd state after the boundary: {pre} walkers before "
+                     f"their window, {beyond} beyond their walls, {sw_att} "
+                     "switch attempts")
+        wc = walled_increment_check(eng, s, 41)
+        print(f"[dd-fused] {dtype} W={W} walled increments: {wc['walled']} "
+              f"walled walkers in the grid ({wc['edge']} in their window's "
+              f"end bin, {wc['edge_counted']} of them counted in hist), "
+              f"{wc['walled_grew']} with uhist growth (must be 0); "
+              f"{wc['inside_flat']} of {wc['inside']} walkers in their "
+              f"window without uhist growth; kernel vs plain: "
+              f"{int(wc['differ'].sum())} walkers differ, hist/uhist "
+              f"relative err {wc['err']:.3e}", flush=True)
+        if wc["walled"] == 0 or wc["walled_grew"] != 0 \
+                or wc["inside_flat"] != 0:
+            fail("a walled walker's sample-run increment reached uhist, or "
+                 "an in-window walker's did not")
+        if (f64 and (wc["differ"].any() or not wc["err"] <= 1e-10)) or (
+                not f64 and (float(wc["differ"].float().mean())
+                             > F32_MAX_DIFF_FRAC or not wc["err"] <= 1e-5)):
+            fail("the walled-increment cycle disagrees with the plain "
+                 "version")
+        equal, rel, nwin = merge_repeat(eng, sk)
+        print(f"[dd-fused] {dtype} W={W} per-window merge over {nwin} "
+              f"windows: repeat bitwise equal {equal}, relative err "
+              f"{rel:.3e} against a float64 host sum", flush=True)
+        if not equal or not rel <= (1e-12 if f64 else 1e-6):
+            fail("the per-window delta merge is not repeatable or wrong")
+        del eng, s, sk, sp
+        torch.cuda.empty_cache()
+
+
+def dd_cell_params(W, dtype, **over):
+    """runs/n8064_wl at W walkers (16 windows, overlap 2, 201 bins over mu
+    in [-90000, 90000], cell_trials 8, 0.10 A steps, its wl_factor), one
+    volume move per cycle on average."""
+    from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
+
+    keep = ("parallel_strategy", "n_windows", "window_overlap", "mu_min",
+            "mu_max", "nbins", "cell_trials", "wl_factor")
+    return cell_params(W, dtype, **{
+        **{k: N8064_WL[k] for k in keep},
+        "mc_max_trans": N8064_WL["mc_max_trans"] * ANG_TO_BOHR, **over})
+
+
+def dd_cell_checks():
+    """4d: the multi-trial sub-step's kernels (mover points, chain + WL,
+    mover apply) against their plain versions on 'dd' states of
+    runs/n8064_wl (16 windows, T=8), before the equilibration boundary
+    (switches shut, no WL update, walkers before their windows) and
+    after it (walls live), float64 at W=16 and float32 at W=128, with
+    the gates of phase 8; the per-window merge on the state after the
+    boundary.  Cycles cut to one sweep."""
+    import torch
+
+    for W, dtype in DD_W8064:
+        f64 = dtype == "float64"
+        # delta-syncs at cycles 2 and 4: the state after cycle 5 holds a
+        # cycle's growth for the merge check
+        eng, s = make_cell_engine(dd_cell_params(
+            W, dtype, eq_mc_cycles=DD_EQ, list_update_int=1,
+            mpi_sync_int=2))
+        eng.sweeps_per_cycle = 1
+        eng.trials_per_cycle = eng.n_tables * eng.K * eng.T
+        for n_run in DD_RUNS:
+            eng.run_cycles(s, n_run)
+            cycle = s.cycle + 1
+            pre, beyond = dd_counts(s)
+            cmp = multitrial_compare(eng, s, 5, seed=600 + cycle)
+            mp, ch = cmp["mover_points"], cmp["chain_wl"]
+            ma = multitrial_apply_compare(eng, s, 5, seed=700 + cycle,
+                                          mode="chain")
+            frac = float(ch["differ"].float().mean())
+            print(f"[dd-cell] {dtype} W={W} T={eng.T} cycle {cycle} "
+                  f"(switch_ok {eng._switch_ok(cycle)}): {pre} walkers "
+                  f"before their window, {beyond} beyond their walls; "
+                  f"points energies err {mp['e_err']:.3e}, own moments err "
+                  f"{mp['own_err']:.3e}, repeat bitwise equal "
+                  f"{mp['repeat_equal']}; chain: {int(ch['differ'].sum())}"
+                  f" walkers differ ({frac:.4%}), rows err "
+                  f"{ch['cf_err']:.3e} (relative {ch['cf_rel']:.3e}), WL "
+                  f"slabs err {ch['wl_err']:.3e} (relative "
+                  f"{ch['wl_rel']:.3e}), {ch['n_acc']} of "
+                  f"{ch['n_enabled']} trials accepted, {ch['n_sw']} switch "
+                  f"attempts; apply: moment rows err {ma['mom_err']:.3e}, "
+                  f"other rows equal {ma['rest_equal']}", flush=True)
+            tol = 1e-10 if f64 else F32_MOVER_MOM_ATOL
+            if not (mp["e_err"] <= (1e-10 if f64 else F32_MOVER_E_ATOL)
+                    and mp["own_err"] <= tol and mp["repeat_equal"]):
+                fail(f"mover_points {dtype} with windows disagrees with "
+                     "its plain version")
+            if f64:
+                if ch["differ"].any() or not (ch["cf_err"] <= 1e-10
+                                              and ch["wl_err"] <= 1e-10):
+                    fail("chain_wl fp64 with windows disagrees with its "
+                         "plain version")
+            elif frac > F32_MAX_DIFF_FRAC or not (
+                    ch["cf_rel"] <= F32_CHAIN_RTOL
+                    and ch["wl_rel"] <= F32_CHAIN_RTOL):
+                fail("chain_wl f32 with windows disagrees with its plain "
+                     "version")
+            if not (0 < ch["n_acc"] < ch["n_enabled"]):
+                fail("chain_wl with windows: no trial or every trial "
+                     "accepted")
+            if not (ma["mom_err"] <= tol and ma["rest_equal"]):
+                fail(f"mover_apply {dtype} with windows disagrees with its "
+                     "plain version")
+            if cycle < DD_EQ:
+                if pre == 0 or ch["n_sw"] != 0:
+                    fail(f"dd cell state before the boundary: {pre} walkers"
+                         f" before their window, {ch['n_sw']} switch "
+                         "attempts")
+            elif pre != 0 or ch["n_sw"] == 0 or ch["hist_grew"] <= 0:
+                fail(f"dd cell state after the boundary: {pre} walkers "
+                     f"before their window, {ch['n_sw']} switch attempts, "
+                     f"histogram growth {ch['hist_grew']}")
+        equal, rel, nwin = merge_repeat(eng, s)
+        print(f"[dd-cell] {dtype} W={W} per-window merge over {nwin} "
+              f"windows: repeat bitwise equal {equal}, relative err "
+              f"{rel:.3e} against a float64 host sum", flush=True)
+        if not equal or not rel <= (1e-12 if f64 else 1e-6):
+            fail("the per-window delta merge is not repeatable or wrong")
+        del eng, s
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
+# 5d: runs/n216_sample_dd through the port's run_input_file
+# ----------------------------------------------------------------------
+
+# the overrides of runs/n216_sample_dd/run.py (its WL_QTIME default)
+DD216 = dict(
+    stack=(3, 3, 6), n_walkers=4096, n_windows=8, mu_min=-700.0,
+    mu_max=700.0, nbins=101, samplerun=True, eq_mc_cycles=1000,
+    mpi_sync_int=50, monitor_int=5000, flat_chk_int=100_000_000,
+    deltaG_int=10000, chkpt_dump_int=25000, timer_qtime=11400.0,
+    timer_closetime=420, max_mc_cycles=100_000_000,
+)
+# what the smoke run cuts, to fit monitor_stats, Delta G dumps and a
+# checkpoint into 2000 + 500 cycles (the run's own values in the
+# comments); eq_mc_cycles stays 1000
+DD216_CUTS = dict(
+    monitor_int=500,            # 5000
+    deltaG_int=500,             # 10000
+    chkpt_dump_int=1000,        # 25000
+)
+DD216_CYCLES = (2000, 500)      # first call, resumed call
+
+
+def dd216_run():
+    """Drive runs/n216_sample_dd (4096 walkers over 8 windows, float32,
+    its committed eta_weights.dat) through the port's run_input_file in
+    build/chip_smoke_dd216: 2000 cycles across the equilibration
+    boundary at 1000, then a second call that resumes from the
+    checkpoint for 500 more.  Returns {"launches": {kernel: count over
+    both calls}}."""
+    import shutil
+
+    import torch
+
+    from mc_water_ls_mw_tpu_torch import app as app_mod
+    from mc_water_ls_mw_tpu_torch.mcmc.wanglandau import deltaG_from_uhist
+    from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value64
+    from mc_water_ls_mw_tpu_torch.parallel.windows import join_uhist
+
+    apps, boundary = [], {}
+
+    class Recorded(app_mod.Application):
+        """The Application, remembered so that its engine can be read,
+        with each window's walkers in their window at the boundary."""
+
+        def setup(self):
+            apps.append(self)
+            return super().setup()
+
+        def _check_windows(self, cycle):
+            if cycle == self.prm.eq_mc_cycles:
+                s = self.state
+                boundary["in"] = torch.bincount(
+                    s.window_id[s.in_window].long(),
+                    minlength=s.master_eta.hi.shape[0]).tolist()
+            return super()._check_windows(cycle)
+
+    d = os.path.join(ROOT, "build", "chip_smoke_dd216")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    for name in ("ice.input", "eta_weights.dat"):
+        shutil.copy(os.path.join(ROOT, "runs", "n216_sample_dd", name), d)
+    over = {**DD216, **DD216_CUTS}
+    path = os.path.join(d, "ice.input")
+    cwd, original = os.getcwd(), app_mod.Application
+    app_mod.Application = Recorded
+    try:
+        out = []
+        for n_cyc in DD216_CYCLES:
+            t0 = time.time()
+            s = app_mod.run_input_file(path, overrides=over,
+                                       max_cycles=n_cyc, device=DEVICE)
+            torch.cuda.synchronize()
+            eng = apps[-1].engine
+            out.append(dict(wall=time.time() - t0, s=s, app=apps[-1],
+                            launches={
+                                "fused_cycle": eng.fused_cycle.launches,
+                                "full_energy": eng.full_energy.launches}))
+    finally:
+        os.chdir(cwd)
+        app_mod.Application = original
+    first, second = out
+    eng, s = second["app"].engine, second["s"]
+    prm = eng.prm
+    W = DD216["n_walkers"]
+    nwin = s.master_eta.hi.shape[0]
+    if not (eng.fused_cycle.kernel == "fused_cycle" and prm.samplerun
+            and prm.parallel_strategy == "dd" and nwin == DD216["n_windows"]
+            and s.r.shape[-1] == W and s.r.dtype == torch.float32):
+        fail("the dd N=216 run did not build the table-mode float32 sample "
+             f"run over {DD216['n_windows']} windows at {W} walkers")
+    for run, n_cyc in zip(out, DD216_CYCLES):
+        if run["launches"]["fused_cycle"] != n_cyc:
+            fail(f"dd N=216 run: launches {run['launches']}, expected "
+                 f"{n_cyc} of the fused cycle")
+    if first["s"].cycle != DD216_CYCLES[0] or \
+            second["app"].start_cycle != DD216_CYCLES[0] or \
+            s.cycle != sum(DD216_CYCLES):
+        fail(f"the resumed dd N=216 run did not continue from cycle "
+             f"{DD216_CYCLES[0]}: started at {second['app'].start_cycle}, "
+             f"ended at {s.cycle}")
+    node = open(os.path.join(d, "node000.log")).read()
+    glog = open(os.path.join(d, "mc.log")).read()
+    for what, text in {
+            "the per-window monitor rows": "# window  walkers in-win",
+            "the restart": f"# Restarting from cycle {DD216_CYCLES[0]} (",
+            "a Delta G estimate": "# Estimate of delta G from histogram",
+    }.items():
+        if text not in node + glog:
+            fail(f"dd N=216 run: no trace of {what} in the logs")
+    files = set(os.listdir(d))
+    dumps = sorted(f for f in files if f.startswith("uhist_windows_"))
+    want = {"checkpoint000.npz.1", "checkpoint000.npz.2", "eta_weights.dat",
+            "unbiased_histogram.dat", "mc.log", "node000.log"} | {
+                f"{k}_{w:03d}.dat" for w in range(nwin)
+                for k in ("eta_weights", "histogram",
+                          "unbiased_histogram")}
+    if not want <= files or len(dumps) < 3 or not all(
+            f.replace("uhist", "hist") in files for f in dumps):
+        fail(f"dd N=216 run: missing files {sorted(want - files)} or "
+             f"per-window dumps {dumps}")
+    stitched = np.loadtxt(os.path.join(d, "unbiased_histogram.dat"),
+                          skiprows=1)
+    u_rows = ds_value64(eng.merged_histogram(s).master_uhist)   # [nwin, B]
+    dg = deltaG_from_uhist(prm, eng.grid, join_uhist(
+        u_rows, eng.grid.nbins, prm.window_overlap))
+    logged = [float(ln.split("=")[1].split()[0]) for ln in glog.splitlines()
+              if ln.startswith("# G(lattice2) - G(lattice1)")
+              and "J/mole" in ln]
+    inside = (s.mu > s.my_mu_min) & (s.mu < s.my_mu_max)
+    per_win = torch.bincount(s.window_id[inside].long(),
+                             minlength=nwin).tolist()
+    n, disp, tot = _block_seconds(os.path.join(d, "mc.log"))
+    rate = prm.nwater * W * n / disp
+    kind = torch.cuda.get_device_name(0)
+    print(f"[dd216] runs/n216_sample_dd through run_input_file, overrides "
+          f"{sorted(DD216)} with {sorted(DD216_CUTS)} cut: N={prm.nwater} "
+          f"W={W} float32, {nwin} windows, {prm.nbins} bins, "
+          f"eq_mc_cycles {prm.eq_mc_cycles}", flush=True)
+    print(f"[dd216] {n} cycles over both calls: {disp / n * 1e3:.3f} "
+          f"ms/cycle in the cycle loop ({tot / n * 1e3:.3f} ms/cycle with "
+          f"the block events) = {rate:.4e} moves/s on {kind}; calls "
+          f"{first['wall']:.1f} s and {second['wall']:.1f} s with set-up; "
+          f"launches {first['launches']} + {second['launches']}; resumed "
+          f"at cycle {second['app'].start_cycle}; walkers in their window "
+          f"at the boundary (cycle {prm.eq_mc_cycles}) per window "
+          f"{boundary.get('in')}, inside their window's bounds at cycle "
+          f"{s.cycle} per window {per_win}; unbiased histogram per window "
+          f"{[float(x) for x in u_rows.sum(axis=1)]}; stitched Delta G "
+          f"{dg and dg['J_per_mol']} J/mol (logged at the last dump "
+          f"{logged[-1] if logged else None} J/mol; {len(dumps)} per-window "
+          "dumps; a smoke value, not converged)", flush=True)
+    if min(per_win) <= 0 or not (u_rows.sum(axis=1) > 0).all():
+        fail("dd N=216 run: a window is empty")
+    if dg is None or not all(np.all(np.isfinite(v)) for v in dg.values()) \
+            or not logged or not np.isfinite(logged[-1]):
+        fail(f"dd N=216 run: the stitched Delta G is not finite: {dg}")
+    if not np.isfinite(stitched).all() or stitched[:, 1].sum() <= 0:
+        fail("dd N=216 run: the stitched unbiased_histogram.dat is not "
+             "finite")
+    return {"launches": {k: first["launches"][k] + second["launches"][k]
+                         for k in first["launches"]}}
 
 
 def scatter_phase():
@@ -2304,6 +2815,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_time("4c. multi-trial kernel")
 
+    # ---- 4d. the kernels with 'dd' windows: the fused cycle on
+    # runs/n216_sample_dd, the multi-trial sub-step's three kernels on
+    # runs/n8064_wl, before and after the equilibration boundary
+    dd_fused_checks()
+    phase_time("4d. dd windows: fused cycle (N=216)")
+    dd_cell_checks()
+    phase_time("4d. dd windows: multi-trial sub-step (N=8064)")
+
     # ---- 5. the main path
     prm = sample_params(W, "float32", mpi_sync_int=5, latt_sync_int=10,
                         eq_mc_cycles=20, max_mc_cycles=45)
@@ -2442,6 +2961,13 @@ def main() -> int:
         del eng, s, samples
     torch.cuda.empty_cache()
     phase_time("5c. path C (N=216, dense_trials sweep)")
+
+    # ---- 5d. runs/n216_sample_dd through the front end (8 windows)
+    dd = dd216_run()
+    for name, n in dd["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    phase_time("5d. dd front-end path (runs/n216_sample_dd)")
 
     # ---- 6. the cell engine's kernels vs plain
     from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value

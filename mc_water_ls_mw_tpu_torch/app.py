@@ -10,8 +10,10 @@ checkpoint), the SIGTERM-safe stop and the queue-time guard (reference
 call stack: SURVEY.md 3.1-3.2, main.f90:40-254).
 
 The run is one process on one device (``device``: 'cuda' by default,
-'cpu' on request; no mesh).  What the engines refuse (dd windows,
-MINU, ...) raises NotImplementedError when the engine is built.
+'cpu' on request; no mesh), in either parallel strategy ('mw', or 'dd'
+mu windows: walkers assigned round-robin to ``n_windows`` windows).
+What the engines refuse (MINU, the 1/t schedule, ...) raises
+NotImplementedError when the engine is built.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from .mcmc.engine import Engine
 from .mcmc.state import compute_log_unbiased_norm, init_state, resolve_device
 from .models.sw import get_model
 from .ops.dsfloat import ds_value64, ds_zeros
+from .parallel.windows import join_eta
 
 
 class CapacityOverflow(RuntimeError):
@@ -288,11 +291,14 @@ class Application:
                 hi = getattr(state, name).hi
                 setattr(state, name, ds_zeros(hi.shape, hi.dtype, hi.device))
             # the unbiased increment is exp(eta - log_norm) clamped at
-            # 60: recompute the norm from the checkpoint's eta and
-            # rebuild the engine around it
-            log_norm = compute_log_unbiased_norm(
-                prm, self.grid, ds_value64(state.master_eta)[0],
-                prm.n_walkers)
+            # 60: recompute the norm from the checkpoint's eta (the
+            # stitched curve of its windows) and rebuild the engine
+            # around it
+            w_cur = ds_value64(state.master_eta)               # [nwin, B]
+            joined = (join_eta(w_cur, self.grid.nbins, prm.window_overlap)
+                      if w_cur.shape[0] > 1 else w_cur[0])
+            log_norm = compute_log_unbiased_norm(prm, self.grid, joined,
+                                                 prm.n_walkers)
             logs.my(f"# Recomputed log_unbiased_norm = {log_norm:.3f} "
                     "from checkpoint eta")
             self.aux = self.aux._replace(log_unbiased_norm=log_norm)
@@ -345,6 +351,30 @@ class Application:
                 and cycle % prm.deltaG_int == 0):
             self.state = wl.compute_deltaG(eng, self.state, self.logs,
                                            self.aux)
+
+    def _check_windows(self, cycle):
+        """The 'dd' equilibration window check (mc_cycle:187-201) after
+        the boundary.  With window seeding (dd_seeding, the default)
+        membership is instantaneous at the boundary and the eta walls
+        capture a stray on first contact, while its out-of-window writes
+        land in bins that the per-window flatness and the stitching
+        leave out: a warning.  With the reference's reach-once windows a
+        walker outside its window would sample the wrong statistics: the
+        run stops."""
+        prm = self.prm
+        if prm.parallel_strategy != "dd" or cycle < prm.eq_mc_cycles:
+            return
+        n_out = int((~self.state.in_window).sum())
+        if n_out == 0:
+            return
+        if not prm.dd_seeding:
+            raise RuntimeError(
+                "Not all walkers have reached their designated window "
+                f"after {prm.eq_mc_cycles} MC cycles")
+        self.logs.g(f"# WARNING: {n_out} walkers not inside their "
+                    f"mu-window at cycle {cycle} (eta walls capture them "
+                    "on first contact; out-of-window WL writes are "
+                    "excluded from flatness/stitching)")
 
     def run(self, max_cycles=None, profile_dir=None):
         """The cycle loop, in blocks whose boundaries fall on the event
@@ -412,6 +442,7 @@ class Application:
                 self.logs.g("! Approaching end of queue time - stopping   !")
                 self.logs.g("!============================================!")
                 break
+            self._check_windows(cycle)
         # final checkpoint (main.f90:246), synchronous
         self.ckpt_writer.write(self.state, stream=eng.stream, wait=True)
         self.therm.close()

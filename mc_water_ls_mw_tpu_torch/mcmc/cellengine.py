@@ -27,9 +27,10 @@ one trial per mover, on any unpadded grid).
   rejected (a state-only-dependent hard wall), which keeps the static
   coverage tables exact between rebins; the grid origin is re-drawn and
   the molecules re-binned every ``list_update_int`` cycles.
-* Volume moves, lattice switches outside the chain, the delta-sync and
-  the eta lookups are inherited from the dense ``Engine``; ``CellState``
-  carries the same multicanonical fields.
+* Volume moves, lattice switches outside the chain, the delta-sync,
+  the eta lookups and the 'dd' window tracking and switch gating are
+  inherited from the dense ``Engine``; ``CellState`` carries the same
+  multicanonical fields.
 
 On CUDA tensors the wrappers launch their hand-written kernels; on
 CPU tensors they run their plain versions, so what is computed does not
@@ -124,6 +125,8 @@ from .state import (
     fields_from_numpy,
     resolve_device,
     state_to_numpy,
+    warm_start_rows,
+    window_layout,
 )
 
 # per-intermediate element budget of slab_full_energy on the card (80 GB
@@ -988,13 +991,16 @@ class CellEngine(Engine):
     # the cycle
     # ------------------------------------------------------------------
 
-    def _substep_scan(self, s: CellState, codes, u_all, n_sub):
+    def _substep_scan(self, s: CellState, codes, u_all, n_sub,
+                      switch_ok=True):
         """All sub-steps of the cycle, in order: sub-step ``sid`` runs
         table row sid % n_tables (colours outer, blocks inner, repeating
         every sweep) on trials sid*K .. sid*K+K-1 of the schedule.  The
         packed slabs, the chain rows, the WL slabs and the per-slot
         trial counts are updated in place by the three kernels; pack
-        and unpack happen once.  Returns (s, tpm_slab)."""
+        and unpack happen once.  ``switch_ok``: the chain's switch
+        attempts are allowed (false during a 'dd' run's equilibration).
+        Returns (s, tpm_slab)."""
         W = s.r.shape[-1]
         K, T = self.K, self.T
         dev = s.r.device
@@ -1004,7 +1010,7 @@ class CellEngine(Engine):
                               device=dev)
         codes_d = codes.to(device=dev, dtype=torch.int32)
         pks = self._pack(s)
-        rows = self._loop_rows(s)
+        rows = self._loop_rows(s, switch_ok)
         if T == 1:
             # [n_sub, 7, K, W]: each uniform's [K, W] block contiguous
             u_all = u_all.permute(0, 2, 1, 3).contiguous()
@@ -1028,13 +1034,17 @@ class CellEngine(Engine):
         return self._cycle_with(s, self._substep_scan)
 
     def _cycle_with(self, s: CellState, scan_fn):
-        """The cycle skeleton: rebin cadence, the move-type schedule,
-        the sub-step loop (``scan_fn``), scheduled volume moves,
-        delta-sync / chain-resync cadences and the therm sample."""
+        """The cycle skeleton: 'dd' window tracking, rebin cadence, the
+        move-type schedule, the sub-step loop (``scan_fn(s, codes, u_all,
+        n_sub, switch_ok)``), scheduled volume moves, delta-sync /
+        chain-resync cadences and the therm sample."""
         prm = self.prm
         W = s.r.shape[-1]
         s.cycle += 1
         cycle = s.cycle
+        if prm.parallel_strategy == "dd":
+            self._dd_track_window(s, cycle)
+        switch_ok = self._switch_ok(cycle)
 
         # re-draw the grid origin + rebin on the reference's
         # Verlet-rebuild cadence (mc_cycle:218-222)
@@ -1048,13 +1058,13 @@ class CellEngine(Engine):
             cycle, self.probs, self.trials_per_cycle, n_sub, self.K,
             self.n_u, W, s.r.dtype)
 
-        s, tpm_slab = scan_fn(s, codes, u_all, n_sub)
+        s, tpm_slab = scan_fn(s, codes, u_all, n_sub, switch_ok)
         s.trans_per_mol += gather_from_slab(tpm_slab, s.mol2slot)
 
         # scheduled volume moves, back to back (Engine._volume with the
         # slab hooks above)
         if prm.allow_vol:
-            self._scheduled_volume_moves(s, codes, cycle)
+            self._scheduled_volume_moves(s, codes, cycle, switch_ok)
 
         s.avg_energy = s.avg_energy + self._e_tot(s) \
             + prm.pressure * s.volume
@@ -1086,10 +1096,9 @@ def init_cell_state(prm: RunParams, model: SWParams, r0: np.ndarray,
     device = resolve_device(device)
     dtype = _DTYPES[prm.dtype]
     W, L, N, B = prm.n_walkers, prm.num_lattices, prm.nwater, grid.nbins
-    if L != 2 or prm.parallel_strategy != "mw":
+    if L != 2:
         raise NotImplementedError(
-            "num_lattices != 2 and parallel_strategy='dd' are not ported "
-            "yet (see ROADMAP.md)")
+            "num_lattices != 2 is not ported yet (see ROADMAP.md)")
 
     r0 = np.asarray(r0, dtype=np.float64)
     H0 = np.asarray(H0, dtype=np.float64)
@@ -1134,6 +1143,11 @@ def init_cell_state(prm: RunParams, model: SWParams, r0: np.ndarray,
         r_slab0[l][:, slot_np] = r_use[l].T
     s2m0[slot_np] = np.arange(N, dtype=np.int32)
 
+    # windows, as state.init_state assigns them
+    wid, sb, eb, lo, hi, in_window, ls0, wins = window_layout(
+        prm, grid, n_windows)
+    nwin = len(wins)
+
     weight0_np = (np.zeros(B) if weight0 is None
                   else np.asarray(weight0, dtype=np.float64))
     log_norm = compute_log_unbiased_norm(prm, grid, weight0_np, W)
@@ -1158,11 +1172,13 @@ def init_cell_state(prm: RunParams, model: SWParams, r0: np.ndarray,
              - energy1[1] - prm.pressure * vol1[1])
     mu0_s = mu0_s * prm.beta - N * torch.log(vol1[0] / vol1[1])
 
-    # warm-start weights load into the master row; per-walker arrays
-    # hold only growth since the last sync
+    # warm-start weights load into the master rows (see
+    # state.warm_start_rows); per-walker arrays hold only growth since
+    # the last sync
     master_eta = DS(
-        torch.as_tensor(weight0_np[None, :], dtype=dtype, device=device),
-        torch.zeros((1, B), dtype=dtype, device=device),
+        torch.as_tensor(warm_start_rows(prm, weight0_np, wins), dtype=dtype,
+                        device=device),
+        torch.zeros((nwin, B), dtype=dtype, device=device),
     )
 
     def full(shape, val, dt=dtype):
@@ -1176,7 +1192,7 @@ def init_cell_state(prm: RunParams, model: SWParams, r0: np.ndarray,
         volume=vol, energy=energy1[:, None].expand(L, W).contiguous(),
         energy_err=full((L, W), 0.0),
         mu=mu0_s.to(dtype).expand(W).contiguous(),
-        ls=full((W,), prm.ls - 1, torch.int32),
+        ls=tens(ls0, torch.int32),
         moments=mom1.expand(10, L, nslot, W).contiguous(),
         slot2mol=tens(s2m0)[:, None].expand(nslot, W).contiguous(),
         mol2slot=tens(slot_np)[:, None].expand(N, W).contiguous(),
@@ -1189,13 +1205,12 @@ def init_cell_state(prm: RunParams, model: SWParams, r0: np.ndarray,
         firstcycle=full((W,), True, torch.bool),
         histogram_reset=full((W,), False, torch.bool),
         master_eta=master_eta,
-        master_hist=ds_zeros((1, B), dtype, device),
-        master_uhist=ds_zeros((1, B), dtype, device),
-        window_id=full((W,), 0, torch.int32),
-        my_mu_min=full((W,), prm.mu_min), my_mu_max=full((W,), prm.mu_max),
-        start_bin=full((W,), 0, torch.int32),
-        end_bin=full((W,), B - 1, torch.int32),
-        in_window=full((W,), True, torch.bool),
+        master_hist=ds_zeros((nwin, B), dtype, device),
+        master_uhist=ds_zeros((nwin, B), dtype, device),
+        window_id=tens(wid, torch.int32),
+        my_mu_min=tens(lo, dtype), my_mu_max=tens(hi, dtype),
+        start_bin=tens(sb, torch.int32), end_bin=tens(eb, torch.int32),
+        in_window=tens(in_window, torch.bool),
         max_trans=full((W,), prm.mc_max_trans),
         dv_max=full((W,), prm.mc_dv_max),
         att=full((3, W), 0, torch.int32), acc=full((3, W), 0, torch.int32),

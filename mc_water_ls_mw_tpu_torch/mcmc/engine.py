@@ -2,9 +2,10 @@
 
 Counterpart of ``mc_water_ls_mw_tpu/mcmc/engine.py`` (the dense walker
 engine; reference mc_moves.F90), for the slice the port covers: two
-lattices, NPT, the 'mw' strategy (one window shared by all walkers),
-Wang-Landau weight generation or a sample run, in either candidate
-mode of the JAX package:
+lattices, NPT, either parallel strategy ('mw': one window shared by all
+walkers; 'dd': walkers assigned round-robin to mu windows, each window
+with its own master rows), Wang-Landau weight generation or a sample
+run, in either candidate mode of the JAX package:
 
 * static neighbour tables with their displacement wall (N >= 96 in a
   MIC-unique box): a molecule schedule shared by all walkers, one trial
@@ -17,7 +18,8 @@ mode of the JAX package:
 Every other setting raises ``NotImplementedError`` in
 ``Engine.__init__``.
 
-One cycle (``_one_cycle``) draws a shared move schedule and per-walker
+One cycle (``_one_cycle``) tracks each walker's window membership
+('dd'), draws a shared move schedule and per-walker
 uniforms from the engine's random stream, runs every translation,
 switch attempt and per-move WL update of the cycle through
 ``FusedCycle`` (one hand-written CUDA kernel per candidate mode on the
@@ -250,6 +252,32 @@ class Engine:
             self.grid, self._weight_total(s), mu, self.binw, self.mub,
             s.start_bin, s.end_bin, s.my_mu_min, s.my_mu_max, s.in_window,
             prm.eta_interp, prm.dd_seeding)
+
+    def _dd_track_window(self, s: SamplerState, cycle: int):
+        """'dd' window membership at the top of cycle ``cycle``
+        (mc_cycle:181-210), decided on the host from the cycle counter.
+
+        dd_seeding=True: the flag mirrors the walker's current position
+        during equilibration, is frozen at the boundary cycle and is
+        all-true after it (the eta wall then pulls strays into their
+        windows).  dd_seeding=False: the reference's reach-once flag,
+        latched on first entry, all-true after the boundary."""
+        prm = self.prm
+        eq = prm.eq_mc_cycles
+        if cycle > eq:
+            s.in_window = torch.ones_like(s.in_window)
+            return
+        now_in = (s.mu > s.my_mu_min) & (s.mu < s.my_mu_max)
+        if not prm.dd_seeding:
+            s.in_window = s.in_window | now_in
+        elif cycle < eq:
+            s.in_window = now_in
+
+    def _switch_ok(self, cycle: int) -> bool:
+        """Lattice switches are suppressed during a 'dd' run's
+        equilibration (mc_cycle:237-249)."""
+        return (self.prm.parallel_strategy != "dd"
+                or cycle >= self.prm.eq_mc_cycles)
 
     # ------------------------------------------------------------------
     # Wang-Landau per-move update (mc_update_wl_bins,
@@ -696,59 +724,81 @@ class Engine:
                 ok = cond if ok is None else ok & cond
         return ok
 
-    def _scheduled_volume_moves(self, s: SamplerState, codes, cycle):
+    def _scheduled_volume_moves(self, s: SamplerState, codes, cycle,
+                                switch_ok: bool):
         """This cycle's scheduled volume moves, back to back, each
-        followed by a switch attempt under mc_always_switch (hoisted out
-        of the per-move loop as in the JAX engine)."""
+        followed by a switch attempt under mc_always_switch where
+        switches are allowed (hoisted out of the per-move loop as in the
+        JAX engine)."""
         nvol = int((codes == VOL).sum())
         W = s.r.shape[-1]
         for k in range(nvol):
             u, zeta2 = self.stream.volume_draws(cycle, k, W, s.r.dtype)
             self._volume(s, u)
-            if self.prm.mc_always_switch:
+            if self.prm.mc_always_switch and switch_ok:
                 self._switch(s, zeta2)
 
     # ------------------------------------------------------------------
     # delta-sync (comms_mpi.f90:244-530)
     # ------------------------------------------------------------------
 
-    def _delta_merge(self, delta, master):
-        """Fold every walker's growth [B, W] into the double-single
-        master row (one window in 'mw').  Non-finite growth is dropped
-        and counted.  A plain sum over the walker axis: deterministic on
-        the card (no atomics)."""
+    def _delta_merge(self, delta, master, window_id):
+        """Fold every walker's growth [B, W] into its window's
+        double-single master row (master [nwin, B]).  Non-finite growth
+        is dropped and counted.  Each window's row is a plain sum over
+        the walker axis of the growth masked to that window's walkers
+        (at most a few tens of windows, one merge every mpi_sync_int
+        cycles): deterministic on the card, with no atomics."""
         d = delta.T                                          # [W, B]
         finite = torch.isfinite(d)
         n_bad = torch.sum(~finite).to(torch.int32)
         d = torch.where(finite, d, 0.0)
-        tot = torch.sum(d, dim=0, keepdim=True)              # [1, B]
+        wid = window_id.long()[:, None]                      # [W, 1]
+        tot = torch.stack([torch.sum(torch.where(wid == w, d, 0.0), dim=0)
+                           for w in range(master.hi.shape[0])])
         return ds_add(master, tot), n_bad
 
+    def _window_mask(self, s: SamplerState):
+        """The [nwin, B] in-window bin mask, from the per-walker window
+        bounds (all walkers of a window share them; a window without
+        walkers masks no bin)."""
+        nwin = s.master_eta.hi.shape[0]
+        B = self.grid.nbins
+        wid = s.window_id.long()
+        sbw = torch.full((nwin,), B, dtype=s.start_bin.dtype,
+                         device=wid.device).scatter_reduce(
+            0, wid, s.start_bin, "amin")
+        ebw = torch.full((nwin,), -1, dtype=s.end_bin.dtype,
+                         device=wid.device).scatter_reduce(
+            0, wid, s.end_bin, "amax")
+        bins = torch.arange(B, device=wid.device)[None, :]
+        return (bins >= sbw[:, None]) & (bins <= ebw[:, None])
+
     def _sync_all(self, s: SamplerState):
-        """Merge weights and histograms across walkers (mc_cycle:258-278)
-        and re-zero the per-walker deltas."""
+        """Merge weights and histograms across the walkers of each window
+        (mc_cycle:258-278) and re-zero the per-walker deltas."""
         prm = self.prm
-        m_eta, bad_w = self._delta_merge(s.weight, s.master_eta)
+        wid = s.window_id
+        m_eta, bad_w = self._delta_merge(s.weight, s.master_eta, wid)
         if not prm.samplerun:
-            # re-zero the merged in-window minimum (uniform shift,
-            # mc_moves.F90:1680-1685, deferred to syncs); exact in DS
-            B = self.grid.nbins
-            bins = torch.arange(B, device=s.weight.device)[None, :]
-            winmask = ((bins >= torch.min(s.start_bin))
-                       & (bins <= torch.max(s.end_bin)))     # [1, B]
+            # re-zero each window's merged in-window minimum (uniform
+            # shift, mc_moves.F90:1680-1685, deferred to syncs); exact in
+            # DS; the bins outside a window (the warm-start seeding
+            # curve) stay untouched
+            winmask = self._window_mask(s)                   # [nwin, B]
             val = ds_value(m_eta)
             minv = torch.amin(torch.where(winmask, val, float("inf")),
                               dim=1, keepdim=True)
             minv = torch.where(torch.isfinite(minv), minv, 0.0)
             m_eta = ds_where(winmask, ds_sub(m_eta, minv), m_eta)
-        m_hist, bad_h = self._delta_merge(s.hist, s.master_hist)
+        m_hist, bad_h = self._delta_merge(s.hist, s.master_hist, wid)
         s.weight = torch.zeros_like(s.weight)
         s.hist = torch.zeros_like(s.hist)
         s.master_eta, s.master_hist = m_eta, m_hist
         s.dropped = s.dropped + bad_w + bad_h
         if prm.samplerun:
             s.master_uhist, bad_u = self._delta_merge(s.uhist,
-                                                      s.master_uhist)
+                                                      s.master_uhist, wid)
             s.uhist = torch.zeros_like(s.uhist)
             s.dropped = s.dropped + bad_u
         return s
@@ -811,6 +861,9 @@ class Engine:
         L, _, N, W = s.r.shape
         s.cycle += 1
         cycle = s.cycle
+        if prm.parallel_strategy == "dd":
+            self._dd_track_window(s, cycle)
+        switch_ok = self._switch_ok(cycle)
         codes, sched_mol, cycle_u = self.stream.cycle_draws(
             cycle, self.probs, N, W, s.r.dtype, trials=self.dT,
             shared_mol=not self.dense)
@@ -818,10 +871,10 @@ class Engine:
         # the cycle (mc_cycle's hot loop, mc_moves.F90:224-250)
         self.fused_cycle(s, codes, sched_mol, cycle_u,
                          wl_active=cycle >= prm.eq_mc_cycles,
-                         switch_ok=True)
+                         switch_ok=switch_ok)
         # the rare volume moves, hoisted after the step loop
         if prm.allow_vol:
-            self._scheduled_volume_moves(s, codes, cycle)
+            self._scheduled_volume_moves(s, codes, cycle, switch_ok)
         # block-average energy accumulation (mc_cycle:252-255)
         s.avg_energy = s.avg_energy + s.energy + prm.pressure * s.volume
         if cycle % prm.mpi_sync_int == 0:
@@ -860,8 +913,6 @@ class Engine:
 
 _UNSUPPORTED = (
     # (setting, predicate on prm) - outside this slice of the port
-    ("parallel_strategy='dd' (mu windows)",
-     lambda p: p.parallel_strategy != "mw"),
     ("num_lattices != 2", lambda p: p.num_lattices != 2),
     ("mc_ensemble='nvt'", lambda p: p.mc_ensemble != "npt"),
     ("minu", lambda p: p.minu),

@@ -220,6 +220,52 @@ def assign_windows(prm: RunParams, grid: BinGrid, n_windows: int):
     return wins
 
 
+def window_layout(prm: RunParams, grid: BinGrid, n_windows: int):
+    """The walkers' windows (mc_init:659-722): in 'dd' with
+    ``n_windows`` > 1 the walkers are assigned round-robin to the
+    windows of ``assign_windows``, start outside them (``in_window``
+    false) and on the lattice of their window's sign; otherwise one
+    window spans the grid.  Returns (window_id, start_bin, end_bin,
+    mu_min, mu_max, in_window, ls0), each [W] numpy, and the windows
+    (per-window (start_bin, end_bin, mu_min, mu_max))."""
+    W, B = prm.n_walkers, grid.nbins
+    ls0 = np.full(W, prm.ls - 1, dtype=np.int32)
+    if prm.parallel_strategy == "dd" and prm.num_lattices == 2 \
+            and n_windows > 1:
+        wins = assign_windows(prm, grid, n_windows)
+        wid = np.arange(W) % n_windows
+        in_window = np.zeros(W, dtype=bool)
+    else:
+        wins = [(0, B - 1, prm.mu_min, prm.mu_max)]
+        wid = np.zeros(W, dtype=np.int64)
+        in_window = np.ones(W, dtype=bool)
+    sb = np.array([wins[i][0] for i in wid], dtype=np.int32)
+    eb = np.array([wins[i][1] for i in wid], dtype=np.int32)
+    lo = np.array([wins[i][2] for i in wid], dtype=np.float64)
+    hi = np.array([wins[i][3] for i in wid], dtype=np.float64)
+    if len(wins) > 1:
+        ls0 = np.where(hi < 0.0, 0, ls0)
+        ls0 = np.where(lo > 0.0, 1, ls0)
+    return (wid.astype(np.int32), sb, eb, lo, hi, in_window,
+            ls0.astype(np.int32), wins)
+
+
+def warm_start_rows(prm: RunParams, weight0: np.ndarray, wins) -> np.ndarray:
+    """The master weight rows [nwin, B] of a warm start: the whole
+    global curve in every window's row (window seeding: pre-window
+    walkers sample the wall-less curve); with dd_seeding=False the
+    reference's per-window masking, zero outside each window
+    (mc_init:808-814)."""
+    B = len(weight0)
+    rows = np.broadcast_to(np.asarray(weight0, dtype=np.float64),
+                           (len(wins), B)).copy()
+    if (not prm.dd_seeding) and len(wins) > 1:
+        bins = np.arange(B)
+        for w, (sbx, ebx, _, _) in enumerate(wins):
+            rows[w, (bins < sbx) | (bins > ebx)] = 0.0
+    return rows
+
+
 def compute_log_unbiased_norm(prm: RunParams, grid: BinGrid,
                               weight0: np.ndarray, n_ranks: int) -> float:
     """Overflow-resistant log of the expected unbiased-histogram norm
@@ -285,43 +331,17 @@ def init_state(prm: RunParams, model: SWParams, r0: np.ndarray,
     else:
         mu0 = torch.zeros((W,), dtype=dtype, device=device)
 
-    if prm.parallel_strategy == "dd" and L == 2 and n_windows > 1:
-        wins = assign_windows(prm, grid, n_windows)
-        wid = np.arange(W) % n_windows
-        sb = np.array([wins[i][0] for i in wid], dtype=np.int32)
-        eb = np.array([wins[i][1] for i in wid], dtype=np.int32)
-        lo = np.array([wins[i][2] for i in wid])
-        hi = np.array([wins[i][3] for i in wid])
-        in_window = np.zeros(W, dtype=bool)
-        ls0 = np.full(W, prm.ls - 1, dtype=np.int32)
-        ls0 = np.where(hi < 0.0, 0, ls0)
-        ls0 = np.where(lo > 0.0, 1, ls0)
-        nwin = n_windows
-    else:
-        wid = np.zeros(W, dtype=np.int32)
-        sb = np.zeros(W, dtype=np.int32)
-        eb = np.full(W, B - 1, dtype=np.int32)
-        lo = np.full(W, prm.mu_min)
-        hi = np.full(W, prm.mu_max)
-        in_window = np.ones(W, dtype=bool)
-        ls0 = np.full(W, prm.ls - 1, dtype=np.int32)
-        nwin = 1
+    wid, sb, eb, lo, hi, in_window, ls0, wins = window_layout(
+        prm, grid, n_windows)
+    nwin = len(wins)
 
     if weight0 is None:
         weight0 = np.zeros(B)
     # warm-start weights load into the MASTER rows; per-walker arrays
-    # hold only growth since the last sync (see the JAX init_state for
-    # the dd_seeding note)
-    w0rows = np.broadcast_to(
-        np.asarray(weight0, dtype=np.float64), (nwin, B)
-    ).copy()
-    if (not prm.dd_seeding) and nwin > 1:
-        bins = np.arange(B)
-        for wdx in range(nwin):
-            sbx, ebx = wins[wdx][0], wins[wdx][1]
-            w0rows[wdx, (bins < sbx) | (bins > ebx)] = 0.0
+    # hold only growth since the last sync
     master_eta = DS(
-        torch.as_tensor(w0rows, dtype=dtype, device=device),
+        torch.as_tensor(warm_start_rows(prm, weight0, wins), dtype=dtype,
+                        device=device),
         torch.zeros((nwin, B), dtype=dtype, device=device),
     )
     log_norm = compute_log_unbiased_norm(prm, grid, weight0, W)

@@ -3,14 +3,18 @@
 Counterpart of ``mc_water_ls_mw_tpu/mcmc/wanglandau.py`` (the
 reference's interval-driven bookkeeping: mc_monitor_stats,
 mc_check_flatness, mc_compute_deltaG_from_hist, mc_moves.F90:1691-2621)
-for one mu window (the 'mw' strategy; 'dd' windows are refused by the
-engine, ROADMAP.md).  They run at block boundaries on the host: file IO
-and O(nbins) scalar work on pulled arrays, in float64.  The 1/t and
+for either parallel strategy: one window shared by all walkers ('mw'),
+or a master row per mu window ('dd'), whose curves are written per
+window and stitched with the overlap matching of comms_join_eta/uhist
+(parallel/windows.py).  They run at block boundaries on the host: file
+IO and O(nbins) scalar work on pulled arrays, in float64.  The 1/t and
 Swetnam schedules of the flatness check are not ported: the engine
 refuses ``wl_useinvt`` and ``wl_swetnam``.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -18,6 +22,7 @@ import torch
 from ..constants import BOHR_TO_ANG, HART_TO_EV, HART_TO_KJPM, KB
 from ..io import writers
 from ..ops.dsfloat import ds_from64, ds_value64
+from ..parallel.windows import join_eta, join_uhist
 from .bins import BinGrid
 from .config import RunParams
 from .engine import SWITCH, TRANS, VOL
@@ -25,6 +30,15 @@ from .engine import SWITCH, TRANS, VOL
 
 def _np(t) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def _window_bounds(state, nwin: int):
+    """Per-window (start_bin [nwin], end_bin [nwin], first walker
+    [nwin]): the bounds of each window's first walker (all walkers of a
+    window share them)."""
+    wid = _np(state.window_id)
+    first = np.array([np.nonzero(wid == w)[0][0] for w in range(nwin)])
+    return _np(state.start_bin)[first], _np(state.end_bin)[first], first
 
 
 def monitor_stats(eng, state, logs, aux, write_files=True):
@@ -121,6 +135,29 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
             f"({np.abs(dmu).max() / binw:8.4f} bins); healed")
     state.mu = mu_fresh.to(state.mu.dtype)
 
+    # per-window statistics ('dd'): the reference's per-rank nodeNNN.log
+    # blocks (io.f90:1105-1144) as one row per window
+    nwin = state.master_eta.hi.shape[0]
+    if prm.parallel_strategy == "dd" and nwin > 1:
+        wid = _np(state.window_id)
+        inw = _np(state.in_window)
+        mu_w = _np(state.mu).astype(np.float64)
+        f_all = _np(state.f).astype(np.float64)
+        logs.my("# window  walkers in-win acc-tr%  acc-sw%"
+                "            f  max|drift|eV           mu range")
+        for w in range(nwin):
+            m = wid == w
+            if not m.any():
+                continue
+            at = 100.0 * acc[TRANS][m].sum() / max(att[TRANS][m].sum(), 1.0)
+            asw = 100.0 * acc[SWITCH][m].sum() / max(att[SWITCH][m].sum(),
+                                                     1.0)
+            logs.my(
+                f"# win{w:4d} {int(m.sum()):8d} {int(inw[m].sum()):6d}"
+                f" {at:7.2f} {asw:8.2f} {f_all[m].max():12.3e}"
+                f" {float(np.abs(drift[:, m]).max()):13.3e}"
+                f" [{mu_w[m].min():9.1f},{mu_w[m].max():9.1f}]")
+
     # reset accumulators (mc_monitor_stats:1797-1810)
     state.att = torch.zeros_like(state.att)
     state.acc = torch.zeros_like(state.acc)
@@ -130,25 +167,55 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
     state.max_dmu = torch.zeros_like(state.max_dmu)
 
     # curve dumps (mc_monitor_stats:1813-1929): after the delta-sync the
-    # double-single master rows hold the exact merged curves
+    # double-single master rows hold the exact merged curves, one row per
+    # window (the reference's per-rank curves)
     if write_files:
         state = eng.merged_histogram(state)
-        wl_f = float(_np(state.f).max())
-        if not prm.samplerun:
-            writers.write_curve("eta_weights.dat", mub,
-                                ds_value64(state.master_eta)[0], wl_f)
-        writers.write_curve("histogram.dat", mub,
-                            ds_value64(state.master_hist)[0], wl_f)
-        writers.write_curve("unbiased_histogram.dat", mub,
-                            ds_value64(state.master_uhist)[0], wl_f)
+        f_all = _np(state.f)
+        w_cur = ds_value64(state.master_eta)                 # [nwin, B]
+        h_cur = ds_value64(state.master_hist)
+        u_cur = ds_value64(state.master_uhist)
+        if prm.parallel_strategy == "mw" or nwin == 1:
+            wl_f = float(f_all.max())
+            if not prm.samplerun:
+                writers.write_curve("eta_weights.dat", mub, w_cur[0], wl_f)
+            writers.write_curve("histogram.dat", mub, h_cur[0], wl_f)
+            writers.write_curve("unbiased_histogram.dat", mub, u_cur[0],
+                                wl_f)
+        else:
+            wid = _np(state.window_id)
+            sbw, ebw, _ = _window_bounds(state, nwin)
+            for w in range(nwin):
+                s, e = sbw[w], ebw[w] + 1
+                fv = float(f_all[wid == w].max())
+                writers.write_curve(f"eta_weights_{w:03d}.dat", mub[s:e],
+                                    w_cur[w][s:e], fv)
+                writers.write_curve(f"histogram_{w:03d}.dat", mub[s:e],
+                                    h_cur[w][s:e], fv)
+                writers.write_curve(f"unbiased_histogram_{w:03d}.dat",
+                                    mub[s:e], u_cur[w][s:e], fv)
+            # the stitched global weight curve with the largest f of the
+            # windows (mc_monitor_stats:1881-1900)
+            writers.write_curve(
+                "eta_weights.dat", mub,
+                join_eta(w_cur, grid.nbins, prm.window_overlap),
+                float(f_all.max()))
+            if prm.samplerun:
+                writers.write_curve(
+                    "unbiased_histogram.dat", mub,
+                    join_uhist(u_cur, grid.nbins, prm.window_overlap), 0.0)
     return state
 
 
 def check_flatness(eng, state, logs):
     """Histogram flatness check and the f schedule (mc_check_flatness,
-    mc_moves.F90:1936-2185), one window: all growth is folded into the
-    double-single master rows first, the decision is made on their
-    exact float64 view and broadcast to every walker."""
+    mc_moves.F90:1936-2185).  All growth is folded into the
+    double-single master rows first; the decision is made per window on
+    the exact float64 view of its row, over its own bins, and broadcast
+    to the window's walkers (first-pass reset, f halving, firstcycle).
+    One window ('mw') also shifts the weights by the central bin and
+    writes the f-tagged curves; several ('dd') record the largest f of
+    the windows before and after the event's halvings in wlf.dat."""
     prm, grid = eng.prm, eng.grid
     B = grid.nbins
     cycle = int(state.cycle)
@@ -156,63 +223,93 @@ def check_flatness(eng, state, logs):
         return state
 
     state = eng.merged_histogram(state)   # (mc_check_flatness:1965-1967)
-    hist = ds_value64(state.master_hist)[0]                 # [B] exact
-    weight = ds_value64(state.master_eta)[0]
-    if hist.sum() < 1e-300:
+    hist_w = ds_value64(state.master_hist)                  # [nwin, B]
+    weight_w = ds_value64(state.master_eta)
+    if hist_w.sum() < 1e-300:
         return state
+    nwin = hist_w.shape[0]
+    one = prm.parallel_strategy == "mw" or nwin == 1
 
+    wid = _np(state.window_id)
     f = _np(state.f).astype(np.float64)
-    firstcycle = bool(_np(state.firstcycle)[0])
-    hreset = bool(_np(state.histogram_reset)[0])
-    mini, maxi, av = hist.min(), hist.max(), hist.mean()
+    firstcycle = _np(state.firstcycle).copy()
+    hreset = _np(state.histogram_reset).copy()
+    sbw, ebw, first = _window_bounds(state, nwin)
+    bins = np.arange(B)[None, :]
+    winmask = (bins >= sbw[:, None]) & (bins <= ebw[:, None])  # [nwin, B]
+    hw = np.where(winmask, hist_w, np.nan)
+    mini = np.nanmin(hw, axis=1)                             # [nwin]
+    maxi = np.nanmax(hw, axis=1)
+    av = np.nanmean(hw, axis=1)
 
-    # first-pass histogram reset once every bin has wl_minhist visits
-    # (mc_check_flatness:1969-1980)
-    first_pass = firstcycle and not hreset and np.rint(mini) > prm.wl_minhist
-    reset = first_pass
-    hreset = hreset or first_pass
+    # first-pass histogram reset once every bin of the window has
+    # wl_minhist visits (mc_check_flatness:1969-1980)
+    fp = (firstcycle[first] & ~hreset[first]
+          & (np.rint(mini) > prm.wl_minhist))                # [nwin]
+    reset_w = fp.copy()
+    hreset |= fp[wid]
 
     logs.g(f"# Checking flatness of histogram at cycle {cycle:10d}")
     with np.errstate(invalid="ignore", divide="ignore"):
-        logs.g(f"# Most  populated bin = {100 * maxi / av:10.4f} % of mean")
-        logs.g(f"# Least populated bin = {100 * mini / av:10.4f} % of mean")
+        logs.g(f"# Most  populated bin = "
+               f"{np.nanmean(100 * maxi / av):10.4f} % of mean")
+        logs.g(f"# Least populated bin = "
+               f"{np.nanmean(100 * mini / av):10.4f} % of mean")
 
-    # flatness criteria by schedule (mc_check_flatness:2024-2052)
-    if prm.wl_schedule == 0:
-        flat = np.max(np.abs(hist - av) / av) <= prm.wl_flattol
-    elif prm.wl_schedule == 1:
-        flat = np.rint(mini) >= prm.wl_minhist
-    elif prm.wl_schedule == 2:
-        flat = mini >= (1 - prm.wl_flattol) * av
-    else:
-        raise ValueError("unknown wl_schedule value")
-    flat = bool(flat) and not first_pass
+    # flatness criteria by schedule (mc_check_flatness:2024-2052); a
+    # window without visits is not flat (its NaN compares false)
+    with np.errstate(invalid="ignore", divide="ignore"), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        if prm.wl_schedule == 0:
+            flat = np.nanmax(np.abs(hw - av[:, None]) / av[:, None],
+                             axis=1) <= prm.wl_flattol
+        elif prm.wl_schedule == 1:
+            flat = np.rint(mini) >= prm.wl_minhist
+        elif prm.wl_schedule == 2:
+            flat = mini >= (1 - prm.wl_flattol) * av
+        else:
+            raise ValueError("unknown wl_schedule value")
+    flat &= ~fp
 
-    if flat:
-        # shift the weights down by the central-bin value
-        # (mc_check_flatness:2062-2066), record and halve f
-        weight = weight - weight[B // 2]
-        fv = float(f.max())
-        writers.append_wlf("wlf.dat", cycle, fv, 0.5 * fv)
-        tag = f"{fv:.12f}"
-        mub = np.asarray(grid.mu_bin)
-        writers.write_curve(f"eta_weights.dat_{tag}", mub, weight, fv)
-        writers.write_curve(f"histogram.dat_{tag}", mub, hist, fv)
-        logs.g("# Flatness criterion satisfied - updating wl_factor")
-        reset = True
-        f = 0.5 * f
-        firstcycle = False
+    halve = np.zeros(len(wid), dtype=bool)
+    mub = np.asarray(grid.mu_bin)
+    for w in np.nonzero(flat)[0]:
+        sel = wid == w
+        if one:
+            # shift the weights down by the central-bin value
+            # (mc_check_flatness:2062-2066), record and halve f
+            weight_w[w] -= weight_w[w, B // 2]
+            fv = float(f[sel].max())
+            writers.append_wlf("wlf.dat", cycle, fv, 0.5 * fv)
+            tag = f"{fv:.12f}"
+            writers.write_curve(f"eta_weights.dat_{tag}", mub, weight_w[w],
+                                fv)
+            writers.write_curve(f"histogram.dat_{tag}", mub, hist_w[w], fv)
+            logs.g("# Flatness criterion satisfied - updating wl_factor")
+        else:
+            logs.my(f"# window {w}: flatness satisfied - halving f")
+        reset_w[w] = True
+        halve |= sel
+        firstcycle[sel] = False
+    if flat.any() and not one:
+        # the reference's rank-0 wlf.dat records the largest f of the
+        # ranks (mc_check_flatness:2068-2082)
+        writers.append_wlf("wlf.dat", cycle, float(f.max()),
+                           float(np.where(halve, 0.5 * f, f).max()))
+    f = np.where(halve, 0.5 * f, f)
 
     dev = state.f.device
     dtype = state.master_hist.hi.dtype
     state.f = torch.as_tensor(f, dtype=state.f.dtype, device=dev)
-    state.firstcycle = torch.full_like(state.firstcycle, firstcycle)
-    state.histogram_reset = torch.full_like(state.histogram_reset, hreset)
-    if reset:
+    state.firstcycle = torch.as_tensor(firstcycle, device=dev)
+    state.histogram_reset = torch.as_tensor(hreset, device=dev)
+    if reset_w.any():
         # (comms_set_histogram, mc_check_flatness:1977, 2106)
-        state.master_hist = ds_from64(np.zeros((1, B)), dtype, dev)
-    if flat:
-        state.master_eta = ds_from64(weight[None], dtype, dev)
+        hist_w[reset_w] = 0.0
+        state.master_hist = ds_from64(hist_w, dtype, dev)
+    if one and flat.any():
+        state.master_eta = ds_from64(weight_w, dtype, dev)
     return state
 
 
@@ -250,11 +347,21 @@ def deltaG_from_uhist(prm: RunParams, grid: BinGrid, uhist) -> dict | None:
 def compute_deltaG(eng, state, logs, aux):
     """The logged Delta G estimate and the cycle-tagged dump of the
     normalised unbiased histogram, with a third, raw cumulative column
-    (as the JAX package writes it)."""
+    (as the JAX package writes it).  With several windows the histogram
+    is the stitched one (join_uhist), and the per-window raw cumulative
+    histograms ``uhist_windows_<cycle>.dat`` and visit counts with the
+    frozen weights ``hist_windows_<cycle>.dat`` are dumped too, for
+    scripts/deltag_error.py --dd (a stitched dump cannot be
+    block-differenced: the matching constants change as the histograms
+    grow)."""
     prm, grid = eng.prm, eng.grid
+    B = grid.nbins
     cycle = int(state.cycle)
     state = eng.merged_histogram(state)
-    joined = ds_value64(state.master_uhist)[0]
+    u_cur = ds_value64(state.master_uhist)                   # [nwin, B]
+    nwin = u_cur.shape[0]
+    one = prm.parallel_strategy == "mw" or nwin == 1
+    joined = u_cur[0] if one else join_uhist(u_cur, B, prm.window_overlap)
     dg = deltaG_from_uhist(prm, grid, joined)
     if dg is None:
         logs.g(f"# deltaG at cycle {cycle}: histogram empty, skipped")
@@ -265,8 +372,30 @@ def compute_deltaG(eng, state, logs, aux):
     logs.g(f"# G(lattice2) - G(lattice1) = {dg['J_per_mol']:15.8f} J/mole")
     logs.g(f"# G(lattice2) - G(lattice1) = {dg['meV_per_mol']:15.8f} "
            "meV/molecule")
+    mub = np.asarray(grid.mu_bin)
     with open(f"unbiased_histogram_{cycle:010d}.dat", "w") as fh:
         fh.write("#Current energy increment =  0.000000000000E+00\n")
-        for m, v, rw in zip(np.asarray(grid.mu_bin), dg["normP"], joined):
+        for m, v, rw in zip(mub, dg["normP"], joined):
             fh.write(f"  {m: .14E}  {v: .14E}  {rw: .14E}\n")
+    if one:
+        return state
+    h_cur = ds_value64(state.master_hist)
+    e_cur = ds_value64(state.master_eta)
+    with open(f"uhist_windows_{cycle:010d}.dat", "w") as fh:
+        fh.write(f"# mu then {nwin} per-window raw cumulative "
+                 "unbiased-histogram columns "
+                 f"(window_overlap={prm.window_overlap})\n")
+        for k in range(B):
+            fh.write(f"  {mub[k]: .14E}"
+                     + "".join(f"  {u_cur[w, k]: .14E}" for w in range(nwin))
+                     + "\n")
+    with open(f"hist_windows_{cycle:010d}.dat", "w") as fh:
+        fh.write(f"# mu then {nwin} per-window cumulative visit-count "
+                 f"columns then {nwin} frozen eta columns "
+                 f"(window_overlap={prm.window_overlap})\n")
+        for k in range(B):
+            fh.write(f"  {mub[k]: .14E}"
+                     + "".join(f"  {h_cur[w, k]: .14E}" for w in range(nwin))
+                     + "".join(f"  {e_cur[w, k]: .14E}" for w in range(nwin))
+                     + "\n")
     return state

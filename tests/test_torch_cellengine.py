@@ -246,7 +246,7 @@ def test_auto_resolves_to_the_kernels(system):
     dict(leshift=True), dict(cell_pallas="on", cell_chain="off"),
     dict(cell_pallas="off"),
     dict(cell_chain="off"), dict(cell_trans_wall=1.5),
-    dict(parallel_strategy="dd"), dict(minu=True), dict(mc_ensemble="nvt"),
+    dict(minu=True), dict(mc_ensemble="nvt"),
     dict(wl_swetnam=True), dict(num_lattices=1),
 ])
 def test_unported_settings_raise(system, setting):

@@ -56,9 +56,9 @@ def cycle():
     after_loop = []
     volume_moves = eng._scheduled_volume_moves
 
-    def keep_then_move(st, codes, cyc):
+    def keep_then_move(st, *args):
         after_loop.append(st.clone())
-        return volume_moves(st, codes, cyc)
+        return volume_moves(st, *args)
 
     eng._scheduled_volume_moves = keep_then_move
     s, samples = eng.run_cycles(s, 1)

@@ -177,7 +177,7 @@ def test_deltaG_matches_jax(runs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(parallel_strategy="dd"), dict(minu=True), dict(wl_swetnam=True),
+    dict(minu=True), dict(wl_swetnam=True),
     dict(wl_useinvt=True), dict(leshift=True), dict(mc_vol_wall=0.05),
     dict(mc_ensemble="nvt"),
 ])
