@@ -32,7 +32,12 @@ Phases (each exits non-zero on failure):
    the per-window delta merge run twice (bitwise equal); the mover-points,
    chain + WL and mover-apply kernels of the multi-trial sub-step on
    runs/n8064_wl (16 windows, T=8, float64 at W=16, float32 at W=128),
-   and the merge again; the gates of phases 4 and 8;
+   and the merge again; the gates of phases 4 and 8; the float32 checks
+   of the table kernel here and in phase 4 print where their largest
+   state error on walkers with equal integer outcomes comes from
+   (fused_err_trace: the walker, the field, and the walker alone step
+   by step, its accept sequence against the plain version's with the
+   plain version's Metropolis margin where they differ);
 5. the N=216 main path: the N=216 Ih/Ic stacking pair, W=4096,
    float32, a sample run from runs/n216_sample/eta_weights.dat with
    delta-syncs every 5 and chain resyncs every 10 cycles; 20 warm-up and
@@ -55,6 +60,13 @@ Phases (each exits non-zero on failure):
    boundary and at the end (none may be empty), the stitched Delta G
    and unbiased_histogram.dat (finite), the per-window dumps
    uhist_windows_*.dat;
+   5e. the volume wall's inward ratchet: the N=216 sample run (W=4096,
+   float32) with mc_vol_wall=0.04, every fourth walker's boxes scaled
+   to 1.1 Vref at fixed fractional coordinates, full_energy against its
+   plain version on them, an audit of 64 walkers, then 50 cycles
+   checked one by one: no walker inside the wall leaves it, no outside
+   walker's sum |ln(V/Vref)| rises (unless it comes inside), and their
+   mean falls;
 6. the three kernels of the large-N cell engine (mover energies, chain +
    WL, mover apply) against their plain versions on one sub-step of the
    N=8064 stacking pair after a cycle of sampling (float64 at W=64:
@@ -106,16 +118,37 @@ Phases (each exits non-zero on failure):
    9's) with the chain's accepts (float64 also with every mover
    accepted and every mover rejected: moment rows within 1e-10, every
    other slab entry bitwise equal);
+   8b. the displacement wall (cell_trans_wall 0.4 Bohr) on the N=8064
+   pair at T=1 and T=8, float64 at W=16 and float32 at W=128, after a
+   cycle of sampling under it: the share of a proposal's trial points
+   it rejects (above 0), the largest displacement from the reference
+   sites (within the wall), one sub-step's kernels against their plain
+   versions with the gates of phases 6 and 8;
+   8c. cell_pallas='off' (the unfused sub-step with the micro-batched
+   chain) against 'apply' in a sample run on the N=8064 pair, one
+   cycle each from one seed, float64 at W=64: integer state identical,
+   continuous state within 1e-10, the WL slabs within 1e-12 relative;
 9. the front-end path: runs/n8064_wl/ice.input with its run.py
    overrides (128 walkers, float32, cell_trials=8, 'dd' over 16 windows
    with overlap 2; FRONTEND_CUTS lists every interval cut)
-   through the port's run_input_file in build/chip_smoke_frontend: 6
+   through the port's run_input_file in build/chip_smoke_frontend: 3
    cycles that hold volume moves, delta-syncs, monitor_stats with
    eq_adjust_mc and its per-window rows, the equilibration boundary,
    check_flatness, checkpoints and rebins, then a second call that
-   resumes from the checkpoint for 2 more; seconds per cycle,
+   resumes from the checkpoint for 1 more; seconds per cycle,
    trials/s, launches, slab overflow (must be 0), an energy audit of 64
    walkers and a torch.profiler trace of one more cycle;
+   9b. round 5's pipeline through run_input_file with jit_chunk=20, as
+   its run.py files call it: runs/n8064_wl2 (128 walkers, float32,
+   cell_trials=8, mc_vol_wall=0.2, 'dd' over 16 windows; ROUND5_CUTS
+   lists the interval cuts) in build/chip_smoke_wl2 for a cycle and a
+   resumed one, then its two checkpoint slots alone copied to
+   build/chip_smoke_sample2 for runs/n8064_sample2 (a sample run at one
+   trial per mover behind the same wall) through the gen -> sample
+   restart, a cycle; seconds per cycle, trials/s, launches, slab
+   overflow (must be 0), walkers per window, every walker's V/Vref
+   (within the wall), an energy audit of 64 walkers after each stage,
+   a finite stitched unbiased histogram and the per-window dumps;
 10. path A: the reference's own N=48 example, runs/n216_sample/ice.input
    with --walkers 4096 and the (1,2,6) stacking pair (DENSE48_CUTS
    lists every interval cut), through run_input_file in
@@ -123,14 +156,15 @@ Phases (each exits non-zero on failure):
    checkpoint; ms per cycle, moves/s, launches, an energy audit and the
    merged histogram;
 11. one JSON line with every kernel's launches (summed over the main
-   paths of phases 5, 5b, 5c, 5d, 7, 7b, 9 and 10), error against its plain
+   paths of phases 5, 5b, 5c, 5d, 5e, 7, 7b, 9, 9b and 10; 7c runs no
+   kernel), error against its plain
    version, times and bound; the multi-trial kernel has a line for each
    T of path C, the mover-apply kernel one for phase 7's shape
    ("mover_apply") and one for phase 9's, the chain kernel one for each
    of phases 7 ("chain_wl"), 7b and 9;
 12. as the last line, {"ok": true, "device": {...}}.
 
-Each phase prints its seconds ("[time]").
+Each phase prints its seconds ("[time]"), and the run its total.
 
 It imports nothing of JAX.  Without CUDA, or without the repository
 around it, it exits non-zero before printing any result.
@@ -261,7 +295,8 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-_PHASE_T0 = [time.time()]
+_T_START = time.time()
+_PHASE_T0 = [_T_START]
 
 
 def phase_time(name: str) -> None:
@@ -484,6 +519,130 @@ def fused_max_err(sk, sp, mask, names=None):
     return err
 
 
+def walker_slice(s, w):
+    """A one-walker copy of a dense-engine state: walker ``w`` of every
+    per-walker tensor (the shared master rows as they are)."""
+    import dataclasses
+
+    import torch
+
+    W = s.mu.shape[0]
+    return type(s)(**{
+        f.name: (v[..., w:w + 1].clone()
+                 if torch.is_tensor(v) and v.dim() and v.shape[-1] == W
+                 else v)
+        for f in dataclasses.fields(s) for v in (getattr(s, f.name),)})
+
+
+def fused_err_trace(tag, eng, s, draws, sk, sp, ok, names):
+    """Where a fused-cycle comparison's largest relative state error on
+    walkers with equal integer outcomes comes from: the walker, the
+    field, the absolute error and the plain value there, whether the
+    walker was before its window; then that walker alone, step by step
+    (the kernel on prefixes of the cycle's schedule, every later step a
+    no-op; the plain step loop once), its accept sequence and its
+    energy and mu after every step in both.  Prints; gates nothing."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.mcmc.engine import NOOP, TRANS, _take_lat
+
+    best = (0.0, None, None)
+    for name in names:
+        a, b = getattr(sk, name), getattr(sp, name)
+        d = torch.abs(a - b) / torch.clamp(torch.abs(b), min=1.0)
+        d = torch.where(torch.isfinite(d), d, 0.0)
+        d[..., ~ok] = 0.0
+        if float(d.max()) > best[0]:
+            idx = int(torch.argmax(d))
+            best = (float(d.max()), name, idx)
+    if best[1] is None:
+        print(f"[{tag}] no state error on walkers with equal outcomes",
+              flush=True)
+        return
+    rel, name, idx = best
+    a, b = getattr(sk, name), getattr(sp, name)
+    W = b.shape[-1]
+    w = idx % W
+    pos = np.unravel_index(idx, tuple(b.shape))
+    print(f"[{tag}] largest relative error {rel:.3e}: walker {w}, field "
+          f"{name} at {tuple(int(x) for x in pos)}: kernel "
+          f"{float(a.reshape(-1)[idx]):.9e}, plain "
+          f"{float(b.reshape(-1)[idx]):.9e}, |diff| "
+          f"{abs(float(a.reshape(-1)[idx] - b.reshape(-1)[idx])):.3e}; "
+          f"walker before its window {not bool(s.in_window[w])}, ls "
+          f"{int(s.ls[w])}, mu {float(s.mu[w]):.6f} in "
+          f"[{float(s.my_mu_min[w]):.3f}, {float(s.my_mu_max[w]):.3f}]",
+          flush=True)
+
+    codes, sched, cu = draws
+    s1, cu1 = walker_slice(s, w), cu[..., w:w + 1].contiguous()
+    s1.cycle += 1
+    wl_active = s1.cycle >= eng.prm.eq_mc_cycles
+    switch_ok = eng._switch_ok(s1.cycle)
+    n = codes.shape[0]
+    # the kernel, on the prefixes of the schedule
+    k_acc, k_e, k_mu = [], [], []
+    for t in range(n):
+        st = s1.clone()
+        cod = codes.clone()
+        cod[t + 1:] = NOOP
+        eng.fused_cycle(st, cod, sched, cu1, wl_active, switch_ok)
+        k_acc.append(int(st.acc[0, 0]) + int(st.acc[2, 0]) * 1000)
+        k_e.append(st.energy[:, 0].double())
+        k_mu.append(float(st.mu[0]))
+    # the plain step loop, recorded step by step (FusedCycle.plain's
+    # loop), with each translation's margin u - exp(-diffkT) (accepted
+    # where negative)
+    st = s1.clone()
+    p_acc, p_e, p_mu, margin = [], [], [], {}
+    fc = eng.fused_cycle
+    decide = eng._trans_decision
+
+    def recorded(st_, dE, u_acc, extra_ok=None):
+        beta = eng.prm.beta
+        mu_new = st_.mu + (dE[0] - dE[1]) * beta
+        diffkT = (beta * _take_lat(dE, st_.ls) + eng._eta(st_, mu_new)
+                  - eng._eta(st_, st_.mu))
+        margin[len(p_acc)] = float((u_acc - torch.exp(-diffkT))[0])
+        return decide(st_, dE, u_acc, extra_ok)
+
+    eng._trans_decision = recorded
+    try:
+        for t, code in enumerate(codes.tolist()):
+            if code == TRANS:
+                eng._translation_tbl(st, cu1[t], int(sched[t]), wl_active)
+            if fc._switch_on(code, switch_ok):
+                eng._switch(st, cu1[t, 6])
+            p_acc.append(int(st.acc[0, 0]) + int(st.acc[2, 0]) * 1000)
+            p_e.append(st.energy[:, 0].double())
+            p_mu.append(float(st.mu[0]))
+    finally:
+        del eng._trans_decision
+    torch.cuda.synchronize()
+    seq_k = [x - y for x, y in zip(k_acc, [0] + k_acc[:-1])]
+    seq_p = [x - y for x, y in zip(p_acc, [0] + p_acc[:-1])]
+    diff_steps = [t for t in range(n) if seq_k[t] != seq_p[t]]
+    e_err = [float(torch.max(torch.abs(x - y))) for x, y in zip(k_e, p_e)]
+    mu_err = [abs(x - y) for x, y in zip(k_mu, p_mu)]
+    first = next((t for t in range(n) if e_err[t] > 1e-4 or
+                  mu_err[t] > 1e-2), None)
+    print(f"[{tag}] walker {w} alone, {n} steps: accepted translations "
+          f"kernel {k_acc[-1] % 1000}, plain {p_acc[-1] % 1000}; steps whose "
+          f"accept differs {diff_steps[:12]}, the plain version's margin "
+          f"u - exp(-diffkT) there "
+          f"{[f'{margin.get(t, float(0)):.2e}' for t in diff_steps[:12]]}; "
+          f"|dE| after each step: max "
+          f"{max(e_err):.3e} Hartree, first above 1e-4 or |dmu| above 1e-2 "
+          f"at step {first}; |dmu| max {max(mu_err):.3e}, at the end "
+          f"{mu_err[-1]:.3e}", flush=True)
+    if first is not None:
+        lo = max(0, first - 3)
+        rows = [(t, codes[t].item(), seq_k[t], seq_p[t], f"{e_err[t]:.2e}",
+                 f"{mu_err[t]:.2e}") for t in range(lo, min(n, first + 4))]
+        print(f"[{tag}]   (step, code, kernel accepts, plain accepts, |dE|, "
+              f"|dmu|) around it: {rows}", flush=True)
+
+
 # ----------------------------------------------------------------------
 # bounds: the least time the card could take for the same work
 # ----------------------------------------------------------------------
@@ -698,6 +857,9 @@ def fused_kernel_check(prm, tag, reps=0, paper_pair=False):
     # (in f32 a histogram row can still differ on the rest: a mu within
     # round-off of a bin edge lands in the neighbouring bin)
     err = fused_max_err(sk, sp, ok, None if f64 else
+                        ("r", "moments", "energy", "mu"))
+    if not f64 and kernel == "fused_cycle":
+        fused_err_trace(f"{tag}-trace", eng, s, draws, sk, sp, ok,
                         ("r", "moments", "energy", "mu"))
     occ = eng.fused_cycle.occupancy(s.r.dtype, W)
     print(f"[{tag}] {kernel} {'fp64' if f64 else 'f32'} W={W} "
@@ -1611,7 +1773,7 @@ N8064_WL = dict(
 )
 # what the smoke run cuts, to fit rebins, volume moves, delta-syncs,
 # monitor_stats with eq_adjust_mc, the equilibration boundary of the 16
-# 'dd' windows, check_flatness and a checkpoint into 6 + 2 cycles: these
+# 'dd' windows, check_flatness and a checkpoint into 3 + 1 cycles: these
 # cycle counts and intervals (the run's own values in the comments)
 FRONTEND_CUTS = dict(
     eq_mc_cycles=3,             # 400
@@ -1622,7 +1784,7 @@ FRONTEND_CUTS = dict(
     file_output_int=2,          # 100
     chkpt_dump_int=4,           # 250
 )
-FRONTEND_CYCLES = (6, 2)        # first call, resumed call
+FRONTEND_CYCLES = (3, 1)        # first call, resumed call
 
 
 def _block_seconds(log_path):
@@ -1652,8 +1814,8 @@ def _block_split(log_path):
 
 def frontend_run():
     """Drive runs/n8064_wl (128 walkers, float32, cell_trials=8) through
-    the port's run_input_file in build/chip_smoke_frontend: 6 cycles,
-    then a second call that resumes from the checkpoint for 2 more, then
+    the port's run_input_file in build/chip_smoke_frontend: 3 cycles,
+    then a second call that resumes from the checkpoint for 1 more, then
     a traced cycle.  The kernels' counts are those of the engines the two
     calls built (created at 0 when the run sets up).  Returns
     {"launches": {kernel: count over both calls}}."""
@@ -1661,46 +1823,18 @@ def frontend_run():
 
     import torch
 
-    from mc_water_ls_mw_tpu_torch import app as app_mod
     from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
     from mc_water_ls_mw_tpu_torch.mcmc.cellengine import CellEngine
     from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value64
-
-    apps = []
-
-    class Recorded(app_mod.Application):
-        """The Application, remembered so that its engine can be read."""
-
-        def setup(self):
-            apps.append(self)
-            return super().setup()
 
     d = os.path.join(ROOT, "build", "chip_smoke_frontend")
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
     shutil.copy(os.path.join(ROOT, "runs", "n8064_wl", "ice.input"), d)
-    over = {**N8064_WL, **FRONTEND_CUTS}
-    path = os.path.join(d, "ice.input")
-    cwd, original = os.getcwd(), app_mod.Application
-    app_mod.Application = Recorded
-    kernels = ("mover_points", "chain_wl", "mover_apply")
-    try:
-        out = []
-        for n_cyc in FRONTEND_CYCLES:
-            t0 = time.time()
-            s = app_mod.run_input_file(path, overrides=over,
-                                       max_cycles=n_cyc, device=DEVICE)
-            torch.cuda.synchronize()
-            app = apps[-1]
-            eng = app.engine
-            objs = dict(zip(kernels, (eng.points_kernel, eng.chain_kernel,
-                                      eng.apply_kernel)))
-            out.append(dict(wall=time.time() - t0, s=s, app=app,
-                            launches={k: o.launches
-                                      for k, o in objs.items()}))
-    finally:
-        os.chdir(cwd)
-        app_mod.Application = original
+    kernels = {"mover_points": "points_kernel", "chain_wl": "chain_kernel",
+               "mover_apply": "apply_kernel"}
+    out = _app_calls(d, {**N8064_WL, **FRONTEND_CUTS}, FRONTEND_CYCLES,
+                     kernels)
     first, second = out
     eng, s = second["app"].engine, second["s"]
     prm = eng.prm
@@ -1840,42 +1974,16 @@ def dense48_run():
 
     import torch
 
-    from mc_water_ls_mw_tpu_torch import app as app_mod
     from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
     from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value64
-
-    apps = []
-
-    class Recorded(app_mod.Application):
-        """The Application, remembered so that its engine can be read."""
-
-        def setup(self):
-            apps.append(self)
-            return super().setup()
 
     d = os.path.join(ROOT, "build", "chip_smoke_dense48")
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
     shutil.copy(os.path.join(ROOT, "runs", "n216_sample", "ice.input"), d)
-    over = {**DENSE48, **DENSE48_CUTS}
-    path = os.path.join(d, "ice.input")
-    cwd, original = os.getcwd(), app_mod.Application
-    app_mod.Application = Recorded
-    try:
-        out = []
-        for n_cyc in DENSE48_CYCLES:
-            t0 = time.time()
-            s = app_mod.run_input_file(path, overrides=over,
-                                       max_cycles=n_cyc, device=DEVICE)
-            torch.cuda.synchronize()
-            eng = apps[-1].engine
-            out.append(dict(wall=time.time() - t0, s=s, app=apps[-1],
-                            launches={
-                                "fused_cycle_dense": eng.fused_cycle.launches,
-                                "full_energy": eng.full_energy.launches}))
-    finally:
-        os.chdir(cwd)
-        app_mod.Application = original
+    out = _app_calls(d, {**DENSE48, **DENSE48_CUTS}, DENSE48_CYCLES,
+                     {"fused_cycle_dense": "fused_cycle",
+                      "full_energy": "full_energy"})
     first, second = out
     eng, s = second["app"].engine, second["s"]
     prm = eng.prm
@@ -2118,6 +2226,9 @@ def dd_fused_checks():
                   f"{err:.3e}; {n_acc} accepted translations, {sw_att} "
                   f"switch attempts ({n_sw} scheduled switches)",
                   flush=True)
+            if not f64:
+                fused_err_trace("dd-fused-trace", eng, s, draws, sk, sp, ok,
+                                ("r", "moments", "energy", "mu"))
             if n_acc == 0:
                 fail("dd fused_cycle: no translation accepted")
             if f64:
@@ -2296,15 +2407,11 @@ def dd216_run():
     from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value64
     from mc_water_ls_mw_tpu_torch.parallel.windows import join_uhist
 
-    apps, boundary = [], {}
+    boundary = {}
 
-    class Recorded(app_mod.Application):
-        """The Application, remembered so that its engine can be read,
-        with each window's walkers in their window at the boundary."""
-
-        def setup(self):
-            apps.append(self)
-            return super().setup()
+    class AtBoundary(app_mod.Application):
+        """The Application, with each window's walkers in their window
+        at the boundary."""
 
         def _check_windows(self, cycle):
             if cycle == self.prm.eq_mc_cycles:
@@ -2319,25 +2426,9 @@ def dd216_run():
     os.makedirs(d)
     for name in ("ice.input", "eta_weights.dat"):
         shutil.copy(os.path.join(ROOT, "runs", "n216_sample_dd", name), d)
-    over = {**DD216, **DD216_CUTS}
-    path = os.path.join(d, "ice.input")
-    cwd, original = os.getcwd(), app_mod.Application
-    app_mod.Application = Recorded
-    try:
-        out = []
-        for n_cyc in DD216_CYCLES:
-            t0 = time.time()
-            s = app_mod.run_input_file(path, overrides=over,
-                                       max_cycles=n_cyc, device=DEVICE)
-            torch.cuda.synchronize()
-            eng = apps[-1].engine
-            out.append(dict(wall=time.time() - t0, s=s, app=apps[-1],
-                            launches={
-                                "fused_cycle": eng.fused_cycle.launches,
-                                "full_energy": eng.full_energy.launches}))
-    finally:
-        os.chdir(cwd)
-        app_mod.Application = original
+    out = _app_calls(d, {**DD216, **DD216_CUTS}, DD216_CYCLES,
+                     {"fused_cycle": "fused_cycle",
+                      "full_energy": "full_energy"}, base=AtBoundary)
     first, second = out
     eng, s = second["app"].engine, second["s"]
     prm = eng.prm
@@ -2631,6 +2722,663 @@ def flagship_run(kind, card):
     if not (np.isfinite(hist.sum()) and hist.sum() > 0):
         fail("the flagship's merged histogram is empty or not finite")
     return {"launches": flag_launches, "report": line, "chain": chain_line}
+
+
+# ----------------------------------------------------------------------
+# round 5's walls, the unfused sub-step and its XLA chains
+# ----------------------------------------------------------------------
+
+VOL_WALL = 0.04                 # mc_vol_wall of phase 5e
+VOL_SCALE = 1.1                 # the outside walkers' volume / Vref
+VOL_WALL_CYCLES = 50
+VOL_TOL = 1e-6                  # float32 round-off of a volume ratio
+
+
+def vol_wall_phase():
+    """5e: the volume wall's inward ratchet on the N=216 main path's
+    engine (W=4096, float32, mc_vol_wall=0.04): every fourth walker's
+    boxes scaled to 1.1 Vref at fixed fractional coordinates (as
+    tests/test_vol_wall.py does), their whole-cell energies from the
+    kernel held against its plain version and written into the state,
+    an audit of 64 walkers, then VOL_WALL_CYCLES cycles checked one by
+    one: no walker inside the wall leaves it, and an outside walker
+    comes inside or moves no farther out.  Returns {"launches": the
+    whole-cell energy kernel's}."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.ops.geometry import determinant3
+
+    W = W_MAIN
+    prm = sample_params(W, "float32", mc_vol_wall=VOL_WALL, mpi_sync_int=5,
+                        latt_sync_int=10, eq_mc_cycles=0)
+    eng, s = make_engine(prm)
+    sel = torch.arange(W, device=DEVICE) % 4 == 0
+    lin = VOL_SCALE ** (1.0 / 3.0)
+    for name, fac in (("h", lin), ("r", lin), ("ref_r", lin),
+                      ("recip", 1.0 / lin), ("volume", VOL_SCALE)):
+        t = getattr(s, name)
+        t[..., sel] = t[..., sel] * fac
+    eng.full_energy.launches = 0
+    e_err = m_err = 0.0
+    for l in range(2):
+        e_k, m_k = eng.full_energy(s.r[l], s.h[l])
+        e_p, m_p = eng.full_energy.plain(s.r[l], s.h[l])
+        e_err = max(e_err, _max_abs(e_k[sel], e_p[sel], relative=True))
+        m_err = max(m_err, _max_abs(torch.stack(list(m_k))[..., sel],
+                                    torch.stack(list(m_p))[..., sel]))
+    s.energy, s.moments = eng._vol_energy(s, s.r, s.h)
+    s.mu = eng._mu_scratch(s.energy, s.volume)
+    s, drift = eng.audit_energy(s, n_walkers=64)
+    max_drift = float(torch.max(torch.abs(drift)))
+    vref = torch.abs(torch.stack([determinant3(eng.ref_h[l][:, :, None])[0]
+                                  for l in range(2)])).double()
+
+    def where_():
+        ratio = s.volume.double() / vref[:, None]
+        inside = ((ratio >= 1 - VOL_WALL - VOL_TOL)
+                  & (ratio <= 1 + VOL_WALL + VOL_TOL)).all(dim=0)
+        return inside, torch.abs(torch.log(ratio)).sum(dim=0)
+
+    inside, dist = where_()
+    out0 = ~inside
+    d_start = float(dist[out0].mean())
+    left = rose = 0
+    att0, acc0 = s.att[1].clone(), s.acc[1].clone()
+    t0 = time.time()
+    for _ in range(VOL_WALL_CYCLES):
+        eng.run_cycles(s, 1)
+        inside1, dist1 = where_()
+        left += int((inside & ~inside1).sum())
+        rose += int((~inside & ~inside1 & (dist1 > dist + VOL_TOL)).sum())
+        inside, dist = inside1, dist1
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    n_in = int((out0 & inside).sum())
+    att, acc = s.att[1] - att0, s.acc[1] - acc0
+    print(f"[vol-wall] N=216 W={W} f32, mc_vol_wall {VOL_WALL}: "
+          f"{int(out0.sum())} walkers scaled to {VOL_SCALE} Vref; "
+          f"full_energy on their boxes: E rel err {e_err:.3e} (limit "
+          f"{F32_E_RTOL:g}), moments err {m_err:.3e} (limit "
+          f"{F32_MOM_ATOL:g}); audit of 64 walkers max |drift| "
+          f"{max_drift:.3e} Hartree (limit {AUDIT_MAX_DRIFT:g})", flush=True)
+    print(f"[vol-wall] {VOL_WALL_CYCLES} cycles in {elapsed:.3f} s: volume "
+          f"moves accepted {int(acc[~out0].sum())} of {int(att[~out0].sum())}"
+          f" (walkers inside), {int(acc[out0].sum())} of "
+          f"{int(att[out0].sum())} (outside); inside walkers that left "
+          f"{left} (must be 0), outside walkers whose sum |ln(V/Vref)| rose "
+          f"{rose} (must be 0); outside walkers' mean sum |ln(V/Vref)| "
+          f"{d_start:.6f} -> {float(dist[out0].mean()):.6f}, {n_in} of "
+          f"{int(out0.sum())} now inside; full_energy launches "
+          f"{eng.full_energy.launches}", flush=True)
+    if not (e_err <= F32_E_RTOL and m_err <= F32_MOM_ATOL):
+        fail("full_energy disagrees with its plain version on boxes "
+             "outside the volume wall")
+    if not max_drift < AUDIT_MAX_DRIFT:
+        fail("vol-wall: energy audit drift")
+    if left or rose or not float(dist[out0].mean()) < d_start:
+        fail("the volume wall let a walker out, or did not ratchet the "
+             "outside walkers inward")
+    n = eng.full_energy.launches
+    del eng, s
+    torch.cuda.empty_cache()
+    return {"launches": {"full_energy": n}}
+
+
+TRANS_WALL = 0.4                # cell_trans_wall of phase 8b, Bohr
+TRANS_WALL_TOL = {"float64": 1e-9, "float32": 1e-4}   # Bohr
+
+
+def max_displacement(eng, s):
+    """Largest minimum-image displacement (Bohr) of any molecule of any
+    walker from its lattice-1 reference site (CellAux.fref0), in
+    float64."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.ops.geometry import from_frac, to_frac
+
+    mol = torch.clamp(s.slot2mol, min=0).long()
+    fd = to_frac(s.recip[0].double()[:, :, None, :], s.r[0].double()) \
+        - eng.cellaux.fref0.double()[:, mol]
+    fd = fd - torch.round(fd)
+    dsp = from_frac(s.h[0].double()[:, :, None, :], fd)
+    d = torch.sqrt(torch.sum(dsp * dsp, dim=0))
+    return float(torch.where(s.slot2mol >= 0, d, 0.0).max())
+
+
+def wall_share(eng, s, tbl, seed):
+    """Share of the trial points of one proposal of table row ``tbl``
+    (the engine's own, from uniforms of ``seed``) that the displacement
+    wall rejects, over the (mover, walker) pairs that hold a mover."""
+    import torch
+
+    K, T, W = eng.K, eng.T, s.r.shape[-1]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    pks = eng._pack(s)
+    rows = eng._loop_rows(s)
+    if T == 1:
+        u = torch.rand((7, K, W), generator=gen, dtype=s.r.dtype,
+                       device=DEVICE)
+        trial = eng._propose_t1(s, pks, tbl, u, rows)
+        pts = trial.p_new[0]                               # [3,K,W]
+    else:
+        u = torch.rand((4 + 3 * T, K, W), generator=gen, dtype=s.r.dtype,
+                       device=DEVICE)
+        trial = eng._propose_tm(s, pks, tbl, u, rows)
+        pts = trial.pts[1:, 0].transpose(0, 1)             # [3,T,K,W]
+    mol = torch.gather(s.slot2mol, 0, trial.slot)
+    ok = eng._in_trans_wall(s, pts, mol)
+    real = (trial.hasm > 0.5).expand_as(ok)
+    return float((~ok & real).sum()) / max(1, int(real.sum()))
+
+
+def trans_wall_phase():
+    """8b: the displacement wall (cell_trans_wall = TRANS_WALL) on the
+    N=8064 pair, after a cycle of sampling under it: the share of a
+    proposal's points it rejects (must be above 0), the largest
+    displacement from the reference sites (within the wall), and one
+    sub-step's kernels against their plain versions with the gates of
+    phases 6 (T=1) and 8 (T=8), in float64 at W=16 and float32 at
+    W=128."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
+
+    for T in (1, MT_TRIALS):
+        for Wt, dtype in ((W_MT_FP64, "float64"), (W_MT, "float32")):
+            f64 = dtype == "float64"
+            over = dict(cell_trans_wall=TRANS_WALL, list_update_int=1,
+                        mpi_sync_int=1)
+            if T > 1:
+                over.update(cell_trials=T, mc_max_trans=0.10 * ANG_TO_BOHR)
+            eng, s = make_cell_engine(cell_params(Wt, dtype, **over))
+            eng.run_cycles(s, 1)
+            dmax = max_displacement(eng, s)
+            share = wall_share(eng, s, 5, seed=600 + T)
+            if T == 1:
+                cmp = cell_substep_compare(eng, s, 5, seed=610)
+                me, ch = cmp["mover_energies"], cmp["chain_wl"]
+                ma = cmp["mover_apply"]
+                e_err, own_err = me["e_err"], me["own_err"]
+                extra = (f"apply moment rows err {ma['mom_err']:.3e}, "
+                         f"other rows equal {ma['rest_equal']}")
+                apply_ok = ma["rest_equal"] and ma["mom_err"] <= (
+                    1e-10 if f64 else F32_MOVER_MOM_ATOL)
+            else:
+                cmp = multitrial_compare(eng, s, 5, seed=620)
+                me, ch = cmp["mover_points"], cmp["chain_wl"]
+                e_err, own_err = me["e_err"], me["own_err"]
+                extra = f"points repeat equal {me['repeat_equal']}"
+                apply_ok = me["repeat_equal"]
+            frac = float(ch["differ"].float().mean())
+            print(f"[trans-wall] {dtype} W={Wt} T={T}, cell_trans_wall "
+                  f"{TRANS_WALL} Bohr: {share:.4%} of a proposal's trial "
+                  f"points beyond the wall; largest displacement after a "
+                  f"cycle {dmax:.6f} Bohr; energies err {e_err:.3e}, own "
+                  f"moments err {own_err:.3e}; chain {int(ch['differ'].sum())}"
+                  f" walkers differ ({frac:.4%}), rows err {ch['cf_err']:.3e}"
+                  f" (rel {ch['cf_rel']:.3e}), WL slabs err "
+                  f"{ch['wl_err']:.3e} (rel {ch['wl_rel']:.3e}), "
+                  f"{ch['n_acc']} of {ch['n_enabled']} trials accepted; "
+                  f"{extra}", flush=True)
+            if not share > 0:
+                fail("the displacement wall rejected no proposal")
+            if not dmax <= TRANS_WALL + TRANS_WALL_TOL[dtype]:
+                fail(f"a molecule crossed the displacement wall: {dmax}")
+            tol_e, tol_m = ((1e-10, 1e-10) if f64
+                            else (F32_MOVER_E_ATOL, F32_MOVER_MOM_ATOL))
+            if not (e_err <= tol_e and own_err <= tol_m and apply_ok):
+                fail(f"the mover kernels disagree with their plain versions "
+                     f"under the displacement wall ({dtype}, T={T})")
+            if f64:
+                if ch["differ"].any() or not (
+                        ch["cf_err"] <= 1e-10 and ch["wl_err"] <= 1e-10
+                        and 0 < ch["n_acc"] < ch["n_enabled"]):
+                    fail(f"chain_wl fp64 under the displacement wall (T={T})"
+                         " disagrees with its plain version")
+            elif frac > F32_MAX_DIFF_FRAC or not (
+                    ch["cf_rel"] <= F32_CHAIN_RTOL
+                    and ch["wl_rel"] <= F32_CHAIN_RTOL
+                    and 0 < ch["n_acc"] < ch["n_enabled"]):
+                fail(f"chain_wl f32 under the displacement wall (T={T}) "
+                     "disagrees with its plain version")
+            del eng, s, cmp
+            torch.cuda.empty_cache()
+
+
+def unfused_t1_phase():
+    """8c: cell_pallas='off' (the unfused sub-step with the micro-batched
+    chain) against 'apply' (the three kernels) in a sample run on the
+    N=8064 pair, one cycle each from one seed, float64 at W=64 (frozen
+    weights: the micro-batched chain is the serial one): integer state
+    identical, continuous state within 1e-10, the WL slabs within 1e-12
+    relative."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value64
+
+    ends, secs = {}, {}
+    for mode in ("off", "apply"):
+        eng, s = make_cell_engine(cell_params(
+            W_CELL_FP64, "float64", cell_pallas=mode, cell_chain="auto",
+            samplerun=True, wl_factor=0.0, list_update_int=1,
+            mpi_sync_int=1))
+        if (mode == "off") != (not eng.use_cell_pallas
+                               and not eng.use_chain_kernel):
+            fail(f"cell_pallas='{mode}' resolved to use_cell_pallas "
+                 f"{eng.use_cell_pallas}, use_chain_kernel "
+                 f"{eng.use_chain_kernel}")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng.run_cycles(s, 1)
+        torch.cuda.synchronize()
+        secs[mode] = time.time() - t0
+        ends[mode] = s
+    a, b = ends["off"], ends["apply"]
+    ints_equal, names, _ = state_diff(a, b)
+    fields = field_diffs(a, b)
+    # the WL slabs relative, as the CPU tests hold them: the
+    # micro-batched chain adds a sub-step's histogram increments up
+    # before it adds them to the slab, the chain kernel one by one
+    err = max((float(e) for e, _, f in fields if f not in WL_FIELDS),
+              default=0.0)
+    wl_rel = max((float(e) / max(1.0, float(m)) for e, m, f in fields
+                  if f in WL_FIELDS), default=0.0)
+    uh = ds_value64(b.master_uhist)
+    print(f"[unfused-t1] fp64 N=8064 W={W_CELL_FP64} sample run, one cycle: "
+          f"'off' {secs['off']:.3f} s, 'apply' {secs['apply']:.3f} s; "
+          f"integer state equal {ints_equal} {names}; state max abs diff "
+          f"{err:.3e}, WL slabs max relative diff {wl_rel:.3e}; by field "
+          f"(max abs diff, max |value|) {fields[:5]}; merged uhist sum "
+          f"{uh.sum():.6e}; accepted {int(a.acc[0].sum())} translations",
+          flush=True)
+    if not (ints_equal and err <= 1e-10 and wl_rel <= 1e-12
+            and uh.sum() > 0):
+        fail("cell_pallas='off' and 'apply' disagree in the T=1 sample run")
+
+
+WL_FIELDS = ("weight", "hist", "uhist", "master_eta", "master_hist",
+             "master_uhist")
+
+
+def field_diffs(a, b):
+    """[(max |a - b|, max |b|, field)] of two CellStates' float fields
+    (a double-single pair as its float64 value), largest first."""
+    import dataclasses
+
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value64
+
+    out = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, tuple):
+            x, y = (torch.as_tensor(ds_value64(v)) for v in (x, y))
+        if torch.is_tensor(x) and x.is_floating_point():
+            out.append((f"{_max_abs(x, y):.3e}",
+                        f"{float(torch.max(torch.abs(y))):.3e}", f.name))
+    return sorted(out, key=lambda r: -float(r[0]))
+
+
+FLAG_T8 = dict(cell_trials=8, cell_pallas="auto", cell_chain="auto")
+# the flagship at T=8: a rebin and a delta-sync in the timed cycle, the
+# resync left out (a whole-cell energy costs ~7 s here)
+FLAG_T8_CUTS = dict(list_update_int=2, mpi_sync_int=2, latt_sync_int=10_000)
+
+
+def flagship_t8_run(kind, card):
+    """7c: the N=24192 flagship at cell_trials=8 with the modes left to
+    'auto': they must resolve to the unfused sub-step with the XLA chain
+    (the multi-point kernel has no delta output for overlapping
+    stencils).  One sub-step against cell_chain='on' (the chain kernel
+    fed by the unfused sub-step) in float64 at W=16; then at W=128 in
+    float32 a warm-up and a timed cycle, an audit of 64 walkers, the
+    merged histogram, and a torch.profiler trace of one sub-step."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
+    from mc_water_ls_mw_tpu_torch.mcmc.chain_kernel import SWITCH
+    from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value64
+
+    mt = dict(mc_max_trans=0.10 * ANG_TO_BOHR)
+    prm = cell_params(W_MT_FP64, "float64", stack=FLAG_STACK, **FLAG_T8,
+                      **mt)
+    eng_x, s = make_cell_engine(prm)
+    if eng_x.use_cell_pallas or eng_x.use_chain_kernel \
+            or eng_x.scatter_unique or eng_x.T != 8:
+        fail("the flagship at T=8 did not resolve to the unfused sub-step "
+             "with the XLA chain")
+    eng_k, _ = make_cell_engine(dataclasses.replace(prm, cell_chain="on"))
+    K, T, W = eng_x.K, eng_x.T, W_MT_FP64
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(700)
+    u = torch.rand((K, 4 + 5 * T, W), generator=gen, dtype=s.r.dtype,
+                   device=DEVICE)
+    codes = torch.zeros((K * T,), dtype=torch.int32)
+    codes[K * T // 2] = SWITCH
+    s.cycle = 1                               # WL live (eq_mc_cycles 1)
+    ends, tpms = [], []
+    for eng in (eng_x, eng_k):
+        st = s.clone()
+        tpm = torch.zeros((eng.cellgrid.nslot, W), dtype=torch.int32,
+                          device=DEVICE)
+        eng._substep_canonical(st, tpm, 5, u, codes)
+        ends.append(st)
+        tpms.append(tpm)
+    torch.cuda.synchronize()
+    ints_equal, names, err = state_diff(*ends)
+    ints_equal = ints_equal and torch.equal(*tpms)
+    n_acc = int(ends[0].acc[0].sum())
+    print(f"[flagship-t8] fp64 W={W}: cell_pallas/cell_chain 'auto' -> "
+          f"use_cell_pallas {eng_x.use_cell_pallas}, use_chain_kernel "
+          f"{eng_x.use_chain_kernel}; one sub-step (K={K}, T={T}) through "
+          f"the XLA chain against the chain kernel: integer state equal "
+          f"{ints_equal} {names}, continuous state max abs diff {err:.3e}, "
+          f"{n_acc} of {int(ends[0].att[0].sum())} trials accepted, "
+          f"histogram grew {float(ends[0].hist.sum()):.3e}", flush=True)
+    if not (ints_equal and err <= 1e-10 and n_acc > 0
+            and float(ends[0].hist.sum()) > 0):
+        fail("the flagship's XLA chain disagrees with the chain kernel")
+    del eng_x, eng_k, s, ends
+    torch.cuda.empty_cache()
+
+    prm = cell_params(W_FLAG, "float32", stack=FLAG_STACK, **FLAG_T8,
+                      **FLAG_T8_CUTS, **mt)
+    eng, s = make_cell_engine(prm)
+    n_sub = eng.sweeps_per_cycle * eng.n_tables
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng.run_cycles(s, 1)                      # warm-up (WL live)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    att0 = s.att.clone()
+    t0 = time.time()
+    s, samples = eng.run_cycles(s, 1)         # cycle 2: rebin and sync
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    att = (s.att - att0).sum(dim=1).tolist()
+    overflow = int(s.occ_overflow.max())
+    print(f"[flagship-t8] N={prm.nwater} W={W_FLAG} f32 T={eng.T}: "
+          f"{n_sub} sub-steps/cycle, {eng.trials_per_cycle} trials/cycle; "
+          f"warm-up cycle {warm_s:.3f} s; timed cycle {elapsed:.3f} s = "
+          f"{eng.trials_per_cycle * W_FLAG / elapsed:.4e} trials/s on "
+          f"{kind} ({card}); attempts trans/vol/switch {att} (all "
+          f"walkers); occ_overflow {overflow}", flush=True)
+    if overflow != 0:
+        fail(f"flagship T=8 slab overflow {overflow}")
+    if not torch.isfinite(samples["E_ls"]).all():
+        fail("non-finite therm samples of the flagship at T=8")
+    s, drift = eng.audit_energy(s, n_walkers=64)
+    max_drift = float(torch.max(torch.abs(drift)))
+    eng.merged_histogram(s)
+    hist = ds_value64(s.master_hist)[0]
+    print(f"[flagship-t8] audit of 64 walkers: max |drift| {max_drift:.3e} "
+          f"Hartree (limit {AUDIT_FLAG_MAX_DRIFT:g}); merged histogram sum "
+          f"{hist.sum():.6e} over {int((hist > 0).sum())} bins", flush=True)
+    if not max_drift < AUDIT_FLAG_MAX_DRIFT:
+        fail("flagship T=8 energy audit drift")
+    if not (np.isfinite(hist.sum()) and hist.sum() > 0):
+        fail("the flagship's merged histogram at T=8 is empty or not finite")
+
+    # one sub-step, untraced and traced, from the same state
+    gen.manual_seed(701)
+    K, T, W = eng.K, eng.T, W_FLAG
+    u_all = torch.rand((1, K, 4 + 5 * T, W), generator=gen,
+                       dtype=s.r.dtype, device=DEVICE)
+    u_mv, ua, uz = eng._split_uniforms(u_all)
+    codes = torch.zeros((K * T,), dtype=torch.int32)
+    walls, traced = [], None
+    for pass_ in range(2):
+        st = s.clone()
+        pks = eng._pack(st)
+        rows = eng._loop_rows(st, True)
+        tpm = torch.zeros((eng.cellgrid.nslot, W), dtype=torch.int32,
+                          device=DEVICE)
+        if pass_:
+            traced = profile(activities=[ProfilerActivity.CUDA])
+            traced.start()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng._substep_multi(st, pks, tpm, 5, u_mv[0], ua[0], uz[0], codes,
+                           rows)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        if pass_:
+            traced.stop()
+        del st, pks, rows, tpm
+    rows = device_rows(traced)
+    dev = sum(r[0] for r in rows) * 1e-6
+    busy = dev / walls[0]
+    print(f"[flagship-t8-profile] one sub-step: untraced {walls[0] * 1e3:.3f}"
+          f" ms, traced {walls[1] * 1e3:.3f} ms; device {dev * 1e3:.3f} ms: "
+          f"{busy:.4f} busy, {1 - busy:.4f} idle (the Python chain loop's "
+          f"share); {sum(r[1] for r in rows)} device launches", flush=True)
+    print_device_rows("flagship-t8-profile", rows, 1, "sub-step", top=8)
+    del eng, s, samples
+    torch.cuda.empty_cache()
+
+
+# round 5's N=8064 pipeline: the overrides of runs/n8064_wl2/run.py and
+# runs/n8064_sample2/run.py (their MU_RANGE and WL_QTIME defaults)
+_ROUND5 = dict(
+    stack=(14, 8, 18), n_walkers=128, parallel_strategy="dd", n_windows=16,
+    window_overlap=2, mu_min=-27000.0, mu_max=27000.0, nbins=201,
+    mc_max_trans=0.10, mc_dv_max=0.2, mc_vol_wall=0.2, eq_mc_cycles=400,
+    list_update_int=10, mpi_sync_int=50, monitor_int=500, flat_chk_int=500,
+    file_output_int=100, therm_walkers=8, traj_output_int=100_000_000,
+    chkpt_dump_int=250, timer_qtime=9000.0, timer_closetime=420,
+    max_mc_cycles=100_000_000,
+)
+N8064_WL2 = dict(_ROUND5, cell_trials=8, eq_adjust_mc=True,
+                 wl_factor=0.005 * 16.0 / 128, wl_minhist=5)
+N8064_SAMPLE2 = dict(_ROUND5, samplerun=True, cell_trials=1,
+                     eq_adjust_mc=False, deltaG_int=500)
+# what the smoke run cuts, to fit volume moves, delta-syncs, monitor_stats,
+# the equilibration boundary, check_flatness, checkpoints, rebins and the
+# sample phase's Delta G dumps into 1 + 1 generation cycles and a sample
+# cycle: these intervals (the runs' own values in the comments)
+ROUND5_CUTS = dict(
+    eq_mc_cycles=2,             # 400
+    list_update_int=2,          # 10
+    monitor_int=2,              # 500
+    flat_chk_int=2,             # 500
+    mpi_sync_int=1,             # 50
+    file_output_int=1,          # 100
+    chkpt_dump_int=2,           # 250
+)
+# (the sample cycle holds a Delta G dump and the monitor's stitched
+# unbiased_histogram.dat; deltaG_int and monitor_int 500)
+SAMPLE2_CUTS = dict(ROUND5_CUTS, deltaG_int=1, monitor_int=1)
+WL2_CYCLES = (1, 1)             # first call, resumed call
+SAMPLE2_CYCLES = 1
+ROUND5_VOL_TOL = 1e-6           # float32 round-off of a volume ratio
+
+
+def _app_calls(d, over, calls, kernels, base=None, **call_kw):
+    """run_input_file of ``d``/ice.input with the overrides ``over``,
+    once per cycle count of ``calls`` (the later calls resume), through
+    the Application class ``base`` (the app's own by default)
+    remembered so that its engine can be read; ``call_kw`` go to
+    run_input_file.  Returns one dict per call: wall seconds, the final
+    state, the Application, and its engine's launch counts (the
+    kernels' counts start at 0 when the run sets up; ``kernels`` maps a
+    name to the engine's attribute)."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch import app as app_mod
+
+    apps = []
+
+    class Recorded(base or app_mod.Application):
+        def setup(self):
+            apps.append(self)
+            return super().setup()
+
+    path = os.path.join(d, "ice.input")
+    cwd, original = os.getcwd(), app_mod.Application
+    app_mod.Application = Recorded
+    out = []
+    try:
+        for n_cyc in calls:
+            t0 = time.time()
+            s = app_mod.run_input_file(path, overrides=over,
+                                       max_cycles=n_cyc, device=DEVICE,
+                                       **call_kw)
+            torch.cuda.synchronize()
+            app = apps[-1]
+            out.append(dict(wall=time.time() - t0, s=s, app=app,
+                            launches={k: getattr(app.engine, a).launches
+                                      for k, a in kernels.items()}))
+    finally:
+        os.chdir(cwd)
+        app_mod.Application = original
+    return out
+
+
+def _round5_report(tag, d, out, calls, kind, card):
+    """Print and check one stage of the round-5 pipeline (its calls'
+    launches, rates, windows, slab overflow and every walker's volume
+    ratio); returns (engine, final state)."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.ops.geometry import determinant3
+
+    eng, s = out[-1]["app"].engine, out[-1]["s"]
+    n_sub = eng.sweeps_per_cycle * eng.n_tables
+    W = s.r.shape[-1]
+    for run, n_cyc in zip(out, calls):
+        if any(n != n_cyc * n_sub for n in run["launches"].values()):
+            fail(f"{tag}: launches {run['launches']}, expected "
+                 f"{n_cyc * n_sub} of each kernel")
+    n, disp, tot = _block_seconds(os.path.join(d, "mc.log"))
+    nwin = s.master_eta.hi.shape[0]
+    inside = (s.mu > s.my_mu_min) & (s.mu < s.my_mu_max)
+    per_win = torch.bincount(s.window_id[inside].long(),
+                             minlength=nwin).tolist()
+    vref = torch.abs(torch.stack([determinant3(eng.ref_h[l][:, :, None])[0]
+                                  for l in range(2)])).double()
+    ratio = (s.volume.double() / vref[:, None]).cpu().numpy()   # [L,W]
+    overflow = int(s.occ_overflow.max())
+    launches = [r["launches"] for r in out]
+    print(f"[{tag}] N={eng.prm.nwater} W={W} float32 T={eng.T} "
+          f"samplerun={eng.prm.samplerun} mc_vol_wall "
+          f"{eng.prm.mc_vol_wall}, '{eng.prm.parallel_strategy}' over "
+          f"{nwin} windows, {n_sub} sub-steps/cycle: {n} cycles over "
+          f"{len(out)} call(s) in {disp:.3f} s = {disp / n:.3f} s/cycle in "
+          f"the cycle loop ({tot / n:.3f} s/cycle with the block events) = "
+          f"{eng.trials_per_cycle * W * n / disp:.4e} trials/s on {kind} "
+          f"({card}); calls {[round(r['wall'], 1) for r in out]} s with "
+          f"set-up; launches {launches}; started at cycle "
+          f"{out[0]['app'].start_cycle}, ended at {s.cycle}; occ_overflow "
+          f"{overflow}; walkers inside their window's bounds per window "
+          f"{per_win}", flush=True)
+    print(f"[{tag}] V/Vref of every walker, lattice 1: "
+          f"{np.round(ratio[0], 4).tolist()}", flush=True)
+    print(f"[{tag}] V/Vref of every walker, lattice 2: "
+          f"{np.round(ratio[1], 4).tolist()}", flush=True)
+    print(f"[{tag}] V/Vref range [{ratio.min():.6f}, {ratio.max():.6f}] "
+          f"(wall {eng.prm.mc_vol_wall})", flush=True)
+    if overflow != 0:
+        fail(f"{tag}: slab overflow {overflow}")
+    if not (np.abs(ratio - 1.0)
+            <= eng.prm.mc_vol_wall + ROUND5_VOL_TOL).all():
+        fail(f"{tag}: a walker's volume left the volume wall")
+    return eng, s
+
+
+def round5_run(kind, card):
+    """9b: round 5's N=8064 pipeline through run_input_file, the runs'
+    overrides (ROUND5_CUTS lists the cuts) and jit_chunk=20 as their
+    run.py files pass it: runs/n8064_wl2 (T=8, the volume wall, 'dd'
+    over 16 windows, Wang-Landau generation) in build/chip_smoke_wl2 for
+    a cycle, then a resumed call; its two checkpoint slots, and nothing
+    else, copied to build/chip_smoke_sample2, where runs/n8064_sample2
+    (T=1, the wall, a sample run) enters its sample phase through the
+    gen -> sample restart for a cycle; an energy audit of 64 walkers of
+    each stage, the stitched histogram and the per-window dumps.
+    Returns {"launches": {kernel line: count}}."""
+    import shutil
+
+    import torch
+
+    root = os.path.join(ROOT, "build")
+    dw = os.path.join(root, "chip_smoke_wl2")
+    ds = os.path.join(root, "chip_smoke_sample2")
+    for d in (dw, ds):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    kern_t8 = {"mover_points": "points_kernel", CHAIN_T8: "chain_kernel",
+               APPLY_MT: "apply_kernel"}
+    shutil.copy(os.path.join(ROOT, "runs", "n8064_wl2", "ice.input"), dw)
+    out = _app_calls(dw, {**N8064_WL2, **ROUND5_CUTS}, WL2_CYCLES, kern_t8,
+                     jit_chunk=20)
+    if out[1]["app"].start_cycle != WL2_CYCLES[0]:
+        fail("wl2: the second call did not resume from its checkpoint")
+    eng, s = _round5_report("wl2", dw, out, WL2_CYCLES, kind, card)
+    if eng.T != 8 or eng.prm.mc_vol_wall != 0.2:
+        fail("wl2: the engine is not the T=8 walled one of runs/n8064_wl2")
+    _, drift = eng.audit_energy(s.clone(), n_walkers=64)
+    print(f"[wl2] audit of 64 walkers at cycle {s.cycle}: max |drift| "
+          f"{float(torch.max(torch.abs(drift))):.3e} Hartree (limit "
+          f"{AUDIT_CELL_MAX_DRIFT:g})", flush=True)
+    if not float(torch.max(torch.abs(drift))) < AUDIT_CELL_MAX_DRIFT:
+        fail("wl2: energy audit drift")
+    launches = {}
+    for r in out:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    del eng, s, out
+    torch.cuda.empty_cache()
+
+    for name in ("checkpoint000.npz.1", "checkpoint000.npz.2"):
+        shutil.copy(os.path.join(dw, name), ds)
+    kern_t1 = {"mover_energies": "mover_kernel", "chain_wl": "chain_kernel",
+               "mover_apply": "apply_kernel"}
+    shutil.copy(os.path.join(ROOT, "runs", "n8064_sample2", "ice.input"), ds)
+    out = _app_calls(ds, {**N8064_SAMPLE2, **SAMPLE2_CUTS},
+                     (SAMPLE2_CYCLES,), kern_t1, jit_chunk=20)
+    eng, s = _round5_report("sample2", ds, out, (SAMPLE2_CYCLES,), kind,
+                            card)
+    node = open(os.path.join(ds, "node000.log")).read()
+    if out[0]["app"].start_cycle != sum(WL2_CYCLES) or \
+            "# Sample phase from a generation checkpoint" not in node or \
+            float(s.f.max()) != 0.0:
+        fail("sample2 did not enter its sample phase from the wl2 "
+             "checkpoint")
+    for k, n in out[0]["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    # the audit right after one more cycle's sub-step loop (as phase 9's)
+    drifts = []
+
+    def audited_scan(*args):
+        st, tpm = eng._substep_scan(*args)
+        drifts.append(eng.audit_energy(st.clone(), n_walkers=64)[1])
+        return st, tpm
+
+    eng._cycle_with(s, audited_scan)
+    max_drift = float(torch.max(torch.abs(drifts[0])))
+    files = sorted(os.listdir(ds))
+    dumps = [f for f in files if f.startswith("uhist_windows_")]
+    stitched = np.loadtxt(os.path.join(ds, "unbiased_histogram.dat"),
+                          comments="#")
+    print(f"[sample2] audit of 64 walkers after the sub-step loop of cycle "
+          f"{s.cycle}: max |drift| {max_drift:.3e} Hartree (limit "
+          f"{AUDIT_CELL_MAX_DRIFT:g}); stitched unbiased_histogram.dat "
+          f"{stitched.shape}, finite {bool(np.isfinite(stitched).all())}, "
+          f"sum of its last column {stitched[:, -1].sum():.6e}; per-window "
+          f"dumps {dumps}", flush=True)
+    if not max_drift < AUDIT_CELL_MAX_DRIFT:
+        fail("sample2: energy audit drift")
+    if not (dumps and np.isfinite(stitched).all()
+            and stitched[:, -1].sum() > 0):
+        fail("sample2: no finite stitched histogram or per-window dumps")
+    del eng, s, out
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 def require_scatter_modes(eng):
@@ -2969,6 +3717,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_time("5d. dd front-end path (runs/n216_sample_dd)")
 
+    # ---- 5e. the volume wall's inward ratchet (N=216)
+    vw = vol_wall_phase()
+    for name, n in vw["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    phase_time("5e. volume wall (N=216)")
+
     # ---- 6. the cell engine's kernels vs plain
     from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value
 
@@ -3175,6 +3929,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_time("7b. N=24192 flagship (scatter path)")
 
+    # ---- 7c. the flagship at cell_trials=8: the unfused sub-step
+    flagship_t8_run(kind, card)
+    phase_time("7c. N=24192 flagship at T=8 (unfused sub-step)")
+
     # ---- 8. the multi-trial kernels (cell_trials = 8) vs plain
     from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
 
@@ -3289,6 +4047,13 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_time("8. multi-trial kernels")
 
+    # ---- 8b. the displacement wall; 8c. the unfused T=1 sub-step
+    trans_wall_phase()
+    phase_time("8b. displacement wall (N=8064, T=1 and 8)")
+    unfused_t1_phase()
+    torch.cuda.empty_cache()
+    phase_time("8c. unfused sub-step against 'apply' (N=8064, T=1)")
+
     # ---- 9. the front-end path: run_input_file at T = 8
     fe = frontend_run()
     for name, n in fe["launches"].items():
@@ -3297,6 +4062,12 @@ def main() -> int:
         name = {"mover_apply": APPLY_MT, "chain_wl": CHAIN_T8}.get(name, name)
         launches[name] = launches.get(name, 0) + n
     phase_time("9. front-end path")
+
+    # ---- 9b. round 5's pipeline: runs/n8064_wl2 -> runs/n8064_sample2
+    r5 = round5_run(kind, card)
+    for name, n in r5["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    phase_time("9b. round-5 pipeline (n8064_wl2 -> n8064_sample2)")
 
     # ---- 10. path A: the reference's own N=48 example through the front
     # end (the dense-candidate kernel at three folded shifts)
@@ -3359,6 +4130,7 @@ def main() -> int:
              launches=launches["mover_energies_deltas"], library_ms=None,
              **report["mover_energies_deltas"]),
     ]
+    print(f"[time] total: {time.time() - _T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

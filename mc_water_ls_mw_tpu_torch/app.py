@@ -10,8 +10,11 @@ checkpoint), the SIGTERM-safe stop and the queue-time guard (reference
 call stack: SURVEY.md 3.1-3.2, main.f90:40-254).
 
 The run is one process on one device (``device``: 'cuda' by default,
-'cpu' on request; no mesh), in either parallel strategy ('mw', or 'dd'
-mu windows: walkers assigned round-robin to ``n_windows`` windows).
+'cpu' on request), in either parallel strategy ('mw', or 'dd' mu
+windows: walkers assigned round-robin to ``n_windows`` windows).  The
+JAX package's ``use_mesh`` and ``jit_chunk`` arguments are accepted and
+change nothing here: the walkers are sharded only across several
+devices, and there is no compiled program whose length to bound.
 What the engines refuse (MINU, the 1/t schedule, ...) raises
 NotImplementedError when the engine is built.
 """
@@ -94,7 +97,10 @@ def _block_size(prm: RunParams) -> int:
 class Application:
     """One whole run in ``workdir``."""
 
-    def __init__(self, prm: RunParams, workdir=".", device="cuda"):
+    def __init__(self, prm: RunParams, workdir=".", use_mesh=True,
+                 device="cuda"):
+        # use_mesh: the JAX package shards the walkers over a mesh of
+        # several devices; a run of the port has one, so it is unused
         self.prm = prm
         self.device = resolve_device(device)
         self.workdir = os.path.abspath(workdir)
@@ -455,9 +461,18 @@ class Application:
 
 
 def run_input_file(path, overrides=None, max_cycles=None, workdir=None,
-                   profile_dir=None, device="cuda"):
+                   profile_dir=None, use_mesh=True, jit_chunk=100,
+                   device="cuda"):
     """Programmatic entry: run an ice.input file (in its directory, or
     ``workdir``) to completion on ``device``; returns the final state.
+
+    ``use_mesh`` and ``jit_chunk`` are the JAX package's arguments, taken
+    so that its callers (the committed runs/*/run.py) run unchanged.
+    Neither changes what the port does: ``use_mesh`` shards the walkers
+    only across several devices and a run of the port has one; the JAX
+    package's ``jit_chunk`` caps the cycles of one compiled dispatch
+    (host events stay on the block boundaries, so results never depended
+    on it), and the port compiles no cycle program.
 
     Cell-engine capacity resilience: if a rebin overflows the slab
     capacity (CapacityOverflow), the run is set up again with a regrown
@@ -468,7 +483,7 @@ def run_input_file(path, overrides=None, max_cycles=None, workdir=None,
     prm = read_input(path, extra_overrides=overrides)
     wd = workdir or os.path.dirname(os.path.abspath(path))
     for attempt in range(4):
-        app = Application(prm, workdir=wd, device=device)
+        app = Application(prm, workdir=wd, use_mesh=use_mesh, device=device)
         try:
             app.setup()
             return app.run(max_cycles=max_cycles, profile_dir=profile_dir)

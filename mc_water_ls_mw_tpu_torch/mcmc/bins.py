@@ -182,14 +182,16 @@ def eta_lookup(grid: BinGrid, weight, mu, binw, mub, start_bin, end_bin,
     eta_weight; mc_moves.F90:893-964), shared by the engines and the
     plain version of the chain kernel.
 
-    weight [B, W]; mu and the window arguments [W]; binw / mub [B]
-    tensors.  Walkers before their window see the wall-less curve
-    (``seeding``) or no bias at all."""
+    weight [B, W]; mu [W] (or [n, W]: n points of every walker at once)
+    and the window arguments [W]; binw / mub [B] tensors.  Walkers
+    before their window see the wall-less curve (``seeding``) or no bias
+    at all."""
     B = grid.nbins
     k = torch.clamp(mu_to_bin(grid, mu), 0, B - 1)
 
     def at(idx):
-        return torch.take_along_dim(weight, idx[None, :], dim=0)[0]
+        return torch.take_along_dim(
+            weight, idx.view(-1, idx.shape[-1]), dim=0).view(idx.shape)
 
     if not interp:
         eta = at(k)

@@ -1,14 +1,23 @@
 """Large-N parallel cell-sweep MC engine, on tensors.
 
 Counterpart of ``mc_water_ls_mw_tpu/mcmc/cellengine.py`` (whose
-docstring derives the construction) for its usual configurations: one
-trial per scheduled mover (``cell_trials=1``) or T anchored-window
-trials per mover (``cell_trials=T > 1``, ``_substep_multi``), with the
-fused sub-step kernels, the per-move chain + WL kernel
-(``cell_chain='on'``) and either apply stage: the in-place apply kernel
-(``cell_pallas='apply'``, disjoint same-colour stencils) or the scatter
-of the mover kernel's per-candidate deltas (``cell_pallas='on'``, at
-one trial per mover, on any unpadded grid).
+docstring derives the construction): one trial per scheduled mover
+(``cell_trials=1``) or T anchored-window trials per mover
+(``cell_trials=T > 1``, ``_substep_multi``), with every combination of
+the JAX engine's modes:
+
+* the sub-step's energies from the mover kernels (``cell_pallas`` 'on'
+  or 'apply') or from the unfused tensor code of ops/cell_energy.py
+  (``'off'``, the JAX engine's XLA sub-step);
+* the movers applied by the in-place apply kernel (``'apply'``, disjoint
+  same-colour stencils) or by a scatter of per-candidate deltas (the
+  mover kernel's delta output with 'on' at one trial per mover, the
+  unfused candidate stores with 'off');
+* the acceptance chain in the chain + WL kernel (``cell_chain`` 'on')
+  or in the JAX engine's XLA chains (``'off'``): at one trial per mover
+  the micro-batched chain (eta frozen for the sub-step, its WL
+  increments in one batched update after it), at T > 1 the per-move
+  chain over the K x T trials.
 
 * Space is partitioned by the two-level mid-frame cell grid of
   ops/cells.py.  One sub-step picks ONE random molecule in every coarse
@@ -17,20 +26,20 @@ one trial per mover, on any unpadded grid).
   apart in both replicas, so their energy changes and moment updates are
   exactly independent.
 * The accept/reject chain stays EXACT: energies are evaluated in
-  parallel (``MoverEnergiesKernel``; at T > 1 ``MoverPointsKernel`` at
-  all T + 1 points of each mover), acceptance runs sequentially over
-  the movers (``ChainWLKernel``) because mu, eta(mu) and the WL weights
-  couple all moves, then the accepted movers are applied in parallel
-  (``MoverApplyKernel``; at T > 1 once, at each mover's final point;
-  with 'on' the scatter of the deltas, ``_scatter_moments``).
+  parallel, acceptance runs sequentially over the movers because mu,
+  eta(mu) and the WL weights couple all moves, then the accepted movers
+  are applied in parallel (at T > 1 once, at each mover's final point).
 * A move that would cross the mover's stored FINE-cell boundary is
   rejected (a state-only-dependent hard wall), which keeps the static
   coverage tables exact between rebins; the grid origin is re-drawn and
-  the molecules re-binned every ``list_update_int`` cycles.
-* Volume moves, lattice switches outside the chain, the delta-sync,
-  the eta lookups and the 'dd' window tracking and switch gating are
-  inherited from the dense ``Engine``; ``CellState`` carries the same
-  multicanonical fields.
+  the molecules re-binned every ``list_update_int`` cycles.  With
+  ``cell_trans_wall > 0`` a proposal farther than the wall from the
+  mover's lattice-1 reference site (``CellAux.fref0``) is rejected too,
+  and so is a volume move that would rescale a molecule past it.
+* Volume moves (with the ``mc_vol_wall`` volume wall), lattice switches
+  outside the chain, the delta-sync, the eta lookups and the 'dd' window
+  tracking and switch gating are inherited from the dense ``Engine``;
+  ``CellState`` carries the same multicanonical fields.
 
 On CUDA tensors the wrappers launch their hand-written kernels; on
 CPU tensors they run their plain versions, so what is computed does not
@@ -39,20 +48,20 @@ depend on the device.  Differences from the JAX engine:
 * the sub-step loop is a Python loop (the JAX package traces one
   sub-step into a ``lax.scan``); inside it the packed slabs and the
   chain's cf/ci rows are the truth and are updated IN PLACE, packed once
-  and unpacked once per cycle;
+  and unpacked once per cycle; the XLA chains are Python loops over the
+  trials, branching on the shared move codes on the host;
 * the state is a dataclass updated in place, ``cycle`` is a host int
   and randomness comes from the engine's stream (mcmc/engine.py);
 * ``cell_pallas='auto'`` and ``cell_chain='auto'`` resolve on every
   device as the JAX engine resolves them on an accelerator: 'apply' where
-  same-colour stencils are disjoint, else 'on' (at one trial per mover),
-  and the chain kernel (the JAX package's 'auto' picks its unfused XLA
+  same-colour stencils are disjoint, else 'on' at one trial per mover
+  and the unfused sub-step at T > 1, and the chain kernel wherever the
+  mover kernels run (the JAX package's 'auto' picks its unfused
   sub-step and micro-batched chain on a CPU).
 
 Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md):
-``cell_pallas='off'``, ``cell_chain='off'``, ``cell_trans_wall > 0``,
-padded coverage tables, ``cell_trials > 1`` on stencils that are not
-disjoint (the JAX engine's XLA fallback), and whatever the dense engine
-of the port refuses.
+padded coverage tables (which no caller of either package builds), one
+lattice, and whatever the dense engine of the port refuses.
 """
 
 from __future__ import annotations
@@ -64,7 +73,12 @@ import numpy as np
 import torch
 
 from ..models.sw import SWParams
-from ..ops.cell_energy import _FULL_ENERGY_MAX_ELEMS, slab_full_energy
+from ..ops.cell_energy import (
+    _FULL_ENERGY_MAX_ELEMS,
+    mover_energies,
+    mover_point_energies,
+    slab_full_energy,
+)
 from ..ops.cell_kernels import (
     MoverApplyKernel,
     MoverEnergiesKernel,
@@ -80,9 +94,10 @@ from ..ops.cells import (
     gather_from_slab,
     scatter_to_slab,
 )
-from ..ops.dsfloat import DS, ds_value, ds_zeros
+from ..ops.dense import Moments
+from ..ops.dsfloat import DS, _two_sum, ds_value, ds_zeros
 from ..ops.geometry import determinant3, from_frac, recip_matrix, to_frac
-from .bins import BinGrid
+from .bins import BinGrid, mu_to_bin, wl_move_update
 from .chain_kernel import (
     CF_CMU,
     CF_E0,
@@ -203,11 +218,13 @@ class CellState:
 class CellAux(NamedTuple):
     """Static large-N extras alongside EngineAux.  (The JAX package's
     CellAux also carries the mismatch bound, which its engine never
-    reads, and the lattice-1 reference sites of the displacement wall
-    ``cell_trans_wall``, which is not ported yet.)"""
+    reads.)"""
 
     dfrac0: torch.Tensor      # [3,N] invariant correspondence mismatch
                               # f1 - f2 per molecule (models/stacking.py)
+    fref0: torch.Tensor | None = None  # [3,N] lattice-1 reference
+                              # fractional sites, the anchor of the
+                              # displacement wall (cell_trans_wall)
 
 
 def cell_state_from_numpy(fields: dict, aux_fields: dict, caux_fields: dict,
@@ -216,12 +233,14 @@ def cell_state_from_numpy(fields: dict, aux_fields: dict, caux_fields: dict,
     counterpart of state.state_from_numpy: ``fields`` maps every
     CellState field name to an array (``moments`` [10,L,nslot,W]; the DS
     masters to (hi, lo) pairs); other keys of the three dicts are
-    ignored."""
+    ignored, and so is a missing or None ``fref0``."""
     device = resolve_device(device)
     state = CellState(**fields_from_numpy(CellState, fields, device))
     dtype = state.r.dtype
-    caux = CellAux(dfrac0=torch.as_tensor(
-        np.array(caux_fields["dfrac0"]), dtype=dtype, device=device))
+    caux = CellAux(**{
+        k: torch.as_tensor(np.array(caux_fields[k]), dtype=dtype,
+                           device=device)
+        for k in CellAux._fields if caux_fields.get(k) is not None})
     return state, aux_from_numpy(aux_fields, dtype, device), caux
 
 
@@ -246,6 +265,8 @@ class _LoopRows(NamedTuple):
                             # scheduled fine cells, as the float type
     rank_max: torch.Tensor  # [n_tables, K, W] int32 max(occupancy-1, 0)
     occupied: torch.Tensor  # [n_tables, K, W] bool occupancy > 0
+    switch_ok: bool = True  # the chain's switch attempts are allowed
+                            # (host copy of ci[CI_SWOK])
 
 
 class _Trial(NamedTuple):
@@ -259,7 +280,7 @@ class _Trial(NamedTuple):
     own_new: torch.Tensor   # [L, K, 10, W] the movers' new own moments
     hasm: torch.Tensor      # [K, W] float 0/1: the trial exists
     dlt: torch.Tensor | None = None  # [L, K, CF, 10, cap, W] per-candidate
-                                     # moment deltas ('on' only)
+                                     # moment deltas (the scatter path)
 
 
 class _TrialTM(NamedTuple):
@@ -273,15 +294,9 @@ class _TrialTM(NamedTuple):
     e: torch.Tensor         # [L, K, P, W] local energies per point
     own: torch.Tensor       # [L, K, P, 10, W] own moments per point
     hasm: torch.Tensor      # [K, W] float 0/1: the trial exists
-
-
-_CELL_UNSUPPORTED = (
-    ("cell_pallas='off' (the unfused XLA sub-step)",
-     lambda p: p.cell_pallas not in ("auto", "apply", "on")),
-    ("cell_chain='off' (the micro-batched chain)",
-     lambda p: p.cell_chain not in ("auto", "on")),
-    ("cell_trans_wall > 0", lambda p: p.cell_trans_wall > 0.0),
-)
+    cs: list | None = None  # per lattice, the P candidate stores of
+                            # cell_energy.mover_point_energies (the
+                            # unfused sub-step only)
 
 
 class CellEngine(Engine):
@@ -297,7 +312,7 @@ class CellEngine(Engine):
                          stream=stream)
 
     def _check_scope(self, prm: RunParams, aux: EngineAux) -> None:
-        for name, bad in _UNSUPPORTED + _CELL_UNSUPPORTED:
+        for name, bad in _UNSUPPORTED:
             if bad(prm):
                 raise NotImplementedError(
                     f"{name} is not ported yet (see ROADMAP.md)")
@@ -380,17 +395,18 @@ class CellEngine(Engine):
         self.n_u = 7 if self.T == 1 else 4 + 5 * self.T
 
         self._resolve_modes()
-        if self.T == 1:
+        if self.use_cell_pallas and self.T == 1:
             self.mover_kernel = MoverEnergiesKernel(
                 self.model, cg, with_deltas=not self.use_cell_apply)
-        else:
+        elif self.use_cell_pallas:
             self.points_kernel = MoverPointsKernel(self.model, cg,
                                                    self.T + 1)
         if self.use_cell_apply:
             self.apply_kernel = MoverApplyKernel(self.model, cg)
-        self.chain_kernel = ChainWLKernel(
-            prm, self.grid, self.K, self.T,
-            float(self.aux.log_unbiased_norm))
+        if self.use_chain_kernel:
+            self.chain_kernel = ChainWLKernel(
+                prm, self.grid, self.K, self.T,
+                float(self.aux.log_unbiased_norm))
         self.full_max_elems = (_FULL_ENERGY_MAX_ELEMS_CUDA
                                if dev.type == "cuda"
                                else _FULL_ENERGY_MAX_ELEMS)
@@ -403,30 +419,35 @@ class CellEngine(Engine):
         where same-colour stencils are disjoint) applies the movers with
         the in-place apply kernel; 'on' (or 'auto' where they overlap, at
         one trial per mover) scatters the mover kernel's per-candidate
-        deltas.  The kernels always run: 'off' is refused by
-        _check_scope."""
-        pallas, T = self.prm.cell_pallas, self.T
-        if pallas == "apply" and not self.scatter_unique:
-            raise ValueError(
-                "cell_pallas='apply' needs disjoint same-colour "
-                "coverage stencils (scatter_unique)")
-        self.use_cell_pallas = True
-        self.use_cell_apply = pallas == "apply" or (
-            pallas == "auto" and self.scatter_unique)
-        if T > 1 and not self.use_cell_apply:
-            if pallas == "on":
+        deltas; 'off' (or 'auto' at T > 1 where they overlap: the
+        multi-point kernel has no delta output) runs the unfused
+        sub-step.  ``cell_chain`` 'on' runs the chain kernel, 'off' the
+        XLA chains, 'auto' the kernel wherever the mover kernels run.
+        The modes depend on the settings and the grid only."""
+        pallas, chain, T = self.prm.cell_pallas, self.prm.cell_chain, self.T
+        if pallas in ("on", "apply"):
+            if pallas == "apply" and not self.scatter_unique:
                 raise ValueError(
-                    "cell_trials > 1 supports cell_pallas in ('off', "
-                    "'apply', 'auto'): the multi-point kernel has no "
-                    "per-candidate delta output for the 'on' scatter path")
-            raise NotImplementedError(
-                "cell_trials > 1 on coverage stencils of same-colour "
-                "movers that are not disjoint (the unfused XLA sub-step "
-                "with the micro-batched chain) is not ported yet (see "
-                "ROADMAP.md)")
-        # cell_chain 'auto' and 'on' both mean the chain kernel here:
-        # 'off' and one lattice are refused by _check_scope
-        self.use_chain_kernel = True
+                    "cell_pallas='apply' needs disjoint same-colour "
+                    "coverage stencils (scatter_unique)")
+            self.use_cell_pallas = True
+            self.use_cell_apply = pallas == "apply"
+        elif pallas == "auto":
+            self.use_cell_apply = self.scatter_unique
+            self.use_cell_pallas = T == 1 or self.use_cell_apply
+        elif pallas == "off":
+            self.use_cell_pallas = self.use_cell_apply = False
+        else:
+            raise ValueError(f"cell_pallas={pallas!r}")
+        if T > 1 and self.use_cell_pallas and not self.use_cell_apply:
+            raise ValueError(
+                "cell_trials > 1 supports cell_pallas in ('off', "
+                "'apply', 'auto'): the multi-point kernel has no "
+                "per-candidate delta output for the 'on' scatter path")
+        if chain not in ("auto", "on", "off"):
+            raise ValueError(f"cell_chain={chain!r}")
+        self.use_chain_kernel = chain == "on" or (
+            chain == "auto" and self.use_cell_pallas)
 
     # ------------------------------------------------------------------
     # compensated energy accumulation (see CellState.energy_err)
@@ -530,7 +551,7 @@ class CellEngine(Engine):
             cf, ci, basew,
             inc=torch.ones((self.K, 2, W), dtype=dtype, device=dev),
             occ_f=occ.to(dtype), rank_max=torch.clamp(occ - 1, min=0),
-            occupied=occ > 0)
+            occupied=occ > 0, switch_ok=bool(switch_ok))
 
     def _chain_unrows(self, s: CellState, rows: _LoopRows) -> CellState:
         """The chain state back into the state's fields."""
@@ -553,6 +574,8 @@ class CellEngine(Engine):
         sub-step, unpack.  Test/diagnostic entry point - the cycle loop
         calls _substep on the packed slabs and rows it carries.
         ``u`` [K, n_u, W] as the random stream lays it out."""
+        codes_k = codes_k.to(s.r.device if self.use_chain_kernel else "cpu",
+                             torch.int32)
         pks = self._pack(s)
         rows = self._loop_rows(s, switch_ok)
         if self.T == 1:
@@ -626,21 +649,42 @@ class CellEngine(Engine):
         the WL slabs of ``s`` and the per-slot trial counter
         ``tpm_slab`` [nslot, W].  ``tbl``: row of the stacked tables;
         ``u`` [7, K, W]: this sub-step's uniforms (selection, 3
-        direction, magnitude, accept, switch); ``codes_k`` [K] int32 on
-        the state's device.  Returns the chain's counters
-        [CN_FIXED + K, W]."""
+        direction, magnitude, accept, switch); ``codes_k`` [K] int32
+        (on the state's device for the chain kernel; the XLA chain reads
+        it on the host).  Returns the chain's counters [CN_FIXED + K,
+        W]."""
         trial = self._propose_t1(s, pks, tbl, u, rows)
-        joh, cnt = self._chain_kernel_substep(s, rows, trial, codes_k, u[5],
-                                              u[6], cnt)
-        accf = joh.view(self.K, 2, -1)[:, 1]
+        if self.use_chain_kernel:
+            joh, cnt = self._chain_kernel_substep(s, rows, trial, codes_k,
+                                                  u[5], u[6], cnt)
+            accf = joh.view(self.K, 2, -1)[:, 1]
+        else:
+            accf, cnt = self._chain_t1(s, rows, trial, codes_k, u[5], u[6],
+                                       cnt)
         self._apply_t1(s, pks, tpm_slab, tbl, trial, accf, cnt[CN_FIXED:])
         return cnt
+
+    def _in_trans_wall(self, s: CellState, p, mover_mol):
+        """The displacement wall (cell_trans_wall): [..., K, W] bool,
+        whether the lattice-1 points ``p`` [3, ..., K, W] lie within the
+        wall of the movers' reference sites (minimum image)."""
+        fref = self.cellaux.fref0[
+            :, torch.clamp(mover_mol, min=0).long()]        # [3,K,W]
+        extra = p.dim() - 3
+        fref = fref.view(3, *([1] * extra), *fref.shape[1:])
+        rc0 = s.recip[0].view(3, 3, *([1] * (extra + 1)), -1)
+        h0 = s.h[0].view(3, 3, *([1] * (extra + 1)), -1)
+        fd = to_frac(rc0, p) - fref
+        fd = fd - torch.round(fd)
+        dsp = from_frac(h0, fd)
+        return torch.sum(dsp * dsp, dim=0) <= self.prm.cell_trans_wall ** 2
 
     def _propose_t1(self, s: CellState, pks, tbl: int, u,
                     rows: _LoopRows) -> _Trial:
         """Sub-step phase 1: mover selection, displacement proposal,
-        fine-cell wall (into ``rows.inc``), parallel energies of the
-        movers at both positions in both lattices."""
+        fine-cell wall and displacement wall (into ``rows.inc``),
+        energies of the movers at both positions in both lattices (the
+        mover kernel, or the unfused ``cell_energy.mover_energies``)."""
         cg = self.cellgrid
         L = s.h.shape[0]
         fc, cand, off = self._tables(tbl)
@@ -677,17 +721,53 @@ class CellEngine(Engine):
             - dmid[:, None]
         inside = cell_of_frac(cg, fmid, s.origin,
                               level="fine") == fc[:, None]   # [2,K,W]
-        rows.inc[:, 1] = inside[0] & inside[1]
+        in_cell = inside[0] & inside[1]
+        if self.prm.cell_trans_wall > 0.0:
+            # displacement wall on the PROPOSED endpoint only: detailed
+            # balance holds on the walled support, and a state outside
+            # the wall keeps its inward moves legal
+            in_cell = in_cell & self._in_trans_wall(s, p_new[0], mover_mol)
+        rows.inc[:, 1] = in_cell
 
-        # parallel energies of all K movers in both lattices, against
-        # the per-fine-cell coverage stencil (the wall keeps both
-        # endpoints inside the stored fine cell, so the stencil's
-        # coverage of that cube reaches every partner); with 'on' also
-        # the per-candidate moment deltas
-        e, own_new, *dlt = self.mover_kernel(pks, s.h, cand, off, fc, rank,
-                                             p_old, p_new)
+        # energies of all K movers in both lattices, against the
+        # per-fine-cell coverage stencil (the wall keeps both endpoints
+        # inside the stored fine cell, so the stencil's coverage of that
+        # cube reaches every partner); on the scatter path also the
+        # per-candidate moment deltas
+        if self.use_cell_pallas:
+            e, own_new, *dlt = self.mover_kernel(pks, s.h, cand, off, fc,
+                                                 rank, p_old, p_new)
+        else:
+            e, own_new, dlt = self._mover_energies_unfused(
+                s, pks, tbl, slot, p_old, p_new)
+            dlt = [dlt]
         return _Trial(rank, slot, p_old, p_new, e, own_new,
                       has_mover.to(e.dtype), *dlt)
+
+    def _mover_energies_unfused(self, s: CellState, pks, tbl: int, slot,
+                                p_old, p_new):
+        """The unfused counterpart of the mover kernel with its delta
+        output (the JAX engine's XLA sub-step): ``cell_energy.
+        mover_energies`` per lattice on the packed slabs' rows.  Returns
+        (e [L,K,2,W], own_new [L,K,10,W], dlt [L,K,CF,10,cap,W])."""
+        cg = self.cellgrid
+        K, W = slot.shape
+        valid = self._slab_valid(s)
+        cand = self.cand_stack_l[tbl]
+        e, own, dlt = [], [], []
+        for l, pk in enumerate(pks):
+            eo, en, co, cn = mover_energies(
+                [pk[:, PK_R0 + a] for a in range(3)],
+                Moments(*(pk[:, i] for i in range(10))), valid, s.h[l],
+                cand, self.off_stack[tbl], cg.full_mask, cg.cap, slot,
+                p_old[l], p_new[l], self.model)
+            e.append(torch.stack([eo, en], dim=1))           # [K,2,W]
+            own.append(torch.stack(list(cn.own), dim=1))     # [K,10,W]
+            dlt.append(torch.stack([
+                (fn - fo).view(K, -1, cg.cap, W)
+                for fo, fn in zip(co.delta(), cn.delta())
+            ], dim=2))                                       # [K,CF,10,cap,W]
+        return torch.stack(e), torch.stack(own), torch.stack(dlt)
 
     def _chain_kernel_substep(self, s: CellState, rows: _LoopRows,
                               trial: _Trial, codes_k, ua, uz, cnt=None):
@@ -703,6 +783,160 @@ class CellEngine(Engine):
             codes_k, s.cycle >= self.prm.eq_mc_cycles, rows.cf, rows.ci,
             s.weight, s.hist, s.uhist, rows.basew, trial.e.view(-1, W),
             rows.inc.view(-1, W), trial.hasm, ua, uz, cnt=cnt)
+
+    def _chain_rows(self, rows: _LoopRows):
+        """The chain state (mu, energies [L,W], residuals [L,W], ls,
+        dmu extrema) copied out of the chain rows, for the XLA chains."""
+        cf = rows.cf
+        return (cf[CF_MU].clone(), torch.stack([cf[CF_E0], cf[CF_E1]]),
+                torch.stack([cf[CF_E0E], cf[CF_E1E]]),
+                rows.ci[CI_LS].clone(), cf[CF_MIN_DMU].clone(),
+                cf[CF_MAX_DMU].clone())
+
+    @staticmethod
+    def _chain_unload(rows: _LoopRows, mu, energy, e_err, ls, min_dmu,
+                      max_dmu):
+        """The XLA chains' final chain state back into the chain rows."""
+        cf = rows.cf
+        for row, val in ((CF_MU, mu), (CF_E0, energy[0]),
+                         (CF_E1, energy[1]), (CF_E0E, e_err[0]),
+                         (CF_E1E, e_err[1]), (CF_MIN_DMU, min_dmu),
+                         (CF_MAX_DMU, max_dmu)):
+            cf[row] = val
+        rows.ci[CI_LS] = ls
+
+    def _trial_step(self, weight, s: CellState, mu, ls, energy, e_err,
+                    dE, enabled, gate, u_acc):
+        """One translation trial of an XLA chain (mc_moves.F90:1113-1146):
+        the acceptance against the total weight view ``weight`` [B, W],
+        the compensated two-sum of the accepted energy change dE [L, W].
+        Returns (accept, mu, energy, e_err, dmu)."""
+        beta = self.prm.beta
+        dmu = (dE[0] - dE[1]) * beta
+        mu_new = mu + dmu
+        eta = self._eta_from_weight(s, weight, torch.stack([mu, mu_new]))
+        diffkT = beta * _take_lat(dE, ls) + eta[1] - eta[0]
+        ok = torch.isfinite(diffkT) & torch.isfinite(mu_new)
+        accept = enabled & gate & ok & (u_acc < torch.exp(-diffkT))
+        # compensated accumulation (CellState.energy_err)
+        e_hi, e_rnd = _two_sum(energy, dE)
+        e_hi2, e_lo2 = _two_sum(e_hi, e_err + e_rnd)
+        energy = torch.where(accept[None, :], e_hi2, energy)
+        e_err = torch.where(accept[None, :], e_lo2, e_err)
+        return accept, torch.where(accept, mu_new, mu), energy, e_err, dmu
+
+    def _switch_step(self, rows: _LoopRows, mu, ls, energy, e_err, u_sw):
+        """The switch attempt after a trial (mc_lattice_switch,
+        mc_moves.F90:1536-1594) with the chain's hoisted volume terms;
+        mu from scratch on accept.  Returns (sw_acc, mu, ls)."""
+        beta = self.prm.beta
+        cmu, sw_c = rows.cf[CF_CMU], rows.cf[CF_SWC]
+        de10 = beta * ((energy[1] - energy[0]) + (e_err[1] - e_err[0]))
+        dsw = torch.where(ls == 0, de10 + sw_c, -(de10 + sw_c))
+        sw_acc = torch.isfinite(dsw) & (u_sw < torch.exp(-dsw))
+        return (sw_acc, torch.where(sw_acc, cmu - de10, mu),
+                torch.where(sw_acc, 1 - ls, ls))
+
+    def _chain_t1(self, s: CellState, rows: _LoopRows, trial: _Trial,
+                  codes_k, u_acc, u_sw, cnt=None):
+        """Sub-step phase 2, the XLA chain at one trial per mover (the
+        JAX engine's _chain_t1): the exact sequential accept/reject chain
+        over the K movers with "micro-batched" WL: eta is looked up on
+        the weight curve FROZEN at the sub-step's start, and the WL
+        increments of the sub-step's trials land in one batched update
+        after the chain (_wl_update_batch).  In a sample run the weights
+        are frozen anyway, so there the chain is the serial one.
+        Returns (accf [K, W] float 0/1, cnt [CN_FIXED + K, W])."""
+        prm = self.prm
+        K = self.K
+        W = rows.cf.shape[1]
+        dev = rows.cf.device
+        do_switch = prm.mc_always_switch or prm.allow_switch
+        codes = codes_k.tolist()
+        weight0 = s.weight + rows.basew
+        dE = trial.e[:, :, 1] - trial.e[:, :, 0]              # [L,K,W]
+        in_cell = rows.inc[:, 1] > 0.5
+        has = trial.hasm > 0.5
+        mu, energy, e_err, ls, min_dmu, max_dmu = self._chain_rows(rows)
+        if cnt is None:
+            cnt = torch.zeros((CN_FIXED + K, W), dtype=torch.int32,
+                              device=dev)
+        else:
+            cnt.zero_()
+        accf = torch.zeros((K, W), dtype=dE.dtype, device=dev)
+        mu_t, gate_t = [], []
+        for k in range(K):
+            tt, swt = codes[k] == TRANS, codes[k] == SWITCH
+            if tt:
+                # a trial exists where the scheduled cell holds a
+                # molecule; the walls only veto acceptance
+                accept, mu, energy, e_err, dmu = self._trial_step(
+                    weight0, s, mu, ls, energy, e_err, dE[:, k], has[k],
+                    in_cell[k], u_acc[k])
+                accf[k] = accept
+                mu_t.append(mu)
+                gate_t.append(has[k] & torch.all(torch.isfinite(energy),
+                                                 dim=0))
+                cnt[CN_EN] += has[k]
+                cnt[CN_FIXED + k] = has[k]
+                cnt[CN_ACC] += accept
+                admu = torch.abs(dmu)
+                min_dmu = torch.minimum(
+                    min_dmu, torch.where(accept, admu, float("inf")))
+                max_dmu = torch.maximum(max_dmu,
+                                        torch.where(accept, admu, 0.0))
+            if do_switch and rows.switch_ok and (
+                    swt or (tt and prm.mc_always_switch)):
+                sw_acc, mu, ls = self._switch_step(rows, mu, ls, energy,
+                                                   e_err, u_sw[k])
+                cnt[CN_SWEN] += 1
+                cnt[CN_SWACC] += sw_acc
+        self._chain_unload(rows, mu, energy, e_err, ls, min_dmu, max_dmu)
+        if mu_t:
+            self._wl_update_batch(s, torch.stack(mu_t), torch.stack(gate_t),
+                                  weight0)
+        return accf, cnt
+
+    def _wl_update_batch(self, s: CellState, mu_t, gate_t, weight):
+        """mc_update_wl_bins (mc_moves.F90:1597-1689) applied to the n
+        translation trials of one sub-step at once (the JAX engine's
+        _wl_update_batch): ``mu_t`` [n, W] mu after each trial in chain
+        order, ``gate_t`` [n, W] the trial was performed on a healthy
+        walker, ``weight`` [B, W] the total weight view the chain read.
+        The histogram sums equal the per-move updates' (the bin grid is
+        static); the weight increment uses the sub-step's f.  The sums
+        over the trials are dense sums over a one-hot [n, B, W] tensor:
+        no two trials' addends meet in a scatter, so the result is
+        deterministic on the card.  In place on the WL slabs of ``s``."""
+        prm, grid = self.prm, self.grid
+        if s.cycle < prm.eq_mc_cycles:
+            return
+        B = grid.nbins
+        dtype = s.hist.dtype
+        # a walker whose slab overflowed capacity is corrupt: keep it out
+        # of the SHARED WL arrays
+        active = gate_t & (s.occ_overflow == 0)[None, :]
+        k = mu_to_bin(grid, mu_t)                             # [n,W]
+        kc = torch.clamp(k, 0, B - 1)
+        upd = ((k >= 0) & (k < B) & active).to(dtype)
+        oh = (torch.arange(B, device=k.device)[None, :, None]
+              == kc[:, None, :]).to(dtype) * upd[:, None, :]  # [n,B,W]
+        incr = torch.div(torch.full_like(mu_t, grid.av_binwidth),
+                         self.binw[kc])                       # [n,W]
+        d_hist = torch.sum(oh * incr[:, None, :], dim=0)      # [B,W]
+        s.hist.add_(d_hist)
+        if prm.samplerun:
+            # frozen weights: eta at the recorded mu's is the serial
+            # chain's; walled entries gated out (Engine._wl_update)
+            eta_val = self._eta_from_weight(s, weight, mu_t)
+            unwalled = eta_val < 1e29
+            arg = torch.where((upd > 0) & unwalled,
+                              eta_val - self.aux.log_unbiased_norm, -1.0)
+            u_incr = torch.where(
+                unwalled, incr * torch.exp(torch.clamp(arg, max=60.0)), 0.0)
+            s.uhist.add_(torch.sum(oh * u_incr[:, None, :], dim=0))
+            return
+        s.weight.add_(d_hist * s.f[None, :])
 
     def _apply_t1(self, s: CellState, pks, tpm_slab, tbl: int,
                   trial: _Trial, accf, en_per_mover):
@@ -794,11 +1028,17 @@ class CellEngine(Engine):
         [CN_FIXED + K, W]."""
         W = rows.cf.shape[1]
         trial = self._propose_tm(s, pks, tbl, u, rows)
-        joh, cnt = self.chain_kernel(
-            codes_kt, s.cycle >= self.prm.eq_mc_cycles, rows.cf, rows.ci,
-            s.weight, s.hist, s.uhist, rows.basew, trial.e.view(-1, W),
-            trial.inc.view(-1, W), trial.hasm, ua, uz, cnt=cnt)
-        self._apply_tm(s, pks, tbl, trial, joh.view(self.K, self.T + 1, W))
+        if self.use_chain_kernel:
+            joh, cnt = self.chain_kernel(
+                codes_kt, s.cycle >= self.prm.eq_mc_cycles, rows.cf,
+                rows.ci, s.weight, s.hist, s.uhist, rows.basew,
+                trial.e.view(-1, W), trial.inc.view(-1, W), trial.hasm, ua,
+                uz, cnt=cnt)
+            joh = joh.view(self.K, self.T + 1, W)
+        else:
+            joh, cnt = self._chain_xla_substep(s, rows, trial, codes_kt, ua,
+                                               uz, cnt)
+        self._apply_tm(s, pks, tbl, trial, joh)
         # per-slot trial counter: all enabled translation trials of a
         # mover land on its slot
         tpm_slab.scatter_add_(0, trial.slot, cnt[CN_FIXED:])
@@ -809,8 +1049,11 @@ class CellEngine(Engine):
         """Multi-trial phase 1: mover selection, the anchored-window
         points (v_t = (a + b_t) * max_trans from the stored position in
         the active lattice, the same fractional displacement in the
-        partner), the fine-cell wall of every point and the P-point
-        energy table of both lattices in one kernel launch."""
+        partner), the fine-cell wall and the displacement wall of every
+        point and the P-point energy table of both lattices (one
+        launch of the points kernel, or the unfused
+        ``cell_energy.mover_point_energies`` with its candidate
+        stores)."""
         cg = self.cellgrid
         L = s.h.shape[0]
         K, T = self.K, self.T
@@ -839,15 +1082,129 @@ class CellEngine(Engine):
         # is in-cell(current) & in-cell(proposal)
         dmid = self.half_dfrac0[
             :, torch.clamp(mover_mol, min=0).long()]         # [3,K,W]
-        fmid = to_frac(s.recip[0][:, :, None, None, :],
-                       pts[:, 0].transpose(0, 1)) - dmid[:, None]
+        pts1 = pts[:, 0].transpose(0, 1)                     # [3,P,K,W]
+        fmid = to_frac(s.recip[0][:, :, None, None, :], pts1) \
+            - dmid[:, None]
         inc = cell_of_frac(cg, fmid, s.origin, level="fine") \
             == fc[None, :, None]                             # [P,K,W]
+        if self.prm.cell_trans_wall > 0.0:
+            # displacement wall on the TRIAL points; point 0, the
+            # current position, is exempt (a state outside the wall
+            # keeps its inward moves legal)
+            wall = self._in_trans_wall(s, pts1, mover_mol)   # [P,K,W]
+            wall[0] = True
+            inc = inc & wall
 
-        e, own = self.points_kernel(pks, s.h, cand, off, fc, rank, pts)
+        cs = None
+        if self.use_cell_pallas:
+            e, own = self.points_kernel(pks, s.h, cand, off, fc, rank, pts)
+        else:
+            e, own, cs = self._point_energies_unfused(s, pks, tbl, slot,
+                                                      pts)
         return _TrialTM(rank, slot, pts,
                         inc.transpose(0, 1).to(e.dtype).contiguous(), e,
-                        own, has_mover.to(e.dtype))
+                        own, has_mover.to(e.dtype), cs)
+
+    def _point_energies_unfused(self, s: CellState, pks, tbl: int, slot,
+                                pts):
+        """The unfused counterpart of the points kernel (the JAX
+        engine's XLA sub-step): ``cell_energy.mover_point_energies`` per
+        lattice on the packed slabs' rows.  Returns (e [L,K,P,W], own
+        [L,K,P,10,W], the P candidate stores of each lattice)."""
+        cg = self.cellgrid
+        valid = self._slab_valid(s)
+        cand = self.cand_stack_l[tbl]
+        e, own, cs = [], [], []
+        for l, pk in enumerate(pks):
+            el, owns, cl = mover_point_energies(
+                [pk[:, PK_R0 + a] for a in range(3)],
+                Moments(*(pk[:, i] for i in range(10))), valid, s.h[l],
+                cand, self.off_stack[tbl], cg.full_mask, cg.cap, slot,
+                pts[:, l], self.model)
+            e.append(el.transpose(0, 1))                     # [K,P,W]
+            own.append(torch.stack(
+                [torch.stack(list(m), dim=1) for m in owns], dim=1))
+            cs.append(cl)
+        return torch.stack(e).contiguous(), torch.stack(own), cs
+
+    def _chain_xla_substep(self, s: CellState, rows: _LoopRows,
+                           trial: _TrialTM, codes_kt, u_acc, u_sw,
+                           cnt=None):
+        """Multi-trial phase 2, the XLA chain (the JAX engine's
+        _chain_xla_substep): the K x T trials in order with PER-MOVE WL,
+        every trial's eta lookup on the current weight view and its WL
+        update right after it (bins.wl_move_update, as Engine._wl_update
+        runs it), then the switch attempt.  A mover's current point
+        energies and in-cell flag are the one-hot sums over its P
+        points.  Returns (joh [K, P, W] float one-hot of each mover's
+        accepted point, cnt [CN_FIXED + K, W])."""
+        prm, grid = self.prm, self.grid
+        K, T = self.K, self.T
+        P = T + 1
+        W = rows.cf.shape[1]
+        dtype, dev = rows.cf.dtype, rows.cf.device
+        do_switch = prm.mc_always_switch or prm.allow_switch
+        wl_active = s.cycle >= prm.eq_mc_cycles
+        codes = codes_kt.tolist()
+        occ_ok = s.occ_overflow == 0
+        f = rows.cf[CF_F]
+        wgt, hist, uh = s.weight, s.hist, s.uhist
+        inc = trial.inc > 0.5                                # [K,P,W]
+        has = trial.hasm > 0.5
+        iota_p = torch.arange(P, device=dev)[:, None]        # [P,1]
+        mu, energy, e_err, ls, min_dmu, max_dmu = self._chain_rows(rows)
+        if cnt is None:
+            cnt = torch.zeros((CN_FIXED + K, W), dtype=torch.int32,
+                              device=dev)
+        else:
+            cnt.zero_()
+        joh = torch.empty((K, P, W), dtype=dtype, device=dev)
+        for k in range(K):
+            e_k = trial.e[:, k]                              # [L,P,W]
+            j_oh = (iota_p == 0).expand(P, W)
+            n_tt = 0
+            for t in range(1, P):
+                i = k * T + t - 1
+                tt, swt = codes[i] == TRANS, codes[i] == SWITCH
+                if tt:
+                    n_tt += 1
+                    e_cur = torch.sum(e_k * j_oh.to(dtype)[None], dim=1)
+                    gate = torch.any(j_oh & inc[k], dim=0) & inc[k, t]
+                    wtot = wgt + rows.basew      # the CURRENT weight view
+                    accept, mu, energy, e_err, dmu = self._trial_step(
+                        wtot, s, mu, ls, energy, e_err, e_k[:, t] - e_cur,
+                        has[k], gate, u_acc[i])
+                    j_oh = torch.where(accept[None, :], iota_p == t, j_oh)
+                    cnt[CN_ACC] += accept
+                    admu = torch.abs(dmu)
+                    min_dmu = torch.minimum(
+                        min_dmu, torch.where(accept, admu, float("inf")))
+                    max_dmu = torch.maximum(
+                        max_dmu, torch.where(accept, admu, 0.0))
+                    if wl_active:
+                        # per-move WL at mu after the trial, healthy
+                        # walkers only (CellEngine._wl_healthy)
+                        healthy = torch.all(torch.isfinite(energy),
+                                            dim=0) & occ_ok
+                        wgt, hist, uh = wl_move_update(
+                            grid, prm.samplerun, self.aux.log_unbiased_norm,
+                            self.binw, wgt, hist, uh,
+                            lambda m, w=wtot: self._eta_from_weight(s, w, m),
+                            mu, f, has[k] & healthy)
+                if do_switch and rows.switch_ok and (
+                        swt or (tt and prm.mc_always_switch)):
+                    sw_acc, mu, ls = self._switch_step(rows, mu, ls, energy,
+                                                       e_err, u_sw[i])
+                    cnt[CN_SWEN] += 1
+                    cnt[CN_SWACC] += sw_acc
+            # the mover's translation trials, each performed where it
+            # holds a molecule
+            cnt[CN_FIXED + k] = has[k] * n_tt
+            cnt[CN_EN] += cnt[CN_FIXED + k]
+            joh[k] = j_oh
+        self._chain_unload(rows, mu, energy, e_err, ls, min_dmu, max_dmu)
+        s.weight, s.hist, s.uhist = wgt, hist, uh
+        return joh, cnt
 
     def _apply_tm(self, s: CellState, pks, tbl: int, trial: _TrialTM,
                   joh):
@@ -855,14 +1212,41 @@ class CellEngine(Engine):
         net moment update of the accepted point equals the point-0 ->
         point-j delta, whatever the path).  ``joh`` [K, P, W]: one-hot
         of each mover's accepted point.  The final point and its own
-        moments are the one-hot mixtures over the P points."""
+        moments are the one-hot mixtures over the P points; the
+        unfused sub-step scatters the mixture of the per-point deltas
+        (minus point 0's) of its candidate stores."""
         fc, cand, off = self._tables(tbl)
-        p_fin = torch.sum(trial.pts * joh.transpose(0, 1)[:, None, None],
+        jf_p = joh.transpose(0, 1)                           # [P,K,W]
+        p_fin = torch.sum(trial.pts * jf_p[:, None, None],
                           dim=0)                             # [L,3,K,W]
         own_fin = torch.sum(trial.own * joh[None, :, :, None], dim=2)
         accf = joh[:, 0] < 0.5
-        self.apply_kernel(pks, s.h, cand, off, fc, trial.rank, accf,
-                          trial.pts[0], p_fin, own_fin)
+        if self.use_cell_apply:
+            self.apply_kernel(pks, s.h, cand, off, fc, trial.rank, accf,
+                              trial.pts[0], p_fin, own_fin)
+            return
+        K, P, W = joh.shape
+        cap = self.cellgrid.cap
+        p_old = trial.pts[0]
+        coord = (self.coord_base[tbl] + trial.rank).view(3 * K, W)
+        mom = (self.mom_base[tbl] + trial.rank).view(10 * K, W)
+        cand_flat = self.cand_stack_l[tbl].view(-1)
+        dp = torch.where(accf, p_fin - p_old, 0.0)
+        for l, pk in enumerate(pks):
+            pk.view(-1, W).scatter_(
+                0, coord, (p_old[l] + dp[l]).view(3 * K, W))
+        for l, pk in enumerate(pks):
+            cs = trial.cs[l]
+            d0 = cs[0].delta()
+            fields = []
+            for i in range(10):
+                d_i = None
+                for t in range(1, P):
+                    term = (cs[t].delta()[i] - d0[i]) * jf_p[t][:, None, :]
+                    d_i = term if d_i is None else d_i + term
+                fields.append(d_i.view(K, -1, cap, W))
+            self._scatter_moments_one(pk, torch.stack(fields, dim=2),
+                                      own_fin[l], cand_flat, accf, mom)
 
     # ------------------------------------------------------------------
     # Wang-Landau health gate
@@ -893,6 +1277,26 @@ class CellEngine(Engine):
 
     def _vol_energy(self, s: CellState, r_new, h_new):
         return self._full_both(s, r_new, h_new)
+
+    def _vol_extra_ok(self, h_new, s: CellState):
+        """The grid-validity guard (perpendicular widths within the
+        coverage tables' shrink guard) and, with ``cell_trans_wall``, the
+        displacement wall on the RESCALED state: a volume move scales
+        every displacement from the reference sites (fractional
+        coordinates held fixed), so an expansion must not carry a
+        molecule past the wall."""
+        ok = super()._vol_extra_ok(h_new, s)
+        if self.prm.cell_trans_wall > 0.0:
+            mol = torch.clamp(s.slot2mol, min=0).long()      # [nslot,W]
+            fd = to_frac(s.recip[0][:, :, None, :], s.r[0]) \
+                - self.cellaux.fref0[:, mol]
+            fd = fd - torch.round(fd)
+            dsp = from_frac(h_new[0][:, :, None, :], fd)     # [3,nslot,W]
+            d2 = torch.where(self._slab_valid(s),
+                             torch.sum(dsp * dsp, dim=0), 0.0)
+            ok = ok & (torch.amax(d2, dim=0)
+                       <= self.prm.cell_trans_wall ** 2)
+        return ok
 
     # ------------------------------------------------------------------
     # rebin: new random grid origin (ergodicity across cells)
@@ -997,9 +1401,9 @@ class CellEngine(Engine):
         table row sid % n_tables (colours outer, blocks inner, repeating
         every sweep) on trials sid*K .. sid*K+K-1 of the schedule.  The
         packed slabs, the chain rows, the WL slabs and the per-slot
-        trial counts are updated in place by the three kernels; pack
-        and unpack happen once.  ``switch_ok``: the chain's switch
-        attempts are allowed (false during a 'dd' run's equilibration).
+        trial counts are updated in place; pack and unpack happen once.
+        ``switch_ok``: the chain's switch attempts are allowed (false
+        during a 'dd' run's equilibration).
         Returns (s, tpm_slab)."""
         W = s.r.shape[-1]
         K, T = self.K, self.T
@@ -1008,7 +1412,10 @@ class CellEngine(Engine):
                                device=dev)
         cnt_all = torch.empty((n_sub, CN_FIXED + K, W), dtype=torch.int32,
                               device=dev)
-        codes_d = codes.to(device=dev, dtype=torch.int32)
+        # the chain kernel reads the codes on the device, the XLA chains
+        # on the host
+        codes_d = codes.to(device=dev if self.use_chain_kernel else "cpu",
+                           dtype=torch.int32)
         pks = self._pack(s)
         rows = self._loop_rows(s, switch_ok)
         if T == 1:
@@ -1228,5 +1635,6 @@ def init_cell_state(prm: RunParams, model: SWParams, r0: np.ndarray,
         ref_enthalpy=ref_enth.to(dtype),
         log_unbiased_norm=log_norm,
     )
-    caux = CellAux(dfrac0=tens(np.ascontiguousarray(dfrac0.T), dtype))
+    caux = CellAux(dfrac0=tens(np.ascontiguousarray(dfrac0.T), dtype),
+                   fref0=tens(np.ascontiguousarray(f1_0.T), dtype))
     return state, aux, caux

@@ -2,10 +2,11 @@
 
 Counterpart of ``mc_water_ls_mw_tpu/mcmc/engine.py`` (the dense walker
 engine; reference mc_moves.F90), for the slice the port covers: two
-lattices, NPT, either parallel strategy ('mw': one window shared by all
-walkers; 'dd': walkers assigned round-robin to mu windows, each window
-with its own master rows), Wang-Landau weight generation or a sample
-run, in either candidate mode of the JAX package:
+lattices, NPT (with the volume wall ``mc_vol_wall``), either parallel
+strategy ('mw': one window shared by all walkers; 'dd': walkers
+assigned round-robin to mu windows, each window with its own master
+rows), Wang-Landau weight generation or a sample run, in either
+candidate mode of the JAX package:
 
 * static neighbour tables with their displacement wall (N >= 96 in a
   MIC-unique box): a molecule schedule shared by all walkers, one trial
@@ -247,10 +248,16 @@ class Engine:
         bins.eta_weight; mc_moves.F90:893-964).  Pre-window walkers
         sample the wall-less global curve (window seeding) or, with
         dd_seeding=False, no bias at all."""
+        return self._eta_from_weight(s, self._weight_total(s), mu)
+
+    def _eta_from_weight(self, s: SamplerState, weight, mu):
+        """eta(mu) against an explicit total weight view [B, W] (the cell
+        engine's unfused chains evaluate it against a curve they hold
+        themselves)."""
         prm = self.prm
         return eta_lookup(
-            self.grid, self._weight_total(s), mu, self.binw, self.mub,
-            s.start_bin, s.end_bin, s.my_mu_min, s.my_mu_max, s.in_window,
+            self.grid, weight, mu, self.binw, self.mub, s.start_bin,
+            s.end_bin, s.my_mu_min, s.my_mu_max, s.in_window,
             prm.eta_interp, prm.dd_seeding)
 
     def _dd_track_window(self, s: SamplerState, cycle: int):
@@ -647,13 +654,31 @@ class Engine:
         # RESCALED state where the layout keeps reference positions
         ok = torch.isfinite(diffkT) & (torch.min(vol_new, dim=0).values
                                        > 0.0)
-        extra_ok = self._vol_extra_ok(h_new)
+        extra_ok = self._vol_extra_ok(h_new, s)
         if extra_ok is not None:
             ok = ok & extra_ok
         if ref_new is not None and self.wall > 0.0:
             dsp = r_new - ref_new
             d2 = torch.sum(dsp * dsp, dim=1)                 # [L,N,W]
             ok = ok & (torch.amax(d2, dim=(0, 1)) <= self.wall ** 2)
+        if prm.mc_vol_wall > 0.0:
+            # NPT volume wall: each replica's volume within
+            # +-mc_vol_wall (fractional) of its reference lattice volume,
+            # a hard wall on the PROPOSED state.  As in the JAX engine the
+            # inward clause is not gated on the old state being outside:
+            # a proposal outside the wall that moves closer to the
+            # reference volumes is legal from anywhere.
+            vref = torch.abs(torch.stack([
+                determinant3(self.ref_h[l][:, :, None])[0]
+                for l in range(L)]))                         # [L]
+            ratio_new = vol_new / vref[:, None]              # [L,W]
+            inside = torch.all((ratio_new >= 1.0 - prm.mc_vol_wall)
+                               & (ratio_new <= 1.0 + prm.mc_vol_wall),
+                               dim=0)
+            dist_new = torch.sum(torch.abs(torch.log(ratio_new)), dim=0)
+            dist_old = torch.sum(
+                torch.abs(torch.log(s.volume / vref[:, None])), dim=0)
+            ok = ok & (inside | (dist_new < dist_old))
         ok = ok & torch.isfinite(mu_new)
         accept = ok & (u[:, 3] < torch.exp(-diffkT))
 
@@ -699,15 +724,17 @@ class Engine:
         return (torch.stack([p[0] for p in per]),
                 torch.stack([torch.stack(list(p[1])) for p in per], dim=1))
 
-    def _vol_extra_ok(self, h_new):
-        """The layout's geometry guard, [W] bool, or None where there is
-        none (dense candidates): reject boxes of which a perpendicular
-        width falls to ``min_perp_w`` [L,3] or below.  The dense
-        engine's tables could miss in-range pairs below 1/BREATHING of
-        the reference widths (ops/nbrtable.table_radius), the cell
-        engine's coverage tables below 1/guard of the initial ones
-        (ops/cells.build_grid).  Depends only on the proposed state, so
-        detailed balance holds."""
+    def _vol_extra_ok(self, h_new, s):
+        """The layout's guards on a proposed box ``h_new`` from state
+        ``s``, [W] bool, or None where there are none.  Here the
+        geometry guard (``s`` is not read; dense candidates have none):
+        reject boxes of which a perpendicular width falls to
+        ``min_perp_w`` [L,3] or below.  The dense engine's tables could
+        miss in-range pairs below 1/BREATHING of the reference widths
+        (ops/nbrtable.table_radius), the cell engine's coverage tables
+        below 1/guard of the initial ones (ops/cells.build_grid).
+        Depends only on the proposed state, so detailed balance
+        holds."""
         if self.min_perp_w is None:
             return None
         ok = None
@@ -919,7 +946,6 @@ _UNSUPPORTED = (
     ("wl_swetnam", lambda p: p.wl_swetnam),
     ("wl_useinvt", lambda p: p.wl_useinvt),
     ("leshift", lambda p: p.leshift),
-    ("mc_vol_wall > 0", lambda p: p.mc_vol_wall > 0.0),
 )
 
 

@@ -322,7 +322,8 @@ def deltaG_from_uhist(prm: RunParams, grid: BinGrid, uhist) -> dict | None:
     Returns {"kT", "kT_per_mol", "J_per_mol", "meV_per_mol", "normP"},
     or None when the histogram is empty."""
     if prm.leshift:
-        raise NotImplementedError("leshift is not ported yet")
+        raise NotImplementedError(
+            "leshift is not ported yet (see ROADMAP.md)")
     B = grid.nbins
     joined = np.asarray(uhist, np.float64)
     bw = np.asarray(grid.binwidth)

@@ -198,8 +198,10 @@ def mover_point_energies(slab_r, slab_mom: Moments, valid, H, cand_cells,
     of points and the chain composes trials from one table.  Other
     arguments as :func:`mover_energies`.
 
-    Returns (e [P, K, W], owns: list of P Moments ([K, W] fields)).  The
-    candidates are gathered ONCE (they do not depend on the point)."""
+    Returns (e [P, K, W], owns: list of P Moments ([K, W] fields), cands:
+    list of P candidate stores, whose deltas feed the unfused sub-step's
+    moment scatter).  The candidates are gathered ONCE (they do not
+    depend on the point)."""
     lam_eps = prm.lam * prm.epsilon
     cand = _gather_candidates(slab_r[0], slab_r[1], slab_r[2], valid, H,
                               cand_cells, cand_off, cand_mask, cap,
@@ -216,7 +218,7 @@ def mover_point_energies(slab_r, slab_mom: Moments, valid, H, cand_cells,
         e3j = _slab_jcentred(cs[t], eff, prm)
         es.append(cs[t].pair_sum + lam_eps * (cs[t].e3i + e3j))
         owns.append(cs[t].own)
-    return torch.stack(es), owns
+    return torch.stack(es), owns, cs
 
 
 # per-intermediate element budget of slab_full_energy: the

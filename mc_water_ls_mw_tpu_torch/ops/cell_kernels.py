@@ -400,7 +400,7 @@ class MoverPointsKernel(_MoverKernel):
         mover_slot = fc.long()[:, None] * self.cap + rank.long()
         e, own = [], []
         for l, pk in enumerate(pks):
-            el, owns = mover_point_energies(
+            el, owns, _ = mover_point_energies(
                 [pk[:, PK_R0 + a] for a in range(3)],
                 Moments(*(pk[:, i] for i in range(10))),
                 pk[:, PK_VALID] > 0.5, h[l], cand.long(), off,

@@ -243,10 +243,7 @@ def test_auto_resolves_to_the_kernels(system):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(leshift=True), dict(cell_pallas="on", cell_chain="off"),
-    dict(cell_pallas="off"),
-    dict(cell_chain="off"), dict(cell_trans_wall=1.5),
-    dict(minu=True), dict(mc_ensemble="nvt"),
+    dict(leshift=True), dict(minu=True), dict(mc_ensemble="nvt"),
     dict(wl_swetnam=True), dict(num_lattices=1),
 ])
 def test_unported_settings_raise(system, setting):
@@ -271,14 +268,16 @@ def test_unported_grids_raise(system):
     # the smallest box the grid supports: 75-cell stencils that overlap
     # between same-colour movers.  The scatter path runs them at one
     # trial per mover (test_torch_cellengine_scatter.py); the in-place
-    # apply stage and the multi-trial sub-step do not
+    # apply stage does not, and at T > 1 'auto' picks the unfused
+    # sub-step with the XLA chain (test_torch_cellengine_unfused.py)
     small = build_grids(12, 7, 18)[4]
     assert small.full_mask.all()
     with pytest.raises(ValueError, match="disjoint"):
         CellEngine(prm, TMW, system["tgrid"], taux, small, tcaux,
                    device="cpu")
     multi = TRunParams(**{**system["kw"], "cell_pallas": "auto",
-                          "cell_trials": 8})
-    with pytest.raises(NotImplementedError, match="not disjoint"):
-        CellEngine(multi, TMW, system["tgrid"], taux, small, tcaux,
-                   device="cpu")
+                          "cell_chain": "auto", "cell_trials": 8})
+    eng = CellEngine(multi, TMW, system["tgrid"], taux, small, tcaux,
+                     device="cpu")
+    assert not (eng.use_cell_pallas or eng.use_cell_apply
+                or eng.use_chain_kernel)

@@ -24,7 +24,9 @@ the rule that picks it.
   against the eager JAX sub-step, and the cycle rebins first, as every
   cycle of a production run with ``list_update_int = 1`` does.
 * The port's 'on' against its 'apply' on the disjoint N=8064 grid.
-* The mode rule of ``CellEngine._resolve_modes``, case by case.
+* The mode rule of ``CellEngine._resolve_modes``, case by case (the
+  unfused modes' rows among them; test_torch_cellengine_unfused.py holds
+  every pair of settings against the JAX engine's resolution).
 """
 
 import dataclasses
@@ -218,34 +220,50 @@ def test_on_matches_apply_on_disjoint_grid(disjoint, route):
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("dims,setting,modes", [
-    # (use_cell_apply, with deltas); the chain kernel in every case
-    ((14, 8, 18), dict(), (True, False)),
-    ((14, 8, 18), dict(cell_trials=8), (True, None)),
-    ((14, 8, 18), dict(cell_pallas="on"), (False, True)),
-    ((14, 8, 18), dict(cell_pallas="on", cell_chain="on"), (False, True)),
-    ((12, 7, 18), dict(), (False, True)),
-    ((12, 7, 18), dict(cell_pallas="on"), (False, True)),
+    # (use_cell_pallas, use_cell_apply, use_chain_kernel, with deltas;
+    # None where there is no mover-energies kernel)
+    ((14, 8, 18), dict(), (True, True, True, False)),
+    ((14, 8, 18), dict(cell_trials=8), (True, True, True, None)),
+    ((14, 8, 18), dict(cell_pallas="on"), (True, False, True, True)),
+    ((14, 8, 18), dict(cell_pallas="on", cell_chain="on"),
+     (True, False, True, True)),
+    ((12, 7, 18), dict(), (True, False, True, True)),
+    ((12, 7, 18), dict(cell_pallas="on"), (True, False, True, True)),
+    ((12, 7, 18), dict(cell_trials=8), (False, False, False, None)),
+    ((12, 7, 18), dict(cell_trials=8, cell_chain="on"),
+     (False, False, True, None)),
+    ((12, 7, 18), dict(cell_pallas="off"), (False, False, False, None)),
+    ((14, 8, 18), dict(cell_pallas="off", cell_chain="on"),
+     (False, False, True, None)),
+    ((14, 8, 18), dict(cell_chain="off"), (True, True, False, False)),
+    ((12, 7, 18), dict(cell_pallas="on", cell_chain="off"),
+     (True, False, False, True)),
 ], ids=["disjoint-auto", "disjoint-auto-T8", "disjoint-on",
-        "disjoint-on-chain-on", "overlap-auto", "overlap-on"])
+        "disjoint-on-chain-on", "overlap-auto", "overlap-on",
+        "overlap-auto-T8", "overlap-auto-T8-chain-on", "overlap-off",
+        "disjoint-off-chain-on", "disjoint-chain-off",
+        "overlap-on-chain-off"])
 def test_mode_rule_runs(dims, setting, modes):
     sys_ = cell_system(dims)
     eng, _ = port_engine(sys_, **{"cell_pallas": "auto",
                                   "cell_chain": "auto", **setting})
-    apply_, deltas = modes
-    assert eng.use_cell_pallas and eng.use_chain_kernel
-    assert eng.use_cell_apply == apply_
+    pallas, apply_, chain, deltas = modes
+    assert (eng.use_cell_pallas, eng.use_cell_apply,
+            eng.use_chain_kernel) == (pallas, apply_, chain)
     assert hasattr(eng, "apply_kernel") == apply_
+    assert hasattr(eng, "chain_kernel") == chain
+    assert hasattr(eng, "points_kernel") == (pallas and eng.T > 1)
     if deltas is None:
         assert not hasattr(eng, "mover_kernel")
     else:
         assert eng.mover_kernel.with_deltas == deltas
     # explicit modes resolve as the JAX engine resolves them
-    if setting.get("cell_pallas") == "on":
-        kw = {**sys_["kw"], **setting}
+    if setting.get("cell_pallas") in ("on", "off"):
+        kw = {**sys_["kw"], "cell_chain": "auto", **setting}
         jeng = JCellEngine(RunParams(**kw, fused="off"), MW, sys_["jgrid"],
                            sys_["jaux"], sys_["jcg"], sys_["jcaux"])
-        assert (jeng.use_cell_pallas, jeng.use_cell_apply) == (
-            eng.use_cell_pallas, eng.use_cell_apply)
+        assert (jeng.use_cell_pallas, jeng.use_cell_apply,
+                jeng.use_chain_kernel) == modes[:3]
 
 
 @pytest.mark.parametrize("dims,setting,error,match", [
@@ -254,14 +272,8 @@ def test_mode_rule_runs(dims, setting, modes):
      "per-candidate delta"),
     ((12, 7, 18), dict(cell_pallas="on", cell_trials=2), ValueError,
      "per-candidate delta"),
-    ((12, 7, 18), dict(cell_trials=8), NotImplementedError, "ROADMAP"),
-    ((12, 7, 18), dict(cell_pallas="off"), NotImplementedError, "ROADMAP"),
-    ((12, 7, 18), dict(cell_chain="off"), NotImplementedError, "ROADMAP"),
-    ((12, 7, 18), dict(cell_trans_wall=1.5), NotImplementedError, "ROADMAP"),
     ((12, 7, 18), dict(num_lattices=1), NotImplementedError, "ROADMAP"),
-], ids=["overlap-apply", "disjoint-on-T8", "overlap-on-T2",
-        "overlap-auto-T8", "off", "chain-off", "trans-wall",
-        "one-lattice"])
+], ids=["overlap-apply", "disjoint-on-T8", "overlap-on-T2", "one-lattice"])
 def test_mode_rule_refuses(dims, setting, error, match):
     sys_ = cell_system(dims)
     with pytest.raises(error, match=match):

@@ -356,7 +356,9 @@ def test_init_cell_state_parity(system):
     assert (tf["slot2mol"] >= 0).sum(axis=0).tolist() == [8064, 8064]
     np.testing.assert_allclose(tcaux.dfrac0.numpy(),
                                np.asarray(jcaux.dfrac0), rtol=0, atol=1e-15)
-    assert tcaux._fields == ("dfrac0",)
+    np.testing.assert_array_equal(tcaux.fref0.numpy(),
+                                  np.asarray(jcaux.fref0))
+    assert tcaux._fields == ("dfrac0", "fref0")
     np.testing.assert_allclose(taux.ref_h, np.asarray(jaux.ref_h),
                                rtol=1e-15)
     np.testing.assert_allclose(taux.ref_enthalpy.numpy(),

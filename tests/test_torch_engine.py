@@ -178,8 +178,7 @@ def test_deltaG_matches_jax(runs, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("setting", [
     dict(minu=True), dict(wl_swetnam=True),
-    dict(wl_useinvt=True), dict(leshift=True), dict(mc_vol_wall=0.05),
-    dict(mc_ensemble="nvt"),
+    dict(wl_useinvt=True), dict(leshift=True), dict(mc_ensemble="nvt"),
 ])
 def test_unported_settings_raise(runs, setting):
     r = runs[1]

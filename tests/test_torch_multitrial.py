@@ -90,7 +90,7 @@ def test_points_plain_matches_pallas(movers, T):  # noqa: F811
             jnp.asarray(rows(PK_VALID) > 0.5), m["jst"].h[l],
             jnp.asarray(m["cand"]), jnp.asarray(m["off"]), jcg.full_mask,
             jcg.cap, jnp.asarray(slot), jnp.asarray(pts[:, l]), MW)
-        te2, towns2 = mover_point_energies(
+        te2, towns2, _ = mover_point_energies(
             [tt(rows(PK_R0 + a)) for a in range(3)],
             Moments(*(tt(rows(i)) for i in range(10))),
             tt(rows(PK_VALID) > 0.5), shared[0][l], shared[1].long(),
