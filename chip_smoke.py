@@ -38,6 +38,18 @@ Phases (each exits non-zero on failure):
    (fused_err_trace: the walker, the field, and the walker alone step
    by step, its accept sequence against the plain version's with the
    plain version's Metropolis margin where they differ);
+   4e. kernel 1's other instantiations against their plain versions over
+   one cycle with the same draws (float64 at W=256: identical integers,
+   state within 1e-10; float32 at W=4096: at most 1% of walkers
+   differing), each timed beside phase 4's table kernel and run
+   VARIANT_CYCLES cycles through its engine: one lattice
+   (fused_cycle_1l, the N=216 Ih cell; fused_cycle_dense_1l at N=48,
+   the single-box semantics), and the extended settings
+   (fused_cycle_ext: the N=216 sample run under MINU + leshift, and
+   under NVT; runs/n216_wl's WL parameters under Swetnam and under 1/t
+   with half the walkers' invt_active set; fused_cycle_dense_ext at
+   N=48 under MINU; fused_cycle_multi_ext at T=8 under MINU +
+   Swetnam; SCHED_CUTS lists what the schedules' checks cut);
 5. the N=216 main path: the N=216 Ih/Ic stacking pair, W=4096,
    float32, a sample run from runs/n216_sample/eta_weights.dat with
    delta-syncs every 5 and chain resyncs every 10 cycles; 20 warm-up and
@@ -67,6 +79,19 @@ Phases (each exits non-zero on failure):
    checked one by one: no walker inside the wall leaves it, no outside
    walker's sum |ln(V/Vref)| rises (unless it comes inside), and their
    mean falls;
+   5f. the single-box N=216 NPT run: runs/n216_wl/ice.input with one
+   lattice (stack (3,3,6): the Ih cell), 4096 walkers, float32, through
+   run_input_file in build/chip_smoke_single216 (SINGLE216_CUTS lists
+   the interval cuts): 20 warm-up cycles, 10 resumed from the checkpoint,
+   then 20 timed cycles of the resumed engine: moves/s, the launches of
+   fused_cycle_1l and full_energy, an audit of 64 walkers, every volume
+   within a factor 2 of the crystal's, no switch attempted;
+   5g. a 1/t Wang-Landau generation: runs/n216_wl/ice.input with its
+   run.py overrides and wl_useinvt (INVT_CUTS: the flatness check at
+   cycle 10 switches every walker to 1/t) through run_input_file in
+   build/chip_smoke_invt216, 20 cycles and 10 resumed: invt_active on
+   every walker after the resume, f capped by B / (cycle N), the 1/t
+   dumps (wlf.dat, eta_weights.dat_<cycle>, histogram.dat_<cycle>);
 6. the three kernels of the large-N cell engine (mover energies, chain +
    WL, mover apply) against their plain versions on one sub-step of the
    N=8064 stacking pair after a cycle of sampling (float64 at W=64:
@@ -93,6 +118,10 @@ Phases (each exits non-zero on failure):
    6c. 'on' against 'apply' on the N=8064 grid (disjoint stencils, where
    both run), one cycle each from one seed, float64 at W=64: integer
    state identical, continuous state within 1e-10;
+   6c (rules). the chain + WL kernel under MINU, Swetnam and 1/t (half
+   the walkers) on one T=8 sub-step of the N=8064 pair after a cycle of
+   sampling (float64 at W=64, float32 at W=128; phase 8's gates), the
+   MINU chain's time and bound;
    7b. the N=24192 flagship, stacking_switch_pair(24,14,18) on the grid
    the front end gives it (coarse (8,8,4) x 2^3, 75-cell stencils that
    overlap, K=32, 768 sub-steps per cycle), W=128, float32, the modes
@@ -106,6 +135,11 @@ Phases (each exits non-zero on failure):
    be 0), a torch.profiler trace of one more cycle (device time per
    kernel and of the scatter, the idle share), then an energy audit of
    64 walkers and a finite merged histogram;
+   7d. the N=8064 single box: the cell engine at one lattice ((14,8,18)
+   Ih cell, W=512, float32, T=1: the mover kernels at L = 1 with the XLA
+   chain), both kernels against their plain versions on one sub-step,
+   one timed cycle (trials/s, launches), slab overflow 0, an audit of 64
+   walkers;
 8. the multi-trial sub-step (cell_trials=8): the mover-points kernel and
    the chain + WL kernel at T=8 against their plain versions on one
    sub-step of the N=8064 pair after a cycle of sampling (float64 at
@@ -128,6 +162,9 @@ Phases (each exits non-zero on failure):
    chain) against 'apply' in a sample run on the N=8064 pair, one
    cycle each from one seed, float64 at W=64: integer state identical,
    continuous state within 1e-10, the WL slabs within 1e-12 relative;
+   8d. the N=8064 pair under MINU at T=8, W=128, float32: one timed
+   cycle through the points, apply and chain kernels (launches,
+   trials/s), slab overflow 0, an audit of 64 walkers;
 9. the front-end path: runs/n8064_wl/ice.input with its run.py
    overrides (128 walkers, float32, cell_trials=8, 'dd' over 16 windows
    with overlap 2; FRONTEND_CUTS lists every interval cut)
@@ -156,12 +193,14 @@ Phases (each exits non-zero on failure):
    checkpoint; ms per cycle, moves/s, launches, an energy audit and the
    merged histogram;
 11. one JSON line with every kernel's launches (summed over the main
-   paths of phases 5, 5b, 5c, 5d, 5e, 7, 7b, 9, 9b and 10; 7c runs no
-   kernel), error against its plain
+   paths of phases 5, 5b, 5c, 5d, 5e, 5f, 5g, 7, 7b, 7d, 8d, 9, 9b and
+   10, and 4e's engine runs of the dense and multi-trial instantiations;
+   7c runs no kernel), error against its plain
    version, times and bound; the multi-trial kernel has a line for each
-   T of path C, the mover-apply kernel one for phase 7's shape
-   ("mover_apply") and one for phase 9's, the chain kernel one for each
-   of phases 7 ("chain_wl"), 7b and 9;
+   T of path C, kernel 1's new instantiations one each, the
+   mover-apply kernel one for phase 7's shape ("mover_apply") and one
+   for phase 9's, the chain kernel one for each of phases 7
+   ("chain_wl"), 7b and 9 and one for 8d's MINU chain;
 12. as the last line, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds ("[time]"), and the run its total.
@@ -357,18 +396,32 @@ def sample_params(W, dtype, **over):
     return RunParams(**kw)
 
 
+def stacking_cells(prm):
+    """(r0, H0) of ``prm.stack`` as the front end builds them: the Ih/Ic
+    stacking pair, or with one lattice the Ih cell alone (app.py)."""
+    from mc_water_ls_mw_tpu_torch.models.stacking import (
+        stacking_cell,
+        stacking_switch_pair,
+    )
+
+    nx, ny, m = prm.stack
+    if prm.num_lattices == 2:
+        return stacking_switch_pair(nx, ny, m)
+    r, H = stacking_cell("AB" * ((m + 1) // 2), nx, ny)
+    return r[None], H[None]
+
+
 def make_engine(prm, stream=None, paper_pair=False, weights="n216_sample"):
-    """(engine, state): the stacking pair of ``prm.stack`` from the
-    committed weights (runs/<weights>/eta_weights.dat), or with
-    ``paper_pair`` the paper's N=216 pair (models/lattices.switch_pair_216)
-    from flat weights; in 'dd' over ``prm.n_windows`` windows."""
+    """(engine, state): the stacking pair of ``prm.stack`` (one lattice:
+    its Ih cell) from the committed weights
+    (runs/<weights>/eta_weights.dat; flat where ``weights`` is None or
+    with one lattice), or with ``paper_pair`` the paper's N=216 pair
+    (models/lattices.switch_pair_216) from flat weights; in 'dd' over
+    ``prm.n_windows`` windows."""
     from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
     from mc_water_ls_mw_tpu_torch.mcmc.engine import Engine
     from mc_water_ls_mw_tpu_torch.mcmc.state import init_state
     from mc_water_ls_mw_tpu_torch.models.lattices import switch_pair_216
-    from mc_water_ls_mw_tpu_torch.models.stacking import (
-        stacking_switch_pair,
-    )
     from mc_water_ls_mw_tpu_torch.models.sw import MW
 
     grid = build_bin_grid(prm.nbins, prm.mu_min, prm.mu_max)
@@ -376,11 +429,15 @@ def make_engine(prm, stream=None, paper_pair=False, weights="n216_sample"):
         r0, H0 = switch_pair_216()
         w0 = None
     else:
-        r0, H0 = stacking_switch_pair(*prm.stack)
-        w0 = np.loadtxt(os.path.join(ROOT, "runs", weights,
-                                     "eta_weights.dat"), skiprows=1)[:, 1]
-        if len(w0) != grid.nbins:
-            fail(f"eta_weights.dat has {len(w0)} bins, grid {grid.nbins}")
+        r0, H0 = stacking_cells(prm)
+        w0 = None
+        if weights is not None and prm.num_lattices == 2:
+            w0 = np.loadtxt(os.path.join(ROOT, "runs", weights,
+                                         "eta_weights.dat"),
+                            skiprows=1)[:, 1]
+            if len(w0) != grid.nbins:
+                fail(f"eta_weights.dat has {len(w0)} bins, grid "
+                     f"{grid.nbins}")
     s, aux = init_state(prm, MW, r0, H0, grid, weight0=w0,
                         n_windows=n_windows(prm), device=DEVICE)
     return Engine(prm, MW, grid, aux, device=DEVICE, stream=stream), s
@@ -473,12 +530,13 @@ def full_energy_errors(kern, r3, H):
         float(torch.max(torch.abs(mom_p)))
 
 
-def fused_compare(eng, s, draws):
+def fused_compare(eng, s, draws, timed=False):
     """One cycle of FusedCycle's kernel and of its plain version from
     clones of ``s`` with the same draws, the WL phase and the switch gate
     of the cycle after ``s``'s as the engine decides them.  Returns
     (kernel state, plain state, [W] bool of walkers whose integer
-    outcomes differ)."""
+    outcomes differ), and with ``timed`` the plain cycle's milliseconds
+    (host clock: the plain versions are host-paced)."""
     import torch
 
     codes, sched, cu = draws
@@ -488,16 +546,19 @@ def fused_compare(eng, s, draws):
     wl_active = sk.cycle >= eng.prm.eq_mc_cycles
     switch_ok = eng._switch_ok(sk.cycle)
     eng.fused_cycle(sk, codes, sched, cu, wl_active, switch_ok)
+    torch.cuda.synchronize()
+    t0 = time.time()
     eng.fused_cycle.plain(sp, codes, sched, cu, wl_active, switch_ok)
     torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
     differ = (sk.ls != sp.ls)
     for name in ("att", "acc", "trans_per_mol"):
         differ |= (getattr(sk, name) != getattr(sp, name)).any(dim=0)
-    return sk, sp, differ
+    return (sk, sp, differ, plain_ms) if timed else (sk, sp, differ)
 
 
 FUSED_FIELDS = ("r", "moments", "energy", "mu", "weight", "hist", "uhist",
-                "min_dmu", "max_dmu")
+                "min_dmu", "max_dmu", "f", "sumhist")
 
 
 def fused_max_err(sk, sp, mask, names=None):
@@ -669,20 +730,34 @@ def full_energy_bound(r3, H, n_shifts):
     return _bound(nbytes, ops)
 
 
+def _sched_work(eng, s, n_updates):
+    """(bytes, operations) of the f schedule beyond the state traffic:
+    Swetnam's master histogram view [B, W] read once and, at each of
+    ``n_updates`` WL updates of a walker, its sum over the B bins (an
+    add, a multiply, a division, a subtraction and a square each)."""
+    prm = eng.prm
+    if prm.samplerun or not prm.wl_swetnam or prm.num_lattices != 2:
+        return 0, 0
+    B, W = eng.grid.nbins, s.r.shape[-1]
+    return B * W * s.r.element_size(), n_updates * W * B * 6
+
+
 def fused_bound(eng, s, draws):
     """(ms, bound_by) of one cycle: every state array the kernel reads
     or writes moved once each way, and per translation step and walker
     two folded distance tests for every valid table partner plus the
     leg, wing and moment work of the partners in range at the start of
-    the cycle."""
+    the cycle (and the f schedule's work, _sched_work)."""
     import torch
 
     from mc_water_ls_mw_tpu_torch.ops.dense import _h_components, _mic_fold
 
     codes, sched, cu = draws
     L, _, N, W = s.r.shape
-    nbytes = _state_bytes(eng, s, N * 7, _table_bytes(eng, s))
-    ops = 0
+    n_trans = int((codes == 0).sum())
+    sb, sops = _sched_work(eng, s, n_trans)
+    nbytes = _state_bytes(eng, s, N * 7, _table_bytes(eng, s) + sb)
+    ops = sops
     trans = [int(m) for c, m in zip(codes.tolist(), sched.tolist())
              if c == 0]
     for l in range(L):
@@ -705,7 +780,8 @@ def _state_bytes(eng, s, n_u_rows, extra_ro=0):
     (cells, volumes, ``n_u_rows`` rows of uniforms, master weights)
     read once, plus ``extra_ro`` bytes of static tables."""
     L, _, N, W = s.r.shape
-    B = eng.grid.nbins
+    # the WL arrays: none with one lattice
+    B = eng.grid.nbins if L == 2 else 0
     b = s.r.element_size()
     rw = (L * 3 * N + 10 * L * N + L + 3 * B + 8) * W * b \
         + (N + 11) * W * 4
@@ -753,7 +829,8 @@ def dense_bound(eng, s, draws):
     codes, _, cu = draws
     L, _, N, W = s.r.shape
     S = len(eng.fold_shifts)
-    nbytes = _state_bytes(eng, s, N * 7)
+    sb, sops = _sched_work(eng, s, int((codes == 0).sum()))
+    nbytes = _state_bytes(eng, s, N * 7, sb)
     walker = torch.arange(W, device=s.r.device)
     n_steps = n_in = 0
     for t, code in enumerate(codes.tolist()):
@@ -766,7 +843,7 @@ def dense_bound(eng, s, draws):
             n_in += int(_dense_in_range(s, l, p, eng.fold_shifts,
                                         eng.model.rc2, imol).sum())
     ops = n_steps * W * L * 2 * N * (OPS_FOLD + 9 * (S - 1)) \
-        + n_in * 2 * (OPS_LEG + OPS_WING)
+        + n_in * 2 * (OPS_LEG + OPS_WING) + sops
     return _bound(nbytes, ops)
 
 
@@ -784,8 +861,9 @@ def multi_bound(eng, s, draws):
     codes, sched, cu = draws
     L, _, N, W = s.r.shape
     T = eng.dT
+    sb, sops = _sched_work(eng, s, int((codes == 0).sum()))
     nbytes = _state_bytes(eng, s, cu.shape[0] * cu.shape[1],
-                          _table_bytes(eng, s))
+                          _table_bytes(eng, s) + sb)
     codes = codes.tolist()
     n_tests = n_legs = 0
     for step, imol in enumerate(sched.tolist()):
@@ -806,50 +884,51 @@ def multi_bound(eng, s, draws):
                               Hc)
                 r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
                 n_legs += int(((r2 < eng.model.rc2) & (r2 > 1e-8)).sum())
-    ops = n_tests * OPS_FOLD + n_legs * (OPS_LEG + OPS_WING)
+    ops = n_tests * OPS_FOLD + n_legs * (OPS_LEG + OPS_WING) + sops
     return _bound(nbytes, ops)
 
 
 def time_cycles(eng, s, draws, reps):
-    """(kernel, plain) milliseconds of one cycle from clones of ``s``:
-    the kernel by CUDA events over ``reps`` cycles after a warm-up one,
-    the plain version by the host clock over one cycle (the plain
-    versions are host-paced)."""
-    import torch
-
+    """Milliseconds of one cycle of the kernel from clones of ``s``, by
+    CUDA events over ``reps`` cycles after a warm-up one (the plain
+    version's is timed by fused_compare)."""
     st = s.clone()
 
     def one_cycle():
         st.cycle += 1
         eng.fused_cycle(st, *draws, True, True)
 
-    ms = cuda_ms(one_cycle, reps)
-    sp = s.clone()
-    sp.cycle += 1
-    torch.cuda.synchronize()
-    t0 = time.time()
-    eng.fused_cycle.plain(sp, *draws, True, True)
-    torch.cuda.synchronize()
-    return ms, (time.time() - t0) * 1e3
+    return cuda_ms(one_cycle, reps)
 
 
-def fused_kernel_check(prm, tag, reps=0, paper_pair=False):
+def fused_kernel_check(prm, tag, reps=0, paper_pair=False,
+                       weights="n216_sample", prepare=None, kernel=None,
+                       run_cycles=0):
     """One cycle of the fused-cycle kernel of ``prm``'s engine against its
     plain version, from the state after two cycles, with the same draws:
     float64, identical integer outcomes and continuous state within
     1e-10; float32, at most F32_MAX_DIFF_FRAC of walkers with a
     differing integer outcome.  Prints the kernel's registers and
-    spills.  With ``reps``, also times the kernel and the plain version
-    and computes the bound, and returns the kernel's report entry."""
+    spills.  ``prepare(state)`` adjusts the initial state; ``kernel``:
+    the engine must run that kernel.  With ``reps``, also times the
+    kernel and the plain version and computes the bound, and returns the
+    kernel's report entry; with ``run_cycles``, the entry also holds the
+    engine's own seconds per cycle over that many cycles and its
+    launches there (``cycle_ms``, ``launches``)."""
     import torch
 
-    eng, s = make_engine(prm, paper_pair=paper_pair)
+    eng, s = make_engine(prm, paper_pair=paper_pair, weights=weights)
+    if kernel is not None and eng.fused_cycle.kernel != kernel:
+        fail(f"{tag}: the engine runs {eng.fused_cycle.kernel}, not "
+             f"{kernel}")
     kernel = eng.fused_cycle.kernel
+    if prepare is not None:
+        prepare(s)
     eng.run_cycles(s, 2)                     # walkers drift apart
     draws = kernel_draws(eng, s, 7)
     f64 = s.r.dtype == torch.float64
     W = s.r.shape[-1]
-    sk, sp, differ = fused_compare(eng, s, draws)
+    sk, sp, differ, plain_ms = fused_compare(eng, s, draws, timed=True)
     frac = float(differ.float().mean())
     ok = ~differ
     n_acc = int((sk.acc[0] - s.acc[0]).sum())
@@ -858,7 +937,9 @@ def fused_kernel_check(prm, tag, reps=0, paper_pair=False):
     # round-off of a bin edge lands in the neighbouring bin)
     err = fused_max_err(sk, sp, ok, None if f64 else
                         ("r", "moments", "energy", "mu"))
-    if not f64 and kernel == "fused_cycle":
+    if not f64 and kernel in ("fused_cycle", "fused_cycle_ext") \
+            and not prm.minu:
+        # (the trace records the plain decision without MINU's fold-in)
         fused_err_trace(f"{tag}-trace", eng, s, draws, sk, sp, ok,
                         ("r", "moments", "energy", "mu"))
     occ = eng.fused_cycle.occupancy(s.r.dtype, W)
@@ -878,18 +959,38 @@ def fused_kernel_check(prm, tag, reps=0, paper_pair=False):
              "walkers")
     if not reps:
         return None
-    ms, plain_ms = time_cycles(eng, s, draws, reps)
-    bound_ms, bound_by = {"fused_cycle": fused_bound,
-                          "fused_cycle_dense": dense_bound,
-                          "fused_cycle_multi": multi_bound}[kernel](
-                              eng, s, draws)
+    from mc_water_ls_mw_tpu_torch.mcmc.fused import DENSE, KERNELS, MULTI
+
+    ms = time_cycles(eng, s, draws, reps)
+    branch = KERNELS[kernel][0]
+    bound_ms, bound_by = (dense_bound if branch == DENSE else multi_bound
+                          if branch == MULTI else fused_bound)(eng, s, draws)
     print(f"[{tag}] {kernel} f32 W={W}: kernel {ms:.3f} ms/cycle, plain "
           f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
           f"{occ['blocks']} blocks of {occ['walkers_per_block']} walkers on "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs",
           flush=True)
-    return dict(max_abs_err=e_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    out = dict(max_abs_err=e_err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               registers=occ["registers"], spill_bytes=occ["spill_bytes"])
+    if run_cycles:
+        # the engine's own cycles (volume moves, syncs and all), from the
+        # state after the warm-up
+        eng.fused_cycle.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng.run_cycles(s, run_cycles)
+        torch.cuda.synchronize()
+        out["cycle_ms"] = (time.time() - t0) / run_cycles * 1e3
+        out["launches"] = eng.fused_cycle.launches
+        print(f"[{tag}] {kernel}: the engine's {run_cycles} cycles "
+              f"{out['cycle_ms']:.3f} ms/cycle = "
+              f"{W * prm.nwater / out['cycle_ms'] * 1e3:.4e} moves/s, "
+              f"{out['launches']} launches", flush=True)
+        if out["launches"] != run_cycles:
+            fail(f"{tag}: {kernel} launched {out['launches']} times in "
+                 f"{run_cycles} cycles")
+    return out
 
 
 def occupancy_keys(occ):
@@ -1081,8 +1182,9 @@ def n_windows(prm):
 
 
 def make_cell_engine(prm):
-    """(engine, state) of the stacking pair ``prm.stack`` on the cell
-    grid the front end picks for it (app.py: choose_grid_shape without
+    """(engine, state) of the stacking pair ``prm.stack`` (one lattice:
+    its Ih cell, no correspondence mismatch) on the cell grid the front
+    end picks for it (app.py: choose_grid_shape without
     prefer_disjoint); in 'dd' over ``prm.n_windows`` windows."""
     from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
     from mc_water_ls_mw_tpu_torch.mcmc.cellengine import (
@@ -1091,7 +1193,6 @@ def make_cell_engine(prm):
     )
     from mc_water_ls_mw_tpu_torch.models.stacking import (
         correspondence_mismatch,
-        stacking_switch_pair,
     )
     from mc_water_ls_mw_tpu_torch.models.sw import MW
     from mc_water_ls_mw_tpu_torch.ops.cells import (
@@ -1100,8 +1201,9 @@ def make_cell_engine(prm):
         choose_grid_shape,
     )
 
-    r0, H0 = stacking_switch_pair(*prm.stack)
-    mx, _ = correspondence_mismatch(r0, H0)
+    r0, H0 = stacking_cells(prm)
+    mx = correspondence_mismatch(r0, H0)[0] if prm.num_lattices == 2 \
+        else 0.0
     shape = choose_grid_shape(H0, MW, mx)
     cg = build_grid(shape, cap_for_positions(r0, H0, shape), H0, MW, mx)
     grid = build_bin_grid(prm.nbins, prm.mu_min, prm.mu_max)
@@ -1131,8 +1233,9 @@ def chain_compare(eng, s, rows, e, inc, hasm, codes, ua, uz,
     """The chain + WL kernel against its plain version on one sub-step's
     point table (energies ``e`` [L,K,P,W], in-cell flags ``inc``
     [K,P,W], trial flags ``hasm`` [K,W]), each on fresh clones of the
-    chain rows ``rows`` (their switch gate among them) and the WL slabs
-    of ``s``, with the WL phase ``wl_active``.
+    chain rows ``rows`` (their switch gate and master histogram view
+    among them) and the WL slabs of ``s``, with the WL phase
+    ``wl_active``, in the cycle after ``s``'s.
 
     Returns (a dict: the [W] bool of walkers whose integer outcomes
     differ, the rows' and slabs' errors on the rest, accepted and enabled
@@ -1154,7 +1257,8 @@ def chain_compare(eng, s, rows, e, inc, hasm, codes, ua, uz,
         if fn is not None:
             b["joh"], b["cnt"] = fn(codes, wl_active, b["cf"], b["ci"],
                                     b["wgt"], b["hist"], b["uh"], rows.basew,
-                                    *tables, ua, uz)
+                                    *tables, ua, uz, baseh=rows.baseh,
+                                    cycle=s.cycle + 1)
         return b
 
     ck_, cp = chain(eng.chain_kernel), chain(eng.chain_kernel.plain)
@@ -1392,8 +1496,8 @@ class _Plain:
     def __getattr__(self, name):
         return getattr(self._kern, name)
 
-    def __call__(self, *args, cnt=None):
-        out = self._kern.plain(*args)
+    def __call__(self, *args, cnt=None, **kw):
+        out = self._kern.plain(*args, **kw)
         if cnt is not None:           # the chain's preallocated counters
             cnt.copy_(out[1])
             out = (out[0], cnt)
@@ -3022,9 +3126,10 @@ def field_diffs(a, b):
 
 
 FLAG_T8 = dict(cell_trials=8, cell_pallas="auto", cell_chain="auto")
-# the flagship at T=8: a rebin and a delta-sync in the timed cycle, the
-# resync left out (a whole-cell energy costs ~7 s here)
-FLAG_T8_CUTS = dict(list_update_int=2, mpi_sync_int=2, latt_sync_int=10_000)
+# the flagship at T=8: one timed cycle, the first (no warm-up cycle: ~70
+# s of the run's limit), with a rebin and a delta-sync in it, the resync
+# left out (a whole-cell energy costs ~7 s here)
+FLAG_T8_CUTS = dict(list_update_int=1, mpi_sync_int=1, latt_sync_int=10_000)
 
 
 def flagship_t8_run(kind, card):
@@ -3033,8 +3138,8 @@ def flagship_t8_run(kind, card):
     (the multi-point kernel has no delta output for overlapping
     stencils).  One sub-step against cell_chain='on' (the chain kernel
     fed by the unfused sub-step) in float64 at W=16; then at W=128 in
-    float32 a warm-up and a timed cycle, an audit of 64 walkers, the
-    merged histogram, and a torch.profiler trace of one sub-step."""
+    float32 a timed cycle, an audit of 64 walkers, the merged histogram,
+    and a torch.profiler trace of one sub-step."""
     import dataclasses
 
     import torch
@@ -3090,21 +3195,17 @@ def flagship_t8_run(kind, card):
                       **FLAG_T8_CUTS, **mt)
     eng, s = make_cell_engine(prm)
     n_sub = eng.sweeps_per_cycle * eng.n_tables
-    torch.cuda.synchronize()
-    t0 = time.time()
-    eng.run_cycles(s, 1)                      # warm-up (WL live)
-    torch.cuda.synchronize()
-    warm_s = time.time() - t0
     att0 = s.att.clone()
+    torch.cuda.synchronize()
     t0 = time.time()
-    s, samples = eng.run_cycles(s, 1)         # cycle 2: rebin and sync
+    s, samples = eng.run_cycles(s, 1)         # cycle 1: WL live, rebin, sync
     torch.cuda.synchronize()
     elapsed = time.time() - t0
     att = (s.att - att0).sum(dim=1).tolist()
     overflow = int(s.occ_overflow.max())
     print(f"[flagship-t8] N={prm.nwater} W={W_FLAG} f32 T={eng.T}: "
           f"{n_sub} sub-steps/cycle, {eng.trials_per_cycle} trials/cycle; "
-          f"warm-up cycle {warm_s:.3f} s; timed cycle {elapsed:.3f} s = "
+          f"timed cycle {elapsed:.3f} s = "
           f"{eng.trials_per_cycle * W_FLAG / elapsed:.4e} trials/s on "
           f"{kind} ({card}); attempts trans/vol/switch {att} (all "
           f"walkers); occ_overflow {overflow}", flush=True)
@@ -3419,6 +3520,501 @@ def _bound(nbytes, ops):
 
 
 # ----------------------------------------------------------------------
+# one lattice, NVT, MINU, leshift, the Swetnam and 1/t schedules
+# ----------------------------------------------------------------------
+
+# the single box as the input reader forces it with num_lattices = 1
+# (io.f90:208-220): no switching
+SINGLE_BOX = dict(num_lattices=1, allow_switch=False, mc_switch_prob=0.0,
+                  mc_always_switch=False)
+# runs/n216_wl's Wang-Landau parameters (its ice.input and run.py
+# overrides) on the N=216 stacking pair
+N216_WL = dict(nbins=201, mu_min=-1800.0, mu_max=1800.0, samplerun=False,
+               wl_factor=0.005 * 8.0 / 4096, wl_minhist=5)
+# what the kernel checks of the f schedules cut, so that each schedule
+# changes f within the checked cycle: Swetnam's f = ln(rms) alpha B
+# must fall below the cap wl_factor, and the 1/t cap B / (cycle N)
+# below f (the runs' own values, from run.py or the defaults, in the
+# comments)
+SCHED_CUTS = {
+    "swetnam": dict(wl_factor=0.05,     # 0.005 * 8 / 4096
+                    wl_alpha=1e-4),     # 1.0
+    "invt": dict(wl_factor=1.0),        # 0.005 * 8 / 4096
+}
+
+
+def half_invt(s):
+    """Every other walker runs the 1/t schedule."""
+    s.invt_active[::2] = True
+
+
+def variant_cases():
+    """Phase 4e's cases: (tag, kernel, params builder (W, dtype), state
+    preparation, weights, the paper's pair)."""
+    wl = dict(N216_WL, eq_mc_cycles=0)
+    return [
+        ("single", "fused_cycle_1l",
+         lambda W, dt: sample_params(W, dt, eq_mc_cycles=0, **SINGLE_BOX),
+         None, None, False),
+        ("minu-leshift", "fused_cycle_ext",
+         lambda W, dt: sample_params(W, dt, minu=True, leshift=True,
+                                     eq_mc_cycles=0),
+         None, "n216_sample", False),
+        # the plain factor at Swetnam's cut: the schedules' baseline
+        ("wl", "fused_cycle",
+         lambda W, dt: sample_params(W, dt, **{
+             **wl, "wl_factor": SCHED_CUTS["swetnam"]["wl_factor"]}),
+         None, None, False),
+        ("swetnam", "fused_cycle_ext",
+         lambda W, dt: sample_params(W, dt, wl_swetnam=True,
+                                     **{**wl, **SCHED_CUTS["swetnam"]}),
+         None, None, False),
+        ("invt", "fused_cycle_ext",
+         lambda W, dt: sample_params(W, dt, wl_useinvt=True,
+                                     **{**wl, **SCHED_CUTS["invt"]}),
+         half_invt, None, False),
+        ("nvt", "fused_cycle_ext",
+         lambda W, dt: sample_params(W, dt, mc_ensemble="nvt",
+                                     eq_mc_cycles=0),
+         None, "n216_sample", False),
+        ("dense48-single", "fused_cycle_dense_1l",
+         lambda W, dt: dense_params(W, dt, "n48", eq_mc_cycles=0,
+                                    **SINGLE_BOX),
+         None, None, False),
+        ("dense48-minu", "fused_cycle_dense_ext",
+         lambda W, dt: dense_params(W, dt, "n48", minu=True,
+                                    samplerun=False, wl_factor=0.005,
+                                    eq_mc_cycles=0),
+         None, "n216_sample", False),
+        ("multi-minu-swetnam", "fused_cycle_multi_ext",
+         lambda W, dt: multi_params(W, dt, MULTI_T, minu=True,
+                                    wl_swetnam=True, eq_mc_cycles=0,
+                                    **SCHED_CUTS["swetnam"]),
+         None, None, True),
+    ]
+
+
+# the report rows of phase 4e (the kernels line): the case that times
+# each new instantiation
+VARIANT_ROWS = {"fused_cycle_1l": "single",
+                "fused_cycle_ext": "swetnam",
+                "fused_cycle_dense_1l": "dense48-single",
+                "fused_cycle_dense_ext": "dense48-minu",
+                "fused_cycle_multi_ext": "multi-minu-swetnam"}
+VARIANT_CYCLES = 5              # the engine's own cycles per f32 case
+
+
+def variant_fused_checks(table_ms):
+    """Phase 4e: kernel 1's instantiations beyond the two-lattice plain
+    settings against their plain versions over one cycle with the same
+    draws (float64 at W_FP64: identical integers, state within 1e-10;
+    float32 at W_MAIN: at most 1% of walkers differing), each f32 case
+    timed beside phase 4's table kernel (``table_ms``) and run
+    VARIANT_CYCLES cycles through its engine.  Returns {case: f32
+    report}."""
+    import torch
+
+    out = {}
+    for tag, kernel, params, prepare, weights, paper in variant_cases():
+        fused_kernel_check(params(W_FP64, "float64"), f"4e-{tag}",
+                           paper_pair=paper, weights=weights,
+                           prepare=prepare, kernel=kernel)
+        out[tag] = fused_kernel_check(
+            params(W_MAIN, "float32"), f"4e-{tag}", reps=5,
+            paper_pair=paper, weights=weights, prepare=prepare,
+            kernel=kernel, run_cycles=VARIANT_CYCLES)
+        out[tag]["kernel"] = kernel
+        torch.cuda.empty_cache()
+    print(f"[4e] f32 W={W_MAIN} ms per cycle of the kernel (phase 4's "
+          f"fused_cycle: {table_ms:.3f}): "
+          + ", ".join(f"{t} ({r['kernel']}) {r['ms']:.3f}"
+                      for t, r in out.items()), flush=True)
+    return out
+
+
+# runs/n216_wl/ice.input with the one-lattice overrides: the reference's
+# single_box run (NPT sampling of one ice polymorph) on the Ih cell of the
+# N=216 stacking pair
+SINGLE216 = dict(num_lattices=1, stack=(3, 3, 6), n_walkers=4096,
+                 dtype="float32")
+# what the smoke run cuts, to fit monitor_stats and checkpoints into 20 +
+# 10 cycles (the run's own values, from the input or the defaults, in the
+# comments)
+SINGLE216_CUTS = dict(
+    eq_mc_cycles=10,            # 10000
+    monitor_int=10,             # 1000
+    chkpt_dump_int=10,          # 1000
+    file_output_int=10,         # 50
+    flat_chk_int=10,            # 10000
+)
+SINGLE216_CYCLES = (20, 10)     # first call (the warm-up), resumed call
+SINGLE216_TIMED = 20            # the resumed engine's timed cycles
+
+
+def single_box_run(kind, card):
+    """Phase 5f: the single-box N=216 NPT run through run_input_file in
+    build/chip_smoke_single216: 20 warm-up cycles, then a second call
+    resumed from the checkpoint, then SINGLE216_TIMED cycles of the
+    resumed engine timed on the host clock (the app's block lines print
+    tenths of seconds): moves/s, the launches of the one-lattice table
+    kernel and of the whole-cell energy kernel, an audit of 64 walkers,
+    every volume within a factor 2 of the crystal's, and no switch
+    attempted.  Returns {"launches": {kernel: count over the calls and
+    the timed cycles}}."""
+    import shutil
+
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.ops.geometry import determinant3
+
+    d = os.path.join(ROOT, "build", "chip_smoke_single216")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    shutil.copy(os.path.join(ROOT, "runs", "n216_wl", "ice.input"), d)
+    out = _app_calls(d, {**SINGLE216, **SINGLE216_CUTS}, SINGLE216_CYCLES,
+                     {"fused_cycle_1l": "fused_cycle",
+                      "full_energy": "full_energy"})
+    first, second = out
+    eng, s = second["app"].engine, second["s"]
+    prm = eng.prm
+    W = SINGLE216["n_walkers"]
+    if not (eng.fused_cycle.kernel == "fused_cycle_1l"
+            and prm.num_lattices == 1 and prm.nwater == 216
+            and s.r.shape[:1] + s.r.shape[-1:] == (1, W)):
+        fail(f"the single-box run did not build the one-lattice table "
+             f"engine at N=216, {W} walkers: {eng.fused_cycle.kernel}")
+    for run, n_cyc in zip(out, SINGLE216_CYCLES):
+        if run["launches"]["fused_cycle_1l"] != n_cyc:
+            fail(f"single box: launches {run['launches']}, expected "
+                 f"{n_cyc} of the one-lattice kernel")
+    if second["app"].start_cycle != SINGLE216_CYCLES[0] or \
+            s.cycle != sum(SINGLE216_CYCLES):
+        fail(f"the single-box run did not resume at cycle "
+             f"{SINGLE216_CYCLES[0]}: {second['app'].start_cycle}, "
+             f"{s.cycle}")
+    eng.fused_cycle.launches = eng.full_energy.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    s, samples = eng.run_cycles(s, SINGLE216_TIMED)
+    torch.cuda.synchronize()
+    disp = time.time() - t0
+    timed = {"fused_cycle_1l": eng.fused_cycle.launches,
+             "full_energy": eng.full_energy.launches}
+    rate = W * prm.nwater * SINGLE216_TIMED / disp
+    if timed["fused_cycle_1l"] != SINGLE216_TIMED or \
+            not torch.isfinite(samples["E_ls"]).all():
+        fail(f"single box: timed launches {timed} or non-finite samples")
+    node = open(os.path.join(d, "node000.log")).read()
+    n_vol = sum(int(ln.split()[5]) for ln in node.splitlines()
+                if ln.endswith(" box moves"))
+    s, drift = eng.audit_energy(s, n_walkers=64)
+    max_drift = float(torch.max(torch.abs(drift)))
+    v0 = float(abs(determinant3(eng.ref_h[0][:, :, None])[0]))
+    ratio = (s.volume[0] / v0).double().cpu().numpy()
+    print(f"[single] runs/n216_wl/ice.input through run_input_file, "
+          f"overrides {sorted(SINGLE216)} and {sorted(SINGLE216_CUTS)} "
+          f"(cut): N={prm.nwater} W={W} float32, {eng.fused_cycle.kernel}; "
+          f"{SINGLE216_TIMED} timed cycles in {disp:.3f} s = "
+          f"{disp / SINGLE216_TIMED * 1e3:.3f} ms/cycle = {rate:.4e} "
+          f"moves/s on {kind} ({card}); launches {first['launches']} + "
+          f"{second['launches']} + {timed} (timed); resumed at cycle "
+          f"{second['app'].start_cycle}; {n_vol} volume-move attempts in "
+          f"the monitor blocks; switches attempted {int(s.att[2].sum())}; "
+          f"V/V0 {ratio.min():.4f}-{ratio.max():.4f}; audit of 64 walkers: "
+          f"max |drift| {max_drift:.3e} Hartree (limit "
+          f"{AUDIT_MAX_DRIFT:g})", flush=True)
+    if not max_drift < AUDIT_MAX_DRIFT:
+        fail("single box: energy audit drift")
+    if not (ratio.min() > 0.5 and ratio.max() < 2.0):
+        fail("single box: a volume left a factor 2 of the crystal's")
+    if int(s.att[2].sum()) != 0 or "lattice switches" in node:
+        fail("single box: a switch was attempted")
+    if n_vol <= 0:
+        fail("single box: no volume move")
+    return {"launches": {k: first["launches"][k] + second["launches"][k]
+                         + timed[k] for k in timed},
+            "cycle_ms": disp / SINGLE216_TIMED * 1e3}
+
+
+# runs/n216_wl's run.py overrides with the 1/t schedule; its ice.input as
+# committed
+INVT216 = dict(stack=(3, 3, 6), n_walkers=4096, mu_min=-1800.0,
+               mu_max=1800.0, nbins=201, wl_factor=0.005 * 8.0 / 4096,
+               wl_minhist=5, wl_useinvt=True, dtype="float32")
+# the cuts: the flatness check at cycle 10, where f is below B / (10 N)
+# and the switch to 1/t fires, the 1/t dumps every 10 cycles (the run's
+# own values in the comments)
+INVT_CUTS = dict(
+    eq_mc_cycles=2,             # 1000
+    flat_chk_int=10,            # 2500
+    invt_dump_int=10,           # 500000
+    monitor_int=10,             # 5000
+    mpi_sync_int=5,             # 50
+    chkpt_dump_int=10,          # 25000
+    file_output_int=10,         # 50
+    latt_sync_int=20,           # 10000
+)
+INVT_CYCLES = (20, 10)          # first call, resumed call
+
+
+def invt_run(kind, card):
+    """Phase 5g: a 1/t Wang-Landau generation through run_input_file in
+    build/chip_smoke_invt216, resumed: the switch to 1/t at the first
+    flatness check (every walker's invt_active, f set to B / (cycle N)
+    and capped by it from then on), the 1/t dumps (wlf.dat and the
+    cycle-tagged curves), the resume.  Returns {"launches": {kernel:
+    count over both calls}}."""
+    import shutil
+
+    d = os.path.join(ROOT, "build", "chip_smoke_invt216")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    shutil.copy(os.path.join(ROOT, "runs", "n216_wl", "ice.input"), d)
+    out = _app_calls(d, {**INVT216, **INVT_CUTS}, INVT_CYCLES,
+                     {"fused_cycle_ext": "fused_cycle",
+                      "full_energy": "full_energy"})
+    first, second = out
+    eng, s = second["app"].engine, second["s"]
+    prm = eng.prm
+    if eng.fused_cycle.kernel != "fused_cycle_ext":
+        fail(f"the 1/t run does not run fused_cycle_ext: "
+             f"{eng.fused_cycle.kernel}")
+    for run, n_cyc in zip(out, INVT_CYCLES):
+        if run["launches"]["fused_cycle_ext"] != n_cyc:
+            fail(f"1/t run: launches {run['launches']}, expected {n_cyc}")
+    glog = open(os.path.join(d, "mc.log")).read()
+    files = set(os.listdir(d))
+    tags = [f"{c:020d}" for c in range(INVT_CUTS["invt_dump_int"],
+                                       sum(INVT_CYCLES) + 1,
+                                       INVT_CUTS["invt_dump_int"])]
+    want = {"wlf.dat", "checkpoint000.npz.1", "checkpoint000.npz.2"} | {
+        f"{n}.dat_{t}" for n in ("eta_weights", "histogram") for t in tags}
+    B, N = eng.grid.nbins, prm.nwater
+    f = s.f.double().cpu().numpy()
+    cap = B / (s.cycle * N)
+    wlf = np.loadtxt(os.path.join(d, "wlf.dat"), ndmin=2)
+    print(f"[invt] runs/n216_wl/ice.input through run_input_file, "
+          f"overrides {sorted(INVT216)} and {sorted(INVT_CUTS)} (cut): "
+          f"{first['wall']:.1f} s and {second['wall']:.1f} s with set-up "
+          f"on {kind} ({card}); launches {first['launches']} + "
+          f"{second['launches']}; resumed at cycle "
+          f"{second['app'].start_cycle}; invt_active "
+          f"{int(s.invt_active.sum())} of {s.invt_active.numel()} walkers; "
+          f"f {f.min():.6e}-{f.max():.6e} (1/t cap at cycle {s.cycle}: "
+          f"{cap:.6e}); wlf.dat rows {wlf.tolist()}", flush=True)
+    if "# Switching to 1/t method" not in glog:
+        fail("1/t run: no switch to 1/t in mc.log")
+    if not bool(s.invt_active.all()):
+        fail("1/t run: invt_active is not set on every walker after the "
+             "resume")
+    if not want <= files:
+        fail(f"1/t run: missing files {sorted(want - files)}")
+    if second["app"].start_cycle != INVT_CYCLES[0] or \
+            s.cycle != sum(INVT_CYCLES):
+        fail("the 1/t run did not resume from its checkpoint")
+    if not (np.isfinite(f).all() and f.max() <= cap * (1 + 1e-6)
+            and f.min() > 0):
+        fail("1/t run: f is not capped by B / (cycle N)")
+    return {"launches": {k: first["launches"][k] + second["launches"][k]
+                         for k in first["launches"]}}
+
+
+# phase 6c's kernel-6 rules on the T=8 sub-step of phase 8
+CHAIN_RULES = {
+    "minu": dict(minu=True),
+    "swetnam": dict(wl_swetnam=True, **SCHED_CUTS["swetnam"]),
+    "invt": dict(wl_useinvt=True, **SCHED_CUTS["invt"]),
+}
+CHAIN_MINU = "chain_wl_minu"    # the report row of the MINU chain at T=8
+
+
+def chain_rules_phase():
+    """Phase 6c: the chain + WL kernel under MINU, Swetnam and 1/t (half
+    the walkers) against its plain version on one T=8 sub-step of the
+    N=8064 pair after a cycle of sampling: float64 at W_CELL_FP64
+    (integers identical, rows and slabs within 1e-10), float32 at W_MT
+    (phase 8's gates).  Returns the MINU chain's f32 report entry."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
+
+    report = None
+    for rule, over in CHAIN_RULES.items():
+        for Wm, dtype in ((W_CELL_FP64, "float64"), (W_MT, "float32")):
+            eng, s = make_cell_engine(cell_params(
+                Wm, dtype, cell_trials=MT_TRIALS,
+                mc_max_trans=0.10 * ANG_TO_BOHR, list_update_int=1,
+                mpi_sync_int=1, eq_mc_cycles=0, **over))
+            if rule == "invt":
+                half_invt(s)
+            eng.run_cycles(s, 1)
+            f32 = dtype == "float32"
+            cmp = multitrial_compare(eng, s, 5, seed=600,
+                                     time_reps=20 if f32 and rule == "minu"
+                                     else 0)
+            ch = cmp["chain_wl"]
+            frac = float(ch["differ"].float().mean())
+            print(f"[chain-rules] {rule} {dtype} W={Wm} T={eng.T}: "
+                  f"{int(ch['differ'].sum())} walkers differ ({frac:.4%}), "
+                  f"on the rest chain rows err {ch['cf_err']:.3e} (relative "
+                  f"{ch['cf_rel']:.3e}), WL slabs err {ch['wl_err']:.3e} "
+                  f"(relative {ch['wl_rel']:.3e}), {ch['n_acc']} of "
+                  f"{ch['n_enabled']} trials accepted", flush=True)
+            if not f32:
+                if ch["differ"].any() or not (
+                        ch["cf_err"] <= 1e-10 and ch["wl_err"] <= 1e-10
+                        and 0 < ch["n_acc"] < ch["n_enabled"]
+                        and ch["hist_grew"] > 0):
+                    fail(f"chain_wl fp64 under {rule} disagrees with its "
+                         "plain version")
+            elif frac > F32_MAX_DIFF_FRAC or not (
+                    ch["cf_rel"] <= F32_CHAIN_RTOL
+                    and ch["wl_rel"] <= F32_CHAIN_RTOL
+                    and 0 < ch["n_acc"] < ch["n_enabled"]):
+                fail(f"chain_wl f32 under {rule} disagrees with its plain "
+                     "version")
+            if f32 and rule == "minu":
+                bound_ms, bound_by = multitrial_bounds(eng, s,
+                                                       cmp)["chain_wl"]
+                report = dict(max_abs_err=max(ch["cf_err"], ch["wl_err"]),
+                              ms=ch["ms"], plain_ms=ch["plain_ms"],
+                              bound_ms=bound_ms, bound_by=bound_by)
+                print(f"[chain-rules] minu f32 W={Wm}: kernel "
+                      f"{ch['ms']:.4f} ms/launch, plain "
+                      f"{ch['plain_ms']:.3f} ms, bound {bound_ms:.6f} ms "
+                      f"({bound_by})", flush=True)
+            del eng, s
+            torch.cuda.empty_cache()
+    return report
+
+
+def single_cell_run(kind, card):
+    """Phase 7d: the N=8064 single box, the cell engine at one lattice
+    ((14,8,18) Ih cell, W_CELL walkers, float32, T=1: the mover kernels at
+    L = 1 with the XLA chain): the energies and apply kernels against
+    their plain versions on one sub-step, one timed cycle (trials/s,
+    launches), slab overflow 0, an audit of 64 walkers.  Returns
+    {"launches": {kernel: count}}."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.mcmc.chain_kernel import SWITCH
+
+    prm = cell_params(W_CELL, "float32", list_update_int=2,
+                      cell_chain="auto", **SINGLE_BOX)
+    eng, s = make_cell_engine(prm)
+    if eng.use_chain_kernel or not eng.use_cell_apply:
+        fail("the one-lattice cell engine did not resolve to the apply "
+             "stage with the XLA chain")
+    eng.run_cycles(s, 1)                     # warm-up
+    torch.cuda.synchronize()
+    # one sub-step's kernels against their plain versions
+    K, W = eng.K, s.r.shape[-1]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(77)
+    u = torch.rand((7, K, W), generator=gen, dtype=s.r.dtype, device=DEVICE)
+    codes = torch.zeros((K,), dtype=torch.int32)
+    codes[K // 2] = SWITCH
+    pks = eng._pack(s)
+    rows = eng._loop_rows(s)
+    fc, cand, off = eng._tables(5)
+    trial = eng._propose_t1(s, pks, 5, u, rows)
+    margs = (pks, s.h, cand, off, fc, trial.rank, trial.p_old, trial.p_new)
+    pe, pown = eng.mover_kernel.plain(*margs)
+    n_occ, n_in = _occupancy_counts(eng, s, pks, trial, cand, off, fc)
+    accf, _ = eng._chain_t1(s.clone(), rows, trial, codes, u[5], u[6])
+    ma = apply_compare(eng, pks, (s.h, cand, off, fc, trial.rank, accf,
+                                  trial.p_old, trial.p_new, trial.own_new),
+                       n_occ, n_in)
+    e_err, own_err = _max_abs(trial.e, pe), _max_abs(trial.own_new, pown)
+    print(f"[single-cell] L=1 f32 W={W}: energies err {e_err:.3e} Hartree "
+          f"(limit {F32_MOVER_E_ATOL:g}), own moments err {own_err:.3e}; "
+          f"apply: moment rows err {ma['mom_err']:.3e}, other rows equal "
+          f"{ma['rest_equal']}, {ma['n_acc']} movers accepted", flush=True)
+    if not (e_err <= F32_MOVER_E_ATOL and own_err <= F32_MOVER_MOM_ATOL
+            and ma["mom_err"] <= F32_MOVER_MOM_ATOL and ma["rest_equal"]
+            and ma["changed"] > 0):
+        fail("the mover kernels at one lattice disagree with their plain "
+             "versions")
+    kernels = {"mover_energies": eng.mover_kernel,
+               "mover_apply": eng.apply_kernel}
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.time()
+    s, samples = eng.run_cycles(s, 1)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    n_sub = eng.sweeps_per_cycle * eng.n_tables
+    rate = eng.trials_per_cycle * W / elapsed
+    overflow = int(s.occ_overflow.max())
+    s, drift = eng.audit_energy(s, n_walkers=64)
+    max_drift = float(torch.max(torch.abs(drift)))
+    print(f"[single-cell] N={prm.nwater} L=1 W={W} f32: one cycle in "
+          f"{elapsed:.3f} s = {rate:.4e} trials/s on {kind} ({card}); "
+          f"launches {launches} ({n_sub} sub-steps); attempts "
+          f"{s.att.sum(dim=1).tolist()}; occ_overflow {overflow}; audit of "
+          f"64 walkers: max |drift| {max_drift:.3e} Hartree (limit "
+          f"{AUDIT_CELL_MAX_DRIFT:g})", flush=True)
+    if any(n != n_sub for n in launches.values()):
+        fail(f"single-box cell run: launches {launches}, expected {n_sub}")
+    if overflow != 0 or not torch.isfinite(samples["E_ls"]).all():
+        fail("single-box cell run: slab overflow or non-finite samples")
+    if not max_drift < AUDIT_CELL_MAX_DRIFT:
+        fail("single-box cell run: energy audit drift")
+    del eng, s
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def minu_t8_run(kind, card):
+    """Phase 8d: N=8064 under MINU at T=8, W=W_MT, float32: one cycle
+    through the points, apply and chain kernels (launches, trials/s,
+    switches folded into translations), slab overflow 0, an audit of 64
+    walkers.  Returns {"launches": {kernel: count}}."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
+
+    eng, s = make_cell_engine(cell_params(
+        W_MT, "float32", cell_trials=MT_TRIALS, minu=True,
+        mc_max_trans=0.10 * ANG_TO_BOHR))
+    eng.run_cycles(s, 1)                     # warm-up
+    kernels = {"mover_points": eng.points_kernel,
+               "mover_apply": eng.apply_kernel,
+               "chain_wl": eng.chain_kernel}
+    for k in kernels.values():
+        k.launches = 0
+    ls0 = s.ls.clone()
+    t0 = time.time()
+    s, samples = eng.run_cycles(s, 1)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    n_sub = eng.sweeps_per_cycle * eng.n_tables
+    W = s.r.shape[-1]
+    overflow = int(s.occ_overflow.max())
+    s, drift = eng.audit_energy(s, n_walkers=64)
+    max_drift = float(torch.max(torch.abs(drift)))
+    print(f"[minu-t8] N={eng.prm.nwater} W={W} T={eng.T} f32 MINU: one "
+          f"cycle in {elapsed:.3f} s = "
+          f"{eng.trials_per_cycle * W / elapsed:.4e} trials/s on {kind} "
+          f"({card}); launches {launches} ({n_sub} sub-steps); walkers on "
+          f"another lattice than before the cycle "
+          f"{int((s.ls != ls0).sum())}; occ_overflow {overflow}; audit of "
+          f"64 walkers: max |drift| {max_drift:.3e} Hartree (limit "
+          f"{AUDIT_CELL_MAX_DRIFT:g})", flush=True)
+    if any(n != n_sub for n in launches.values()):
+        fail(f"MINU T=8 run: launches {launches}, expected {n_sub}")
+    if overflow != 0 or not torch.isfinite(samples["E_ls"]).all():
+        fail("MINU T=8 run: slab overflow or non-finite samples")
+    if not max_drift < AUDIT_CELL_MAX_DRIFT:
+        fail("MINU T=8 run: energy audit drift")
+    del eng, s
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+# ----------------------------------------------------------------------
 # the run
 # ----------------------------------------------------------------------
 
@@ -3571,6 +4167,14 @@ def main() -> int:
     dd_cell_checks()
     phase_time("4d. dd windows: multi-trial sub-step (N=8064)")
 
+    # ---- 4e. kernel 1's other instantiations: one lattice, MINU,
+    # leshift, NVT, the Swetnam and 1/t schedules
+    variants = variant_fused_checks(report["fused_cycle"]["ms"])
+    for name, tag in VARIANT_ROWS.items():
+        report[name] = {k: v for k, v in variants[tag].items()
+                        if k not in ("kernel", "cycle_ms", "launches")}
+    phase_time("4e. fused cycle: one lattice and the extended settings")
+
     # ---- 5. the main path
     prm = sample_params(W, "float32", mpi_sync_int=5, latt_sync_int=10,
                         eq_mc_cycles=20, max_mc_cycles=45)
@@ -3722,6 +4326,21 @@ def main() -> int:
     for name, n in vw["launches"].items():
         launches[name] = launches.get(name, 0) + n
     phase_time("5e. volume wall (N=216)")
+
+    # ---- 5f. the single-box N=216 NPT run through the front end
+    for name, n in single_box_run(kind, card)["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    phase_time("5f. single box (N=216, one lattice)")
+
+    # ---- 5g. a 1/t Wang-Landau generation through the front end
+    for name, n in invt_run(kind, card)["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    phase_time("5g. 1/t Wang-Landau generation (N=216)")
+    # the 4e engine runs of the dense and multi-trial instantiations
+    for name in ("fused_cycle_dense_1l", "fused_cycle_dense_ext",
+                 "fused_cycle_multi_ext"):
+        launches[name] = variants[VARIANT_ROWS[name]]["launches"]
 
     # ---- 6. the cell engine's kernels vs plain
     from mc_water_ls_mw_tpu_torch.ops.dsfloat import ds_value
@@ -3918,6 +4537,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_time("6c. 'on' against 'apply' (N=8064)")
 
+    # ---- 6c. the chain kernel under MINU, Swetnam and 1/t (N=8064, T=8)
+    report[CHAIN_MINU] = chain_rules_phase()
+    phase_time("6c. chain kernel: MINU, Swetnam, 1/t (N=8064, T=8)")
+
     # ---- 7b. the N=24192 flagship on its front-end grid
     flag = flagship_run(kind, card)
     for name, n in flag["launches"].items():
@@ -3932,6 +4555,11 @@ def main() -> int:
     # ---- 7c. the flagship at cell_trials=8: the unfused sub-step
     flagship_t8_run(kind, card)
     phase_time("7c. N=24192 flagship at T=8 (unfused sub-step)")
+
+    # ---- 7d. the N=8064 single box: the cell engine at one lattice
+    for name, n in single_cell_run(kind, card)["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    phase_time("7d. N=8064 single box (one lattice)")
 
     # ---- 8. the multi-trial kernels (cell_trials = 8) vs plain
     from mc_water_ls_mw_tpu_torch.constants import ANG_TO_BOHR
@@ -4054,6 +4682,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_time("8c. unfused sub-step against 'apply' (N=8064, T=1)")
 
+    # ---- 8d. N=8064 under MINU at T=8
+    for name, n in minu_t8_run(kind, card)["launches"].items():
+        # the apply kernel at this shape and the MINU chain are lines of
+        # their own
+        name = {"mover_apply": APPLY_MT, "chain_wl": CHAIN_MINU}.get(name,
+                                                                   name)
+        launches[name] = launches.get(name, 0) + n
+    phase_time("8d. N=8064 MINU at T=8")
+
     # ---- 9. the front-end path: run_input_file at T = 8
     fe = frontend_run()
     for name, n in fe["launches"].items():
@@ -4129,6 +4766,23 @@ def main() -> int:
                       "(with_deltas=True)",
              launches=launches["mover_energies_deltas"], library_ms=None,
              **report["mover_energies_deltas"]),
+    ]
+    variants_src = "mc_water_ls_mw_tpu_torch/csrc/fused_cycle_variants.cu"
+    kernels += [
+        dict(name=name, route="cuda", source=variants_src,
+             replaces=f"mc_water_ls_mw_tpu/mcmc/fused.py:{line}",
+             launches=launches[name], library_ms=None, **report[name])
+        for name, line in (("fused_cycle_1l", 731),
+                           ("fused_cycle_dense_1l", 584),
+                           ("fused_cycle_ext", 731),
+                           ("fused_cycle_dense_ext", 584),
+                           ("fused_cycle_multi_ext", 856))
+    ] + [
+        dict(name=CHAIN_MINU, route="cuda",
+             source="mc_water_ls_mw_tpu_torch/csrc/chain_wl.cu",
+             replaces="mc_water_ls_mw_tpu/mcmc/chain_pallas.py:92",
+             launches=launches[CHAIN_MINU], library_ms=None,
+             **report[CHAIN_MINU]),
     ]
     print(f"[time] total: {time.time() - _T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -43,9 +43,17 @@
 // an H100 (~1900 cycles in f32, clock probes): its dependent
 // instructions issued in order by one lane, the IEEE divisions (two in
 // mu_to_bin, two in each eta lookup) each a check-and-call region of
-// its own that nothing overlaps.  The loop is written for any T; MINU,
-// the Swetnam and the 1/t schedules are not ported (the engine refuses
-// them).
+// its own that nothing overlaps.  The loop is written for any T.
+// Instantiations with EXT = true take MINU, which folds a switch to the
+// lattice of the lower trial enthalpy into each translation (its hoisted
+// terms in CF_MINUC and CF_SWC), and the Swetnam and 1/t f schedules
+// (f_schedule_at of wl_common.cuh), which change f, and Swetnam's
+// sumhist, from trial to trial: Swetnam's f sums the walker's whole
+// histogram, its growth from the staged columns and the master view read
+// in place, at each update (B bins in order, by lane 0).  The plain
+// settings run the EXT = false instantiations, which keep their
+// registers (the rules' terms raise the staged f32 kernel's from 80 to
+// ~127 a thread).
 //
 // mu_to_bin and eta (eta_at) are those of the N=216 whole-cycle kernel
 // and the WL update is wl_update_at (all in wl_common.cuh), given a view
@@ -63,11 +71,12 @@ namespace {
 
 constexpr int TRANS = 0, SWITCH = 2;
 // row layouts of mcmc/chain_kernel.py
-constexpr int CF_MU = 0, CF_E0 = 1, CF_E1 = 2, CF_F = 3, CF_MIN_DMU = 5,
-              CF_MAX_DMU = 6, CF_MU_MIN = 7, CF_MU_MAX = 8, CF_CMU = 9,
-              CF_SWC = 10, CF_E0E = 12, CF_E1E = 13;
+constexpr int CF_MU = 0, CF_E0 = 1, CF_E1 = 2, CF_F = 3, CF_SUMHIST = 4,
+              CF_MIN_DMU = 5, CF_MAX_DMU = 6, CF_MU_MIN = 7, CF_MU_MAX = 8,
+              CF_CMU = 9, CF_SWC = 10, CF_MINUC = 11, CF_E0E = 12,
+              CF_E1E = 13;
 constexpr int CI_LS = 0, CI_START = 1, CI_END = 2, CI_INWIN = 3,
-              CI_OCCOK = 5, CI_SWOK = 6;
+              CI_INVT = 4, CI_OCCOK = 5, CI_SWOK = 6;
 constexpr int CN_EN = 0, CN_ACC = 1, CN_SWEN = 2, CN_SWACC = 3, CN_FIXED = 4;
 // walkers (warps) of a block at most (mcmc/chain_kernel.CHAIN_WPB_MAX)
 // and of an in-place block (INPLACE_WPB)
@@ -102,6 +111,13 @@ struct ChainArgs {
   double beta, av_bw, log_norm;
   double cpos, cneg, a_pos, a_neg, lnr_pos, lnr_neg;  // mu_to_bin
   int wpb, staged;  // launch plan (mcmc/chain_kernel.chain_plan)
+  // MINU, and the f schedule (SCHED_* of wl_common.cuh) with Swetnam's
+  // alpha and cap, the 1/t cap B / (cycle N), Swetnam's flat target per
+  // bin and the master histogram view
+  int minu, f_sched;
+  double alpha, wl_factor, invt_f;
+  void* binfrac;  // [B]
+  void* baseh;    // [B, W] (Swetnam only, else null)
 };
 
 // Rows of one walker's staged columns: the WL slabs (wgt, basew, hist,
@@ -173,11 +189,12 @@ struct Col {
 // The K x T chain of one walker: its column of the tables (e, inc,
 // hasm, ua, uz) and of the WL view v; its rows of cf / ci / joh / cnt
 // at device column w.
-template <typename T, bool STAGED>
+template <typename T, bool STAGED, bool EXT>
 __device__ __forceinline__ void walker_chain(
     const ChainArgs& a, const WLView<T>& v, const BinConsts<T>& bc,
-    const int* s_codes, Col<T, STAGED> e, Col<T, STAGED> inc,
-    Col<T, STAGED> hasm, Col<T, STAGED> ua, Col<T, STAGED> uz, int w) {
+    const FSched<T>& fs, const int* s_codes, Col<T, STAGED> e,
+    Col<T, STAGED> inc, Col<T, STAGED> hasm, Col<T, STAGED> ua,
+    Col<T, STAGED> uz, int w) {
   const int K = a.K, Tn = a.Tn, P = a.Tn + 1, W = a.W;
   const T beta = (T)a.beta;
   T* __restrict__ cf = static_cast<T*>(a.cf);
@@ -190,9 +207,11 @@ __device__ __forceinline__ void walker_chain(
   T mu = cf[CF_MU * W + w];
   T e0 = cf[CF_E0 * W + w], e1 = cf[CF_E1 * W + w];
   T er0 = cf[CF_E0E * W + w], er1 = cf[CF_E1E * W + w];
-  const T f = cf[CF_F * W + w];
+  T f = cf[CF_F * W + w], sumhist = cf[CF_SUMHIST * W + w];
   T min_dmu = cf[CF_MIN_DMU * W + w], max_dmu = cf[CF_MAX_DMU * W + w];
   const T cmu = cf[CF_CMU * W + w], sw_c = cf[CF_SWC * W + w];
+  const T minu_c = cf[CF_MINUC * W + w];
+  const bool invt = ci[CI_INVT * W + w] != 0;
   int ls = ci[CI_LS * W + w];
   const bool occ_ok = ci[CI_OCCOK * W + w] != 0;
   const bool sw_ok = ci[CI_SWOK * W + w] != 0;
@@ -234,7 +253,18 @@ __device__ __forceinline__ void walker_chain(
         const T eta_old = eta_at(v, mu, kb);
         const T eta_new = eta_at(v, mu_new, kn);
         const T dE_ls = ls == 0 ? dE0 : dE1;
-        const T diffkT = beta * dE_ls + eta_new - eta_old;
+        T diffkT = beta * dE_ls + eta_new - eta_old;
+        int lsn = ls;
+        if (EXT && a.minu) {
+          // #ifdef MINU fold-in (mc_moves.F90:1119-1140): the move carries
+          // the walker to the lattice of the lower trial enthalpy
+          const T en0 = e0 + er0 + dE0, en1 = e1 + er1 + dE1;
+          lsn = beta * (en1 - en0) + minu_c < (T)0 ? 1 : 0;
+          const T E_cur = ls == 0 ? e0 + er0 : e1 + er1;
+          const T alt = beta * ((lsn == 0 ? en0 : en1) - E_cur) + eta_new
+                        - eta_old + (ls == 0 ? sw_c : -sw_c);
+          diffkT = lsn != ls ? alt : diffkT;
+        }
         // finite-state guard: never accept non-finite deltas
         const bool ok = isfinite(diffkT) & isfinite(mu_new);
         const bool accept = gate & ok & (ua[i] < exp(-diffkT));
@@ -253,6 +283,7 @@ __device__ __forceinline__ void walker_chain(
         er1 = accept ? l1 : er1;
         mu = accept ? mu_new : mu;
         kb = accept ? kn : kb;
+        ls = accept ? lsn : ls;
         j = accept ? t : j;
         min_dmu = accept ? fmin(min_dmu, admu) : min_dmu;
         max_dmu = accept ? fmax(max_dmu, admu) : max_dmu;
@@ -263,9 +294,12 @@ __device__ __forceinline__ void walker_chain(
         // non-finite energies or an overflowed slab never writes into
         // the shared arrays (a sample run's weight: eta(mu), the
         // weight view unchanged)
-        if (a.wl_active)
-          wl_update_at(v, kb, f, isfinite(e0) & isfinite(e1) & occ_ok,
-                       accept ? eta_new : eta_old, bc);
+        if (a.wl_active) {
+          const bool healthy = isfinite(e0) & isfinite(e1) & occ_ok;
+          if constexpr (EXT)
+            f_schedule_at(v, kb, healthy, invt, fs, bc, f, sumhist);
+          wl_update_at(v, kb, f, healthy, accept ? eta_new : eta_old, bc);
+        }
       }
       // switch attempt after the trial (mc_lattice_switch,
       // mc_moves.F90:1536-1594)
@@ -294,6 +328,10 @@ __device__ __forceinline__ void walker_chain(
   cf[CF_E1E * W + w] = er1;
   cf[CF_MIN_DMU * W + w] = min_dmu;
   cf[CF_MAX_DMU * W + w] = max_dmu;
+  if constexpr (EXT) {
+    cf[CF_F * W + w] = f;
+    cf[CF_SUMHIST * W + w] = sumhist;
+  }
   ci[CI_LS * W + w] = ls;
   cnt[CN_EN * W + w] = n_en;
   cnt[CN_ACC * W + w] = n_acc;
@@ -304,7 +342,7 @@ __device__ __forceinline__ void walker_chain(
 // One block of wpb warps per wpb walkers: warp i runs walker i's chain
 // (no two walkers share a warp, so none waits on another's branches);
 // all threads copy the columns in and out.
-template <typename T, bool STAGED>
+template <typename T, bool STAGED, bool EXT>
 __global__ void __launch_bounds__(32 * CHAIN_WPB_MAX)
     chain_wl_kernel(const ChainArgs a) {
   const int K = a.K, Tn = a.Tn, P = a.Tn + 1, W = a.W, B = a.B;
@@ -364,6 +402,14 @@ __global__ void __launch_bounds__(32 * CHAIN_WPB_MAX)
     bc.lnr_neg = (T)a.lnr_neg;
     bc.av_bw = (T)a.av_bw;
     bc.log_norm = (T)a.log_norm;
+    FSched<T> fs;
+    fs.kind = a.f_sched;
+    fs.alpha = (T)a.alpha;
+    fs.wl_factor = (T)a.wl_factor;
+    fs.invt_f = (T)a.invt_f;
+    fs.binfrac = static_cast<const T*>(a.binfrac);
+    fs.baseh = a.baseh ? static_cast<const T*>(a.baseh) + w : nullptr;
+    fs.bh_stride = W;
     const T* cf = static_cast<const T*>(a.cf);
     const int* ci = static_cast<const int*>(a.ci);
     WLView<T> v;
@@ -385,7 +431,7 @@ __global__ void __launch_bounds__(32 * CHAIN_WPB_MAX)
       v.hist = s_hist;
       v.uh = s_uh;
       v.basew = s_basew;
-      walker_chain<T, true>(a, v, bc, s_codes, {s_e + lw, wpb},
+      walker_chain<T, true, EXT>(a, v, bc, fs, s_codes, {s_e + lw, wpb},
                             {s_inc + lw, wpb}, {s_hasm + lw, wpb},
                             {s_ua + lw, wpb}, {s_uz + lw, wpb}, w);
     } else {
@@ -395,8 +441,8 @@ __global__ void __launch_bounds__(32 * CHAIN_WPB_MAX)
       v.hist = static_cast<T*>(a.hist);
       v.uh = static_cast<T*>(a.uh);
       v.basew = static_cast<const T*>(a.basew);
-      walker_chain<T, false>(
-          a, v, bc, s_codes, {static_cast<const T*>(a.e) + w, W},
+      walker_chain<T, false, EXT>(
+          a, v, bc, fs, s_codes, {static_cast<const T*>(a.e) + w, W},
           {static_cast<const T*>(a.inc) + w, W},
           {static_cast<const T*>(a.hasm) + w, W},
           {static_cast<const T*>(a.ua) + w, W},
@@ -416,6 +462,18 @@ __global__ void __launch_bounds__(32 * CHAIN_WPB_MAX)
   }
 }
 
+// The kernel of a launch: the staged or in-place branch, with the rules
+// (EXT) where MINU or an f schedule is on.
+template <typename T, bool EXT>
+static const void* kernel_fn(bool staged) {
+  return staged ? reinterpret_cast<const void*>(chain_wl_kernel<T, true, EXT>)
+                : reinterpret_cast<const void*>(chain_wl_kernel<T, false, EXT>);
+}
+
+__host__ __forceinline__ bool ext_rules(const ChainArgs* a) {
+  return a->minu || a->f_sched != SCHED_PLAIN;
+}
+
 // (kernel, threads, dynamic shared bytes, blocks) of a launch, or false
 // for a plan the kernel does not take.
 template <typename T>
@@ -428,8 +486,8 @@ static bool geometry(const ChainArgs* a, const void*& fn, int& threads,
   if (smem > SMEM_BLOCK_MAX) return false;
   threads = 32 * a->wpb;
   blocks = (a->W + a->wpb - 1) / a->wpb;
-  fn = a->staged ? reinterpret_cast<const void*>(chain_wl_kernel<T, true>)
-                 : reinterpret_cast<const void*>(chain_wl_kernel<T, false>);
+  fn = ext_rules(a) ? kernel_fn<T, true>(a->staged)
+                    : kernel_fn<T, false>(a->staged);
   return true;
 }
 
@@ -445,10 +503,15 @@ static int launch(const ChainArgs* a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (a->staged)
-    chain_wl_kernel<T, true><<<blocks, threads, smem, stream>>>(*a);
+  const bool ext = ext_rules(a);
+  if (a->staged && ext)
+    chain_wl_kernel<T, true, true><<<blocks, threads, smem, stream>>>(*a);
+  else if (a->staged)
+    chain_wl_kernel<T, true, false><<<blocks, threads, smem, stream>>>(*a);
+  else if (ext)
+    chain_wl_kernel<T, false, true><<<blocks, threads, smem, stream>>>(*a);
   else
-    chain_wl_kernel<T, false><<<blocks, threads, smem, stream>>>(*a);
+    chain_wl_kernel<T, false, false><<<blocks, threads, smem, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,11 @@
 // Multicanonical pieces shared by the kernels that run an acceptance
-// chain (fused_cycle.cu, chain_wl.cu): the bin of an order parameter,
-// the weight lookup eta(mu) (at a bin already known: eta_at) and the
-// per-move Wang-Landau or unbiased-histogram update.  One definition for
-// both chains, so that they cannot drift apart.  Each mirrors the plain
-// PyTorch function (mcmc/bins.mu_to_bin, Engine._eta, Engine._wl_update).
+// chain (fused_warp.cuh, chain_wl.cu): the bin of an order parameter,
+// the weight lookup eta(mu) (at a bin already known: eta_at), the
+// per-move Wang-Landau or unbiased-histogram update and the f schedules
+// of a WL generation run (Swetnam's, 1/t).  One definition for both
+// chains, so that they cannot drift apart.  Each mirrors the plain
+// PyTorch function (mcmc/bins.mu_to_bin, Engine._eta,
+// bins.wl_move_update).
 // They are written without branches (each case's value computed as the
 // plain function computes it, then selected), so that a chain's
 // independent lookups interleave.
@@ -128,4 +130,76 @@ __device__ __forceinline__ void wl_update_at(const WLView<T>& s, long long k,
     const T g = s.wgt[kc * W + w] + incr * f;
     if (upd) s.wgt[kc * W + w] = g;
   }
+}
+
+// The f schedules of a WL generation run (bins.FSchedule,
+// mc_moves.F90:1636-1658): the plain factor, Swetnam's f from the RMS
+// deviation of the walker's total histogram from flat, or the 1/t cap.
+constexpr int SCHED_PLAIN = 0, SCHED_SWETNAM = 1, SCHED_INVT = 2;
+
+template <typename T>
+struct FSched {
+  int kind;           // SCHED_*
+  T alpha, wl_factor;  // Swetnam's f = min(ln(rms) alpha B, wl_factor)
+  T invt_f;           // the 1/t cap B / (cycle N)
+  const T* binfrac;   // [B] Swetnam's flat target per bin
+  const T* baseh;     // the walker's entry of row 0 of the master
+                      // histogram view (device memory)
+  size_t bh_stride;   // between its rows
+};
+
+// Part of Swetnam's sum over the bins b0, b0 + step, ... < B: the squared
+// deviation of (growth + master) * binwidth / max(sumhist, 1) from the
+// flat target, the growth read before this update and its increment
+// incr added at the bin kc where the update lands (upd), as the plain
+// version adds it.
+template <typename T>
+__device__ __forceinline__ T swetnam_part(const WLView<T>& s,
+                                          const FSched<T>& fs, int kc,
+                                          bool upd, T incr, T sumhist,
+                                          int b0, int step) {
+  const int B = s.B, W = s.W, w = s.w;
+  const T den = fmax(sumhist, (T)1);
+  T acc = (T)0;
+  for (int b = b0; b < B; b += step) {
+    T h = s.hist[(size_t)b * W + w];
+    if (upd && b == kc) h = h + incr;
+    const T dev = (h + fs.baseh[(size_t)b * fs.bh_stride]) * s.binw[b] / den
+                  - fs.binfrac[b];
+    acc += dev * dev;
+  }
+  return acc;
+}
+
+// Swetnam's f from the whole sum over the B bins (the mean as the sum
+// times 1/B, as PyTorch's mean forms it).
+template <typename T>
+__device__ __forceinline__ T swetnam_f(T sum, int B, const FSched<T>& fs) {
+  const T rms = sqrt(sum * ((T)1 / (T)B));
+  return fmin(log(fmax(rms, (T)1e-300)) * fs.alpha * (T)B, fs.wl_factor);
+}
+
+// The f schedule at a performed move of a WL generation run, one thread
+// (the chain kernel): f and sumhist updated in place, before the weight
+// increment that uses the new f (wl_update_at).  k = mu_to_bin(mu);
+// healthy: the walker's health gate; invt: the walker runs 1/t.
+template <typename T>
+__device__ __forceinline__ void f_schedule_at(const WLView<T>& s, long long k,
+                                              bool healthy, bool invt,
+                                              const FSched<T>& fs,
+                                              const BinConsts<T>& c, T& f,
+                                              T& sumhist) {
+  if (fs.kind == SCHED_INVT) {
+    if (invt) f = fmin(f, fs.invt_f);
+    return;
+  }
+  if (fs.kind != SCHED_SWETNAM) return;
+  const int B = s.B;
+  const bool upd = (k >= 0) & (k < B) & healthy;
+  const int kc = clampi(k, B);
+  const T incr = c.av_bw / s.binw[kc];
+  sumhist = sumhist + (upd ? (T)1 : (T)0);
+  const T f_new = swetnam_f(swetnam_part(s, fs, kc, upd, incr, sumhist, 0, 1),
+                            B, fs);
+  if (upd) f = f_new;
 }

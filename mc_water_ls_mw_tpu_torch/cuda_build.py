@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared
 library, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  Libraries go to ``build/torch_kernels/`` at the repository
-root, named by a hash of the sources and flags: a changed source builds
-anew at first use, an unchanged one is loaded as it is.  Nothing is
+seconds); a kernel with many instantiations is split over several
+sources that share a header, so that they build side by side.
+Libraries go to ``build/torch_kernels/`` at the repository root, named
+by a hash of the source, every header and the flags: a changed source
+builds anew at first use, an unchanged one is loaded as it is.  Nothing is
 built or loaded at import time.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
@@ -27,7 +29,8 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "build" / \
     "torch_kernels"
-KERNELS = ("full_energy", "fused_cycle", "cell_movers", "chain_wl")
+KERNELS = ("full_energy", "fused_cycle", "fused_cycle_variants",
+           "cell_movers", "chain_wl")
 # Shared memory one block can use on the H100 (227 KB): the launch plans
 # keep their blocks under it.
 SMEM_BLOCK_MAX = 232448

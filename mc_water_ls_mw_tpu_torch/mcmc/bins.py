@@ -218,22 +218,86 @@ def eta_lookup(grid: BinGrid, weight, mu, binw, mub, start_bin, end_bin,
     return torch.where(in_window, walled, pre)
 
 
+class FSchedule(NamedTuple):
+    """The f schedule of a WL generation run other than the plain
+    factor (mc_update_wl_bins, mc_moves.F90:1636-1658), with its inputs
+    at one update: Swetnam's f from the RMS deviation of the total
+    histogram from flat (``swetnam``), else the 1/t cap of the walkers
+    whose ``invt_on`` is set."""
+
+    swetnam: bool
+    alpha: float                  # wl_alpha
+    wl_factor: float              # the cap of Swetnam's f
+    binfrac: torch.Tensor         # [B] binwidth / (mu_max - mu_min - 1)
+    base_hist: torch.Tensor | None  # [B, W] master histogram view
+    sumhist: torch.Tensor         # [W] Swetnam's count of updates
+    invt_on: torch.Tensor | None  # [W] bool: the walker runs 1/t
+    invt_cap: float               # B / (cycle * nwater), working type
+
+
+# the f schedules of a WL generation run (SCHED_* of csrc/wl_common.cuh)
+SCHED_PLAIN, SCHED_SWETNAM, SCHED_INVT = 0, 1, 2
+
+
+def schedule_kind(prm) -> int:
+    """The f schedule a run's per-move WL updates follow: the plain
+    factor (also every sample run, whose f is frozen), Swetnam's (which
+    takes precedence, as in the JAX engine), or 1/t."""
+    if prm.samplerun:
+        return SCHED_PLAIN
+    if prm.wl_swetnam:
+        return SCHED_SWETNAM
+    return SCHED_INVT if prm.wl_useinvt else SCHED_PLAIN
+
+
+def f_schedule(prm, grid: BinGrid, binfrac, dtype, sumhist, base_hist,
+               invt_on, cycle: int) -> FSchedule | None:
+    """The run's FSchedule at one update, or None for the plain factor:
+    ``base_hist`` [B, W] the master histogram view (Swetnam), ``invt_on``
+    [W] bool (1/t), ``cycle`` the cycle number (1/t)."""
+    kind = schedule_kind(prm)
+    if kind == SCHED_PLAIN:
+        return None
+    cap = (invt_cap(grid.nbins, cycle, prm.nwater, dtype)
+           if kind == SCHED_INVT else 0.0)
+    return FSchedule(kind == SCHED_SWETNAM, prm.wl_alpha, prm.wl_factor,
+                     binfrac, base_hist, sumhist, invt_on, cap)
+
+
+def invt_cap(B: int, cycle: int, nwater: int, dtype) -> float:
+    """The 1/t schedule's f at ``cycle``, B / (cycle * nwater), rounded
+    as the working type rounds it (the JAX package forms it in that
+    type); a Python float that the type holds exactly."""
+    t = np.float32 if dtype == torch.float32 else np.float64
+    return float(t(B) / (t(cycle) * t(nwater)))
+
+
+def swetnam_binfrac(grid: BinGrid, mu_min: float, mu_max: float):
+    """Swetnam's flat target per bin, binwidth / (mu_max - mu_min - 1),
+    in float64 (numpy), as the JAX engine forms it."""
+    return np.asarray(grid.binwidth) / (mu_max - mu_min - 1.0)
+
+
 def wl_move_update(grid: BinGrid, samplerun: bool, log_norm: float, binw,
-                   weight, hist, uhist, eta_fn, mu, f, gate):
+                   weight, hist, uhist, eta_fn, mu, f, active, healthy,
+                   sched: FSchedule | None = None):
     """Per-move Wang-Landau / unbiased-histogram update of a performed
     move at mu [W] (mc_update_wl_bins, mc_moves.F90:1597-1689), shared by
     the engines and the plain version of the chain kernel.
 
-    ``gate`` [W] bool: the move was performed, the WL phase is live and
-    the walker is healthy.  ``eta_fn(mu)`` evaluates eta against the
-    current weight view (sample runs only).  Returns the new (weight,
-    hist, uhist) [B, W]; the reference's per-update min-shift is
+    ``active`` (bool or [W] bool): the move was performed and the WL
+    phase is live; ``healthy`` [W] bool: the walker may write into the
+    shared arrays.  The f schedules follow ``active`` while the
+    histogram writes also need ``healthy`` (the JAX engine's
+    _wl_update).  ``eta_fn(mu)`` evaluates eta against the current
+    weight view (sample runs only).  Returns the new (weight, hist,
+    uhist, f, sumhist); the reference's per-update min-shift is
     deferred to the delta-sync (see the JAX engine's _wl_update note)."""
     B = grid.nbins
     k = mu_to_bin(grid, mu)
     in_grid = (k >= 0) & (k < B)
     kc = torch.clamp(k, 0, B - 1)
-    upd = (in_grid & gate).to(hist.dtype)                    # [W]
+    upd = (in_grid & active & healthy).to(hist.dtype)        # [W]
     oh = (torch.arange(B, device=k.device)[:, None] == kc[None, :]
           ).to(hist.dtype) * upd[None, :]                    # [B, W]
     # a true division, as the kernels and the JAX package do it:
@@ -241,6 +305,7 @@ def wl_move_update(grid: BinGrid, samplerun: bool, log_norm: float, binw,
     # up to an ulp and a half off
     incr = torch.div(torch.full_like(mu, grid.av_binwidth), binw[kc])
     hist = hist + oh * incr[None, :]
+    sumhist = None if sched is None else sched.sumhist
     if samplerun:
         # unbiased histogram, frozen weights (1625-1632): mask BEFORE the
         # exp (the eta wall would poison via exp(1e30) * 0) and gate
@@ -250,5 +315,20 @@ def wl_move_update(grid: BinGrid, samplerun: bool, log_norm: float, binw,
         arg = torch.where((upd > 0) & unwalled, eta_val - log_norm, -1.0)
         u_incr = torch.where(
             unwalled, incr * torch.exp(torch.clamp(arg, max=60.0)), 0.0)
-        return weight, hist, uhist + oh * u_incr[None, :]
-    return weight + oh * (incr * f)[None, :], hist, uhist
+        return weight, hist, uhist + oh * u_incr[None, :], f, sumhist
+    if sched is not None and sched.swetnam:
+        # Swetnam's RMS-flatness f (1636-1653) from the TOTAL histogram
+        # view (master + own growth, this update included)
+        sumhist = sched.sumhist + upd
+        dev = ((hist + sched.base_hist) * binw[:, None]
+               / torch.clamp(sumhist, min=1.0)[None, :]
+               - sched.binfrac[:, None])
+        rms = torch.sqrt(torch.mean(dev * dev, dim=0))
+        f_new = torch.log(torch.clamp(rms, min=1e-300)) * sched.alpha * B
+        f_new = torch.clamp(f_new, max=sched.wl_factor)
+        f = torch.where(upd > 0, f_new, f)
+    elif sched is not None:
+        # the 1/t schedule once the walker runs it (1655-1658)
+        f = torch.where(sched.invt_on & active,
+                        torch.clamp(f, max=sched.invt_cap), f)
+    return weight + oh * (incr * f)[None, :], hist, uhist, f, sumhist

@@ -59,9 +59,12 @@ depend on the device.  Differences from the JAX engine:
   mover kernels run (the JAX package's 'auto' picks its unfused
   sub-step and micro-batched chain on a CPU).
 
-Not ported yet, refused with ``NotImplementedError`` (ROADMAP.md):
-padded coverage tables (which no caller of either package builds), one
-lattice, and whatever the dense engine of the port refuses.
+One lattice (the single-box NPT run: no mu, no switch, no WL) runs the
+mover kernels at L = 1 with the XLA chains, as the JAX engine does
+(the chain kernel takes two lattices); NVT, MINU, leshift and the
+Swetnam and 1/t schedules run in every mode.  Padded coverage tables
+(which no caller of either package builds) are refused with
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -97,13 +100,19 @@ from ..ops.cells import (
 from ..ops.dense import Moments
 from ..ops.dsfloat import DS, _two_sum, ds_value, ds_zeros
 from ..ops.geometry import determinant3, from_frac, recip_matrix, to_frac
-from .bins import BinGrid, mu_to_bin, wl_move_update
+from .bins import (
+    SCHED_INVT,
+    SCHED_SWETNAM,
+    BinGrid,
+    invt_cap,
+    mu_to_bin,
+    schedule_kind,
+    wl_move_update,
+)
 from .chain_kernel import (
     CF_CMU,
     CF_E0,
     CF_E0E,
-    CF_E1,
-    CF_E1E,
     CF_F,
     CF_MAX_DMU,
     CF_MIN_DMU,
@@ -130,7 +139,7 @@ from .chain_kernel import (
     ChainWLKernel,
 )
 from .config import RunParams
-from .engine import SWITCH, TRANS, Engine, _UNSUPPORTED, _take_lat
+from .engine import SWITCH, TRANS, Engine, _take_lat
 from .state import (
     _DTYPES,
     EngineAux,
@@ -267,6 +276,8 @@ class _LoopRows(NamedTuple):
     occupied: torch.Tensor  # [n_tables, K, W] bool occupancy > 0
     switch_ok: bool = True  # the chain's switch attempts are allowed
                             # (host copy of ci[CI_SWOK])
+    baseh: torch.Tensor | None = None  # [B, W] master histogram view
+                            # (the Swetnam schedule only)
 
 
 class _Trial(NamedTuple):
@@ -312,10 +323,8 @@ class CellEngine(Engine):
                          stream=stream)
 
     def _check_scope(self, prm: RunParams, aux: EngineAux) -> None:
-        for name, bad in _UNSUPPORTED:
-            if bad(prm):
-                raise NotImplementedError(
-                    f"{name} is not ported yet (see ROADMAP.md)")
+        """The cell engine's envelope is checked by _resolve_modes (the
+        dense engine's multi-trial checks do not apply)."""
 
     def _init_layout(self):
         prm, cg = self.prm, self.cellgrid
@@ -422,8 +431,10 @@ class CellEngine(Engine):
         deltas; 'off' (or 'auto' at T > 1 where they overlap: the
         multi-point kernel has no delta output) runs the unfused
         sub-step.  ``cell_chain`` 'on' runs the chain kernel, 'off' the
-        XLA chains, 'auto' the kernel wherever the mover kernels run.
-        The modes depend on the settings and the grid only."""
+        XLA chains, 'auto' the kernel wherever the mover kernels run with
+        two lattices (the kernel implements the two-replica rule; one
+        lattice runs the XLA chains).  The modes depend on the settings
+        and the grid only."""
         pallas, chain, T = self.prm.cell_pallas, self.prm.cell_chain, self.T
         if pallas in ("on", "apply"):
             if pallas == "apply" and not self.scatter_unique:
@@ -446,8 +457,11 @@ class CellEngine(Engine):
                 "per-candidate delta output for the 'on' scatter path")
         if chain not in ("auto", "on", "off"):
             raise ValueError(f"cell_chain={chain!r}")
+        two = self.prm.num_lattices == 2
+        if chain == "on" and not two:
+            raise ValueError("cell_chain='on' requires num_lattices = 2")
         self.use_chain_kernel = chain == "on" or (
-            chain == "auto" and self.use_cell_pallas)
+            chain == "auto" and two and self.use_cell_pallas)
 
     # ------------------------------------------------------------------
     # compensated energy accumulation (see CellState.energy_err)
@@ -526,17 +540,19 @@ class CellEngine(Engine):
         occupancy of the fine cells (molecules change cells only at a
         rebin)."""
         W = s.mu.shape[0]
+        L = s.energy.shape[0]
         dtype, dev = s.mu.dtype, s.mu.device
-        cmu, sw_c = self._hoisted_chain_terms(s)
         cf = torch.zeros((CF_ROWS, W), dtype=dtype, device=dev)
+        cf[CF_E0:CF_E0 + L] = s.energy
+        cf[CF_E0E:CF_E0E + L] = s.energy_err
         for row, val in (
-                (CF_MU, s.mu), (CF_E0, s.energy[0]), (CF_E1, s.energy[1]),
-                (CF_E0E, s.energy_err[0]), (CF_E1E, s.energy_err[1]),
-                (CF_F, s.f), (CF_SUMHIST, s.sumhist),
+                (CF_MU, s.mu), (CF_F, s.f), (CF_SUMHIST, s.sumhist),
                 (CF_MIN_DMU, s.min_dmu), (CF_MAX_DMU, s.max_dmu),
-                (CF_MU_MIN, s.my_mu_min), (CF_MU_MAX, s.my_mu_max),
-                (CF_CMU, cmu), (CF_SWC, sw_c), (CF_MINUC, 0.0)):
+                (CF_MU_MIN, s.my_mu_min), (CF_MU_MAX, s.my_mu_max)):
             cf[row] = val
+        if L == 2:
+            cf[CF_CMU], cf[CF_SWC], cf[CF_MINUC] = \
+                self._hoisted_chain_terms(s)
         ci = torch.zeros((CI_ROWS, W), dtype=torch.int32, device=dev)
         for row, val in (
                 (CI_LS, s.ls), (CI_START, s.start_bin), (CI_END, s.end_bin),
@@ -545,21 +561,28 @@ class CellEngine(Engine):
                 (CI_SWOK, int(bool(switch_ok)))):
             ci[row] = val
         basew = ds_value(s.master_eta)[s.window_id.long()].T.contiguous()
+        baseh = None
+        if schedule_kind(self.prm) == SCHED_SWETNAM:
+            baseh = ds_value(s.master_hist)[s.window_id.long()].T \
+                .contiguous()
         occ = torch.sum(s.slot2mol.view(-1, self.cellgrid.cap, W) >= 0,
                         dim=1, dtype=torch.int32)[self.fc_stack_l]
         return _LoopRows(
             cf, ci, basew,
             inc=torch.ones((self.K, 2, W), dtype=dtype, device=dev),
             occ_f=occ.to(dtype), rank_max=torch.clamp(occ - 1, min=0),
-            occupied=occ > 0, switch_ok=bool(switch_ok))
+            occupied=occ > 0, switch_ok=bool(switch_ok), baseh=baseh)
 
     def _chain_unrows(self, s: CellState, rows: _LoopRows) -> CellState:
-        """The chain state back into the state's fields."""
+        """The chain state (with the f schedule's f and sumhist) back
+        into the state's fields."""
         cf, ci = rows.cf, rows.ci
+        L = s.energy.shape[0]
         s.mu = cf[CF_MU].clone()
-        s.energy = torch.stack([cf[CF_E0], cf[CF_E1]])
-        s.energy_err = torch.stack([cf[CF_E0E], cf[CF_E1E]])
+        s.energy = cf[CF_E0:CF_E0 + L].clone()
+        s.energy_err = cf[CF_E0E:CF_E0E + L].clone()
         s.min_dmu, s.max_dmu = cf[CF_MIN_DMU].clone(), cf[CF_MAX_DMU].clone()
+        s.f, s.sumhist = cf[CF_F].clone(), cf[CF_SUMHIST].clone()
         s.ls = ci[CI_LS].clone()
         return s
 
@@ -627,20 +650,36 @@ class CellEngine(Engine):
         return rank, slot, p_old, mover_mol, has_mover
 
     def _hoisted_chain_terms(self, s: CellState):
-        """The volume/enthalpy algebra of the switch rule and the
-        mu-from-scratch refresh, FROZEN for the whole sub-step loop
-        (volumes only change at volume moves, which run outside it).
+        """The volume/enthalpy algebra of the switch rule, the
+        mu-from-scratch refresh and the MINU lattice pick of two
+        lattices, FROZEN for the whole sub-step loop (volumes only
+        change at volume moves, which run outside it; the JAX engine's
+        _hoisted_chain_terms).
 
-        Returns (cmu, sw_c):
+        Returns (cmu, sw_c, minu_c):
           * mu from scratch = beta*(E0 - E1) + cmu (mc_moves:856-862)
           * switch rule dsw = sgn(ls) * (beta*(E1 - E0) + sw_c)
-            (mc_lattice_switch, mc_moves.F90:1558-1559)"""
+            (mc_lattice_switch, mc_moves.F90:1558-1559)
+          * MINU pick (mc_moves.F90:1119-1126): lattice 1 iff
+            beta*(E'1 - E'0) + minu_c < 0 (the first minimum on a tie)
+        The PV and volume-entropy terms only under NPT, the reference
+        enthalpies under leshift."""
         prm = self.prm
+        rh = self.aux.ref_enthalpy
         lv10 = torch.log(s.volume[1] / s.volume[0])          # [W]
         pterm = prm.beta * prm.pressure * (s.volume[1] - s.volume[0])
         cmu = -pterm + prm.nwater * lv10
-        sw_c = pterm - prm.nwater * lv10
-        return cmu, sw_c
+        if prm.leshift:
+            cmu = cmu + prm.beta * (rh[1] - rh[0])
+        sw_c = torch.zeros_like(lv10)
+        if prm.mc_ensemble == "npt":
+            sw_c = pterm - prm.nwater * lv10
+        if prm.leshift:
+            sw_c = sw_c - prm.beta * (rh[1] - rh[0])
+        minu_c = sw_c
+        if prm.mc_ensemble == "npt":
+            minu_c = sw_c + prm.nwater * lv10
+        return cmu, sw_c, minu_c
 
     def _substep(self, s: CellState, pks, tpm_slab, tbl: int, u, codes_k,
                  rows: _LoopRows, cnt=None):
@@ -782,14 +821,15 @@ class CellEngine(Engine):
         return self.chain_kernel(
             codes_k, s.cycle >= self.prm.eq_mc_cycles, rows.cf, rows.ci,
             s.weight, s.hist, s.uhist, rows.basew, trial.e.view(-1, W),
-            rows.inc.view(-1, W), trial.hasm, ua, uz, cnt=cnt)
+            rows.inc.view(-1, W), trial.hasm, ua, uz, cnt=cnt,
+            baseh=rows.baseh, cycle=s.cycle)
 
-    def _chain_rows(self, rows: _LoopRows):
+    def _chain_rows(self, rows: _LoopRows, L: int):
         """The chain state (mu, energies [L,W], residuals [L,W], ls,
         dmu extrema) copied out of the chain rows, for the XLA chains."""
         cf = rows.cf
-        return (cf[CF_MU].clone(), torch.stack([cf[CF_E0], cf[CF_E1]]),
-                torch.stack([cf[CF_E0E], cf[CF_E1E]]),
+        return (cf[CF_MU].clone(), cf[CF_E0:CF_E0 + L].clone(),
+                cf[CF_E0E:CF_E0E + L].clone(),
                 rows.ci[CI_LS].clone(), cf[CF_MIN_DMU].clone(),
                 cf[CF_MAX_DMU].clone())
 
@@ -798,32 +838,57 @@ class CellEngine(Engine):
                       max_dmu):
         """The XLA chains' final chain state back into the chain rows."""
         cf = rows.cf
-        for row, val in ((CF_MU, mu), (CF_E0, energy[0]),
-                         (CF_E1, energy[1]), (CF_E0E, e_err[0]),
-                         (CF_E1E, e_err[1]), (CF_MIN_DMU, min_dmu),
+        L = energy.shape[0]
+        cf[CF_E0:CF_E0 + L] = energy
+        cf[CF_E0E:CF_E0E + L] = e_err
+        for row, val in ((CF_MU, mu), (CF_MIN_DMU, min_dmu),
                          (CF_MAX_DMU, max_dmu)):
             cf[row] = val
         rows.ci[CI_LS] = ls
 
-    def _trial_step(self, weight, s: CellState, mu, ls, energy, e_err,
-                    dE, enabled, gate, u_acc):
+    def _trial_step(self, weight, s: CellState, rows: _LoopRows, mu, ls,
+                    energy, e_err, dE, enabled, gate, u_acc):
         """One translation trial of an XLA chain (mc_moves.F90:1113-1146):
-        the acceptance against the total weight view ``weight`` [B, W],
-        the compensated two-sum of the accepted energy change dE [L, W].
-        Returns (accept, mu, energy, e_err, dmu)."""
-        beta = self.prm.beta
-        dmu = (dE[0] - dE[1]) * beta
-        mu_new = mu + dmu
-        eta = self._eta_from_weight(s, weight, torch.stack([mu, mu_new]))
-        diffkT = beta * _take_lat(dE, ls) + eta[1] - eta[0]
-        ok = torch.isfinite(diffkT) & torch.isfinite(mu_new)
+        the acceptance against the total weight view ``weight`` [B, W]
+        (one lattice: the move's Boltzmann factor alone, mu unchanged),
+        the MINU fold-in with the chain's hoisted terms, the compensated
+        two-sum of the accepted energy change dE [L, W].  Returns
+        (accept, mu, ls, energy, e_err, dmu)."""
+        prm = self.prm
+        beta = prm.beta
+        if energy.shape[0] == 1:
+            dmu = torch.zeros_like(mu)
+            mu_new = mu
+            diffkT = beta * dE[0]
+            ok = torch.isfinite(diffkT)
+        else:
+            dmu = (dE[0] - dE[1]) * beta
+            mu_new = mu + dmu
+            eta = self._eta_from_weight(s, weight, torch.stack([mu, mu_new]))
+            diffkT = beta * _take_lat(dE, ls) + eta[1] - eta[0]
+            if prm.minu:
+                # #ifdef MINU fold-in (mc_moves.F90:1119-1140) on the
+                # compensated energies, with the hoisted terms
+                sw_c, minu_c = rows.cf[CF_SWC], rows.cf[CF_MINUC]
+                e_new = energy + e_err + dE
+                g10 = beta * (e_new[1] - e_new[0]) + minu_c
+                lsn = torch.where(g10 < 0, 1, 0).to(ls.dtype)
+                e_cur = energy + e_err
+                alt = (beta * (_take_lat(e_new, lsn) - _take_lat(e_cur, ls))
+                       + eta[1] - eta[0]
+                       + torch.where(ls == 0, sw_c, -sw_c))
+                diffkT = torch.where(lsn != ls, alt, diffkT)
+            ok = torch.isfinite(diffkT) & torch.isfinite(mu_new)
         accept = enabled & gate & ok & (u_acc < torch.exp(-diffkT))
+        if prm.minu and energy.shape[0] == 2:
+            ls = torch.where(accept, lsn, ls)
         # compensated accumulation (CellState.energy_err)
         e_hi, e_rnd = _two_sum(energy, dE)
         e_hi2, e_lo2 = _two_sum(e_hi, e_err + e_rnd)
         energy = torch.where(accept[None, :], e_hi2, energy)
         e_err = torch.where(accept[None, :], e_lo2, e_err)
-        return accept, torch.where(accept, mu_new, mu), energy, e_err, dmu
+        return (accept, torch.where(accept, mu_new, mu), ls, energy, e_err,
+                dmu)
 
     def _switch_step(self, rows: _LoopRows, mu, ls, energy, e_err, u_sw):
         """The switch attempt after a trial (mc_lattice_switch,
@@ -851,13 +916,14 @@ class CellEngine(Engine):
         K = self.K
         W = rows.cf.shape[1]
         dev = rows.cf.device
-        do_switch = prm.mc_always_switch or prm.allow_switch
+        do_switch = self.switches_on()
         codes = codes_k.tolist()
         weight0 = s.weight + rows.basew
         dE = trial.e[:, :, 1] - trial.e[:, :, 0]              # [L,K,W]
         in_cell = rows.inc[:, 1] > 0.5
         has = trial.hasm > 0.5
-        mu, energy, e_err, ls, min_dmu, max_dmu = self._chain_rows(rows)
+        mu, energy, e_err, ls, min_dmu, max_dmu = self._chain_rows(
+            rows, dE.shape[0])
         if cnt is None:
             cnt = torch.zeros((CN_FIXED + K, W), dtype=torch.int32,
                               device=dev)
@@ -870,9 +936,9 @@ class CellEngine(Engine):
             if tt:
                 # a trial exists where the scheduled cell holds a
                 # molecule; the walls only veto acceptance
-                accept, mu, energy, e_err, dmu = self._trial_step(
-                    weight0, s, mu, ls, energy, e_err, dE[:, k], has[k],
-                    in_cell[k], u_acc[k])
+                accept, mu, ls, energy, e_err, dmu = self._trial_step(
+                    weight0, s, rows, mu, ls, energy, e_err, dE[:, k],
+                    has[k], in_cell[k], u_acc[k])
                 accf[k] = accept
                 mu_t.append(mu)
                 gate_t.append(has[k] & torch.all(torch.isfinite(energy),
@@ -893,23 +959,27 @@ class CellEngine(Engine):
                 cnt[CN_SWACC] += sw_acc
         self._chain_unload(rows, mu, energy, e_err, ls, min_dmu, max_dmu)
         if mu_t:
-            self._wl_update_batch(s, torch.stack(mu_t), torch.stack(gate_t),
-                                  weight0)
+            self._wl_update_batch(s, rows, torch.stack(mu_t),
+                                  torch.stack(gate_t), weight0)
         return accf, cnt
 
-    def _wl_update_batch(self, s: CellState, mu_t, gate_t, weight):
+    def _wl_update_batch(self, s: CellState, rows: _LoopRows, mu_t, gate_t,
+                         weight):
         """mc_update_wl_bins (mc_moves.F90:1597-1689) applied to the n
         translation trials of one sub-step at once (the JAX engine's
         _wl_update_batch): ``mu_t`` [n, W] mu after each trial in chain
         order, ``gate_t`` [n, W] the trial was performed on a healthy
         walker, ``weight`` [B, W] the total weight view the chain read.
         The histogram sums equal the per-move updates' (the bin grid is
-        static); the weight increment uses the sub-step's f.  The sums
-        over the trials are dense sums over a one-hot [n, B, W] tensor:
-        no two trials' addends meet in a scatter, so the result is
-        deterministic on the card.  In place on the WL slabs of ``s``."""
+        static); the weight increment uses the sub-step's f, which the
+        Swetnam and 1/t schedules recompute once per sub-step (f and
+        sumhist live in the chain rows during the loop).  The sums over
+        the trials are dense sums over a one-hot [n, B, W] tensor: no two
+        trials' addends meet in a scatter, so the result is
+        deterministic on the card.  In place on the WL slabs of ``s``
+        (one lattice keeps none)."""
         prm, grid = self.prm, self.grid
-        if s.cycle < prm.eq_mc_cycles:
+        if s.cycle < prm.eq_mc_cycles or prm.num_lattices != 2:
             return
         B = grid.nbins
         dtype = s.hist.dtype
@@ -936,7 +1006,28 @@ class CellEngine(Engine):
                 unwalled, incr * torch.exp(torch.clamp(arg, max=60.0)), 0.0)
             s.uhist.add_(torch.sum(oh * u_incr[:, None, :], dim=0))
             return
-        s.weight.add_(d_hist * s.f[None, :])
+        f = rows.cf[CF_F]
+        any_upd = torch.any(upd > 0, dim=0)
+        kind = schedule_kind(prm)
+        if kind == SCHED_SWETNAM:
+            # Swetnam's f once per sub-step from the post-batch TOTAL
+            # histogram (delta + master base; mc_moves.F90:1636-1653)
+            sumh = rows.cf[CF_SUMHIST] + torch.sum(upd, dim=0)
+            dev = ((s.hist + rows.baseh) * self.binw[:, None]
+                   / torch.clamp(sumh, min=1.0)[None, :]
+                   - self.binfrac[:, None])
+            rms = torch.sqrt(torch.mean(dev * dev, dim=0))
+            f_new = torch.log(torch.clamp(rms, min=1e-300)) \
+                * prm.wl_alpha * B
+            f = torch.where(any_upd, torch.clamp(f_new, max=prm.wl_factor),
+                            f)
+            rows.cf[CF_SUMHIST] = sumh
+        elif kind == SCHED_INVT:
+            cap = invt_cap(B, s.cycle, prm.nwater, dtype)
+            f = torch.where(s.invt_active & any_upd,
+                            torch.clamp(f, max=cap), f)
+        rows.cf[CF_F] = f
+        s.weight.add_(d_hist * f[None, :])
 
     def _apply_t1(self, s: CellState, pks, tpm_slab, tbl: int,
                   trial: _Trial, accf, en_per_mover):
@@ -1033,7 +1124,7 @@ class CellEngine(Engine):
                 codes_kt, s.cycle >= self.prm.eq_mc_cycles, rows.cf,
                 rows.ci, s.weight, s.hist, s.uhist, rows.basew,
                 trial.e.view(-1, W), trial.inc.view(-1, W), trial.hasm, ua,
-                uz, cnt=cnt)
+                uz, cnt=cnt, baseh=rows.baseh, cycle=s.cycle)
             joh = joh.view(self.K, self.T + 1, W)
         else:
             joh, cnt = self._chain_xla_substep(s, rows, trial, codes_kt, ua,
@@ -1143,16 +1234,19 @@ class CellEngine(Engine):
         P = T + 1
         W = rows.cf.shape[1]
         dtype, dev = rows.cf.dtype, rows.cf.device
-        do_switch = prm.mc_always_switch or prm.allow_switch
-        wl_active = s.cycle >= prm.eq_mc_cycles
+        do_switch = self.switches_on()
+        # one lattice keeps no WL arrays (Engine._wl_update)
+        wl_active = (s.cycle >= prm.eq_mc_cycles
+                     and prm.num_lattices == 2)
         codes = codes_kt.tolist()
         occ_ok = s.occ_overflow == 0
-        f = rows.cf[CF_F]
+        f, sumh = rows.cf[CF_F], rows.cf[CF_SUMHIST]
         wgt, hist, uh = s.weight, s.hist, s.uhist
         inc = trial.inc > 0.5                                # [K,P,W]
         has = trial.hasm > 0.5
         iota_p = torch.arange(P, device=dev)[:, None]        # [P,1]
-        mu, energy, e_err, ls, min_dmu, max_dmu = self._chain_rows(rows)
+        mu, energy, e_err, ls, min_dmu, max_dmu = self._chain_rows(
+            rows, trial.e.shape[0])
         if cnt is None:
             cnt = torch.zeros((CN_FIXED + K, W), dtype=torch.int32,
                               device=dev)
@@ -1171,9 +1265,9 @@ class CellEngine(Engine):
                     e_cur = torch.sum(e_k * j_oh.to(dtype)[None], dim=1)
                     gate = torch.any(j_oh & inc[k], dim=0) & inc[k, t]
                     wtot = wgt + rows.basew      # the CURRENT weight view
-                    accept, mu, energy, e_err, dmu = self._trial_step(
-                        wtot, s, mu, ls, energy, e_err, e_k[:, t] - e_cur,
-                        has[k], gate, u_acc[i])
+                    accept, mu, ls, energy, e_err, dmu = self._trial_step(
+                        wtot, s, rows, mu, ls, energy, e_err,
+                        e_k[:, t] - e_cur, has[k], gate, u_acc[i])
                     j_oh = torch.where(accept[None, :], iota_p == t, j_oh)
                     cnt[CN_ACC] += accept
                     admu = torch.abs(dmu)
@@ -1186,11 +1280,14 @@ class CellEngine(Engine):
                         # walkers only (CellEngine._wl_healthy)
                         healthy = torch.all(torch.isfinite(energy),
                                             dim=0) & occ_ok
-                        wgt, hist, uh = wl_move_update(
+                        sched = self._f_schedule(s, sumh, rows.baseh)
+                        wgt, hist, uh, f_n, sumh_n = wl_move_update(
                             grid, prm.samplerun, self.aux.log_unbiased_norm,
                             self.binw, wgt, hist, uh,
                             lambda m, w=wtot: self._eta_from_weight(s, w, m),
-                            mu, f, has[k] & healthy)
+                            mu, f, has[k], healthy, sched)
+                        if sched is not None:
+                            f, sumh = f_n, sumh_n
                 if do_switch and rows.switch_ok and (
                         swt or (tt and prm.mc_always_switch)):
                     sw_acc, mu, ls = self._switch_step(rows, mu, ls, energy,
@@ -1203,6 +1300,7 @@ class CellEngine(Engine):
             cnt[CN_EN] += cnt[CN_FIXED + k]
             joh[k] = j_oh
         self._chain_unload(rows, mu, energy, e_err, ls, min_dmu, max_dmu)
+        rows.cf[CF_F], rows.cf[CF_SUMHIST] = f, sumh
         s.weight, s.hist, s.uhist = wgt, hist, uh
         return joh, cnt
 
@@ -1324,11 +1422,14 @@ class CellEngine(Engine):
         f1 = to_frac(s.recip[0][:, :, None, :], r_mol[0])
         f1 = f1 - torch.floor(f1 - dmid - origin[:, None, None])
         r1 = from_frac(s.h[0][:, :, None, :], f1)
-        f2 = to_frac(s.recip[1][:, :, None, :], r_mol[1])
-        dmic = f1 - f2
-        dmic = dmic - torch.round(dmic)
-        r2 = from_frac(s.h[1][:, :, None, :], f1 - dmic)
-        r_mol = torch.stack([r1, r2])
+        if r_mol.shape[0] == 2:
+            f2 = to_frac(s.recip[1][:, :, None, :], r_mol[1])
+            dmic = f1 - f2
+            dmic = dmic - torch.round(dmic)
+            r2 = from_frac(s.h[1][:, :, None, :], f1 - dmic)
+            r_mol = torch.stack([r1, r2])
+        else:
+            r_mol = r1[None]
 
         cid = cell_of_frac(cg, f1 - dmid, origin, level="fine")
         slot, max_occ = bin_molecules(cg, cid)
@@ -1351,6 +1452,8 @@ class CellEngine(Engine):
 
     def _resync_chains(self, s: CellState) -> CellState:
         L = s.r.shape[0]
+        if L != 2:
+            return s
         # lattice 2's cell displacement := lattice 1's
         # (mc_moves.F90:2276-2277)
         h = s.h.clone()
@@ -1447,9 +1550,10 @@ class CellEngine(Engine):
         chain-resync cadences and the therm sample."""
         prm = self.prm
         W = s.r.shape[-1]
+        L = s.r.shape[0]
         s.cycle += 1
         cycle = s.cycle
-        if prm.parallel_strategy == "dd":
+        if prm.parallel_strategy == "dd" and L == 2:
             self._dd_track_window(s, cycle)
         switch_ok = self._switch_ok(cycle)
 
@@ -1470,11 +1574,12 @@ class CellEngine(Engine):
 
         # scheduled volume moves, back to back (Engine._volume with the
         # slab hooks above)
-        if prm.allow_vol:
+        if prm.mc_ensemble == "npt" and prm.allow_vol:
             self._scheduled_volume_moves(s, codes, cycle, switch_ok)
 
-        s.avg_energy = s.avg_energy + self._e_tot(s) \
-            + prm.pressure * s.volume
+        s.avg_energy = s.avg_energy + self._e_tot(s)
+        if prm.mc_ensemble == "npt":
+            s.avg_energy = s.avg_energy + prm.pressure * s.volume
         if cycle % prm.mpi_sync_int == 0:
             self._sync_all(s)
         if cycle % prm.latt_sync_int == 0:
@@ -1503,18 +1608,19 @@ def init_cell_state(prm: RunParams, model: SWParams, r0: np.ndarray,
     device = resolve_device(device)
     dtype = _DTYPES[prm.dtype]
     W, L, N, B = prm.n_walkers, prm.num_lattices, prm.nwater, grid.nbins
-    if L != 2:
-        raise NotImplementedError(
-            "num_lattices != 2 is not ported yet (see ROADMAP.md)")
 
     r0 = np.asarray(r0, dtype=np.float64)
     H0 = np.asarray(H0, dtype=np.float64)
 
-    # invariant correspondence mismatch (models/stacking.py)
+    # invariant correspondence mismatch (models/stacking.py); none with
+    # one lattice
     f1_0 = r0[0] @ np.linalg.inv(H0[0]).T
-    f2_0 = r0[1] @ np.linalg.inv(H0[1]).T
-    dfrac0 = f1_0 - f2_0
-    dfrac0 -= np.round(dfrac0)
+    if L == 2:
+        f2_0 = r0[1] @ np.linalg.inv(H0[1]).T
+        dfrac0 = f1_0 - f2_0
+        dfrac0 -= np.round(dfrac0)
+    else:
+        dfrac0 = np.zeros_like(f1_0)
 
     # initial binning (origin 0) by the MID fractional position
     # f_mid = f1 - dfrac0/2 on the FINE grid, host-side
@@ -1522,7 +1628,10 @@ def init_cell_state(prm: RunParams, model: SWParams, r0: np.ndarray,
     nshift = np.floor(fmid0)
     f1 = f1_0 - nshift
     fmid = fmid0 - nshift                              # in [0,1)
-    r_use = np.stack([f1 @ H0[0].T, (f1 - dfrac0) @ H0[1].T])  # [L,N,3]
+    r_use = [f1 @ H0[0].T]
+    if L == 2:
+        r_use.append((f1 - dfrac0) @ H0[1].T)
+    r_use = np.stack(r_use)                            # [L,N,3]
 
     n1, n2, n3 = cellgrid.nf
     c1 = np.minimum((fmid[:, 0] * n1).astype(np.int32), n1 - 1)
@@ -1571,13 +1680,20 @@ def init_cell_state(prm: RunParams, model: SWParams, r0: np.ndarray,
     recip = torch.stack([recip_matrix(h[l]) for l in range(L)])
     vol = torch.abs(torch.stack([determinant3(h[l]) for l in range(L)]))
     vol1 = vol[:, 0]
-    ref_enth = energy1 + prm.pressure * vol1
+    ref_enth = energy1
+    if prm.mc_ensemble == "npt":
+        ref_enth = ref_enth + prm.pressure * vol1
     if any(abs(x) > 1e-300 for x in prm.input_ref_enthalpy[:L]):
         ref_enth = torch.as_tensor(prm.input_ref_enthalpy[:L], dtype=dtype,
                                    device=device)
-    mu0_s = (energy1[0] + prm.pressure * vol1[0]
-             - energy1[1] - prm.pressure * vol1[1])
-    mu0_s = mu0_s * prm.beta - N * torch.log(vol1[0] / vol1[1])
+    if L == 2:
+        mu0_s = (energy1[0] + prm.pressure * vol1[0]
+                 - energy1[1] - prm.pressure * vol1[1])
+        if prm.leshift:
+            mu0_s = mu0_s - ref_enth[0] + ref_enth[1]
+        mu0_s = mu0_s * prm.beta - N * torch.log(vol1[0] / vol1[1])
+    else:
+        mu0_s = torch.zeros((), dtype=dtype, device=device)
 
     # warm-start weights load into the master rows (see
     # state.warm_start_rows); per-walker arrays hold only growth since

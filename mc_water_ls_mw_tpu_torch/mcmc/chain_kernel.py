@@ -26,15 +26,19 @@ Tensor layouts (row constants below, as in the JAX package):
 * returns ``joh`` [K*P, W] (one-hot of each mover's accepted point) and
   ``cnt`` [CN_FIXED + K, W] int32 counters.
 
-Against the JAX kernel's interface: the WL-live gate is a host bool (the
-port's cycle counter lives on the host), and the master-histogram base
-and the cycle number, which only feed the Swetnam and 1/t schedules, are
-not taken: those schedules and MINU are not ported and the engine
-refuses them (ROADMAP.md).  A mover's current point energies and in-cell
-flag are read as the JAX kernel reads them, as the sum over the P points
-of the accepted-point one-hot times the point's value: a non-finite
-energy at any point of a mover makes every later trial of that mover
-non-finite, and so rejected.
+Against the JAX kernel's interface: the WL-live gate and the cycle
+number are host values (the port's cycle counter lives on the host);
+the master-histogram base ``baseh`` [B, W] is taken where the Swetnam
+schedule reads it, and the 1/t schedule's cap B / (cycle * nwater) is
+formed on the host in the working type.  As in the JAX kernel, MINU
+folds a switch to the lattice of the lower trial enthalpy into each
+translation (``CF_MINUC`` holds its hoisted volume and reference-
+enthalpy terms), and f and sumhist follow the run's schedule from trial
+to trial.  A mover's current point energies and in-cell flag are read
+as the JAX kernel reads them, as the sum over the P points of the
+accepted-point one-hot times the point's value: a non-finite energy at
+any point of a mover makes every later trial of that mover non-finite,
+and so rejected.
 
 The kernel is ``csrc/chain_wl.cu`` (its header says what bounds it on
 the H100 and how the design answers that); it shares ``eta_of`` and
@@ -61,7 +65,17 @@ import torch
 from .. import cuda_build
 from ..cuda_build import SMEM_BLOCK_MAX
 from ..ops.dsfloat import _two_sum
-from .bins import BinGrid, eta_lookup, wl_move_update
+from .bins import (
+    SCHED_INVT,
+    SCHED_SWETNAM,
+    BinGrid,
+    eta_lookup,
+    f_schedule,
+    invt_cap,
+    schedule_kind,
+    swetnam_binfrac,
+    wl_move_update,
+)
 from .config import RunParams
 
 TRANS, VOL, SWITCH, NOOP = 0, 1, 2, 3
@@ -101,6 +115,10 @@ class ChainArgs(ctypes.Structure):
             "beta", "av_bw", "log_norm", "cpos", "cneg", "a_pos", "a_neg",
             "lnr_pos", "lnr_neg")]
         + [(n, ctypes.c_int) for n in ("wpb", "staged")]
+        # MINU and the f schedules
+        + [(n, ctypes.c_int) for n in ("minu", "f_sched")]
+        + [(n, ctypes.c_double) for n in ("alpha", "wl_factor", "invt_f")]
+        + [(n, ctypes.c_void_p) for n in ("binfrac", "baseh")]
     )
 
 
@@ -185,12 +203,9 @@ class ChainWLKernel:
 
     def __init__(self, prm: RunParams, grid: BinGrid, K: int, T: int,
                  log_norm: float):
-        if prm.num_lattices != 2 or prm.minu or prm.wl_swetnam \
-                or prm.wl_useinvt:
-            raise NotImplementedError(
-                "the chain kernel implements the two-replica rule with "
-                "the plain WL factor; num_lattices != 2, minu, wl_swetnam "
-                "and wl_useinvt are not ported yet (see ROADMAP.md)")
+        assert prm.num_lattices == 2, (
+            "the chain kernel implements the two-replica rule; "
+            "single-lattice large-N runs use the XLA chain")
         self.prm = prm
         self.grid = grid
         self.K = int(K)
@@ -204,12 +219,16 @@ class ChainWLKernel:
         self.launches = 0
 
     def _bins(self, dev, dtype):
-        """(binw, mub) [B] on the device, uploaded once."""
+        """(binw, mub, binfrac) [B] on the device, uploaded once
+        (binfrac: Swetnam's flat target per bin)."""
         key = (dev, dtype)
         if key not in self._grid_dev:
+            prm = self.prm
             self._grid_dev[key] = tuple(
                 torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-                for a in (self.grid.binwidth, self.grid.mu_bin))
+                for a in (self.grid.binwidth, self.grid.mu_bin,
+                          swetnam_binfrac(self.grid, prm.mu_min,
+                                          prm.mu_max)))
         return self._grid_dev[key]
 
     def plan(self, dtype, W) -> ChainPlan:
@@ -241,21 +260,22 @@ class ChainWLKernel:
                          "smem_bytes", "walkers_per_block", "blocks"), out))
 
     def plain(self, codes, wl_active, cf, ci, wgt, hist, uh, basew, e,
-              inc, hasm, ua, uz):
+              inc, hasm, ua, uz, baseh=None, cycle=0):
         prm, grid = self.prm, self.grid
         K, T, P = self.K, self.T, self.P
         W = cf.shape[1]
         dtype, dev = cf.dtype, cf.device
-        binw, mub = self._bins(dev, dtype)
+        binw, mub, binfrac = self._bins(dev, dtype)
         beta = prm.beta
         codes = codes.tolist()
 
         mu, e0, e1 = cf[CF_MU].clone(), cf[CF_E0].clone(), cf[CF_E1].clone()
         er0, er1 = cf[CF_E0E].clone(), cf[CF_E1E].clone()
-        f = cf[CF_F]
+        f, sumh = cf[CF_F].clone(), cf[CF_SUMHIST].clone()
         min_dmu, max_dmu = cf[CF_MIN_DMU].clone(), cf[CF_MAX_DMU].clone()
-        cmu, sw_c = cf[CF_CMU], cf[CF_SWC]
+        cmu, sw_c, minu_c = cf[CF_CMU], cf[CF_SWC], cf[CF_MINUC]
         ls = ci[CI_LS].clone()
+        invt_on = ci[CI_INVT] != 0
         in_window = ci[CI_INWIN] != 0
         occ_ok = ci[CI_OCCOK] != 0
         sw_ok = ci[CI_SWOK] != 0
@@ -298,6 +318,20 @@ class ChainWLKernel:
                     eta_new = eta_of(mu_new)
                     dE_ls = torch.where(ls == 0, dE0, dE1)
                     diffkT = beta * dE_ls + eta_new - eta_old
+                    if prm.minu:
+                        # #ifdef MINU fold-in (mc_moves.F90:1119-1140):
+                        # the move carries the walker to the lattice of
+                        # the lower trial enthalpy
+                        en0 = e0 + er0 + dE0
+                        en1 = e1 + er1 + dE1
+                        g10 = beta * (en1 - en0) + minu_c
+                        lsn = torch.where(g10 < 0.0, 1, 0).to(ls.dtype)
+                        E_lsn = torch.where(lsn == 0, en0, en1)
+                        E_cur = torch.where(ls == 0, e0 + er0, e1 + er1)
+                        sgn_c = torch.where(ls == 0, sw_c, -sw_c)
+                        alt = (beta * (E_lsn - E_cur) + eta_new - eta_old
+                               + sgn_c)
+                        diffkT = torch.where(lsn != ls, alt, diffkT)
                     # finite-state guard: never accept non-finite deltas
                     ok = torch.isfinite(diffkT) & torch.isfinite(mu_new)
                     # a trial exists where the scheduled cell holds a
@@ -305,6 +339,8 @@ class ChainWLKernel:
                     enabled = has_k
                     accept = enabled & gate & ok & (
                         ua[i] < torch.exp(-diffkT))
+                    if prm.minu:
+                        ls = torch.where(accept, lsn, ls)
                     # compensated accumulation (CF_E0E/CF_E1E note)
                     s0, r0 = _two_sum(e0, dE0)
                     h0, l0 = _two_sum(s0, er0 + r0)
@@ -331,10 +367,14 @@ class ChainWLKernel:
                     if wl_active:
                         healthy = (torch.isfinite(e0) & torch.isfinite(e1)
                                    & occ_ok)
-                        w_now, h_now, u_now = wl_move_update(
+                        sched = f_schedule(prm, grid, binfrac, dtype, sumh,
+                                           baseh, invt_on, cycle)
+                        w_now, h_now, u_now, f_n, sumh_n = wl_move_update(
                             grid, prm.samplerun, self.log_norm, binw,
-                            w_now, h_now, u_now, eta_of, mu, f,
-                            enabled & healthy)
+                            w_now, h_now, u_now, eta_of, mu, f, enabled,
+                            healthy, sched)
+                        if sched is not None:
+                            f, sumh = f_n, sumh_n
                 if self.do_switch and sw_try:
                     de10 = beta * ((e1 - e0) + (er1 - er0))
                     dsw = torch.where(ls == 0, de10 + sw_c, -(de10 + sw_c))
@@ -347,7 +387,8 @@ class ChainWLKernel:
                     cnt[CN_SWACC] += sw_acc.to(torch.int32)
             joh[k] = (iota_p == j[None, :]).to(dtype)
         for row, val in ((CF_MU, mu), (CF_E0, e0), (CF_E1, e1),
-                         (CF_E0E, er0), (CF_E1E, er1),
+                         (CF_E0E, er0), (CF_E1E, er1), (CF_F, f),
+                         (CF_SUMHIST, sumh),
                          (CF_MIN_DMU, min_dmu), (CF_MAX_DMU, max_dmu)):
             cf[row] = val
         ci[CI_LS] = ls
@@ -358,16 +399,19 @@ class ChainWLKernel:
         return joh.reshape(K * P, W), cnt
 
     def __call__(self, codes, wl_active, cf, ci, wgt, hist, uh, basew, e,
-                 inc, hasm, ua, uz, cnt=None):
+                 inc, hasm, ua, uz, cnt=None, baseh=None, cycle=0):
         """Run the K x T chain for all walkers; returns (joh, cnt).
-        ``cnt`` may be given as a preallocated output."""
+        ``cnt`` may be given as a preallocated output; ``baseh`` [B, W]
+        the master histogram view (the Swetnam schedule), ``cycle`` the
+        cycle number (the 1/t schedule)."""
         if not cf.is_cuda:
             joh, cnt_p = self.plain(codes, wl_active, cf, ci, wgt, hist, uh,
-                                    basew, e, inc, hasm, ua, uz)
+                                    basew, e, inc, hasm, ua, uz, baseh,
+                                    cycle)
             return joh, (cnt_p if cnt is None else cnt.copy_(cnt_p))
         args, joh, cnt = self.launch_args(codes, wl_active, cf, ci, wgt,
                                           hist, uh, basew, e, inc, hasm, ua,
-                                          uz, cnt)
+                                          uz, cnt, baseh, cycle)
         stream = torch.cuda.current_stream(cf.device).cuda_stream
         err = _entry(cf.dtype)(ctypes.byref(args), stream)
         cuda_build.check(err, "chain_wl")
@@ -375,7 +419,7 @@ class ChainWLKernel:
         return joh, cnt
 
     def launch_args(self, codes, wl_active, cf, ci, wgt, hist, uh, basew, e,
-                    inc, hasm, ua, uz, cnt=None):
+                    inc, hasm, ua, uz, cnt=None, baseh=None, cycle=0):
         """(args, joh, cnt) of one launch on CUDA tensors: the checked
         ChainArgs with the launch plan, and the outputs its pointers
         reference (``cnt`` allocated unless given)."""
@@ -394,6 +438,9 @@ class ChainWLKernel:
                   "uz": (uz, (K * T, W)), "joh": (joh, (K * P, W))}
         if prm.samplerun:
             floats["uh"] = (uh, (B, W))
+        sched = schedule_kind(prm)
+        if sched == SCHED_SWETNAM:
+            floats["baseh"] = (baseh, (B, W))
         ints = {"codes": (codes, (K * T,)), "ci": (ci, (CI_ROWS, W)),
                 "cnt": (cnt, (CN_FIXED + K, W))}
         for want, group in ((dtype, floats), (torch.int32, ints)):
@@ -407,7 +454,7 @@ class ChainWLKernel:
         if dtype not in (torch.float32, torch.float64) \
                 or B != grid.nbins:
             raise ValueError(f"ChainWLKernel: {dtype}, {B} bins")
-        binw, mub = self._bins(dev, dtype)
+        binw, mub, binfrac = self._bins(dev, dtype)
         P_ = lambda t: t.data_ptr()                         # noqa: E731
         args = ChainArgs(
             codes=P_(codes), cf=P_(cf), ci=P_(ci), wgt=P_(wgt),
@@ -424,6 +471,12 @@ class ChainWLKernel:
             a_pos=grid.a_pos, a_neg=grid.a_neg,
             lnr_pos=float(np.log(grid.r_pos)),
             lnr_neg=float(np.log(grid.r_neg)),
+            minu=int(prm.minu), f_sched=sched, alpha=prm.wl_alpha,
+            wl_factor=prm.wl_factor,
+            invt_f=(invt_cap(B, cycle, prm.nwater, dtype)
+                    if sched == SCHED_INVT else 0.0),
+            binfrac=P_(binfrac),
+            baseh=P_(baseh) if sched == SCHED_SWETNAM else None,
         )
         plan = self.plan(dtype, W)
         args.wpb, args.staged = plan.wpb, int(plan.staged)

@@ -1,12 +1,16 @@
 """The Monte-Carlo engine: batched moves, WL updates, cycle loop.
 
 Counterpart of ``mc_water_ls_mw_tpu/mcmc/engine.py`` (the dense walker
-engine; reference mc_moves.F90), for the slice the port covers: two
-lattices, NPT (with the volume wall ``mc_vol_wall``), either parallel
-strategy ('mw': one window shared by all walkers; 'dd': walkers
-assigned round-robin to mu windows, each window with its own master
-rows), Wang-Landau weight generation or a sample run, in either
-candidate mode of the JAX package:
+engine; reference mc_moves.F90): one lattice (NPT sampling of one
+polymorph, no mu, no switch, no WL) or two (the lattice switch), NPT
+(with the volume wall ``mc_vol_wall``) or NVT, the reference's MINU
+variant (a switch to the lower-enthalpy lattice folded into every
+translation) and the reference-enthalpy shift ``leshift``, either
+parallel strategy ('mw': one window shared by all walkers; 'dd':
+walkers assigned round-robin to mu windows, each window with its own
+master rows), Wang-Landau weight generation (the plain factor, the
+Swetnam or the 1/t schedule) or a sample run, in either candidate mode
+of the JAX package:
 
 * static neighbour tables with their displacement wall (N >= 96 in a
   MIC-unique box): a molecule schedule shared by all walkers, one trial
@@ -15,9 +19,6 @@ candidate mode of the JAX package:
   ``nbr_table='off'``): each walker draws its own molecule and every
   molecule under every folded image shift is a candidate, with no wall
   (the reference's own move semantics).
-
-Every other setting raises ``NotImplementedError`` in
-``Engine.__init__``.
 
 One cycle (``_one_cycle``) tracks each walker's window membership
 ('dd'), draws a shared move schedule and per-walker
@@ -62,7 +63,15 @@ from ..ops.dsfloat import ds_add, ds_sub, ds_value, ds_where
 from ..ops.full_energy import FullEnergyKernel
 from ..ops.geometry import determinant3, from_frac, recip_matrix, to_frac
 from ..ops.nbrtable import BREATHING, perp_widths
-from .bins import BinGrid, eta_lookup, wl_move_update
+from .bins import (
+    SCHED_SWETNAM,
+    BinGrid,
+    eta_lookup,
+    f_schedule,
+    schedule_kind,
+    swetnam_binfrac,
+    wl_move_update,
+)
 from .config import RunParams
 from .fused import FusedCycle
 from .state import _DTYPES, EngineAux, SamplerState, resolve_device
@@ -158,7 +167,10 @@ class PhiloxStream:
 
 
 def _take_lat(arr, ls):
-    """arr [2, ..., W] selected per walker by ls [W] -> [..., W]."""
+    """arr [L, ..., W] selected per walker by ls [W] -> [..., W] (the
+    one lattice where L = 1)."""
+    if arr.shape[0] == 1:
+        return arr[0]
     return torch.where(ls == 0, arr[0], arr[1])
 
 
@@ -181,12 +193,17 @@ class Engine:
                                     device=self.device)
         self.mub = torch.as_tensor(grid.mu_bin, dtype=self.dtype,
                                    device=self.device)
+        # Swetnam's flat target per bin (_f_schedule)
+        self.binfrac = torch.as_tensor(
+            swetnam_binfrac(grid, prm.mu_min, prm.mu_max), dtype=self.dtype,
+            device=self.device)
         self.stream = (PhiloxStream(prm.seed, self.device)
                        if stream is None else stream)
         self._init_layout()
 
     def _check_scope(self, prm: RunParams, aux: EngineAux) -> None:
-        """Raise NotImplementedError for what the port leaves out."""
+        """Raise ValueError for settings outside the JAX engine's
+        envelope."""
         _check_scope(prm, aux)
 
     def _init_layout(self):
@@ -228,13 +245,17 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _mu_scratch(self, energy, volume):
-        """Order parameter from scratch (mc_moves.F90:856-862);
-        energy/volume [L, W] -> [W]."""
+        """Order parameter from scratch (mc_moves.F90:856-862), shifted
+        by the reference enthalpies under leshift; energy/volume [L, W]
+        -> [W]."""
         prm = self.prm
         mu = (
             energy[0] + prm.pressure * volume[0]
             - energy[1] - prm.pressure * volume[1]
         )
+        if prm.leshift:
+            rh = self.aux.ref_enthalpy
+            mu = mu - rh[0] + rh[1]
         return mu * prm.beta - prm.nwater * torch.log(volume[0] / volume[1])
 
     def _weight_total(self, s: SamplerState):
@@ -304,15 +325,28 @@ class Engine:
         (the cell engine adds its slab-overflow audit)."""
         return torch.all(torch.isfinite(s.energy), dim=0)
 
+    def _f_schedule(self, s, sumhist, base_hist=None):
+        """The run's f schedule at one update (bins.f_schedule), or None
+        for the plain factor.  ``base_hist``: the master histogram view
+        [B, W] (Swetnam), built here where not given."""
+        if base_hist is None and schedule_kind(self.prm) == SCHED_SWETNAM:
+            base_hist = ds_value(s.master_hist)[s.window_id.long()].T
+        return f_schedule(self.prm, self.grid, self.binfrac, self.dtype,
+                          sumhist, base_hist, s.invt_active, s.cycle)
+
     def _wl_update(self, s: SamplerState, active: bool):
         """``active``: the move was performed and the WL phase is live
-        (cycle >= eq_mc_cycles)."""
-        if not active:
+        (cycle >= eq_mc_cycles).  One lattice keeps no WL arrays."""
+        if not active or self.prm.num_lattices != 2:
             return
-        s.weight, s.hist, s.uhist = wl_move_update(
+        sched = self._f_schedule(s, s.sumhist)
+        s.weight, s.hist, s.uhist, f, sumhist = wl_move_update(
             self.grid, self.prm.samplerun, self.aux.log_unbiased_norm,
             self.binw, s.weight, s.hist, s.uhist,
-            lambda mu: self._eta(s, mu), s.mu, s.f, self._wl_healthy(s))
+            lambda mu: self._eta(s, mu), s.mu, s.f, True,
+            self._wl_healthy(s), sched)
+        if sched is not None:
+            s.f, s.sumhist = f, sumhist
 
     # ------------------------------------------------------------------
     # moves
@@ -427,7 +461,8 @@ class Engine:
             effs.append(torch.stack(list(mm_eff)))
             owns.append(torch.stack(list(own_n)))
         dE = torch.stack(e_news) - torch.stack(e_olds)       # [L,W]
-        accept, mu_new, dmu = self._trans_decision(s, dE, u[5], in_wall)
+        accept, mu_new, dmu, ls_next = self._trans_decision(s, dE, u[5],
+                                                            in_wall)
 
         for l in range(L):
             js = self._partners[l][imol]
@@ -436,33 +471,79 @@ class Engine:
                 accept, owns[l], s.moments[:, l, imol, :])
             s.moments[:, l, js, :] = torch.where(accept, effs[l], cands[l])
         s.trans_per_mol[imol] += 1
-        self._trans_bookkeeping(s, accept, mu_new, dmu, dE, wl_active)
+        self._trans_bookkeeping(s, accept, mu_new, dmu, ls_next, dE,
+                                wl_active)
 
     def _trans_decision(self, s: SamplerState, dE, u_acc, extra_ok=None):
         """Acceptance of a translation with per-lattice energy changes
-        dE [L, W] (mc_moves.F90:1113-1146) -> (accept, mu_new, dmu), all
-        [W].  ``extra_ok``: the displacement wall of table mode."""
+        dE [L, W] (mc_moves.F90:1113-1146) -> (accept, mu_new, dmu,
+        ls_next), all [W].  ``extra_ok``: the displacement wall of table
+        mode.  One lattice: the Boltzmann factor of the move alone, mu
+        unchanged.  MINU: the move carries the walker to the lattice of
+        the lower trial enthalpy (ls_next)."""
         prm = self.prm
+        if prm.num_lattices == 1:
+            dmu = torch.zeros_like(s.mu)
+            diffkT = prm.beta * dE[0]
+            ok = torch.isfinite(diffkT)
+            if extra_ok is not None:
+                ok = ok & extra_ok
+            accept = ok & (u_acc < torch.exp(-diffkT))
+            return accept, s.mu, dmu, s.ls
         dmu = (dE[0] - dE[1]) * prm.beta
         mu_new = s.mu + dmu                                  # (1113)
         eta_old = self._eta(s, s.mu)
         eta_new = self._eta(s, mu_new)
         diffkT = prm.beta * _take_lat(dE, s.ls) + eta_new - eta_old
+        ls_next = s.ls
+        if prm.minu:
+            diffkT, ls_next = self._minu(s, s.energy, dE, diffkT, eta_old,
+                                         eta_new)
         # finite-state guard: never accept non-finite deltas (a
         # poisoned walker would pump WL weight at its stale bin)
         ok = torch.isfinite(diffkT) & torch.isfinite(mu_new)
         if extra_ok is not None:
             ok = ok & extra_ok
         accept = ok & (u_acc < torch.exp(-diffkT))           # (1146)
-        return accept, mu_new, dmu
+        return accept, mu_new, dmu, ls_next
 
-    def _trans_bookkeeping(self, s: SamplerState, accept, mu_new, dmu, dE,
-                           wl_active: bool):
-        """Energies, mu, counters and the per-move WL update after a
-        performed translation (mc_moves.F90:1113, 1156-1159)."""
+    def _minu(self, s: SamplerState, energy, dE, diffkT, eta_old, eta_new):
+        """The reference's #ifdef MINU variant (mc_moves.F90:1119-1140):
+        the translation carries the walker to the lattice of the lower
+        trial enthalpy (the first on a tie, Fortran's minloc), with the
+        switch's own terms where that lattice is not the current one.
+        energy [L, W] the walker's energies before the move.  Returns
+        (diffkT, ls_next)."""
+        prm = self.prm
+        et = energy + dE                                     # [L,W]
+        enth = et
+        if prm.mc_ensemble == "npt":
+            enth = enth + prm.pressure * s.volume
+        rh = self.aux.ref_enthalpy
+        if prm.leshift:
+            enth = enth - rh[:, None]
+        lsn = torch.where(enth[1] < enth[0], 1, 0).to(s.ls.dtype)
+        alt = (prm.beta * (_take_lat(et, lsn) - _take_lat(energy, s.ls))
+               + eta_new - eta_old)
+        if prm.mc_ensemble == "npt":
+            V_lsn = _take_lat(s.volume, lsn)
+            V_ls = _take_lat(s.volume, s.ls)
+            alt = (alt + prm.beta * prm.pressure * (V_lsn - V_ls)
+                   - prm.nwater * torch.log(V_lsn / V_ls))
+        if prm.leshift:
+            alt = alt - prm.beta * (rh[lsn.long()] - rh[s.ls.long()])
+        return torch.where(lsn != s.ls, alt, diffkT), lsn
+
+    def _trans_bookkeeping(self, s: SamplerState, accept, mu_new, dmu,
+                           ls_next, dE, wl_active: bool):
+        """Energies, mu, the lattice (MINU), counters and the per-move WL
+        update after a performed translation (mc_moves.F90:1113,
+        1156-1159)."""
         # where-based: a rejected overlap proposal can carry non-finite dE
         s.energy = torch.where(accept, s.energy + dE, s.energy)
         s.mu = torch.where(accept, mu_new, s.mu)
+        if self.prm.minu:
+            s.ls = torch.where(accept, ls_next, s.ls)
         s.att[TRANS] += 1
         s.acc[TRANS] += accept.to(torch.int32)
         admu = torch.abs(dmu)
@@ -496,14 +577,15 @@ class Engine:
             effs.append(torch.stack(list(eff)))
             p_news.append(p_new)
         dE = torch.stack(e_news) - torch.stack(e_olds)       # [L,W]
-        accept, mu_new, dmu = self._trans_decision(s, dE, u[5])
+        accept, mu_new, dmu, ls_next = self._trans_decision(s, dE, u[5])
 
         for l in range(L):
             s.r[l, :, idx, walker] = torch.where(
                 accept, p_news[l], s.r[l, :, idx, walker])
             s.moments[:, l] = torch.where(accept, effs[l], s.moments[:, l])
         s.trans_per_mol[idx, walker] += 1
-        self._trans_bookkeeping(s, accept, mu_new, dmu, dE, wl_active)
+        self._trans_bookkeeping(s, accept, mu_new, dmu, ls_next, dE,
+                                wl_active)
 
     def _translation_tbl_multi(self, s: SamplerState, ut, codes, imol: int,
                                wl_active: bool, switch_ok: bool):
@@ -520,7 +602,7 @@ class Engine:
         prm, model = self.prm, self.model
         L, T = s.r.shape[0], self.dT
         lam_eps = model.lam * model.epsilon
-        do_switch = prm.mc_always_switch or prm.allow_switch
+        do_switch = self.switches_on()
 
         js, p0, cand_r, mm_cand, del0, refs = [], [], [], [], [], []
         e_cur, eff_cur, own_cur, p_cur = [], [], [], []
@@ -570,10 +652,10 @@ class Engine:
                     ok_l = torch.sum(dw * dw, dim=0) <= self.wall * self.wall
                     in_wall = ok_l if in_wall is None else in_wall & ok_l
                 dE = torch.stack(dE)
-                accept, mu_new, dmu = self._trans_decision(
+                accept, mu_new, dmu, ls_next = self._trans_decision(
                     s, dE, ut[4 + 3 * T + t], in_wall)
-                self._trans_bookkeeping(s, accept, mu_new, dmu, dE,
-                                        wl_active)
+                self._trans_bookkeeping(s, accept, mu_new, dmu, ls_next,
+                                        dE, wl_active)
                 # fold the accepted point into the running selection
                 for l in range(L):
                     e_cur[l] = torch.where(accept, e_t[l], e_cur[l])
@@ -591,21 +673,32 @@ class Engine:
             s.moments[:, l, js[l], :] = eff_cur[l]
         s.trans_per_mol[imol] += n_en
 
+    def switches_on(self) -> bool:
+        """Lattice switches are attempted at all: two lattices, and
+        always-switch or scheduled switches."""
+        prm = self.prm
+        return prm.num_lattices == 2 and (prm.mc_always_switch
+                                          or prm.allow_switch)
+
     def _switch(self, s: SamplerState, zeta):
         """Lattice switch attempt of every walker (mc_lattice_switch,
-        mc_moves.F90:1536-1594); eta cancels since mu is unchanged."""
+        mc_moves.F90:1536-1594); eta cancels since mu is unchanged.  The
+        PV and volume-entropy terms only under NPT; leshift subtracts the
+        reference enthalpies."""
         prm = self.prm
         lsn = 1 - s.ls
         e_tot = self._e_tot(s)
         E_ls = _take_lat(e_tot, s.ls)
         E_lsn = _take_lat(e_tot, lsn)
-        V_ls = _take_lat(s.volume, s.ls)
-        V_lsn = _take_lat(s.volume, lsn)
-        diffkT = (
-            prm.beta * (E_lsn - E_ls)
-            + prm.beta * prm.pressure * (V_lsn - V_ls)
-            - prm.nwater * torch.log(V_lsn / V_ls)
-        )
+        diffkT = prm.beta * (E_lsn - E_ls)
+        if prm.mc_ensemble == "npt":
+            V_ls = _take_lat(s.volume, s.ls)
+            V_lsn = _take_lat(s.volume, lsn)
+            diffkT = (diffkT + prm.beta * prm.pressure * (V_lsn - V_ls)
+                      - prm.nwater * torch.log(V_lsn / V_ls))
+        if prm.leshift:
+            rh = self.aux.ref_enthalpy
+            diffkT = diffkT - prm.beta * (rh[lsn.long()] - rh[s.ls.long()])
         accept = torch.isfinite(diffkT) & (zeta < torch.exp(-diffkT))
         s.ls = torch.where(accept, lsn, s.ls).to(torch.int32)
         s.mu = torch.where(accept, self._mu_scratch(e_tot, s.volume),
@@ -640,9 +733,15 @@ class Engine:
 
         vol_ls_old = _take_lat(s.volume, s.ls)
         vol_ls_new = _take_lat(vol_new, s.ls)
-        mu_new = self._mu_scratch(e_new, vol_new)            # (1366-75)
-        deta = self._eta(s, mu_new) - self._eta(s, s.mu)
-        mu_reject = self._mu_scratch(e_tot, s.volume)        # (1524-28)
+        two = prm.num_lattices == 2
+        if two:
+            mu_new = self._mu_scratch(e_new, vol_new)        # (1366-75)
+            deta = self._eta(s, mu_new) - self._eta(s, s.mu)
+            mu_reject = self._mu_scratch(e_tot, s.volume)    # (1524-28)
+        else:
+            # one lattice: no order parameter
+            mu_new = mu_reject = s.mu
+            deta = torch.zeros_like(s.mu)
         diffkT = (                                           # (1380-81)
             prm.beta * _take_lat(dE, s.ls)
             + deta
@@ -679,15 +778,17 @@ class Engine:
             dist_old = torch.sum(
                 torch.abs(torch.log(s.volume / vref[:, None])), dim=0)
             ok = ok & (inside | (dist_new < dist_old))
-        ok = ok & torch.isfinite(mu_new)
+        if two:
+            ok = ok & torch.isfinite(mu_new)
         accept = ok & (u[:, 3] < torch.exp(-diffkT))
 
-        admu = torch.abs(mu_new - s.mu)
-        s.min_dmu = torch.where(accept & (admu < s.min_dmu), admu,
-                                s.min_dmu)
-        s.max_dmu = torch.where(accept & (admu > s.max_dmu), admu,
-                                s.max_dmu)
-        s.mu = torch.where(accept, mu_new, mu_reject)
+        if two:
+            admu = torch.abs(mu_new - s.mu)
+            s.min_dmu = torch.where(accept & (admu < s.min_dmu), admu,
+                                    s.min_dmu)
+            s.max_dmu = torch.where(accept & (admu > s.max_dmu), admu,
+                                    s.max_dmu)
+            s.mu = torch.where(accept, mu_new, mu_reject)
         s.r = torch.where(accept, r_new, s.r)
         if ref_new is not None:
             s.ref_r = torch.where(accept, ref_new, s.ref_r)
@@ -762,7 +863,8 @@ class Engine:
         for k in range(nvol):
             u, zeta2 = self.stream.volume_draws(cycle, k, W, s.r.dtype)
             self._volume(s, u)
-            if self.prm.mc_always_switch and switch_ok:
+            if self.prm.num_lattices == 2 and self.prm.mc_always_switch \
+                    and switch_ok:
                 self._switch(s, zeta2)
 
     # ------------------------------------------------------------------
@@ -803,8 +905,11 @@ class Engine:
 
     def _sync_all(self, s: SamplerState):
         """Merge weights and histograms across the walkers of each window
-        (mc_cycle:258-278) and re-zero the per-walker deltas."""
+        (mc_cycle:258-278) and re-zero the per-walker deltas (one lattice
+        keeps no WL arrays)."""
         prm = self.prm
+        if prm.num_lattices != 2:
+            return s
         wid = s.window_id
         m_eta, bad_w = self._delta_merge(s.weight, s.master_eta, wid)
         if not prm.samplerun:
@@ -838,8 +943,11 @@ class Engine:
     def _resync_chains(self, s: SamplerState):
         """Force lattice 2's cell displacement and every molecule's
         fractional displacement from its reference site to equal
-        lattice 1's, then recompute energies from scratch."""
+        lattice 1's, then recompute energies from scratch (nothing to
+        do with one lattice)."""
         L = s.r.shape[0]
+        if L != 2:
+            return s
         h = s.h.clone()
         h[1] = self.ref_h[1][:, :, None] + (
             s.h[0] - self.ref_h[0][:, :, None])
@@ -888,7 +996,7 @@ class Engine:
         L, _, N, W = s.r.shape
         s.cycle += 1
         cycle = s.cycle
-        if prm.parallel_strategy == "dd":
+        if prm.parallel_strategy == "dd" and L == 2:
             self._dd_track_window(s, cycle)
         switch_ok = self._switch_ok(cycle)
         codes, sched_mol, cycle_u = self.stream.cycle_draws(
@@ -900,10 +1008,13 @@ class Engine:
                          wl_active=cycle >= prm.eq_mc_cycles,
                          switch_ok=switch_ok)
         # the rare volume moves, hoisted after the step loop
-        if prm.allow_vol:
+        if prm.mc_ensemble == "npt" and prm.allow_vol:
             self._scheduled_volume_moves(s, codes, cycle, switch_ok)
-        # block-average energy accumulation (mc_cycle:252-255)
-        s.avg_energy = s.avg_energy + s.energy + prm.pressure * s.volume
+        # block-average energy accumulation (mc_cycle:252-255), an
+        # enthalpy under NPT
+        s.avg_energy = s.avg_energy + s.energy
+        if prm.mc_ensemble == "npt":
+            s.avg_energy = s.avg_energy + prm.pressure * s.volume
         if cycle % prm.mpi_sync_int == 0:
             self._sync_all(s)
         if cycle % prm.latt_sync_int == 0:
@@ -938,17 +1049,6 @@ class Engine:
         return self._resync_chains(s)
 
 
-_UNSUPPORTED = (
-    # (setting, predicate on prm) - outside this slice of the port
-    ("num_lattices != 2", lambda p: p.num_lattices != 2),
-    ("mc_ensemble='nvt'", lambda p: p.mc_ensemble != "npt"),
-    ("minu", lambda p: p.minu),
-    ("wl_swetnam", lambda p: p.wl_swetnam),
-    ("wl_useinvt", lambda p: p.wl_useinvt),
-    ("leshift", lambda p: p.leshift),
-)
-
-
 def _check_scope(prm: RunParams, aux: EngineAux) -> None:
     # the multi-trial envelope, with the JAX engine's messages
     # (engine.py:139-162 of the JAX package; the port always runs the
@@ -965,7 +1065,3 @@ def _check_scope(prm: RunParams, aux: EngineAux) -> None:
             raise ValueError(
                 f"dense_trials={dT} must divide nwater={prm.nwater} "
                 "(trials per cycle stay nwater)")
-    for name, bad in _UNSUPPORTED:
-        if bad(prm):
-            raise NotImplementedError(
-                f"{name} is not ported yet (see ROADMAP.md)")

@@ -2,8 +2,7 @@
 cycle: the CUDA kernels and their plain versions.
 
 Counterpart of ``mc_water_ls_mw_tpu/mcmc/fused.py`` (``FusedCycle``)
-for two lattices, in all three branches of its kernel, each its own
-CUDA kernel here:
+in all three branches of its kernel, each its own CUDA kernel here:
 
 * ``fused_cycle``: the table branch with one trial per move
   (``_do_translation_tbl``): the shared molecule schedule, the static
@@ -16,6 +15,13 @@ CUDA kernel here:
   (``_do_translation_tbl_multi``, ``dense_trials`` = T > 1): N/T shared
   movers of T anchored-window trials each.
 
+Those three are the two-lattice kernels of the plain settings.  One
+lattice (the single-box NPT run: no mu, no WL, no switch) runs
+``fused_cycle_1l`` or ``fused_cycle_dense_1l``; MINU, NVT, leshift and
+the Swetnam and 1/t f schedules at two lattices run ``fused_cycle_ext``,
+``fused_cycle_dense_ext`` or ``fused_cycle_multi_ext``
+(``csrc/fused_cycle_variants.cu``), the settings read from the args.
+
 I/O contract as in the JAX package: the state's r, moments, energy,
 weight, hist, uhist and trans_per_mol plus the packed per-walker rows
 wf [8, W] / wi [11, W] (row order below) are read and written; h, recip,
@@ -24,8 +30,9 @@ T > 1), the bin grid and the master weight base [B, W] are read; the
 move codes [N] and the molecule schedule ([N/T], none in dense mode)
 are uniform across walkers.
 
-The kernels are in ``csrc/fused_cycle.cu`` (its header says what bounds
-them on the H100 and how the design answers that).  All three run one
+The kernels are in ``csrc/fused_warp.cuh`` (its header says what bounds
+them on the H100 and how the design answers that), built as the
+libraries ``fused_cycle`` and ``fused_cycle_variants``.  All three run one
 warp per walker with the walker's state staged in shared memory;
 ``launch_plan`` chooses the walkers per block from the shared memory
 budget (or reads the state in place where one walker's state does not
@@ -49,6 +56,13 @@ import torch
 from .. import cuda_build
 from ..cuda_build import SMEM_BLOCK_MAX
 from ..ops.dsfloat import ds_value
+from .bins import (
+    SCHED_INVT,
+    SCHED_PLAIN,
+    SCHED_SWETNAM,
+    invt_cap,
+    schedule_kind,
+)
 
 TRANS, VOL, SWITCH, NOOP = 0, 1, 2, 3
 
@@ -65,7 +79,7 @@ WI_ROWS = 11
 
 
 class FusedArgs(ctypes.Structure):
-    """Mirror of ``struct FusedArgs`` in csrc/fused_cycle.cu."""
+    """Mirror of ``struct FusedArgs`` in csrc/fused_warp.cuh."""
 
     _fields_ = (
         [(n, ctypes.c_void_p) for n in (
@@ -82,18 +96,51 @@ class FusedArgs(ctypes.Structure):
             "lnr_neg")]
         + [("sw", cuda_build.SWConsts)]
         + [(n, ctypes.c_int) for n in ("wpb", "state_smem")]
+        # the extended kernels' settings
+        + [(n, ctypes.c_int) for n in ("minu", "npt", "leshift", "f_sched")]
+        + [(n, ctypes.c_double) for n in (
+            "rh0", "rh1", "alpha", "wl_factor", "invt_f")]
+        + [(n, ctypes.c_void_p) for n in ("binfrac", "baseh")]
     )
 
 
 # Walkers (warps) per block at most, by element size: the warp kernels'
-# register bound (WarpCap in csrc/fused_cycle.cu).
+# register bound (WarpCap in csrc/fused_warp.cuh).
 WARP_CAP = {4: 8, 8: 5}
-# rows of N values in one walker's state: r [2,3] and the moments [10,2]
-STATE_ROWS = 26
+# rows of N values in one walker's state per lattice: r [3] and the
+# moments [10]
+STATE_ROWS = 13
 # table slots (M) the multi-trial kernel takes at most: two a lane
-# (MULTI_SL_MAX in csrc/fused_cycle.cu)
+# (MULTI_SL_MAX in csrc/fused_warp.cuh)
 MULTI_SLOTS_MAX = 64
-KERNELS = ("fused_cycle", "fused_cycle_dense", "fused_cycle_multi")
+# the kernels: name -> (branch, lattices, library); each library exports
+# <name>_f32/_f64 (launch) and <name>_occupancy_f32/_f64
+TABLE, DENSE, MULTI = "table", "dense", "multi"
+KERNELS = {
+    "fused_cycle": (TABLE, 2, "fused_cycle"),
+    "fused_cycle_dense": (DENSE, 2, "fused_cycle"),
+    "fused_cycle_multi": (MULTI, 2, "fused_cycle"),
+    "fused_cycle_1l": (TABLE, 1, "fused_cycle_variants"),
+    "fused_cycle_dense_1l": (DENSE, 1, "fused_cycle_variants"),
+    "fused_cycle_ext": (TABLE, 2, "fused_cycle_variants"),
+    "fused_cycle_dense_ext": (DENSE, 2, "fused_cycle_variants"),
+    "fused_cycle_multi_ext": (MULTI, 2, "fused_cycle_variants"),
+}
+
+
+def kernel_name(prm, dense: bool) -> str:
+    """The kernel of a run's settings: its branch (dense candidates,
+    ``dense_trials`` > 1, else tables), one lattice, or the extended
+    settings (MINU, NVT, leshift, an f schedule of a WL generation
+    run)."""
+    base = ("fused_cycle_dense" if dense else
+            "fused_cycle_multi" if max(1, int(prm.dense_trials)) > 1
+            else "fused_cycle")
+    if prm.num_lattices == 1:
+        return base + "_1l"
+    ext = (prm.minu or prm.leshift or prm.mc_ensemble != "npt"
+           or schedule_kind(prm) != SCHED_PLAIN)
+    return base + "_ext" if ext else base
 
 
 class LaunchPlan(NamedTuple):
@@ -109,18 +156,20 @@ class LaunchPlan(NamedTuple):
 
 
 def smem_bytes(kernel, itemsize, N, B, S, wpb, state_smem, T=1):
-    """Dynamic shared bytes of a block of the table (``fused_cycle``),
-    dense (``fused_cycle_dense``) or multi-trial (``fused_cycle_multi``,
-    T trials per mover) kernel (warp_smem_bytes in csrc/fused_cycle.cu):
-    the bin widths and centres, the walkers' states when staged, the
+    """Dynamic shared bytes of a block of a table (``fused_cycle...``),
+    dense (``fused_cycle_dense...``) or multi-trial
+    (``fused_cycle_multi...``, T trials per mover) kernel
+    (warp_smem_bytes in csrc/fused_warp.cuh): the bin widths and centres,
+    the walkers' states of the kernel's lattices when staged, the
     schedule (the N codes, then the molecule schedule: N molecules in
     table mode, N/T movers in multi-trial mode), the folded shifts, and
     in dense mode a list of N uint16 rows per walker."""
-    sched = {"fused_cycle": 2 * N, "fused_cycle_dense": N,
-             "fused_cycle_multi": N + N // T}[kernel]
-    return (itemsize * (2 * B + (wpb * STATE_ROWS * N if state_smem else 0))
+    branch, L, _ = KERNELS[kernel]
+    sched = {TABLE: 2 * N, DENSE: N, MULTI: N + N // T}[branch]
+    rows = STATE_ROWS * L * N
+    return (itemsize * (2 * B + (wpb * rows if state_smem else 0))
             + 4 * (sched + 3 * S)
-            + (2 * wpb * N if kernel == "fused_cycle_dense" else 0))
+            + (2 * wpb * N if branch == DENSE else 0))
 
 
 def launch_plan(kernel, itemsize, N, B, S, W, T=1):
@@ -134,7 +183,7 @@ def launch_plan(kernel, itemsize, N, B, S, W, T=1):
     if kernel not in KERNELS:
         raise ValueError(f"launch_plan: no warp kernel {kernel!r}")
     cap = min(WARP_CAP[itemsize], W)
-    if kernel == "fused_cycle_dense" and N > 65535:
+    if KERNELS[kernel][0] == DENSE and N > 65535:
         cap = 0                       # the row lists hold uint16 indices
     for state_smem in (True, False):
         for wpb in range(cap, 0, -1):
@@ -150,7 +199,7 @@ def launch_plan(kernel, itemsize, N, B, S, W, T=1):
 @functools.lru_cache(maxsize=None)
 def _entry(kernel, dtype):
     sym = f"{kernel}_{'f32' if dtype == torch.float32 else 'f64'}"
-    return cuda_build.bind("fused_cycle", sym,
+    return cuda_build.bind(KERNELS[kernel][2], sym,
                            [ctypes.POINTER(FusedArgs), ctypes.c_void_p])
 
 
@@ -158,19 +207,18 @@ class FusedCycle:
     """One cycle's step loop for a fixed engine (prm, model, grid, aux).
 
     ``fused(s, codes, sched_mol, cycle_u, wl_active, switch_ok)``
-    advances the state in place.  ``kernel`` names the engine's branch
-    (``fused_cycle``, ``fused_cycle_dense`` or ``fused_cycle_multi``)."""
+    advances the state in place.  ``kernel`` names the engine's kernel
+    (``KERNELS``: its branch, one lattice, or the extended settings)."""
 
     def __init__(self, eng):
         self.eng = eng
-        prm = eng.prm
-        self.do_switch = prm.mc_always_switch or prm.allow_switch
-        if eng.dense:
-            self.kernel = "fused_cycle_dense"
-        elif eng.dT > 1:
-            self.kernel = "fused_cycle_multi"
-        else:
-            self.kernel = "fused_cycle"
+        self.do_switch = eng.switches_on()
+        self.kernel = kernel_name(eng.prm, eng.dense)
+        # the reference enthalpies as host floats, read once: the aux
+        # tensor may live on the card, and reading it per launch would
+        # wait for the stream
+        rh = eng.aux.ref_enthalpy.double().cpu().numpy()
+        self.ref_enth = (float(rh[0]), float(rh[-1]))
         self._dev = {}
         # kernel launches (one per call on CUDA tensors)
         self.launches = 0
@@ -210,8 +258,8 @@ class FusedCycle:
     def _constants(self, dev, dtype):
         """Per-device uploads of the static tables (flattened as
         (l*N + imol)*M + m and (l*3 + a)*N + imol, as in the JAX
-        package; none in dense mode), the folded shifts and the bin
-        grid."""
+        package; none in dense mode), the folded shifts, the bin grid
+        and Swetnam's flat target per bin."""
         key = (dev, dtype)
         if key not in self._dev:
             eng = self.eng
@@ -225,6 +273,7 @@ class FusedCycle:
                     eng.fold_shifts, np.int32).reshape(-1), device=dev),
                 eng.binw.to(dev, dtype).contiguous(),
                 eng.mub.to(dev, dtype).contiguous(),
+                eng.binfrac.to(dev, dtype).contiguous(),
             )
         return self._dev[key]
 
@@ -232,10 +281,10 @@ class FusedCycle:
         """The launch plan of the engine's kernel at W walkers.  Raises
         for a multi-trial table wider than MULTI_SLOTS_MAX."""
         eng = self.eng
-        if self.kernel == "fused_cycle_multi" and \
+        if KERNELS[self.kernel][0] == MULTI and \
                 eng.tbl.shape[-1] > MULTI_SLOTS_MAX:
             raise ValueError(
-                f"fused_cycle_multi: {eng.tbl.shape[-1]} table slots, at "
+                f"{self.kernel}: {eng.tbl.shape[-1]} table slots, at "
                 f"most {MULTI_SLOTS_MAX}")
         itemsize = torch.empty((), dtype=dtype).element_size()
         return launch_plan(self.kernel, itemsize, eng.prm.nwater,
@@ -256,14 +305,14 @@ class FusedCycle:
         of registers and spill (local) bytes per thread, walkers resident
         on one SM, dynamic shared bytes per block, walkers per block and
         blocks."""
-        fn = cuda_build.bind("fused_cycle", "fused_cycle_occupancy",
-                             [ctypes.c_int, ctypes.c_int,
-                              ctypes.POINTER(FusedArgs),
+        sym = f"{self.kernel}_occupancy_" \
+            f"{'f32' if dtype == torch.float32 else 'f64'}"
+        fn = cuda_build.bind(KERNELS[self.kernel][2], sym,
+                             [ctypes.POINTER(FusedArgs),
                               ctypes.POINTER(ctypes.c_int)])
         out = (ctypes.c_int * 6)()
-        branch = KERNELS.index(self.kernel)
         args = self._shape_args(dtype, W)
-        err = fn(branch, int(dtype == torch.float64), ctypes.byref(args), out)
+        err = fn(ctypes.byref(args), out)
         cuda_build.check(err, "fused_cycle occupancy")
         return dict(zip(("registers", "spill_bytes", "walkers_per_sm",
                          "smem_bytes", "walkers_per_block", "blocks"),
@@ -306,7 +355,8 @@ class FusedCycle:
                                  f"int32) on {dev}")
         n_u = 7 if T == 1 else 4 + 5 * T
         if (cycle_u.shape != (N // T, n_u, W) or codes.shape != (N,)
-                or s.moments.shape != (10, L, N, W) or L != 2
+                or s.moments.shape != (10, L, N, W)
+                or L != KERNELS[self.kernel][1]
                 or (sched_mol is None) != eng.dense):
             raise ValueError(
                 f"FusedCycle ({self.kernel}): cycle_u "
@@ -314,7 +364,7 @@ class FusedCycle:
                 f"moments {tuple(s.moments.shape)}, sched_mol "
                 f"{None if sched_mol is None else tuple(sched_mol.shape)}")
         plan = self.plan(dtype, W)
-        tbl, frac0, shifts, binw, mub = self._constants(dev, dtype)
+        tbl, frac0, shifts, binw, mub, binfrac = self._constants(dev, dtype)
         wf = torch.stack([s.mu, s.f, s.sumhist, s.min_dmu, s.max_dmu,
                           s.max_trans, s.my_mu_min, s.my_mu_max])
         wi = torch.stack([
@@ -323,6 +373,11 @@ class FusedCycle:
             s.invt_active.to(torch.int32),
         ]).to(torch.int32)
         basew = ds_value(s.master_eta)[s.window_id.long()].T.contiguous()
+        sched_f = schedule_kind(prm)
+        baseh = None
+        if sched_f == SCHED_SWETNAM:
+            baseh = ds_value(s.master_hist)[s.window_id.long()].T \
+                .contiguous()
         # the move codes [N], then the molecule schedule [N/T] (table
         # mode)
         sched = codes.to(torch.int32)
@@ -354,12 +409,21 @@ class FusedCycle:
             lnr_neg=float(np.log(grid.r_neg)),
             sw=cuda_build.SWConsts.of(m),
             wpb=plan.wpb, state_smem=int(plan.state_smem),
+            minu=int(prm.minu), npt=int(prm.mc_ensemble == "npt"),
+            leshift=int(prm.leshift), f_sched=sched_f,
+            rh0=self.ref_enth[0], rh1=self.ref_enth[1], alpha=prm.wl_alpha,
+            wl_factor=prm.wl_factor,
+            invt_f=(invt_cap(B, s.cycle, prm.nwater, dtype)
+                    if sched_f == SCHED_INVT else 0.0),
+            binfrac=P(binfrac), baseh=P(baseh),
         )
-        return args, wf, wi, (tbl, frac0, shifts, binw, mub, basew, sched)
+        return args, wf, wi, (tbl, frac0, shifts, binw, mub, basew, sched,
+                              binfrac, baseh)
 
     @staticmethod
     def finish(s, wf, wi):
-        """The updated per-walker rows back into the state's fields."""
+        """The updated per-walker rows back into the state's fields (f
+        and sumhist change under the f schedules only)."""
         s.mu, s.f, s.sumhist = wf[WF_MU], wf[WF_F], wf[WF_SUMHIST]
         s.min_dmu, s.max_dmu = wf[WF_MIN_DMU], wf[WF_MAX_DMU]
         s.ls = wi[WI_LS]

@@ -7,9 +7,11 @@ for either parallel strategy: one window shared by all walkers ('mw'),
 or a master row per mu window ('dd'), whose curves are written per
 window and stitched with the overlap matching of comms_join_eta/uhist
 (parallel/windows.py).  They run at block boundaries on the host: file
-IO and O(nbins) scalar work on pulled arrays, in float64.  The 1/t and
-Swetnam schedules of the flatness check are not ported: the engine
-refuses ``wl_useinvt`` and ``wl_swetnam``.
+IO and O(nbins) scalar work on pulled arrays, in float64.  The flatness
+check runs the halving schedule, the switch to 1/t and the curve dumps
+of the 1/t and Swetnam schedules; Delta G takes the reference-enthalpy
+shift of leshift.  One lattice has no mu and no WL arrays: its monitor
+block reports acceptance and drift only.
 """
 
 from __future__ import annotations
@@ -100,11 +102,12 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
         logs.my(f"# lattice {l + 1} = {exc:15.6f} kT per D.O.F.")
 
     # overlap bins spanned per move (mc_monitor_stats:1776-1777)
+    two = prm.num_lattices == 2
     span = grid.nbins / (prm.mu_max - prm.mu_min)
     mn = _np(state.min_dmu)
     mx = _np(state.max_dmu)
     mn = mn[np.isfinite(mn)]
-    if mn.size:
+    if two and mn.size:
         logs.my(f"# Overlap bins spanned per move: min "
                 f"{mn.min() * span:12.6f} max {mx.max() * span:12.6f}")
 
@@ -127,13 +130,14 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
     # mu drift audit + heal: mu is the binning variable, so a
     # differential energy error walks the histogram assignment between
     # resyncs; reported in bin units and healed at monitor cadence
-    mu_fresh = eng._mu_scratch(state.energy, state.volume)
-    dmu = _np(state.mu).astype(np.float64) - _np(mu_fresh)
     mub = np.asarray(grid.mu_bin)
-    binw = float(mub[1] - mub[0])
-    logs.my(f"#  mu   drift {np.abs(dmu).max():12.3e} kT max "
-            f"({np.abs(dmu).max() / binw:8.4f} bins); healed")
-    state.mu = mu_fresh.to(state.mu.dtype)
+    if two:
+        mu_fresh = eng._mu_scratch(state.energy, state.volume)
+        dmu = _np(state.mu).astype(np.float64) - _np(mu_fresh)
+        binw = float(mub[1] - mub[0])
+        logs.my(f"#  mu   drift {np.abs(dmu).max():12.3e} kT max "
+                f"({np.abs(dmu).max() / binw:8.4f} bins); healed")
+        state.mu = mu_fresh.to(state.mu.dtype)
 
     # per-window statistics ('dd'): the reference's per-rank nodeNNN.log
     # blocks (io.f90:1105-1144) as one row per window
@@ -169,7 +173,7 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
     # curve dumps (mc_monitor_stats:1813-1929): after the delta-sync the
     # double-single master rows hold the exact merged curves, one row per
     # window (the reference's per-rank curves)
-    if write_files:
+    if two and write_files:
         state = eng.merged_histogram(state)
         f_all = _np(state.f)
         w_cur = ds_value64(state.master_eta)                 # [nwin, B]
@@ -215,7 +219,12 @@ def check_flatness(eng, state, logs):
     to the window's walkers (first-pass reset, f halving, firstcycle).
     One window ('mw') also shifts the weights by the central bin and
     writes the f-tagged curves; several ('dd') record the largest f of
-    the windows before and after the event's halvings in wlf.dat."""
+    the windows before and after the event's halvings in wlf.dat.
+    Walkers on the 1/t schedule, and every walker under Swetnam's, skip
+    the halving; with ``wl_useinvt`` a walker whose f falls below
+    B / (cycle N) switches to 1/t (mc_check_flatness:2135-2143), and
+    while any walker runs 1/t, or under Swetnam, the f history and the
+    cycle-tagged curves are dumped every ``invt_dump_int`` cycles."""
     prm, grid = eng.prm, eng.grid
     B = grid.nbins
     cycle = int(state.cycle)
@@ -234,6 +243,7 @@ def check_flatness(eng, state, logs):
     f = _np(state.f).astype(np.float64)
     firstcycle = _np(state.firstcycle).copy()
     hreset = _np(state.histogram_reset).copy()
+    invt = _np(state.invt_active).copy()
     sbw, ebw, first = _window_bounds(state, nwin)
     bins = np.arange(B)[None, :]
     winmask = (bins >= sbw[:, None]) & (bins <= ebw[:, None])  # [nwin, B]
@@ -256,8 +266,10 @@ def check_flatness(eng, state, logs):
         logs.g(f"# Least populated bin = "
                f"{np.nanmean(100 * mini / av):10.4f} % of mean")
 
-    # flatness criteria by schedule (mc_check_flatness:2024-2052); a
-    # window without visits is not flat (its NaN compares false)
+    # flatness criteria by schedule (mc_check_flatness:2024-2052), for
+    # the windows on the halving schedule; a window without visits is
+    # not flat (its NaN compares false)
+    std_wl = ~(invt[first] | prm.wl_swetnam)                 # [nwin]
     with np.errstate(invalid="ignore", divide="ignore"), \
             warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
@@ -270,7 +282,7 @@ def check_flatness(eng, state, logs):
             flat = mini >= (1 - prm.wl_flattol) * av
         else:
             raise ValueError("unknown wl_schedule value")
-    flat &= ~fp
+    flat &= std_wl & ~fp
 
     halve = np.zeros(len(wid), dtype=bool)
     mub = np.asarray(grid.mu_bin)
@@ -298,32 +310,53 @@ def check_flatness(eng, state, logs):
         writers.append_wlf("wlf.dat", cycle, float(f.max()),
                            float(np.where(halve, 0.5 * f, f).max()))
     f = np.where(halve, 0.5 * f, f)
+    hist_w[reset_w] = 0.0
+
+    # the switch to 1/t once f falls below B / (cycle N)
+    # (mc_check_flatness:2135-2143)
+    if prm.wl_useinvt:
+        wl_invt = B / (cycle * prm.nwater)
+        trigger = (f < wl_invt) & (f > 1e-300) & ~invt
+        if trigger.any():
+            logs.g("# Switching to 1/t method")
+            invt |= trigger
+            f = np.where(trigger, wl_invt, f)
+
+    # the 1/t and Swetnam curve dumps (mc_check_flatness:2149-2179): the
+    # first walker's window
+    if (invt.any() or prm.wl_swetnam) and cycle % prm.invt_dump_int == 0:
+        tag = f"{cycle:020d}"
+        fmax = float(f.max())
+        writers.append_wlf("wlf.dat", cycle, fmax)
+        writers.write_curve(f"eta_weights.dat_{tag}", mub,
+                            weight_w[wid[0]], fmax)
+        writers.write_curve(f"histogram.dat_{tag}", mub, hist_w[wid[0]],
+                            fmax)
 
     dev = state.f.device
     dtype = state.master_hist.hi.dtype
     state.f = torch.as_tensor(f, dtype=state.f.dtype, device=dev)
     state.firstcycle = torch.as_tensor(firstcycle, device=dev)
     state.histogram_reset = torch.as_tensor(hreset, device=dev)
+    state.invt_active = torch.as_tensor(invt, device=dev)
     if reset_w.any():
         # (comms_set_histogram, mc_check_flatness:1977, 2106)
-        hist_w[reset_w] = 0.0
         state.master_hist = ds_from64(hist_w, dtype, dev)
     if one and flat.any():
         state.master_eta = ds_from64(weight_w, dtype, dev)
     return state
 
 
-def deltaG_from_uhist(prm: RunParams, grid: BinGrid, uhist) -> dict | None:
+def deltaG_from_uhist(prm: RunParams, grid: BinGrid, uhist,
+                      ref_enthalpy=None) -> dict | None:
     """Delta G = G(lattice 2) - G(lattice 1) from the merged unbiased
     histogram ``uhist`` [B] (float64): the histogram normalised over the
     bin widths, the probability mass below mu = 0 against the mass above
     it (mc_compute_deltaG_from_hist, mc_moves.F90:2498-2621).
 
-    Returns {"kT", "kT_per_mol", "J_per_mol", "meV_per_mol", "normP"},
-    or None when the histogram is empty."""
-    if prm.leshift:
-        raise NotImplementedError(
-            "leshift is not ported yet (see ROADMAP.md)")
+    Under leshift, ``ref_enthalpy`` [2] (float64) adds back the shift of
+    mu, beta (h_2 - h_1).  Returns {"kT", "kT_per_mol", "J_per_mol",
+    "meV_per_mol", "normP"}, or None when the histogram is empty."""
     B = grid.nbins
     joined = np.asarray(uhist, np.float64)
     bw = np.asarray(grid.binwidth)
@@ -333,7 +366,11 @@ def deltaG_from_uhist(prm: RunParams, grid: BinGrid, uhist) -> dict | None:
     normP = joined / norm
     pA = (normP[: B // 2] * bw[: B // 2]).sum()
     pB = (normP[B // 2:] * bw[B // 2:]).sum()
-    deltaG = float(np.log(pA / pB))
+    deltaG = np.log(pA / pB)
+    if prm.leshift:
+        rh = np.asarray(ref_enthalpy, np.float64)
+        deltaG = deltaG + prm.beta * rh[1] - prm.beta * rh[0]
+    deltaG = float(deltaG)
     kT = KB * prm.temperature
     per_mol = deltaG / prm.nwater
     return {
@@ -363,7 +400,8 @@ def compute_deltaG(eng, state, logs, aux):
     nwin = u_cur.shape[0]
     one = prm.parallel_strategy == "mw" or nwin == 1
     joined = u_cur[0] if one else join_uhist(u_cur, B, prm.window_overlap)
-    dg = deltaG_from_uhist(prm, grid, joined)
+    dg = deltaG_from_uhist(prm, grid, joined,
+                           None if aux is None else _np(aux.ref_enthalpy))
     if dg is None:
         logs.g(f"# deltaG at cycle {cycle}: histogram empty, skipped")
         return state

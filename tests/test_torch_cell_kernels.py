@@ -229,12 +229,14 @@ def chain_case(samplerun, T, K):
     return (x, *run_chains(x, K, T, W, samplerun))
 
 
-def run_chains(x, K, T, W, samplerun=False):
+def run_chains(x, K, T, W, samplerun=False, **over):
     """One chain pass of ``ChainWLPallas`` and of the port's plain
-    chain on the inputs ``x`` (chain_inputs).  Returns (port chain, port
-    tensors after the pass, joh, cnt) after asserting that the integer
-    outputs are identical and the rows and slabs agree within 1e-10."""
-    kw = cell_run_params(samplerun=samplerun, n_walkers=W, cell_trials=T)
+    chain on the inputs ``x`` (chain_inputs) at cycle 7, the run's rules
+    changed by ``over``.  Returns (port chain, port tensors after the
+    pass, joh, cnt) after asserting that the integer outputs are
+    identical and the rows and slabs agree within 1e-10."""
+    kw = cell_run_params(samplerun=samplerun, n_walkers=W, cell_trials=T,
+                         **over)
     jprm, tprm = RunParams(**kw, fused="off"), TRunParams(**kw)
     from mc_water_ls_mw_tpu.mcmc.bins import build_bin_grid as jgrid
     from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid as tgrid
@@ -254,7 +256,7 @@ def run_chains(x, K, T, W, samplerun=False):
     t = {k: tt(v) for k, v in x.items()}
     joh, cnt = tk(t["codes"], True, t["cf"], t["ci"], t["wgt"], t["hist"],
                   t["uh"], t["basew"], t["e"], t["inc"], t["hasm"], t["ua"],
-                  t["uz"])
+                  t["uz"], baseh=t["baseh"], cycle=7)
     assert tk.launches == 0
     np.testing.assert_array_equal(t["ci"].numpy(), np.asarray(jci))
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
@@ -322,16 +324,57 @@ def test_chain_nonfinite_point_matches_pallas():
     assert np.isfinite(t["cf"].numpy()[ck.CF_MU]).all()
 
 
+def rule_inputs(K, T, W, setting):
+    """Chain inputs that exercise the rule ``setting``: MINU's hoisted
+    term, a master histogram and a count of updates for Swetnam (whose
+    small wl_alpha keeps its f below the cap), 1/t on half the walkers
+    (at cycle 7 its cap lies below f)."""
+    x = chain_inputs(K, T, W, 201, seed=23 + T)
+    rng = np.random.default_rng(5)
+    x["cf"][ck.CF_MINUC] = rng.normal(0, 1.0, W)
+    x["cf"][ck.CF_SUMHIST] = 150.0
+    x["baseh"] = rng.uniform(0, 20, (201, W))
+    x["ci"][ck.CI_INVT] = np.arange(W) % 2
+    return x
+
+
 @pytest.mark.parametrize("setting", [
-    dict(minu=True), dict(wl_swetnam=True), dict(wl_useinvt=True),
-    dict(num_lattices=1),
-])
-def test_chain_kernel_refuses_unported_rules(setting):
+    dict(minu=True), dict(wl_swetnam=True, wl_alpha=1e-4),
+    dict(wl_useinvt=True), dict(num_lattices=1),
+], ids=["minu", "swetnam", "useinvt", "single"])
+def test_chain_kernel_rules_match_pallas(setting):
+    """The MINU fold-in and the Swetnam and 1/t schedules of the chain
+    kernel's plain version against ``ChainWLPallas`` (one trial per
+    mover: the interpret-mode kernel compiles fastest); one lattice is outside both kernels (the two-replica rule:
+    the engines run the XLA chain there)."""
+    from mc_water_ls_mw_tpu.mcmc.bins import build_bin_grid as jgrid
     from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
-    kw = cell_run_params(**setting)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ck.ChainWLKernel(TRunParams(**kw), build_bin_grid(201, -1200., 1200.),
-                         8, 1, 0.0)
+    K, T, W = 8, 1, 6
+    if setting.get("num_lattices") == 1:
+        kw = cell_run_params(**setting)
+        for make, grid in (
+                (ck.ChainWLKernel, build_bin_grid(201, -1200., 1200.)),
+                (ChainWLPallas, jgrid(201, -1200., 1200.,
+                                      dtype=jnp.float64))):
+            prm = (TRunParams if make is ck.ChainWLKernel
+                   else RunParams)(**kw)
+            with pytest.raises(AssertionError, match="two-replica"):
+                make(prm, grid, K, T, 0.0)
+        return
+    x = rule_inputs(K, T, W, setting)
+    tk, t, joh, cnt = run_chains(x, K, T, W, **setting)
+    cf = t["cf"].numpy()
+    if "minu" in setting:
+        # some accepted move carried its walker to the other lattice
+        assert cnt.numpy()[ck.CN_ACC].sum() > 0
+        assert (t["ci"].numpy()[ck.CI_LS] != x["ci"][ck.CI_LS]).any()
+    elif "wl_swetnam" in setting:
+        assert (cf[ck.CF_F] != 0.05).any()
+        assert (cf[ck.CF_SUMHIST] > 150.0).any()
+    else:
+        # the cap B / (7 N) on the walkers that run 1/t, only
+        np.testing.assert_array_equal(cf[ck.CF_F] < 0.05,
+                                      x["ci"][ck.CI_INVT] == 1)
 
 
 def test_mover_kernels_refuse_cpu_misuse(movers):

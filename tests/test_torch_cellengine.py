@@ -246,13 +246,31 @@ def test_auto_resolves_to_the_kernels(system):
     dict(leshift=True), dict(minu=True), dict(mc_ensemble="nvt"),
     dict(wl_swetnam=True), dict(num_lattices=1),
 ])
-def test_unported_settings_raise(system, setting):
+def test_setting_chain_terms_match_jax(system, setting):
+    """The settings the port's cell engine once refused build, resolve
+    their modes as the JAX engine does (one lattice: the XLA chains), and
+    hoist the same switch, mu-from-scratch and MINU terms of the chain
+    (its _hoisted_chain_terms) from the initial state."""
+    kw = {**system["kw"], "cell_chain": "auto", **setting}
+    jeng = JCellEngine(RunParams(**kw, fused="off"), MW, system["jgrid"],
+                       system["jaux"], system["jcg"], system["jcaux"])
     ts, taux, tcaux = to_port(system["jst"], system["jaux"],
                               system["jcaux"])
-    prm = TRunParams(**{**system["kw"], **setting})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CellEngine(prm, TMW, system["tgrid"], taux, system["tcg"], tcaux,
-                   device="cpu")
+    teng = CellEngine(TRunParams(**kw), TMW, system["tgrid"], taux,
+                      system["tcg"], tcaux, device="cpu")
+    assert teng.use_chain_kernel == jeng.use_chain_kernel \
+        == (kw["num_lattices"] == 2)
+    two, *jterms = jeng._hoisted_chain_terms(system["jst"])
+    if not two:
+        return
+    for mine, ref in zip(teng._hoisted_chain_terms(ts), jterms):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(ref), rtol=0,
+                                   atol=1e-12)
+    np.testing.assert_allclose(
+        teng._mu_scratch(ts.energy, ts.volume).numpy(),
+        np.asarray(jeng._mu_scratch(system["jst"].energy,
+                                    system["jst"].volume)), rtol=0,
+        atol=1e-9)
 
 
 def test_unported_grids_raise(system):

@@ -272,7 +272,8 @@ def test_mode_rule_runs(dims, setting, modes):
      "per-candidate delta"),
     ((12, 7, 18), dict(cell_pallas="on", cell_trials=2), ValueError,
      "per-candidate delta"),
-    ((12, 7, 18), dict(num_lattices=1), NotImplementedError, "ROADMAP"),
+    ((12, 7, 18), dict(num_lattices=1, cell_chain="on",
+                       cell_pallas="auto"), ValueError, "num_lattices = 2"),
 ], ids=["overlap-apply", "disjoint-on-T8", "overlap-on-T2", "one-lattice"])
 def test_mode_rule_refuses(dims, setting, error, match):
     sys_ = cell_system(dims)

@@ -392,9 +392,24 @@ def test_cell_state_round_trip(system):
     assert not torch.equal(tc.slot2mol, ts.slot2mol)
 
 
-def test_init_refuses_what_is_not_ported(system):
-    kw = system["kw"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cell_state(TRunParams(**{**kw, "num_lattices": 1}), TMW,
-                        system["r0"], system["H0"], system["tgrid"],
-                        system["tcg"], device="cpu")
+def test_init_one_lattice_matches_jax(system):
+    """init_cell_state at one lattice (the pair's first lattice alone, on
+    the pair's grid) against the JAX package's: the slab layout, the
+    energy and moments, mu 0 and the reference enthalpy."""
+    kw = {**system["kw"], "num_lattices": 1}
+    r0, H0 = system["r0"][:1], system["H0"][:1]
+    jst, jaux, _ = jinit_cell_state(RunParams(**kw, fused="off"), MW, r0,
+                                    H0, system["jgrid"], system["jcg"])
+    ts, taux, _ = init_cell_state(TRunParams(**kw), TMW, r0, H0,
+                                  system["tgrid"], system["tcg"],
+                                  device="cpu")
+    jf, tf = jax_state_fields(jst), cell_state_to_numpy(ts)
+    assert tf["r"].shape[0] == 1 and set(tf) == set(jf)
+    for name in ("slot2mol", "mol2slot", "ls"):
+        np.testing.assert_array_equal(tf[name], jf[name], err_msg=name)
+    for name in ("r", "energy", "moments", "mu", "volume"):
+        np.testing.assert_allclose(tf[name], jf[name], rtol=1e-12,
+                                   atol=1e-12, err_msg=name)
+    assert (tf["mu"] == 0).all()
+    np.testing.assert_allclose(taux.ref_enthalpy.numpy(),
+                               np.asarray(jaux.ref_enthalpy), rtol=1e-12)

@@ -9,10 +9,9 @@ WL-generation modes.  The port runs its plain versions (CPU tensors) of
 both kernels; float64 throughout.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
+import jax.numpy as jnp
 import torch
 
 from mc_water_ls_mw_tpu.models.lattices import switch_pair_216
@@ -180,11 +179,35 @@ def test_deltaG_matches_jax(runs, tmp_path, monkeypatch):
     dict(minu=True), dict(wl_swetnam=True),
     dict(wl_useinvt=True), dict(leshift=True), dict(mc_ensemble="nvt"),
 ])
-def test_unported_settings_raise(runs, setting):
-    r = runs[1]
-    prm = dataclasses.replace(r["teng"].prm, **setting)
-    with pytest.raises(NotImplementedError):
-        TEngine(prm, TMW, r["teng"].grid, r["teng"].aux, device="cpu")
+def test_setting_step_matches_jax(runs, setting):
+    """One table-mode translation step and one switch attempt under the
+    setting, from the run's final state, against the JAX engine's scan
+    step (its _translation and _switch, eager): the settings the port's
+    engine once refused."""
+    samplerun, r = runs
+    kw = small_run_params(samplerun=samplerun, wl_factor=0.5, **setting)
+    js = r["js"]._replace(invt_active=jnp.asarray([True, False]))
+    jeng = JEngine(RunParams(**kw, fused="off"), MW, r["jeng"].grid,
+                   r["jaux"])
+    ts, taux = state_from_numpy(jax_state_fields(js),
+                                jax_aux_fields(r["jaux"]), device="cpu")
+    teng = TEngine(TRunParams(**kw), TMW, r["teng"].grid, taux,
+                   device="cpu")
+    u = np.random.default_rng(7).uniform(size=(7, 2))
+    imol = 17
+    js = jeng._translation(js, jnp.asarray(u), enabled=True,
+                           imol_shared=imol)
+    js = jeng._switch(js, jnp.asarray(u[6]), True)
+    wl_active = ts.cycle >= teng.prm.eq_mc_cycles
+    teng._translation_tbl(ts, torch.as_tensor(u), imol, wl_active)
+    teng._switch(ts, torch.as_tensor(u[6]))
+    jf, tf = jax_state_fields(js), state_to_numpy(ts)
+    for name in ("att", "acc", "ls", "trans_per_mol"):
+        np.testing.assert_array_equal(tf[name], jf[name], err_msg=name)
+    for name in ("r", "energy", "moments", "mu", "weight", "hist", "uhist",
+                 "f", "sumhist"):
+        np.testing.assert_allclose(tf[name], jf[name], rtol=0, atol=1e-10,
+                                   err_msg=name)
 
 
 def test_audit_heals_and_reports_drift(runs):

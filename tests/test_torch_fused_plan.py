@@ -118,13 +118,87 @@ def test_plan_is_for_the_warp_kernels_only(kernel, itemsize, N, T, wpb,
             > SMEM_BLOCK_MAX
 
 
+@pytest.mark.parametrize("kernel,base", [
+    ("fused_cycle_1l", "fused_cycle"),
+    ("fused_cycle_dense_1l", "fused_cycle_dense"),
+    ("fused_cycle_ext", "fused_cycle"),
+    ("fused_cycle_dense_ext", "fused_cycle_dense"),
+    ("fused_cycle_multi_ext", "fused_cycle_multi"),
+])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_variant_plans(kernel, base, itemsize):
+    """Kernel 1's other instantiations stage their branch's layout: the
+    extended ones exactly their two-lattice branch's bytes, the
+    one-lattice ones the state of one lattice (13 N values a walker in
+    place of 26 N), which doubles the float64 walkers a block can stage
+    at N=216 up to the register bound."""
+    N, T, W = 216, 8, 4096
+    plan = launch_plan(kernel, itemsize, N, B, 1, W, T)
+    ref = launch_plan(base, itemsize, N, B, 1, W, T)
+    assert plan.state_smem and plan.smem <= SMEM_BLOCK_MAX
+    if kernel.endswith("_ext"):
+        assert plan == ref
+        return
+    half = fused.STATE_ROWS * N * itemsize
+    assert plan.smem == smem_bytes(base, itemsize, N, B, 1, plan.wpb, True,
+                                   T) - plan.wpb * half
+    assert plan.wpb == WARP_CAP[itemsize]
+
+
+@pytest.mark.parametrize("setting,kernel", [
+    (dict(), "fused_cycle"),
+    (dict(num_lattices=1), "fused_cycle_1l"),
+    (dict(num_lattices=1, nbr_table="off"), "fused_cycle_dense_1l"),
+    (dict(minu=True), "fused_cycle_ext"),
+    (dict(leshift=True, nbr_table="off"), "fused_cycle_dense_ext"),
+    (dict(mc_ensemble="nvt"), "fused_cycle_ext"),
+    (dict(wl_swetnam=True), "fused_cycle"),        # a sample run: no f
+    (dict(wl_swetnam=True, samplerun=False), "fused_cycle_ext"),
+    (dict(wl_useinvt=True, samplerun=False, dense_trials=2),
+     "fused_cycle_multi_ext"),
+    (dict(dense_trials=8), "fused_cycle_multi"),
+])
+def test_kernel_name_picks_the_instantiation(setting, kernel):
+    """The run's settings pick the kernel: its branch, one lattice, or
+    the extended settings (a sample run's f schedule is off)."""
+    from mc_water_ls_mw_tpu_torch.mcmc.config import RunParams
+
+    prm = RunParams(**{"samplerun": True, **setting})
+    dense = prm.nbr_table == "off"
+    assert fused.kernel_name(prm, dense) == kernel
+    assert fused.KERNELS[kernel][1] == prm.num_lattices
+
+
 def test_fused_args_extends_the_earlier_layout():
-    """The launch plan's two ints follow the model constants at the end
-    of the structure the kernels read (csrc/fused_cycle.cu FusedArgs)."""
+    """The launch plan's two ints follow the model constants, and the
+    extended kernels' settings follow them at the end of the structure
+    the kernels read (csrc/fused_warp.cuh FusedArgs): an earlier
+    kernel's structure is a prefix of this one."""
     A = fused.FusedArgs
     assert A.wpb.offset == A.sw.offset + ctypes.sizeof(cuda_build.SWConsts)
     assert A.state_smem.offset == A.wpb.offset + 4
-    assert ctypes.sizeof(A) == A.state_smem.offset + 4
+    assert A.minu.offset == A.state_smem.offset + 4
+    assert A.f_sched.offset == A.minu.offset + 12
+    assert A.rh0.offset == A.f_sched.offset + 4
+    assert A.binfrac.offset == A.invt_f.offset + 8
+    assert ctypes.sizeof(A) == A.baseh.offset + 8
+
+
+@pytest.mark.parametrize("kernel", sorted(fused.KERNELS))
+def test_kernel_exported_by_name(kernel):
+    """Each kernel of KERNELS is one FUSED_ENTRIES line of its library's
+    source (the launch and occupancy symbols the wrapper binds by name),
+    with the branch and the lattice count that KERNELS gives it."""
+    import re
+
+    branch, nl, lib = fused.KERNELS[kernel]
+    src = (cuda_build.CSRC / f"{lib}.cu").read_text()
+    rows = re.findall(r"^FUSED_ENTRIES\((\w+), (\w+), (\d), (\w+)\)$", src,
+                      re.M)
+    assert [(b.lower(), int(n)) for k, b, n, _ in rows if k == kernel] \
+        == [(branch, nl)]
+    assert {k for k, *_ in rows} == {
+        k for k, v in fused.KERNELS.items() if v[2] == lib}
 
 
 def test_wrapper_plans_its_engine():

@@ -199,6 +199,29 @@ def test_fused_cycle_multi_kernel_fp64(card, dtype, T):
     assert eng.fused_cycle.launches == 3
 
 
+@pytest.mark.parametrize("Wr", [W, 37])
+@pytest.mark.parametrize("case", [c[0] for c in chip_smoke.variant_cases()])
+def test_fused_cycle_variant_kernels_fp64(card, case, Wr):
+    """Kernel 1's instantiations beyond the two-lattice plain settings
+    (one lattice, MINU, leshift, NVT, the Swetnam and 1/t schedules;
+    chip_smoke.py phase 4e) against their plain versions over one cycle
+    in float64, also at a ragged walker count: identical integer
+    outcomes, state (f and sumhist among it) within 1e-10."""
+    tag, kernel, params, prepare, weights, paper = next(
+        c for c in chip_smoke.variant_cases() if c[0] == case)
+    eng, s = chip_smoke.make_engine(params(Wr, "float64"),
+                                    paper_pair=paper, weights=weights)
+    assert eng.fused_cycle.kernel == kernel
+    if prepare is not None:
+        prepare(s)
+    eng.run_cycles(s, 2)
+    draws = chip_smoke.kernel_draws(eng, s, 15)
+    sk, sp, differ = chip_smoke.fused_compare(eng, s, draws)
+    assert not differ.any()
+    assert chip_smoke.fused_max_err(sk, sp, ~differ) <= 1e-10
+    assert eng.fused_cycle.launches == 3
+
+
 def test_engine_on_card_runs_both_kernels(card):
     prm = chip_smoke.sample_params(W, "float32", mpi_sync_int=2,
                                    latt_sync_int=3, eq_mc_cycles=1)
@@ -247,6 +270,41 @@ def test_mover_apply_kernel_fp64(cell_engine, tbl):
         "mover_apply"]
     assert ma["mom_err"] <= 1e-10 and ma["rest_equal"]
     assert ma["changed"] > 0 and ma["n_acc"] > 0
+
+
+def test_cell_kernels_one_lattice_fp64(card):
+    """The energies and apply kernels at one lattice (grid z = 1; the
+    N=8064 single box of chip_smoke.py phase 7d) against their plain
+    versions on one sub-step after a cycle of sampling, in float64."""
+    from mc_water_ls_mw_tpu_torch.mcmc.chain_kernel import SWITCH
+
+    prm = chip_smoke.cell_params(W, "float64", cell_chain="auto",
+                                 **chip_smoke.SINGLE_BOX)
+    eng, s = chip_smoke.make_cell_engine(prm)
+    assert s.r.shape[0] == 1 and not eng.use_chain_kernel
+    eng.run_cycles(s, 1)
+    K = eng.K
+    gen = torch.Generator(device=chip_smoke.DEVICE)
+    gen.manual_seed(21)
+    u = torch.rand((7, K, W), generator=gen, dtype=s.r.dtype,
+                   device=chip_smoke.DEVICE)
+    codes = torch.zeros((K,), dtype=torch.int32)
+    codes[K // 2] = SWITCH
+    pks = eng._pack(s)
+    rows = eng._loop_rows(s)
+    fc, cand, off = eng._tables(37)
+    trial = eng._propose_t1(s, pks, 37, u, rows)
+    pe, pown = eng.mover_kernel.plain(pks, s.h, cand, off, fc, trial.rank,
+                                      trial.p_old, trial.p_new)
+    assert chip_smoke._max_abs(trial.e, pe) <= 1e-10
+    assert chip_smoke._max_abs(trial.own_new, pown) <= 1e-10
+    accf, _ = eng._chain_t1(s.clone(), rows, trial, codes, u[5], u[6])
+    n_occ, n_in = chip_smoke._occupancy_counts(eng, s, pks, trial, cand,
+                                               off, fc)
+    ma = chip_smoke.apply_compare(
+        eng, pks, (s.h, cand, off, fc, trial.rank, accf, trial.p_old,
+                   trial.p_new, trial.own_new), n_occ, n_in)
+    assert ma["mom_err"] <= 1e-10 and ma["rest_equal"] and ma["changed"] > 0
 
 
 @pytest.fixture(scope="module")
@@ -392,7 +450,13 @@ def _edge_walkers(x, B):
     ci[ck.CI_START, 41:60], ci[ck.CI_END, 41:60] = B // 2 - 3, B // 2 + 3
 
 
-def _chain_on_card(samplerun, T, K, in_place):
+# the chain kernel's rules beyond the plain factor (phase 6c's settings)
+CHAIN_RULES = {"minu": dict(minu=True),
+               "swetnam": dict(wl_swetnam=True, wl_alpha=1e-4),
+               "invt": dict(wl_useinvt=True)}
+
+
+def _chain_on_card(samplerun, T, K, in_place, rule=None):
     import numpy as np
 
     from mc_water_ls_mw_tpu_torch.mcmc import chain_kernel as ck
@@ -405,9 +469,18 @@ def _chain_on_card(samplerun, T, K, in_place):
     if T >= 2:
         poison_point(x, K, T)
     _edge_walkers(x, B)
+    over = CHAIN_RULES[rule] if rule else {}
+    if rule:
+        # MINU's hoisted term, a master histogram and a count of
+        # updates for Swetnam, 1/t on every other walker
+        rng = np.random.default_rng(6)
+        x["cf"][ck.CF_MINUC] = rng.normal(0, 1.0, W_CHAIN)
+        x["cf"][ck.CF_SUMHIST] = 150.0
+        x["baseh"] = rng.uniform(0, 20, (B, W_CHAIN))
+        x["ci"][ck.CI_INVT] = np.arange(W_CHAIN) % 2
     prm = chip_smoke.cell_params(W_CHAIN, "float64", samplerun=samplerun,
                                  wl_factor=0.0 if samplerun else 0.05,
-                                 cell_trials=T)
+                                 cell_trials=T, **over)
     kern = ck.ChainWLKernel(prm, build_bin_grid(B, -1200.0, 1200.0), K, T,
                             3.0)
     plan = kern.plan(torch.float64, W_CHAIN)
@@ -422,8 +495,11 @@ def _chain_on_card(samplerun, T, K, in_place):
     pp = {k: v.clone() for k, v in t.items()}
     names = ("codes", "cf", "ci", "wgt", "hist", "uh", "basew", "e", "inc",
              "hasm", "ua", "uz")
-    joh_k, cnt_k = kern(kk["codes"], True, *(kk[n] for n in names[1:]))
-    joh_p, cnt_p = kern.plain(pp["codes"], True, *(pp[n] for n in names[1:]))
+    # at cycle 7 the 1/t cap B / (7 N) lies below f = 0.05
+    joh_k, cnt_k = kern(kk["codes"], True, *(kk[n] for n in names[1:]),
+                        baseh=kk["baseh"], cycle=7)
+    joh_p, cnt_p = kern.plain(pp["codes"], True, *(pp[n] for n in names[1:]),
+                              baseh=pp["baseh"], cycle=7)
     torch.cuda.synchronize()
     assert kern.launches == 1
     assert torch.equal(kk["ci"], pp["ci"])
@@ -442,6 +518,13 @@ def _chain_on_card(samplerun, T, K, in_place):
     if T >= 2:                                 # the poisoned mover
         P = T + 1
         assert joh_k.view(K, P, -1)[1, :, 0].tolist() == [1.0] + [0.0] * T
+    cf = kk["cf"].cpu().numpy()
+    if rule == "minu":
+        assert (kk["ci"][ck.CI_LS] != t["ci"][ck.CI_LS]).any()
+    elif rule == "swetnam":
+        assert (cf[ck.CF_F] != 0.05).any() and (cf[ck.CF_SUMHIST] > 150).any()
+    elif rule == "invt":
+        assert ((cf[ck.CF_F] < 0.05) == (x["ci"][ck.CI_INVT] == 1)).all()
 
 
 @pytest.mark.parametrize("in_place", [False, True], ids=["staged",
@@ -452,6 +535,16 @@ def _chain_on_card(samplerun, T, K, in_place):
                         "t8_samplerun"])
 def test_chain_wl_kernel_synthetic_fp64(card, samplerun, T, K, in_place):
     _chain_on_card(samplerun, T, K, in_place)
+
+
+@pytest.mark.parametrize("in_place", [False, True], ids=["staged",
+                                                         "in_place"])
+@pytest.mark.parametrize("T", [1, 8])
+@pytest.mark.parametrize("rule", list(CHAIN_RULES))
+def test_chain_wl_kernel_rules_fp64(card, rule, T, in_place):
+    """MINU and the Swetnam and 1/t schedules (chip_smoke.py phase 6c)
+    on the synthetic inputs, in both branches of the plan."""
+    _chain_on_card(False, T, 8, in_place, rule)
 
 
 def test_chain_wl_launch_after_a_smaller_plans_occupancy(card):
