@@ -67,8 +67,8 @@ Phases (each exits non-zero on failure):
    5d. runs/n216_sample_dd through the port's run_input_file (4096
    walkers over 8 windows, float32, its committed weights, a sample run;
    DD216_CUTS lists the interval cuts, eq_mc_cycles stays 1000) in
-   build/chip_smoke_dd216: 2000 cycles, then 500 resumed from the
-   checkpoint; moves/s, walkers in their window per window at the
+   build/chip_smoke_dd216: DD216_CYCLES, a first call and one resumed
+   from the checkpoint; moves/s, walkers in their window per window at the
    boundary and at the end (none may be empty), the stitched Delta G
    and unbiased_histogram.dat (finite), the per-window dumps
    uhist_windows_*.dat;
@@ -168,11 +168,11 @@ Phases (each exits non-zero on failure):
 9. the front-end path: runs/n8064_wl/ice.input with its run.py
    overrides (128 walkers, float32, cell_trials=8, 'dd' over 16 windows
    with overlap 2; FRONTEND_CUTS lists every interval cut)
-   through the port's run_input_file in build/chip_smoke_frontend: 3
-   cycles that hold volume moves, delta-syncs, monitor_stats with
+   through the port's run_input_file in build/chip_smoke_frontend: 2
+   cycles and a resumed one that hold volume moves, delta-syncs, monitor_stats with
    eq_adjust_mc and its per-window rows, the equilibration boundary,
-   check_flatness, checkpoints and rebins, then a second call that
-   resumes from the checkpoint for 1 more; seconds per cycle,
+   check_flatness, checkpoints and rebins (FRONTEND_CYCLES); seconds
+   per cycle,
    trials/s, launches, slab overflow (must be 0), an energy audit of 64
    walkers and a torch.profiler trace of one more cycle;
    9b. round 5's pipeline through run_input_file with jit_chunk=20, as
@@ -192,16 +192,34 @@ Phases (each exits non-zero on failure):
    build/chip_smoke_dense48: 40 cycles, then 8 resumed from the
    checkpoint; ms per cycle, moves/s, launches, an energy audit and the
    merged histogram;
-11. one JSON line with every kernel's launches (summed over the main
-   paths of phases 5, 5b, 5c, 5d, 5e, 5f, 5g, 7, 7b, 7d, 8d, 9, 9b and
-   10, and 4e's engine runs of the dense and multi-trial instantiations;
-   7c runs no kernel), error against its plain
+11. (after phase 10) the ranks, gloo groups of 2 and 4 spawned on the
+   one card (NCCL refuses two ranks on one card), each sharded run held
+   against the serial run of the same settings in this process (f64:
+   identical integers, the rest within 1e-10), and every kernel a
+   phase's ranks launch held against its plain version on a rank's own
+   inputs (f64: no differing walker or entry, errors within 1e-10; a
+   launched kernel left unchecked fails the phase): 12a the N=216 sample
+   run sharded over walkers (the fused cycle and the full energy on each
+   rank's walkers; f32 moves/s at 1 and 2 ranks), 12b the N=8064 cell
+   engine likewise (mover energies, chain + WL and apply on one sub-step
+   of each rank's walkers), 12c runs/n216_sample_dd through
+   run_input_file on 2 ranks (rank 0's files against the 1-rank run's,
+   then resumed on 1 rank; its engine's kernels on each rank's final
+   state), 13a-d the spatial engine (D=1 in process, D=2 at T=1 and 8,
+   space 2 x walkers 2; the mover kernels and the apply on a rank's
+   local slab, the chain on the tables assembled across the space
+   ranks; ms per sub-step, the halo refresh's bytes and ms); RANK_* and
+   SPATIAL_* list the sizes;
+12. one JSON line with every kernel's launches (summed over the main
+   paths of phases 5, 5b, 5c, 5d, 5e, 5f, 5g, 7, 7b, 7d, 8d, 9, 9b, 10
+   and the ranks' runs of 12-13, and 4e's engine runs of the dense and
+   multi-trial instantiations; 7c runs no kernel), error against its plain
    version, times and bound; the multi-trial kernel has a line for each
    T of path C, kernel 1's new instantiations one each, the
    mover-apply kernel one for phase 7's shape ("mover_apply") and one
    for phase 9's, the chain kernel one for each of phases 7
    ("chain_wl"), 7b and 9 and one for 8d's MINU chain;
-12. as the last line, {"ok": true, "device": {...}}.
+13. as the last line, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds ("[time]"), and the run its total.
 
@@ -411,13 +429,15 @@ def stacking_cells(prm):
     return r[None], H[None]
 
 
-def make_engine(prm, stream=None, paper_pair=False, weights="n216_sample"):
+def make_engine(prm, stream=None, paper_pair=False, weights="n216_sample",
+                comm=None):
     """(engine, state): the stacking pair of ``prm.stack`` (one lattice:
     its Ih cell) from the committed weights
     (runs/<weights>/eta_weights.dat; flat where ``weights`` is None or
     with one lattice), or with ``paper_pair`` the paper's N=216 pair
     (models/lattices.switch_pair_216) from flat weights; in 'dd' over
-    ``prm.n_windows`` windows."""
+    ``prm.n_windows`` windows.  With ``comm`` the engine shards the
+    walkers over its ranks (the state returned is the whole one)."""
     from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
     from mc_water_ls_mw_tpu_torch.mcmc.engine import Engine
     from mc_water_ls_mw_tpu_torch.mcmc.state import init_state
@@ -440,7 +460,8 @@ def make_engine(prm, stream=None, paper_pair=False, weights="n216_sample"):
                      f"{grid.nbins}")
     s, aux = init_state(prm, MW, r0, H0, grid, weight0=w0,
                         n_windows=n_windows(prm), device=DEVICE)
-    return Engine(prm, MW, grid, aux, device=DEVICE, stream=stream), s
+    return Engine(prm, MW, grid, aux, device=DEVICE, stream=stream,
+                  comm=comm), s
 
 
 # the dense-candidate cases of kernel 1 (fused_cycle_dense): the
@@ -1181,11 +1202,14 @@ def n_windows(prm):
     return max(2, min(prm.n_walkers, prm.n_windows))
 
 
-def make_cell_engine(prm):
+def make_cell_engine(prm, comm=None, mesh=None):
     """(engine, state) of the stacking pair ``prm.stack`` (one lattice:
     its Ih cell, no correspondence mismatch) on the cell grid the front
     end picks for it (app.py: choose_grid_shape without
-    prefer_disjoint); in 'dd' over ``prm.n_windows`` windows."""
+    prefer_disjoint); in 'dd' over ``prm.n_windows`` windows.  With
+    ``comm`` the walkers are sharded over its ranks; with ``mesh`` (a
+    parallel/spatial.SpatialMesh) the engine is the spatially sharded
+    one.  The state returned is the whole one."""
     from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid
     from mc_water_ls_mw_tpu_torch.mcmc.cellengine import (
         CellEngine,
@@ -1209,7 +1233,15 @@ def make_cell_engine(prm):
     grid = build_bin_grid(prm.nbins, prm.mu_min, prm.mu_max)
     s, aux, caux = init_cell_state(prm, MW, r0, H0, grid, cg,
                                    n_windows=n_windows(prm), device=DEVICE)
-    return CellEngine(prm, MW, grid, aux, cg, caux, device=DEVICE), s
+    if mesh is not None:
+        from mc_water_ls_mw_tpu_torch.parallel.spatial import (
+            SpatialCellEngine,
+        )
+
+        return SpatialCellEngine(prm, MW, grid, aux, cg, caux, mesh=mesh,
+                                 device=DEVICE), s
+    return CellEngine(prm, MW, grid, aux, cg, caux, device=DEVICE,
+                      comm=comm), s
 
 
 def _max_abs(a, b, relative=False):
@@ -1877,18 +1909,18 @@ N8064_WL = dict(
 )
 # what the smoke run cuts, to fit rebins, volume moves, delta-syncs,
 # monitor_stats with eq_adjust_mc, the equilibration boundary of the 16
-# 'dd' windows, check_flatness and a checkpoint into 3 + 1 cycles: these
+# 'dd' windows, check_flatness and a checkpoint into 2 + 1 cycles: these
 # cycle counts and intervals (the run's own values in the comments)
 FRONTEND_CUTS = dict(
     eq_mc_cycles=3,             # 400
     list_update_int=3,          # 10
     monitor_int=2,              # 500
-    flat_chk_int=4,             # 500
+    flat_chk_int=3,             # 500
     mpi_sync_int=2,             # 50
     file_output_int=2,          # 100
-    chkpt_dump_int=4,           # 250
-)
-FRONTEND_CYCLES = (3, 1)        # first call, resumed call
+    chkpt_dump_int=2,           # 250 (each call's writer starts at slot
+)                               # 1: cycle 2's writes fill both slots)
+FRONTEND_CYCLES = (2, 1)        # first call, resumed call
 
 
 def _block_seconds(log_path):
@@ -1918,9 +1950,9 @@ def _block_split(log_path):
 
 def frontend_run():
     """Drive runs/n8064_wl (128 walkers, float32, cell_trials=8) through
-    the port's run_input_file in build/chip_smoke_frontend: 3 cycles,
-    then a second call that resumes from the checkpoint for 1 more, then
-    a traced cycle.  The kernels' counts are those of the engines the two
+    the port's run_input_file in build/chip_smoke_frontend:
+    FRONTEND_CYCLES (a first call, then a second that resumes from the
+    checkpoint), then a traced cycle.  The kernels' counts are those of the engines the two
     calls built (created at 0 when the run sets up).  Returns
     {"launches": {kernel: count over both calls}}."""
     import shutil
@@ -2485,22 +2517,22 @@ DD216 = dict(
     timer_closetime=420, max_mc_cycles=100_000_000,
 )
 # what the smoke run cuts, to fit monitor_stats, Delta G dumps and a
-# checkpoint into 2000 + 500 cycles (the run's own values in the
+# checkpoint into 1200 + 300 cycles (the run's own values in the
 # comments); eq_mc_cycles stays 1000
 DD216_CUTS = dict(
     monitor_int=500,            # 5000
-    deltaG_int=500,             # 10000
+    deltaG_int=250,             # 10000 (dumps at 1000, 1250, 1500)
     chkpt_dump_int=1000,        # 25000
 )
-DD216_CYCLES = (2000, 500)      # first call, resumed call
+DD216_CYCLES = (1200, 300)      # first call, resumed call
 
 
 def dd216_run():
     """Drive runs/n216_sample_dd (4096 walkers over 8 windows, float32,
     its committed eta_weights.dat) through the port's run_input_file in
-    build/chip_smoke_dd216: 2000 cycles across the equilibration
-    boundary at 1000, then a second call that resumes from the
-    checkpoint for 500 more.  Returns {"launches": {kernel: count over
+    build/chip_smoke_dd216: DD216_CYCLES[0] cycles across the
+    equilibration boundary at 1000, then a second call that resumes from
+    the checkpoint for DD216_CYCLES[1] more.  Returns {"launches": {kernel: count over
     both calls}}."""
     import shutil
 
@@ -3053,9 +3085,10 @@ def trans_wall_phase():
 def unfused_t1_phase():
     """8c: cell_pallas='off' (the unfused sub-step with the micro-batched
     chain) against 'apply' (the three kernels) in a sample run on the
-    N=8064 pair, one cycle each from one seed, float64 at W=64 (frozen
-    weights: the micro-batched chain is the serial one): integer state
-    identical, continuous state within 1e-10, the WL slabs within 1e-12
+    N=8064 pair, one cycle each from one seed, cut to UNFUSED_SWEEPS
+    sweeps (it rebins and merges), float64 at W=64 (frozen weights: the
+    micro-batched chain is the serial one): integer state identical,
+    continuous state within 1e-10, the WL slabs within 1e-12
     relative."""
     import torch
 
@@ -3072,6 +3105,9 @@ def unfused_t1_phase():
             fail(f"cell_pallas='{mode}' resolved to use_cell_pallas "
                  f"{eng.use_cell_pallas}, use_chain_kernel "
                  f"{eng.use_chain_kernel}")
+        eng.sweeps_per_cycle = UNFUSED_SWEEPS
+        eng.trials_per_cycle = (UNFUSED_SWEEPS * eng.n_tables * eng.K
+                                * eng.T)
         torch.cuda.synchronize()
         t0 = time.time()
         eng.run_cycles(s, 1)
@@ -3089,7 +3125,8 @@ def unfused_t1_phase():
     wl_rel = max((float(e) / max(1.0, float(m)) for e, m, f in fields
                   if f in WL_FIELDS), default=0.0)
     uh = ds_value64(b.master_uhist)
-    print(f"[unfused-t1] fp64 N=8064 W={W_CELL_FP64} sample run, one cycle: "
+    print(f"[unfused-t1] fp64 N=8064 W={W_CELL_FP64} sample run, one cycle "
+          f"of {UNFUSED_SWEEPS} sweeps: "
           f"'off' {secs['off']:.3f} s, 'apply' {secs['apply']:.3f} s; "
           f"integer state equal {ints_equal} {names}; state max abs diff "
           f"{err:.3e}, WL slabs max relative diff {wl_rel:.3e}; by field "
@@ -3103,6 +3140,7 @@ def unfused_t1_phase():
 
 WL_FIELDS = ("weight", "hist", "uhist", "master_eta", "master_hist",
              "master_uhist")
+UNFUSED_SWEEPS = 4              # of 16: 8c's 'off' cycle ~55 s in full
 
 
 def field_diffs(a, b):
@@ -3128,8 +3166,10 @@ def field_diffs(a, b):
 FLAG_T8 = dict(cell_trials=8, cell_pallas="auto", cell_chain="auto")
 # the flagship at T=8: one timed cycle, the first (no warm-up cycle: ~70
 # s of the run's limit), with a rebin and a delta-sync in it, the resync
-# left out (a whole-cell energy costs ~7 s here)
+# left out (a whole-cell energy costs ~7 s here), cut to the first
+# FLAG_T8_SUB of its 64 sub-steps (~1.6 s each)
 FLAG_T8_CUTS = dict(list_update_int=1, mpi_sync_int=1, latt_sync_int=10_000)
+FLAG_T8_SUB = 32
 
 
 def flagship_t8_run(kind, card):
@@ -3194,6 +3234,9 @@ def flagship_t8_run(kind, card):
     prm = cell_params(W_FLAG, "float32", stack=FLAG_STACK, **FLAG_T8,
                       **FLAG_T8_CUTS, **mt)
     eng, s = make_cell_engine(prm)
+    eng.n_tables = FLAG_T8_SUB
+    eng.trials_per_cycle = (eng.sweeps_per_cycle * FLAG_T8_SUB * eng.K
+                            * eng.T)
     n_sub = eng.sweeps_per_cycle * eng.n_tables
     att0 = s.att.clone()
     torch.cuda.synchronize()
@@ -4018,6 +4061,635 @@ def minu_t8_run(kind, card):
 # the run
 # ----------------------------------------------------------------------
 
+# ----------------------------------------------------------------------
+# 12-13. ranks on the one card: walker sharding and the spatial engine
+# ----------------------------------------------------------------------
+
+# The multi-rank phases spawn gloo groups on this card (NCCL refuses two
+# ranks on one card); every gate holds a sharded run against the serial
+# one of the same settings, seed and draws, run in this process.
+# 12a: the N=216 sample run; the float64 gate at 64 walkers over 3 cycles
+# (a delta-sync at cycle 2, a chain resync at 3, ~4 volume moves a cycle)
+RANK_DENSE_CUTS = dict(mpi_sync_int=2, latt_sync_int=3, mc_vol_prob=0.02)
+RANK_W64 = 64
+RANK_F64_CYCLES = 3
+RANK_TIMED = (5, 10)            # warm-up and timed cycles of the f32 rate
+# 12b: N=8064, T=1, 'apply'; the float64 gate at 4 walkers over one whole
+# cycle that rebins first, runs its volume moves, merges and resyncs; the
+# float32 seconds of one cycle at W_CELL walkers without volume moves
+RANK_CELL_CUTS = dict(list_update_int=1, mpi_sync_int=1, latt_sync_int=1,
+                      mc_vol_prob=4.0 / 8064)
+RANK_CELL_F32 = dict(mc_vol_prob=0.0, latt_sync_int=10_000)
+# 12c: runs/n216_sample_dd through run_input_file, float64, 64 walkers
+# over its 8 windows, equilibration cut to 2 cycles, a monitor, Delta G
+# and checkpoint every 2: 2 cycles, then 2 resumed on one rank
+RANK_FE = dict(DD216, n_walkers=64, dtype="float64", eq_mc_cycles=2,
+               monitor_int=2, deltaG_int=2, chkpt_dump_int=2,
+               mpi_sync_int=1, file_output_int=1)
+RANK_FE_CYCLES = (2, 2)         # first call, resumed call
+# 13: the spatial engine on N=8064, cycles cut to one sweep (64 sub-steps)
+# that rebins and merges; float64 gates at 2 walkers (4 on the 2x2 grid),
+# float32 timing at W_SPATIAL walkers over the first SPATIAL_TIMED_SUB
+# (colour, block) tables of a sweep
+SPATIAL_CUTS = dict(list_update_int=1, mpi_sync_int=1, mc_vol_prob=0.0,
+                    latt_sync_int=10_000)
+W_SPATIAL = 128
+SPATIAL_TIMED_SUB = 4
+RANK_F64_TOL = 1e-10
+_KERNEL_ATTRS = ("fused_cycle", "full_energy", "mover_kernel",
+                 "points_kernel", "apply_kernel", "chain_kernel")
+
+
+def _kernel_name(eng, attr):
+    """The report name of the kernel held at ``eng.<attr>``."""
+    k = getattr(eng, attr)
+    return {"fused_cycle": getattr(k, "kernel", None),
+            "full_energy": "full_energy", "points_kernel": "mover_points",
+            "apply_kernel": "mover_apply", "chain_kernel": "chain_wl"
+            }.get(attr) or k.name
+
+
+def _kernels(eng):
+    """{report name: wrapper} of the kernels an engine holds."""
+    return {_kernel_name(eng, attr): getattr(eng, attr)
+            for attr in _KERNEL_ATTRS if getattr(eng, attr, None) is not None}
+
+
+def dense_rank_checks(eng, s, seed=12):
+    """The dense engine's kernels against their plain versions on this
+    rank's walkers of ``s``: the fused cycle over one cycle with the same
+    draws, and the full energy of each lattice.  Returns {report name:
+    (walkers with differing integers, largest error relative to
+    max(1, |plain|))}.  Launches made here are checks: the caller sets
+    the counts to 0 afterwards."""
+    sk, sp, differ = fused_compare(eng, s, kernel_draws(eng, s, seed))
+    out = {_kernel_name(eng, "fused_cycle"):
+           (int(differ.sum()), fused_max_err(sk, sp, ~differ))}
+    err = 0.0
+    for l in range(s.r.shape[0]):
+        rel, merr, mscale = full_energy_errors(eng.full_energy, s.r[l],
+                                               s.h[l])
+        err = max(err, rel, merr / max(1.0, mscale))
+    out["full_energy"] = (0, err)
+    return out
+
+
+def cell_rank_checks(eng, s, tbl=3, seed=14):
+    """The walker-sharded cell engine's kernels (T=1, 'apply') against
+    their plain versions on this rank's walkers of ``s``: the mover
+    energies of table row ``tbl``, the chain + WL pass on them and the
+    apply with its accepts (``cell_substep_compare``).  Returns {report
+    name: (differing walkers or slab entries, largest error)}."""
+    cmp = cell_substep_compare(eng, s, tbl, seed)
+    me, ch, ap = (cmp[k] for k in ("mover_energies", "chain_wl",
+                                   "mover_apply"))
+    return {eng.mover_kernel.name: (0, max(me["e_err"], me["own_err"])),
+            "chain_wl": (int(ch["differ"].sum()),
+                         max(ch["cf_err"], ch["wl_err"])),
+            "mover_apply": (int(not ap["rest_equal"]), ap["mom_err"])}
+
+
+def _host_state(s):
+    from mc_water_ls_mw_tpu_torch.mcmc.state import state_to_numpy
+
+    return state_to_numpy(s)
+
+
+def _np_diff(x, y) -> float:
+    """Largest |x - y| of two float arrays, inf unless they are
+    non-finite in the same places with the same values."""
+    fin = np.isfinite(x)
+    if not (np.array_equal(fin, np.isfinite(y))
+            and np.array_equal(x[~fin], y[~fin], equal_nan=True)):
+        return float("inf")
+    return float(np.max(np.abs(x[fin] - y[fin]))) if fin.any() else 0.0
+
+
+def _rank_gate(tag, ref, got, tol=RANK_F64_TOL):
+    """Fail unless two numpy states have identical integer fields and
+    float fields within ``tol``; returns the largest float difference."""
+    bad, err = [], 0.0
+    for name, a in ref.items():
+        b = got[name]
+        for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+            x, y = np.asarray(x), np.asarray(y)
+            if x.dtype.kind in "fc":
+                err = max(err, _np_diff(x, y))
+            elif not np.array_equal(x, y):
+                bad.append(name)
+    print(f"[{tag}] against the serial run: integer fields "
+          f"{'identical' if not bad else 'DIFFER: ' + str(bad)}, float "
+          f"fields max |diff| {err:.3e} (limit {tol:g})", flush=True)
+    if bad or not err <= tol:
+        fail(f"{tag}: the sharded run is not the serial run")
+    return err
+
+
+def _rank_checks(tag, checked, launched):
+    """Print the kernel checks of a phase's ranks (``checked``: the rank
+    jobs' results with a "check") and fail unless every kernel agrees
+    with its plain version (no walker or entry differing, largest error
+    within RANK_F64_TOL) and every kernel launched by the jobs
+    ``launched`` was checked."""
+    names = set()
+    for r, res in enumerate(checked):
+        chk = res["check"]
+        print(f"[{tag}] rank {r}: kernels against their plain versions on "
+              "this rank's inputs, float64 (differing walkers or entries, "
+              f"largest error): {chk}", flush=True)
+        for name, (n_diff, err) in chk.items():
+            if n_diff or not err <= RANK_F64_TOL:
+                fail(f"{tag}: {name} disagrees with its plain version on "
+                     f"rank {r}'s inputs")
+        names |= set(chk)
+    missed = {name for res in launched
+              for name, n in res["launches"].items() if n} - names
+    if missed:
+        fail(f"{tag}: {sorted(missed)} launched but not held against "
+             "their plain versions")
+
+
+def _timed_cycles(comm, eng, s, n_warm, n_cycles):
+    """(state, seconds, launches) of ``n_cycles`` cycles after ``n_warm``,
+    between barriers of the ranks, with the kernels' counts set to 0
+    just before the timed cycles and read just after."""
+    import torch
+
+    if n_warm:
+        s, _ = eng.run_cycles(s, n_warm)
+    for k in _kernels(eng).values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    comm.barrier()
+    t0 = time.time()
+    s, _ = eng.run_cycles(s, n_cycles)
+    torch.cuda.synchronize()
+    comm.barrier()
+    secs = time.time() - t0
+    return s, secs, {n: k.launches for n, k in _kernels(eng).items()}
+
+
+def rank_dense(comm, W, dtype, n_cycles, warm=0, check=False, **over):
+    """12a on one rank of ``comm`` (SINGLE: the serial run): the N=216
+    sample run at W walkers sharded over the ranks; with ``check`` the
+    fused cycle's and the full energy's kernels against their plain
+    versions on this rank's walkers first."""
+    from mc_water_ls_mw_tpu_torch.parallel.mesh import (
+        gather_state,
+        shard_state,
+    )
+
+    prm = sample_params(W, dtype, **over)
+    eng, s = make_engine(prm, comm=comm)
+    s = shard_state(s, comm, W)
+    out = {}
+    if check:
+        out["check"] = dense_rank_checks(eng, s)
+    s, out["seconds"], out["launches"] = _timed_cycles(comm, eng, s, warm,
+                                                       n_cycles)
+    out["state"] = _host_state(gather_state(s, comm))
+    return out
+
+
+def _spatial_mesh(comm, walkers):
+    from mc_water_ls_mw_tpu_torch.parallel.spatial import make_spatial_mesh
+
+    return make_spatial_mesh(comm, walkers)
+
+
+def rank_cell(comm, W, dtype, n_cycles=1, warm=0, spatial=None,
+              sweeps=None, n_tables=None, check=False, **over):
+    """12b and 13 on one rank of ``comm``: the N=8064 cell engine at W
+    walkers, sharded over the walkers, or with ``spatial`` = walker ranks
+    the spatial engine over the rest; cycles cut to ``sweeps`` sweeps of
+    the first ``n_tables`` tables.  With ``check`` the kernels against
+    their plain versions first, on this rank's walkers (walker sharding)
+    or local slabs and assembled chain tables (spatial); the spatial
+    engine's halo refresh timed."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.parallel.mesh import (
+        gather_state,
+        shard_state,
+    )
+
+    prm = cell_params(W, dtype, **over)
+    if spatial is None:
+        eng, s = make_cell_engine(prm, comm=comm)
+    else:
+        eng, s = make_cell_engine(prm, mesh=_spatial_mesh(comm, spatial))
+    out = {"n_sub_cycle": eng.sweeps_per_cycle * eng.n_tables}
+    if sweeps:
+        eng.sweeps_per_cycle = sweeps
+        eng.n_tables = n_tables or eng.n_tables
+        eng.trials_per_cycle = sweeps * eng.n_tables * eng.K * eng.T
+    out["n_sub"] = eng.sweeps_per_cycle * eng.n_tables
+    s = shard_state(s, eng.comm, W)
+    if check and spatial is None:
+        out["check"] = cell_rank_checks(eng, s)
+    if spatial is not None:
+        out["plan"] = (eng.plan.ndev, eng.plan.rows_owned,
+                       eng.plan.rows_halo, eng.plan.K_loc)
+        if check:
+            out["check"], out["check_at"] = spatial_kernel_checks(eng, s)
+        if eng.plan.ndev > 1:
+            pks_loc = eng._local_view(s)[0]
+            eng._refresh_halo(pks_loc)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(5):
+                eng._refresh_halo(pks_loc)
+            torch.cuda.synchronize()
+            out["halo"] = (eng.halo_bytes(pks_loc),
+                           (time.time() - t0) / 5 * 1e3)
+            del pks_loc
+    s, out["seconds"], out["launches"] = _timed_cycles(comm, eng, s, warm,
+                                                       n_cycles)
+    out["vol_moves"] = int(eng.comm.max(s.att[1].max()))
+    out["state"] = (_host_state(gather_state(s, eng.comm))
+                    if dtype == "float64" else None)
+    return out
+
+
+def spatial_kernel_checks(eng, s, seed=13):
+    """The spatial engine's kernels against their plain versions on this
+    rank's local slabs [owned | halos | dummy] at a table whose schedule
+    is padded (padding on the dummy row): the mover energies (T=1) or
+    points (T>1); the chain + WL pass on the tables assembled from every
+    space rank's owned movers, as the sub-step assembles them, on clones
+    of the chain rows and WL slabs; then the apply kernel with a random
+    half of the real movers accepted, on copies of the slabs, compared on
+    every row but the dummy (whose contents are garbage by design).
+    Collective over the space ranks.  Returns ({report name: (differing
+    walkers or entries, largest error)}, (the table, its padded movers,
+    the accepted ones)).  Launches made here are checks: the caller sets
+    the counts to 0 afterwards."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.mcmc.chain_kernel import SWITCH
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    pks_loc, st_loc, rows, rows_loc = eng._local_view(
+        s, eng._switch_ok(s.cycle + 1))
+    wl_active = s.cycle + 1 >= eng.prm.eq_mc_cycles
+    pad = (~eng.vj).any(dim=1)
+    t = int(torch.nonzero(pad)[0]) if bool(pad.any()) else 0
+    tab, mvc = eng.ltabs[t], eng.mvc[t]
+    K, T, W = eng.K, eng.T, s.r.shape[-1]
+    u_g = torch.rand((eng.n_u, K, W), generator=gen, dtype=s.r.dtype,
+                     device=DEVICE)
+    ua, uz = torch.rand((2, K * T, W), generator=gen, dtype=s.r.dtype,
+                        device=DEVICE)
+    codes = torch.zeros((K * T,), dtype=torch.int32, device=DEVICE)
+    codes[K * T // 2] = SWITCH
+    u = u_g[:, mvc]
+    out = {}
+    if T == 1:
+        trial = eng._propose_t1(st_loc, pks_loc, tab, u, rows_loc)
+        e_p, own_p = eng.mover_kernel.plain(
+            pks_loc, st_loc.h, tab.cand, tab.off, tab.row, trial.rank,
+            trial.p_old, trial.p_new)
+        out[eng.mover_kernel.name] = (0, max(_max_abs(trial.e, e_p),
+                                             _max_abs(trial.own_new, own_p)))
+        L, Kl, _, _ = trial.e.shape
+        g = eng._to_global(t, torch.cat([
+            trial.e.transpose(1, 2).reshape(2 * L, Kl, W),
+            rows_loc.inc[:, 1][None], trial.hasm[None]]))
+        rows.inc[:, 1] = g[2 * L]
+        e_g = g[:2 * L].view(L, 2, K, W).transpose(1, 2).contiguous()
+        inc_g, hasm_g, ua, uz = rows.inc, g[2 * L + 1], u_g[5], u_g[6]
+        p_new, own = trial.p_new, trial.own_new
+    else:
+        u = u[:4 + 3 * T]
+        trial = eng._propose_tm(st_loc, pks_loc, tab, u, rows_loc)
+        e_p, own_p = eng.points_kernel.plain(
+            pks_loc, st_loc.h, tab.cand, tab.off, tab.row, trial.rank,
+            trial.pts)
+        out["mover_points"] = (0, max(_max_abs(trial.e, e_p),
+                                      _max_abs(trial.own, own_p)))
+        L, Kl, P, _ = trial.e.shape
+        g = eng._to_global(t, torch.cat([
+            trial.e.permute(0, 2, 1, 3).reshape(L * P, Kl, W),
+            trial.inc.transpose(0, 1), trial.hasm[None]]))
+        e_g = g[:L * P].view(L, P, K, W).transpose(1, 2).contiguous()
+        inc_g = g[L * P:L * P + P].transpose(0, 1).contiguous()
+        hasm_g = g[-1]
+        p_new = trial.pts[1].contiguous()
+        own = trial.own[:, :, 1].contiguous()
+    if eng.use_chain_kernel:
+        ch = chain_compare(eng, s, rows, e_g, inc_g, hasm_g, codes, ua, uz,
+                           wl_active)[0]
+        out["chain_wl"] = (int(ch["differ"].sum()),
+                           max(ch["cf_err"], ch["wl_err"]))
+    # every other (mover, walker) of the real movers accepted
+    k, w = torch.meshgrid(torch.arange(trial.rank.shape[0], device=DEVICE),
+                          torch.arange(W, device=DEVICE), indexing="ij")
+    acc = (((k + w) % 2 == 0) & eng.vj[t][:, None]).to(s.r.dtype)
+    p_old = trial.p_old if T == 1 else trial.pts[0].contiguous()
+    pk_k = [p.clone() for p in pks_loc]
+    pk_p = [p.clone() for p in pks_loc]
+    eng.apply_kernel(pk_k, st_loc.h, tab.cand, tab.off, tab.row, trial.rank,
+                     acc, p_old, p_new, own)
+    eng.apply_kernel.plain(pk_p, st_loc.h, tab.cand, tab.off, tab.row,
+                           trial.rank, acc, p_old, p_new, own)
+    dummy = eng.plan.dummy_row
+    out["mover_apply"] = (0, max(_max_abs(a[:dummy], b[:dummy])
+                                 for a, b in zip(pk_k, pk_p)))
+    return out, (t, int((~eng.vj[t]).sum()), int(acc.sum()))
+
+
+def rank_frontend(comm, d, over, n_cycles, check=False):
+    """12c on one rank: run_input_file of ``d``/ice.input (its ranks
+    are this process's group); with ``check`` its engine's kernels
+    against their plain versions on this rank's walkers of the final
+    state, after the run's launches are read."""
+    out = _app_calls(d, over, [n_cycles], {"fused_cycle": "fused_cycle",
+                                           "full_energy": "full_energy"})[0]
+    eng = out["app"].engine
+    res = {"launches": {_kernel_name(eng, a): n
+                        for a, n in out["launches"].items()},
+           "cycle": int(out["s"].cycle), "seconds": out["wall"]}
+    if check:
+        res["check"] = dense_rank_checks(eng, out["s"])
+    return res
+
+
+def rank_jobs(comm, jobs):
+    """Run the jobs (name of a rank_* function, its keywords) in order
+    on this rank; returns their results."""
+    out = []
+    for name, kw in jobs:
+        t0 = time.time()
+        res = globals()[name](comm, **kw)
+        res["wall"] = time.time() - t0
+        out.append(res)
+    return out
+
+
+def _fe_dir(name):
+    import shutil
+
+    d = os.path.join(ROOT, "build", "chip_smoke_ranks", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    for f in ("ice.input", "eta_weights.dat"):
+        shutil.copy(os.path.join(ROOT, "runs", "n216_sample_dd", f), d)
+    return d
+
+
+def _same_numbers(x: bytes, y: bytes):
+    """(equal, tokens that differ): two text files with the same words,
+    numbers equal within RANK_F64_TOL relative to max(1, |number|)."""
+    la, lb = x.decode().split(), y.decode().split()
+    if len(la) != len(lb):
+        return False, -1
+    n = 0
+    for a, b in zip(la, lb):
+        if a == b:
+            continue
+        try:
+            fa, fb = float(a), float(b)
+        except ValueError:
+            return False, n
+        if not abs(fa - fb) <= RANK_F64_TOL * max(1.0, abs(fa), abs(fb)):
+            return False, n
+        n += 1
+    return True, n
+
+
+def _fe_same_files(tag, d1, d2):
+    """Fail unless two run directories hold the same files: every file
+    byte for byte (mc.log without its block timings and the sharding
+    line) or, where the monitor's audit prints round-off (its drift
+    lines: the audit is plain PyTorch, whose reductions on the card may
+    group a sum differently at another walker count), the same words
+    and numbers within RANK_F64_TOL; the checkpoints' integer arrays
+    equal and their float arrays within RANK_F64_TOL."""
+    names = sorted(os.listdir(d1))
+    if names != sorted(os.listdir(d2)):
+        fail(f"{tag}: different files {names} / {sorted(os.listdir(d2))}")
+    ck_err, near = 0.0, {}
+    for name in names:
+        p1, p2 = os.path.join(d1, name), os.path.join(d2, name)
+        if name.startswith("checkpoint"):
+            with np.load(p1) as a, np.load(p2) as b:
+                if sorted(a.files) != sorted(b.files):
+                    fail(f"{tag}: checkpoint {name} differs")
+                for k in a.files:
+                    x, y = a[k], b[k]
+                    if x.dtype.kind == "f":
+                        ck_err = max(ck_err, _np_diff(x, y))
+                    elif not np.array_equal(x, y):
+                        fail(f"{tag}: checkpoint {name} array {k} differs")
+            if not ck_err <= RANK_F64_TOL:
+                fail(f"{tag}: checkpoint {name} differs by {ck_err:.3e}")
+            continue
+        x, y = (open(p, "rb").read() for p in (p1, p2))
+        if name == "mc.log":
+            x, y = (b"\n".join(ln for ln in v.split(b"\n")
+                               if not ln.startswith((b"# block",
+                                                     b"# Sharding")))
+                    for v in (x, y))
+        if x != y:
+            same, n = _same_numbers(x, y)
+            if not same:
+                diff = [(a, b) for a, b in zip(x.split(b"\n"), y.split(b"\n"))
+                        if a != b][:3]
+                fail(f"{tag}: {name} differs: {diff}")
+            near[name] = n
+    print(f"[{tag}] {len(names)} files: byte for byte identical but "
+          f"{near} (numbers differing within {RANK_F64_TOL:g} relative, by "
+          f"file; mc.log without its block timings); checkpoint arrays max "
+          f"|diff| {ck_err:.3e}", flush=True)
+
+
+def ranks_phases(kind, card):
+    """Phases 12 (walker sharding: 12a dense, 12b cell, 12c front end)
+    and 13 (the spatial engine: 13a one rank, 13b two ranks at T=1, 13c
+    at T=8, 13d space 2 x walkers 2), each sharded run on ranks of a gloo
+    group spawned on this card and held against the serial run in this
+    process.  Returns {"launches": {report row: launches of the sharded
+    runs}}."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.parallel import comm as comm_mod
+
+    single = comm_mod.SINGLE
+    print("[ranks] backend gloo, ranks spawned on cuda:0 (NCCL refuses two "
+          "ranks on one card); a rank's card tensors reach the collectives "
+          "through host copies", flush=True)
+    N, Nc = 216, 4 * CELL_STACK[0] * CELL_STACK[1] * CELL_STACK[2]
+    dense64 = dict(W=RANK_W64, dtype="float64", n_cycles=RANK_F64_CYCLES,
+                   **RANK_DENSE_CUTS)
+    dense32 = dict(W=W_MAIN, dtype="float32", n_cycles=RANK_TIMED[1],
+                   warm=RANK_TIMED[0])
+    cell64 = dict(W=4, dtype="float64", **RANK_CELL_CUTS)
+    cell32 = dict(W=W_CELL, dtype="float32", **RANK_CELL_F32)
+    sp = dict(sweeps=1, **SPATIAL_CUTS)
+    sp64 = {T: dict(W=2, dtype="float64", cell_trials=T, **sp)
+            for T in (1, MULTI_T)}
+    sp32 = {T: dict(W=W_SPATIAL, dtype="float32", cell_trials=T,
+                    n_tables=SPATIAL_TIMED_SUB, **sp) for T in (1, MULTI_T)}
+    grid64 = dict(sp64[1], W=4)
+
+    # the serial runs
+    t0 = time.time()
+    d_one, d_two = _fe_dir("one"), _fe_dir("two")
+    ref = {}
+    for key, kw in (("dense64", dense64), ("dense32", dense32),
+                    ("cell64", cell64), ("cell32", cell32),
+                    ("sp64_1", sp64[1]), ("sp64_8", sp64[MULTI_T]),
+                    ("grid64", grid64), ("sp32_1", sp32[1]),
+                    ("sp32_8", sp32[MULTI_T]),
+                    # 13a: the spatial engine's degenerate plan
+                    ("d1_64", dict(sp64[1], spatial=1, check=True)),
+                    ("d1_32", dict(sp32[1], spatial=1)),
+                    ("fe", dict(d=d_one, over=RANK_FE,
+                                n_cycles=RANK_FE_CYCLES[0]))):
+        ref[key] = rank_jobs(single, [(
+            "rank_dense" if key.startswith("dense") else
+            "rank_frontend" if key == "fe" else "rank_cell", kw)])[0]
+    torch.cuda.empty_cache()
+    print(f"[ranks] serial runs in {time.time() - t0:.1f} s", flush=True)
+
+    # the ranks: one group of 2 for 12a-c, 13b and 13c, one of 4 for 13d
+    jobs2 = [("rank_dense", dict(dense64, check=True)),
+             ("rank_dense", dense32),
+             ("rank_cell", dict(cell64, check=True)), ("rank_cell", cell32),
+             ("rank_frontend", dict(d=d_two, over=RANK_FE,
+                                    n_cycles=RANK_FE_CYCLES[0], check=True)),
+             ("rank_cell", dict(sp64[1], spatial=1, check=True)),
+             ("rank_cell", dict(sp32[1], spatial=1)),
+             ("rank_cell", dict(sp64[MULTI_T], spatial=1, check=True)),
+             ("rank_cell", dict(sp32[MULTI_T], spatial=1))]
+    jobs4 = [("rank_cell", dict(grid64, spatial=2, check=True)),
+             ("rank_cell", dict(sp32[1], spatial=2))]
+    t0 = time.time()
+    two = comm_mod.run_ranks(rank_jobs, 2, jobs2, timeout_s=400)
+    t2 = time.time() - t0
+    t0 = time.time()
+    four = comm_mod.run_ranks(rank_jobs, 4, jobs4, timeout_s=300)
+    t4 = time.time() - t0
+    print(f"[ranks] 2 ranks: {t2:.1f} s, 4 ranks: {t4:.1f} s "
+          "with their start-up; rank 0's jobs "
+          f"{[(n, round(r['wall'], 1)) for (n, _), r in zip(jobs2, two[0])]}"
+          f" {[(n, round(r['wall'], 1)) for (n, _), r in zip(jobs4, four[0])]}",
+          flush=True)
+    launches = {}
+
+    def count(res, rows=None):
+        for r in res:
+            for name, n in r["launches"].items():
+                name = (rows or {}).get(name, name)
+                launches[name] = launches.get(name, 0) + n
+
+    d64, d32, c64, c32, fe, s1, s1f, s8, s8f = two[0]
+    # ---- 12a
+    _rank_gate("12a dense f64", ref["dense64"]["state"], d64["state"])
+    _rank_checks("12a", [r[0] for r in two], [r[0] for r in two]
+                 + [r[1] for r in two])
+    att = d64["state"]["att"].sum(axis=1)
+    if att[1] <= 0:
+        fail("12a: no volume move in the float64 gate")
+    rate1 = W_MAIN * N * RANK_TIMED[1] / ref["dense32"]["seconds"]
+    rate2 = W_MAIN * N * RANK_TIMED[1] / max(r[1]["seconds"] for r in two)
+    print(f"[12a] N=216 W={W_MAIN} f32 sample run, {RANK_TIMED[1]} cycles "
+          f"after {RANK_TIMED[0]}: 1 rank {rate1:.4e} moves/s, 2 ranks x "
+          f"{W_MAIN // 2} on the one card {rate2:.4e} moves/s on {kind} "
+          f"({card}); attempts trans/vol/switch of the f64 gate "
+          f"{att.tolist()}", flush=True)
+    count([r[0] for r in two] + [r[1] for r in two])
+    # ---- 12b
+    _rank_gate("12b cell f64", ref["cell64"]["state"], c64["state"])
+    _rank_checks("12b", [r[2] for r in two], [r[2] for r in two]
+                 + [r[3] for r in two])
+    if c64["vol_moves"] <= 0:
+        fail("12b: no volume move in the float64 gate")
+    s_1, s_2 = ref["cell32"]["seconds"], max(r[3]["seconds"] for r in two)
+    print(f"[12b] N={Nc} T=1 'apply' W={W_CELL} f32, one cycle: 1 rank "
+          f"{s_1:.3f} s ({Nc * W_CELL / s_1:.4e} trials/s), 2 ranks x "
+          f"{W_CELL // 2} {s_2:.3f} s ({Nc * W_CELL / s_2:.4e} trials/s) on "
+          f"{kind} ({card}); volume moves per walker of the f64 gate "
+          f"{c64['vol_moves']}", flush=True)
+    count([r[2] for r in two] + [r[3] for r in two])
+    # ---- 12c
+    _fe_same_files("12c 2 ranks vs 1", d_one, d_two)
+    _rank_checks("12c", [r[4] for r in two], [r[4] for r in two])
+    t0 = time.time()
+    out1 = rank_frontend(single, d_one, RANK_FE, RANK_FE_CYCLES[1])
+    out2 = rank_frontend(single, d_two, RANK_FE, RANK_FE_CYCLES[1])
+    fe_resumed = time.time() - t0
+    if out2["cycle"] != sum(RANK_FE_CYCLES) or "# Restarting from cycle" \
+            not in open(os.path.join(d_two, "node000.log")).read():
+        fail("12c: the 2-rank checkpoint did not resume on one rank")
+    _fe_same_files("12c resumed on 1 rank from 2 ranks vs from 1", d_one,
+                   d_two)
+    print(f"[12c] runs/n216_sample_dd f64 W={RANK_FE['n_walkers']} over "
+          f"{RANK_FE['n_windows']} windows: 2 ranks {fe['seconds']:.1f} s, "
+          f"1 rank {ref['fe']['seconds']:.1f} s for {RANK_FE_CYCLES[0]} "
+          f"cycles with set-up; resumed on 1 rank to cycle "
+          f"{out2['cycle']} ({out1['seconds']:.1f} / {out2['seconds']:.1f} "
+          "s)", flush=True)
+    count([r[4] for r in two])
+    # ---- 13
+    _rank_gate("13a D=1 f64", ref["sp64_1"]["state"], ref["d1_64"]["state"])
+    _rank_checks("13a", [ref["d1_64"]], [ref["d1_64"], ref["d1_32"]])
+    print(f"[13a] {ref['d1_32']['n_sub']} sub-steps f32 W={W_SPATIAL}: "
+          f"CellEngine {ref['sp32_1']['seconds']:.3f} s, spatial D=1 "
+          f"{ref['d1_32']['seconds']:.3f} s", flush=True)
+    for tag, T, rf, res64, res32 in (
+            ("13b", 1, "sp32_1", [r[5] for r in two], [r[6] for r in two]),
+            ("13c", MULTI_T, "sp32_8", [r[7] for r in two],
+             [r[8] for r in two]),
+            ("13d", 1, "sp32_1", [r[0] for r in four],
+             [r[1] for r in four])):
+        key = "grid64" if tag == "13d" else f"sp64_{T}"
+        _rank_gate(f"{tag} f64", ref[key]["state"], res64[0]["state"])
+        for r, res in enumerate(res64):
+            print(f"[{tag}] rank {r} plan (D, rows owned, halo rows per "
+                  f"side, K_loc) {res['plan']}; kernel checks at (table, "
+                  f"padded movers, accepted) {res['check_at']}", flush=True)
+        _rank_checks(tag, res64, res64 + res32)
+        secs = max(r["seconds"] for r in res32)
+        hb, hms = res32[0]["halo"]
+        n_sub, n_cyc = res32[0]["n_sub"], res32[0]["n_sub_cycle"]
+        ms1 = ref[rf]["seconds"] / n_sub * 1e3
+        ms = secs / n_sub * 1e3
+        print(f"[{tag}] N={Nc} T={T} f32 W={W_SPATIAL}, {n_sub} sub-steps: "
+              f"serial {ms1:.3f} ms, {len(res32)} ranks {ms:.2f} ms per "
+              f"sub-step (x {n_cyc} sub-steps a cycle: {ms1 * n_cyc / 1e3:.2f}"
+              f" s / {ms * n_cyc / 1e3:.1f} s of sub-step loop); halo refresh "
+              f"{hb} bytes sent per rank, {hms:.2f} ms, {hms / ms:.2f} of a "
+              f"sub-step (all-gather ring) on {kind} ({card})", flush=True)
+        rows = {"mover_apply": APPLY_MT, "chain_wl": CHAIN_T8} if T > 1 \
+            else None
+        count(res32, rows)
+        count(res64, rows)
+    # each phase's seconds: its serial runs and rank 0's jobs (the ranks
+    # of a group run their jobs in step); the groups' start-up apart
+    walls2, walls4 = [r["wall"] for r in two[0]], [r["wall"] for r in four[0]]
+    for name, keys, jobs in (
+            ("12a. walker-sharded dense engine (N=216)",
+             ("dense64", "dense32"), walls2[0:2]),
+            ("12b. walker-sharded cell engine (N=8064)",
+             ("cell64", "cell32"), walls2[2:4]),
+            ("12c. front end on 2 ranks (runs/n216_sample_dd)",
+             ("fe",), walls2[4:5] + [fe_resumed]),
+            ("13a. spatial engine, one rank", ("d1_64", "d1_32"), []),
+            ("13b. spatial engine, 2 ranks, T=1", ("sp64_1", "sp32_1"),
+             walls2[5:7]),
+            ("13c. spatial engine, 2 ranks, T=8", ("sp64_8", "sp32_8"),
+             walls2[7:9]),
+            ("13d. spatial engine, space 2 x walkers 2", ("grid64",),
+             walls4)):
+        secs = sum(ref[k]["wall"] for k in keys) + sum(jobs)
+        print(f"[time] {name}: {secs:.1f} s", flush=True)
+    print(f"[time] 12-13 the rank groups' start-up: "
+          f"{t2 - sum(walls2) + t4 - sum(walls4):.1f} s", flush=True)
+    return {"launches": launches}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "mc_water_ls_mw_tpu_torch")):
         fail("run it from the repository root: mc_water_ls_mw_tpu_torch/ "
@@ -4712,6 +5384,12 @@ def main() -> int:
     for name, n in d48["launches"].items():
         launches[name] = launches.get(name, 0) + n
     phase_time("10. path A (N=48 example)")
+
+    # ---- 12-13. ranks on the one card: walker sharding (12a dense,
+    # 12b cell, 12c front end) and the spatial engine (13a-d)
+    for name, n in ranks_phases(kind, card)["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    phase_time("12-13. ranks: walker sharding and the spatial engine")
 
     # ---- 11. the kernels
     kernels = [

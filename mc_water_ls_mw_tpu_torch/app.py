@@ -10,13 +10,20 @@ checkpoint), the SIGTERM-safe stop and the queue-time guard (reference
 call stack: SURVEY.md 3.1-3.2, main.f90:40-254).
 
 The run is one process on one device (``device``: 'cuda' by default,
-'cpu' on request), in either parallel strategy ('mw', or 'dd' mu
-windows: walkers assigned round-robin to ``n_windows`` windows).  The
-JAX package's ``use_mesh`` and ``jit_chunk`` arguments are accepted and
-change nothing here: the walkers are sharded only across several
-devices, and there is no compiled program whose length to bound.
-What the engines refuse (MINU, the 1/t schedule, ...) raises
-NotImplementedError when the engine is built.
+'cpu' on request), or, launched by ``torchrun --nproc-per-node D`` (or
+inside a ``torch.distributed`` group of D ranks), D processes with the
+walkers sharded over them (``use_mesh``, the JAX package's argument):
+rank r takes the walker block [r W/D, (r+1) W/D) of the same run, in
+either parallel strategy ('mw', or 'dd' mu windows: walkers assigned
+round-robin to ``n_windows`` windows).  Every rank builds the whole
+initial state (or loads the whole checkpoint) and keeps its block;
+rank 0 writes every file, a checkpoint of the gathered state in the
+serial layout, so that a run's files and checkpoints do not depend on
+the number of ranks.  A walker count that does not divide over the
+ranks is refused (the JAX package falls back to one device there, but
+several processes each running the whole run would write the same
+files).  ``jit_chunk`` changes nothing: there is no compiled program
+whose length to bound.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ from .mcmc.engine import Engine
 from .mcmc.state import compute_log_unbiased_norm, init_state, resolve_device
 from .models.sw import get_model
 from .ops.dsfloat import ds_value64, ds_zeros
+from .parallel.comm import init_from_env
+from .parallel.mesh import gather_state, shard_state
 from .parallel.windows import join_eta
 
 
@@ -99,16 +108,28 @@ class Application:
 
     def __init__(self, prm: RunParams, workdir=".", use_mesh=True,
                  device="cuda"):
-        # use_mesh: the JAX package shards the walkers over a mesh of
-        # several devices; a run of the port has one, so it is unused
+        # the ranks of this run (parallel/comm.py): one without torchrun
+        comm, device = init_from_env(device)
+        if comm.sharded and not (use_mesh and prm.n_walkers % comm.size
+                                 == 0):
+            raise ValueError(
+                f"{comm.size} ranks cannot share n_walkers="
+                f"{prm.n_walkers}" + (
+                    "" if use_mesh else " with use_mesh=False") +
+                ": the walkers are sharded in equal blocks (pick a "
+                "walker count divisible by the number of ranks)")
+        self.comm = comm
+        self.root = comm.rank == 0
         self.prm = prm
         self.device = resolve_device(device)
         self.workdir = os.path.abspath(workdir)
         os.chdir(self.workdir)
         self.model = get_model(prm.model_type)
         self.restart = ckpt.restart_available(".")
-        self.logs = writers.Logs(restart=self.restart)
+        self.logs = (writers.Logs(restart=self.restart) if self.root
+                     else writers.NullLogs())
         self.ckpt_writer = None
+        self.therm = None
         self._stop = False
 
     # ------------------------------------------------------------------
@@ -189,9 +210,18 @@ class Application:
 
             return CellEngine(self.prm, self.model, self.grid, self.aux,
                               self.cellgrid, self._caux, device=self.device,
-                              stream=stream)
+                              stream=stream, comm=self.comm)
         return Engine(self.prm, self.model, self.grid, self.aux,
-                      device=self.device, stream=stream)
+                      device=self.device, stream=stream, comm=self.comm)
+
+    def _any(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on any rank (every rank takes the same
+        branch: a stop on one rank alone would leave the others waiting
+        in a collective)."""
+        if not self.comm.sharded:
+            return bool(flag)
+        t = torch.tensor([int(bool(flag))], device=self.device)
+        return bool(self.comm.max(t))
 
     def setup(self):
         prm, logs = self.prm, self.logs
@@ -250,25 +280,35 @@ class Application:
                 + "".join(f"{x:15.6f}" for x in hpv) + "  eV")
 
         # trajectory headers (io.f90:696-789)
-        writers.write_psf("mW.psf", prm.nwater, prm.num_lattices)
-        writers.write_dcd_header("mW.dcd", prm.nwater * prm.num_lattices)
+        if self.root:
+            writers.write_psf("mW.psf", prm.nwater, prm.num_lattices)
+            writers.write_dcd_header("mW.dcd",
+                                     prm.nwater * prm.num_lattices)
+        if self.comm.sharded:
+            logs.g(f"# Sharding {prm.n_walkers} walkers over "
+                   f"{self.comm.size} ranks")
 
         # restart (mc_init:825-854); a cell-engine checkpoint of a
         # smaller slab capacity is migrated to the current one
         self.start_cycle = 0
         if self.restart:
             state = self._restore(state)
+        else:
+            state = shard_state(state, self.comm, prm.n_walkers)
         self.state = state
-        self.ckpt_writer = ckpt.CheckpointWriter(".", background=True,
-                                                 seed=prm.seed)
-        self.therm = writers.ThermWriter(
-            prm.seedname, range(min(prm.therm_walkers, prm.n_walkers)),
-            prm.nwater, restart=self.restart)
+        if self.root:
+            self.ckpt_writer = ckpt.CheckpointWriter(".", background=True,
+                                                     seed=prm.seed)
+            self.therm = writers.ThermWriter(
+                prm.seedname, range(min(prm.therm_walkers, prm.n_walkers)),
+                prm.nwater, restart=self.restart)
         self.timer = Timer(prm.timer_qtime, prm.timer_closetime)
         signal.signal(signal.SIGTERM, self._sigterm)
         return self
 
     def _restore(self, state):
+        """The whole state from the newer checkpoint (every rank reads
+        it and keeps its block), resynchronised and audited."""
         prm, logs = self.prm, self.logs
         migrate = None
         if self.cellgrid is not None:
@@ -278,6 +318,7 @@ class Application:
         if loaded is None:
             raise RuntimeError("checkpoint files present but unreadable")
         state, cycle, path = loaded
+        state = shard_state(state, self.comm, prm.n_walkers)
         self.start_cycle = cycle
         logs.my(f"# Restarting from cycle {cycle} ({path})")
         if prm.num_lattices == 2:
@@ -287,7 +328,7 @@ class Application:
         # state carries over, the estimator accumulators start clean and
         # f freezes (the tell is a stored f > 0; a sample-phase resume
         # has f == 0 and keeps its accumulators)
-        if prm.samplerun and float(state.f.max()) > 0:
+        if prm.samplerun and float(self.comm.max(state.f.max())) > 0:
             logs.my("# Sample phase from a generation checkpoint: "
                     "freezing f, zeroing histogram/uhist accumulators, "
                     "keeping eta + chain state")
@@ -319,6 +360,8 @@ class Application:
 
     def _write_therm(self, samples):
         prm = self.prm
+        if not self.root:
+            return
         cycles = samples["cycle"].numpy()
         e = samples["E_ls"].double().cpu().numpy()           # [n, T]
         mu = samples["mu"].double().cpu().numpy()
@@ -332,6 +375,9 @@ class Application:
                     vol[i, :, w], int(ls[i, w]), prm.num_lattices, fixed)
 
     def _write_traj(self):
+        """Walker 0's configuration, which the root rank holds."""
+        if not self.root:
+            return
         s = self.state
         ls0 = int(s.ls[0])
         r_all = s.r[..., 0]                                   # [L,3,n]
@@ -370,7 +416,7 @@ class Application:
         prm = self.prm
         if prm.parallel_strategy != "dd" or cycle < prm.eq_mc_cycles:
             return
-        n_out = int((~self.state.in_window).sum())
+        n_out = int(self.comm.sum((~self.state.in_window).sum()[None]))
         if n_out == 0:
             return
         if not prm.dd_seeding:
@@ -398,9 +444,9 @@ class Application:
                 self.logs.g("# WARNING: run too short for a steady-state "
                             "profile block; no trace will be written")
         done = blocks_done = 0
-        while done < total and not self._stop:
+        while done < total and not self._any(self._stop):
             prof = None
-            if profile_dir is not None and blocks_done == 1:
+            if profile_dir is not None and blocks_done == 1 and self.root:
                 from torch.profiler import ProfilerActivity, profile
 
                 acts = [ProfilerActivity.CPU] + (
@@ -432,27 +478,36 @@ class Application:
             # slab-capacity audit BEFORE the checkpoint write: an
             # overflowing walker is corrupt and must never be persisted
             if self.cellgrid is not None:
-                ovf = int(self.state.occ_overflow.max())
+                ovf = int(self.comm.max(self.state.occ_overflow.max()))
                 if ovf > 0:
                     raise CapacityOverflow(self.cellgrid.cap, ovf)
             if cycle % prm.chkpt_dump_int == 0:
-                self.ckpt_writer.write(self.state, stream=eng.stream)
+                self._checkpoint()
             t_end = time.monotonic()
             self.logs.g(
                 f"# block {cycle}: {n} cycles in {t_end - t_blk:.1f}s = "
                 f"dispatch {t_disp - t_blk:.1f} + therm "
                 f"{t_therm - t_disp:.1f} + wl/monitor {t_wl - t_therm:.1f}"
                 f" + ckpt/other {t_end - t_wl:.1f}")
-            if not self.timer.safe():
+            if self._any(not self.timer.safe()):
                 self.logs.g("!============================================!")
                 self.logs.g("! Approaching end of queue time - stopping   !")
                 self.logs.g("!============================================!")
                 break
             self._check_windows(cycle)
         # final checkpoint (main.f90:246), synchronous
-        self.ckpt_writer.write(self.state, stream=eng.stream, wait=True)
-        self.therm.close()
+        self._checkpoint(wait=True)
+        if self.therm is not None:
+            self.therm.close()
         return self.state
+
+    def _checkpoint(self, wait=None):
+        """The gathered state, written by the root rank in the serial
+        layout (collective)."""
+        full = gather_state(self.state, self.comm)
+        if self.root:
+            self.ckpt_writer.write(full, stream=self.engine.stream,
+                                   wait=wait)
 
     def close(self):
         if self.ckpt_writer is not None:
@@ -468,11 +523,12 @@ def run_input_file(path, overrides=None, max_cycles=None, workdir=None,
 
     ``use_mesh`` and ``jit_chunk`` are the JAX package's arguments, taken
     so that its callers (the committed runs/*/run.py) run unchanged.
-    Neither changes what the port does: ``use_mesh`` shards the walkers
-    only across several devices and a run of the port has one; the JAX
-    package's ``jit_chunk`` caps the cycles of one compiled dispatch
-    (host events stay on the block boundaries, so results never depended
-    on it), and the port compiles no cycle program.
+    ``use_mesh`` shards the walkers over the ranks of a ``torchrun``
+    launch (or of an initialised ``torch.distributed`` group), see
+    Application; the JAX package's ``jit_chunk`` caps the cycles of one
+    compiled dispatch (host events stay on the block boundaries, so
+    results never depended on it), and the port compiles no cycle
+    program.
 
     Cell-engine capacity resilience: if a rebin overflows the slab
     capacity (CapacityOverflow), the run is set up again with a regrown

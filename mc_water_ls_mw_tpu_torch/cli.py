@@ -3,7 +3,9 @@
 The counterpart of ``mc_water_ls_mw_tpu/cli.py`` (the reference
 executable's usage, io.f90:108-120), with its flags, and ``--device``
 in place of the JAX CLI's ``--platform`` / ``--x64``: the run's float
-type is the input's ``dtype`` (or ``--dtype``).
+type is the input's ``dtype`` (or ``--dtype``).  Under ``torchrun
+--nproc-per-node D`` the same command shards the walkers over D ranks
+(app.py).
 """
 
 from __future__ import annotations

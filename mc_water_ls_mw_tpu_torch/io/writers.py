@@ -131,6 +131,20 @@ class Logs:
         self.mylog.close()
 
 
+class NullLogs:
+    """The logs of a rank that writes none (every rank but the root of a
+    sharded run)."""
+
+    def g(self, msg):
+        pass
+
+    def my(self, msg):
+        pass
+
+    def close(self):
+        pass
+
+
 # ----------------------------------------------------------------------
 # PSF / DCD trajectory output (io.f90:696-853)
 # ----------------------------------------------------------------------

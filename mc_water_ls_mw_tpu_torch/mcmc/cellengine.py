@@ -280,6 +280,37 @@ class _LoopRows(NamedTuple):
                             # (the Swetnam schedule only)
 
 
+class _Tab(NamedTuple):
+    """One row of the stacked (colour, fine-block) tables as the sub-step
+    phases read it.  The serial engine's rows address the whole slabs,
+    where a mover's slab row is its fine id; the spatially sharded
+    engine (parallel/spatial.py) builds rows over a rank's local slab
+    [owned | lo halo | hi halo | dummy], where they differ."""
+
+    t: int                  # the table row (index of the loop rows' tables)
+    fc: torch.Tensor        # [K] int32 fine ids of the movers' cells
+    row: torch.Tensor       # [K] int32 the movers' cells' slab rows
+    cand: torch.Tensor      # [K, CF] int32 slab rows of the stencil cells
+    off: torch.Tensor       # [K, CF, 3] int32 their box shifts
+    cand_l: torch.Tensor    # [K, CF] int64 (cand for torch indexing)
+    slot_base: torch.Tensor   # [K, 1] int64 first slab slot of each mover
+    coord_base: torch.Tensor  # [3, K, 1] int64 offsets of the movers'
+                              # coordinate rows in a packed slab viewed
+                              # as [rows, W] (add the mover's rank)
+    mom_base: torch.Tensor    # [10, K, 1] int64 likewise, moment rows
+
+
+def make_tab(t: int, fc, row, cand, off, cap: int) -> _Tab:
+    """The ``_Tab`` of table row ``t`` whose K movers have fine ids
+    ``fc`` and slab rows ``row`` ([K] int32), stencil rows ``cand`` and
+    shifts ``off`` (int32), in slabs of ``cap`` slots a cell."""
+    r = row.long()
+    first = lambda n: torch.arange(n, device=r.device)[:, None]  # noqa: E731
+    return _Tab(t, fc, row, cand, off, cand.long(), (r * cap)[:, None],
+                ((r[None] * PK_ROWS + PK_R0 + first(3)) * cap)[..., None],
+                ((r[None] * PK_ROWS + first(10)) * cap)[..., None])
+
+
 class _Trial(NamedTuple):
     """One sub-step's K proposals (``CellEngine._propose_t1``)."""
 
@@ -316,11 +347,11 @@ class CellEngine(Engine):
 
     def __init__(self, prm: RunParams, model: SWParams, grid: BinGrid,
                  aux: EngineAux, cellgrid: CellGrid, cellaux: CellAux,
-                 device="cuda", stream=None):
+                 device="cuda", stream=None, comm=None):
         self.cellgrid = cellgrid
         self.cellaux = cellaux
         super().__init__(prm, model, grid, aux, device=device,
-                         stream=stream)
+                         stream=stream, comm=comm)
 
     def _check_scope(self, prm: RunParams, aux: EngineAux) -> None:
         """The cell engine's envelope is checked by _resolve_modes (the
@@ -373,21 +404,11 @@ class CellEngine(Engine):
         self.cand_stack = i32(cand_rows)                    # [8*m3,K,CF]
         self.off_stack = i32(off_rows)                      # [8*m3,K,CF,3]
         self.fc_stack_l = self.fc_stack.long()
-        self.cand_stack_l = self.cand_stack.long()
-        self.slot_base = (self.fc_stack_l * cg.cap)[:, :, None]
-
-        def row_base(first, n):
-            """Row offsets [8*m3, n, K, 1] of rows first..first+n-1 of
-            the movers' fine-cell blocks in a packed slab viewed as
-            [rows, W] (add the mover's rank)."""
-            return ((self.fc_stack_l[:, None, :] * PK_ROWS + first
-                     + torch.arange(n, device=dev)[None, :, None])
-                    * cg.cap)[..., None]
-
-        self.coord_base = row_base(PK_R0, 3)
-        self.mom_base = row_base(0, 10)
         self.half_dfrac0 = 0.5 * self.cellaux.dfrac0        # [3,N]
         self.n_tables = 8 * m3
+        self.tabs = [make_tab(t, self.fc_stack[t], self.fc_stack[t],
+                              self.cand_stack[t], self.off_stack[t], cg.cap)
+                     for t in range(self.n_tables)]
         self.K = cg.cells_per_color
         # one sweep = one trial per (coarse cell, fine block); the trial
         # count per cycle matches nwater to within rounding
@@ -591,6 +612,11 @@ class CellEngine(Engine):
         (fc [K], cand [K,CF], off [K,CF,3]), int32."""
         return self.fc_stack[tbl], self.cand_stack[tbl], self.off_stack[tbl]
 
+    def _as_tab(self, tbl) -> _Tab:
+        """The sub-step phases take a table row as its index (the serial
+        engine) or as a ``_Tab`` (rows of a rank's local slab)."""
+        return tbl if isinstance(tbl, _Tab) else self.tabs[tbl]
+
     def _substep_canonical(self, s: CellState, tpm_slab, tbl: int, u,
                            codes_k, switch_ok=True):
         """One sub-step on the canonical (unpacked) state: pack,
@@ -633,12 +659,14 @@ class CellEngine(Engine):
         Returns (rank [K,W] int32, slot [K,W] int64, p_old [L,3,K,W],
         mover_mol [K,W], has_mover [K,W])."""
         K, W = u_sel.shape
+        tab = self._as_tab(tbl)
+        t = tab.t
         # truncation toward zero; in f32 u*occ can round up to exactly
         # occ, which the clamp keeps in range
-        rank = torch.minimum((u_sel * rows.occ_f[tbl]).to(torch.int32),
-                             rows.rank_max[tbl])             # [K,W]
-        slot = self.slot_base[tbl] + rank                    # [K,W]
-        coord = (self.coord_base[tbl] + rank).view(3 * K, W)
+        rank = torch.minimum((u_sel * rows.occ_f[t]).to(torch.int32),
+                             rows.rank_max[t])               # [K,W]
+        slot = tab.slot_base + rank                          # [K,W]
+        coord = (tab.coord_base + rank).view(3 * K, W)
         p_old = torch.stack([
             torch.gather(pk.view(-1, W), 0, coord) for pk in pks
         ]).view(len(pks), 3, K, W)
@@ -646,7 +674,7 @@ class CellEngine(Engine):
         # a trial is only real if the scheduled fine cell is occupied
         # AND the selected rank holds a molecule: an empty cell must
         # never yield a phantom trial
-        has_mover = rows.occupied[tbl] & (mover_mol >= 0)    # [K,W]
+        has_mover = rows.occupied[t] & (mover_mol >= 0)      # [K,W]
         return rank, slot, p_old, mover_mol, has_mover
 
     def _hoisted_chain_terms(self, s: CellState):
@@ -693,15 +721,20 @@ class CellEngine(Engine):
         it on the host).  Returns the chain's counters [CN_FIXED + K,
         W]."""
         trial = self._propose_t1(s, pks, tbl, u, rows)
-        if self.use_chain_kernel:
-            joh, cnt = self._chain_kernel_substep(s, rows, trial, codes_k,
-                                                  u[5], u[6], cnt)
-            accf = joh.view(self.K, 2, -1)[:, 1]
-        else:
-            accf, cnt = self._chain_t1(s, rows, trial, codes_k, u[5], u[6],
-                                       cnt)
+        accf, cnt = self._chain_one(s, rows, trial, codes_k, u[5], u[6], cnt)
         self._apply_t1(s, pks, tpm_slab, tbl, trial, accf, cnt[CN_FIXED:])
         return cnt
+
+    def _chain_one(self, s: CellState, rows: _LoopRows, trial: _Trial,
+                   codes_k, ua, uz, cnt=None):
+        """Sub-step phase 2 at one trial per mover, in the chain kernel
+        or the XLA chain: (accf [K, W] float 0/1, cnt [CN_FIXED + K, W]).
+        Reads ``trial.e``, ``trial.hasm`` and ``rows.inc`` only."""
+        if self.use_chain_kernel:
+            joh, cnt = self._chain_kernel_substep(s, rows, trial, codes_k,
+                                                  ua, uz, cnt)
+            return joh.view(self.K, 2, -1)[:, 1], cnt
+        return self._chain_t1(s, rows, trial, codes_k, ua, uz, cnt)
 
     def _in_trans_wall(self, s: CellState, p, mover_mol):
         """The displacement wall (cell_trans_wall): [..., K, W] bool,
@@ -726,10 +759,10 @@ class CellEngine(Engine):
         mover kernel, or the unfused ``cell_energy.mover_energies``)."""
         cg = self.cellgrid
         L = s.h.shape[0]
-        fc, cand, off = self._tables(tbl)
+        tab = self._as_tab(tbl)
         ls = rows.ci[CI_LS]                  # the walkers' current lattice
         rank, slot, p_old, mover_mol, has_mover = self._select_movers(
-            s, pks, tbl, u[0], rows)
+            s, pks, tab, u[0], rows)
 
         # displacement: random direction x U(-1,1)*max_trans in the
         # active lattice, same fractional displacement in the partner
@@ -759,7 +792,7 @@ class CellEngine(Engine):
         fmid = to_frac(s.recip[0][:, :, None, None, :], ends) \
             - dmid[:, None]
         inside = cell_of_frac(cg, fmid, s.origin,
-                              level="fine") == fc[:, None]   # [2,K,W]
+                              level="fine") == tab.fc[:, None]  # [2,K,W]
         in_cell = inside[0] & inside[1]
         if self.prm.cell_trans_wall > 0.0:
             # displacement wall on the PROPOSED endpoint only: detailed
@@ -774,16 +807,16 @@ class CellEngine(Engine):
         # cube reaches every partner); on the scatter path also the
         # per-candidate moment deltas
         if self.use_cell_pallas:
-            e, own_new, *dlt = self.mover_kernel(pks, s.h, cand, off, fc,
-                                                 rank, p_old, p_new)
+            e, own_new, *dlt = self.mover_kernel(pks, s.h, tab.cand, tab.off,
+                                                 tab.row, rank, p_old, p_new)
         else:
             e, own_new, dlt = self._mover_energies_unfused(
-                s, pks, tbl, slot, p_old, p_new)
+                s, pks, tab, slot, p_old, p_new)
             dlt = [dlt]
         return _Trial(rank, slot, p_old, p_new, e, own_new,
                       has_mover.to(e.dtype), *dlt)
 
-    def _mover_energies_unfused(self, s: CellState, pks, tbl: int, slot,
+    def _mover_energies_unfused(self, s: CellState, pks, tbl, slot,
                                 p_old, p_new):
         """The unfused counterpart of the mover kernel with its delta
         output (the JAX engine's XLA sub-step): ``cell_energy.
@@ -791,14 +824,14 @@ class CellEngine(Engine):
         (e [L,K,2,W], own_new [L,K,10,W], dlt [L,K,CF,10,cap,W])."""
         cg = self.cellgrid
         K, W = slot.shape
-        valid = self._slab_valid(s)
-        cand = self.cand_stack_l[tbl]
+        tab = self._as_tab(tbl)
+        valid = pks[0][:, PK_VALID] > 0.5          # the slabs' own rows
         e, own, dlt = [], [], []
         for l, pk in enumerate(pks):
             eo, en, co, cn = mover_energies(
                 [pk[:, PK_R0 + a] for a in range(3)],
                 Moments(*(pk[:, i] for i in range(10))), valid, s.h[l],
-                cand, self.off_stack[tbl], cg.full_mask, cg.cap, slot,
+                tab.cand_l, tab.off, cg.full_mask, cg.cap, slot,
                 p_old[l], p_new[l], self.model)
             e.append(torch.stack([eo, en], dim=1))           # [K,2,W]
             own.append(torch.stack(list(cn.own), dim=1))     # [K,10,W]
@@ -1035,17 +1068,18 @@ class CellEngine(Engine):
         slabs in place (independent, so parallel application equals the
         sequential composition) and count the trials per slot.
         ``accf`` [K, W]: the accepted flags (> 0.5)."""
+        tab = self._as_tab(tbl)
         if self.use_cell_apply:
-            fc, cand, off = self._tables(tbl)
-            self.apply_kernel(pks, s.h, cand, off, fc, trial.rank, accf,
-                              trial.p_old, trial.p_new, trial.own_new)
+            self.apply_kernel(pks, s.h, tab.cand, tab.off, tab.row,
+                              trial.rank, accf, trial.p_old, trial.p_new,
+                              trial.own_new)
         else:
-            self._scatter_moments(pks, tbl, trial, accf)
+            self._scatter_moments(pks, tab, trial, accf)
         # per-slot trial counter (gathered to molecule order once per
         # cycle); the movers' slots are distinct
         tpm_slab.scatter_add_(0, trial.slot, en_per_mover)
 
-    def _scatter_moments(self, pks, tbl: int, trial: _Trial, accf):
+    def _scatter_moments(self, pks, tbl, trial: _Trial, accf):
         """The scatter path of phase 3 ('on'), in the JAX engine's order
         and arithmetic (its _apply_t1 non-apply branch): the accepted
         movers' coordinate rows := p_old + (p_new - p_old), then per
@@ -1056,10 +1090,11 @@ class CellEngine(Engine):
         masked out of its own stencil and more than 2 rc from every
         other same-colour mover), so the order of the steps is free."""
         K, W = accf.shape
+        tab = self._as_tab(tbl)
         acc = accf > 0.5
-        coord = (self.coord_base[tbl] + trial.rank).view(3 * K, W)
-        mom = (self.mom_base[tbl] + trial.rank).view(10 * K, W)
-        cand_flat = self.cand_stack_l[tbl].view(-1)          # [K*CF]
+        coord = (tab.coord_base + trial.rank).view(3 * K, W)
+        mom = (tab.mom_base + trial.rank).view(10 * K, W)
+        cand_flat = tab.cand_l.reshape(-1)                   # [K*CF]
         dp = torch.where(acc, trial.p_new - trial.p_old, 0.0)
         for l, pk in enumerate(pks):
             pk.view(-1, W).scatter_(
@@ -1117,23 +1152,30 @@ class CellEngine(Engine):
         [K*T, W] accept / switch uniforms, ``codes_kt`` [K*T] int32 move
         codes of trial (k, t) at k*T + t.  Returns the chain's counters
         [CN_FIXED + K, W]."""
-        W = rows.cf.shape[1]
         trial = self._propose_tm(s, pks, tbl, u, rows)
-        if self.use_chain_kernel:
-            joh, cnt = self.chain_kernel(
-                codes_kt, s.cycle >= self.prm.eq_mc_cycles, rows.cf,
-                rows.ci, s.weight, s.hist, s.uhist, rows.basew,
-                trial.e.view(-1, W), trial.inc.view(-1, W), trial.hasm, ua,
-                uz, cnt=cnt, baseh=rows.baseh, cycle=s.cycle)
-            joh = joh.view(self.K, self.T + 1, W)
-        else:
-            joh, cnt = self._chain_xla_substep(s, rows, trial, codes_kt, ua,
-                                               uz, cnt)
+        joh, cnt = self._chain_multi(s, rows, trial, codes_kt, ua, uz, cnt)
         self._apply_tm(s, pks, tbl, trial, joh)
         # per-slot trial counter: all enabled translation trials of a
         # mover land on its slot
         tpm_slab.scatter_add_(0, trial.slot, cnt[CN_FIXED:])
         return cnt
+
+    def _chain_multi(self, s: CellState, rows: _LoopRows, trial: _TrialTM,
+                     codes_kt, ua, uz, cnt=None):
+        """Multi-trial phase 2, in the chain kernel or the XLA chain:
+        (joh [K, P, W] one-hot of each mover's accepted point, cnt
+        [CN_FIXED + K, W]).  Reads ``trial.e``, ``trial.inc`` and
+        ``trial.hasm`` only."""
+        if not self.use_chain_kernel:
+            return self._chain_xla_substep(s, rows, trial, codes_kt, ua, uz,
+                                           cnt)
+        W = rows.cf.shape[1]
+        joh, cnt = self.chain_kernel(
+            codes_kt, s.cycle >= self.prm.eq_mc_cycles, rows.cf, rows.ci,
+            s.weight, s.hist, s.uhist, rows.basew, trial.e.view(-1, W),
+            trial.inc.view(-1, W), trial.hasm, ua, uz, cnt=cnt,
+            baseh=rows.baseh, cycle=s.cycle)
+        return joh.view(self.K, self.T + 1, W), cnt
 
     def _propose_tm(self, s: CellState, pks, tbl: int, u,
                     rows: _LoopRows) -> _TrialTM:
@@ -1147,12 +1189,12 @@ class CellEngine(Engine):
         stores)."""
         cg = self.cellgrid
         L = s.h.shape[0]
-        K, T = self.K, self.T
-        W = u.shape[-1]
-        fc, cand, off = self._tables(tbl)
+        T = self.T
+        K, W = u.shape[-2:]
+        tab = self._as_tab(tbl)
         ls = rows.ci[CI_LS]
         rank, slot, p_old, mover_mol, has_mover = self._select_movers(
-            s, pks, tbl, u[0], rows)
+            s, pks, tab, u[0], rows)
 
         anc = 2.0 * u[1:4] - 1.0                             # [3,K,W]
         b = (2.0 * u[4:4 + 3 * T] - 1.0).view(T, 3, K, W)
@@ -1177,7 +1219,7 @@ class CellEngine(Engine):
         fmid = to_frac(s.recip[0][:, :, None, None, :], pts1) \
             - dmid[:, None]
         inc = cell_of_frac(cg, fmid, s.origin, level="fine") \
-            == fc[None, :, None]                             # [P,K,W]
+            == tab.fc[None, :, None]                         # [P,K,W]
         if self.prm.cell_trans_wall > 0.0:
             # displacement wall on the TRIAL points; point 0, the
             # current position, is exempt (a state outside the wall
@@ -1188,29 +1230,29 @@ class CellEngine(Engine):
 
         cs = None
         if self.use_cell_pallas:
-            e, own = self.points_kernel(pks, s.h, cand, off, fc, rank, pts)
+            e, own = self.points_kernel(pks, s.h, tab.cand, tab.off, tab.row,
+                                        rank, pts)
         else:
-            e, own, cs = self._point_energies_unfused(s, pks, tbl, slot,
+            e, own, cs = self._point_energies_unfused(s, pks, tab, slot,
                                                       pts)
         return _TrialTM(rank, slot, pts,
                         inc.transpose(0, 1).to(e.dtype).contiguous(), e,
                         own, has_mover.to(e.dtype), cs)
 
-    def _point_energies_unfused(self, s: CellState, pks, tbl: int, slot,
-                                pts):
+    def _point_energies_unfused(self, s: CellState, pks, tbl, slot, pts):
         """The unfused counterpart of the points kernel (the JAX
         engine's XLA sub-step): ``cell_energy.mover_point_energies`` per
         lattice on the packed slabs' rows.  Returns (e [L,K,P,W], own
         [L,K,P,10,W], the P candidate stores of each lattice)."""
         cg = self.cellgrid
-        valid = self._slab_valid(s)
-        cand = self.cand_stack_l[tbl]
+        tab = self._as_tab(tbl)
+        valid = pks[0][:, PK_VALID] > 0.5          # the slabs' own rows
         e, own, cs = [], [], []
         for l, pk in enumerate(pks):
             el, owns, cl = mover_point_energies(
                 [pk[:, PK_R0 + a] for a in range(3)],
                 Moments(*(pk[:, i] for i in range(10))), valid, s.h[l],
-                cand, self.off_stack[tbl], cg.full_mask, cg.cap, slot,
+                tab.cand_l, tab.off, cg.full_mask, cg.cap, slot,
                 pts[:, l], self.model)
             e.append(el.transpose(0, 1))                     # [K,P,W]
             own.append(torch.stack(
@@ -1304,7 +1346,7 @@ class CellEngine(Engine):
         s.weight, s.hist, s.uhist = wgt, hist, uh
         return joh, cnt
 
-    def _apply_tm(self, s: CellState, pks, tbl: int, trial: _TrialTM,
+    def _apply_tm(self, s: CellState, pks, tbl, trial: _TrialTM,
                   joh):
         """Multi-trial phase 3: apply each mover's FINAL point once (the
         net moment update of the accepted point equals the point-0 ->
@@ -1313,22 +1355,22 @@ class CellEngine(Engine):
         moments are the one-hot mixtures over the P points; the
         unfused sub-step scatters the mixture of the per-point deltas
         (minus point 0's) of its candidate stores."""
-        fc, cand, off = self._tables(tbl)
+        tab = self._as_tab(tbl)
         jf_p = joh.transpose(0, 1)                           # [P,K,W]
         p_fin = torch.sum(trial.pts * jf_p[:, None, None],
                           dim=0)                             # [L,3,K,W]
         own_fin = torch.sum(trial.own * joh[None, :, :, None], dim=2)
         accf = joh[:, 0] < 0.5
         if self.use_cell_apply:
-            self.apply_kernel(pks, s.h, cand, off, fc, trial.rank, accf,
-                              trial.pts[0], p_fin, own_fin)
+            self.apply_kernel(pks, s.h, tab.cand, tab.off, tab.row,
+                              trial.rank, accf, trial.pts[0], p_fin, own_fin)
             return
         K, P, W = joh.shape
         cap = self.cellgrid.cap
         p_old = trial.pts[0]
-        coord = (self.coord_base[tbl] + trial.rank).view(3 * K, W)
-        mom = (self.mom_base[tbl] + trial.rank).view(10 * K, W)
-        cand_flat = self.cand_stack_l[tbl].view(-1)
+        coord = (tab.coord_base + trial.rank).view(3 * K, W)
+        mom = (tab.mom_base + trial.rank).view(10 * K, W)
+        cand_flat = tab.cand_l.reshape(-1)
         dp = torch.where(accf, p_fin - p_old, 0.0)
         for l, pk in enumerate(pks):
             pk.view(-1, W).scatter_(
@@ -1486,7 +1528,7 @@ class CellEngine(Engine):
         their residuals and return the drift [L, n] of the tracked
         (energy + energy_err) against the fresh values
         (mc_monitor_stats:1781-1792)."""
-        n = s.r.shape[-1] if n_walkers is None else n_walkers
+        n = self._first_local(n_walkers, s.r.shape[-1])
         fresh, moments = self._full_both(s, s.r, s.h, n)
         drift = self._e_tot(s)[:, :n] - fresh
         s.energy[:, :n] = fresh

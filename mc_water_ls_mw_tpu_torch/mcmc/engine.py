@@ -40,6 +40,14 @@ Design notes that differ from the JAX engine:
   distributions can agree between the packages in production.
 * Every 3x3 cell-matrix contraction is an explicit sum of products
   (ops/geometry.py), so no float32 contraction can go through TF32.
+* The walkers may be sharded over ranks (``comm``, parallel/mesh.py):
+  each rank runs its block of walkers through the same kernels, draws
+  the whole ensemble's uniforms and keeps its block, and every
+  reduction over walkers (the delta merge and its drop counts, the
+  therm samples, the first walkers of an audit) gathers the walker axis
+  from all ranks first (``_gw``) and then reduces as the serial run
+  does, the window bounds as exact extrema over the ranks, so a sharded
+  run is the serial run.
 """
 
 from __future__ import annotations
@@ -74,6 +82,8 @@ from .bins import (
 )
 from .config import RunParams
 from .fused import FusedCycle
+from ..parallel.comm import SINGLE
+from ..parallel.mesh import WalkerSlice, walker_block
 from .state import _DTYPES, EngineAux, SamplerState, resolve_device
 
 TRANS, VOL, SWITCH, NOOP = 0, 1, 2, 3
@@ -178,7 +188,7 @@ class Engine:
     """Sampler over a fixed (params, model, grid) on one device."""
 
     def __init__(self, prm: RunParams, model: SWParams, grid: BinGrid,
-                 aux: EngineAux, device="cuda", stream=None):
+                 aux: EngineAux, device="cuda", stream=None, comm=None):
         self._check_scope(prm, aux)
         self.prm = prm
         self.model = model
@@ -197,8 +207,18 @@ class Engine:
         self.binfrac = torch.as_tensor(
             swetnam_binfrac(grid, prm.mu_min, prm.mu_max), dtype=self.dtype,
             device=self.device)
-        self.stream = (PhiloxStream(prm.seed, self.device)
-                       if stream is None else stream)
+        # the walker axis (parallel/comm.py): this rank's walkers are the
+        # block [lo, hi) of the ensemble (parallel/mesh.py)
+        self.comm = SINGLE if comm is None else comm
+        if isinstance(stream, WalkerSlice):
+            stream = stream.inner
+        if stream is None:
+            stream = PhiloxStream(prm.seed, self.device)
+        if self.comm.sharded:
+            stream = WalkerSlice(stream, self.comm, prm.n_walkers)
+        self.stream = stream
+        # the rank that writes a sharded run's files
+        self.is_root = self.comm.rank == 0
         self._init_layout()
 
     def _check_scope(self, prm: RunParams, aux: EngineAux) -> None:
@@ -243,6 +263,19 @@ class Engine:
     # ------------------------------------------------------------------
     # helpers
     # ------------------------------------------------------------------
+
+    def _gw(self, x):
+        """x [..., W_local] -> [..., W]: every rank's walkers in order
+        (the identity unsharded; collective)."""
+        return self.comm.cat(x, dim=-1)
+
+    def _first_local(self, n_walkers, W):
+        """How many of the ensemble's first ``n_walkers`` walkers (all of
+        them for None) this rank holds: a prefix of its ``W`` walkers."""
+        if n_walkers is None:
+            return W
+        lo, _ = walker_block(self.comm, W * self.comm.size)
+        return max(0, min(n_walkers - lo, W))
 
     def _mu_scratch(self, energy, volume):
         """Order parameter from scratch (mc_moves.F90:856-862), shifted
@@ -877,8 +910,12 @@ class Engine:
         is dropped and counted.  Each window's row is a plain sum over
         the walker axis of the growth masked to that window's walkers
         (at most a few tens of windows, one merge every mpi_sync_int
-        cycles): deterministic on the card, with no atomics."""
-        d = delta.T                                          # [W, B]
+        cycles): deterministic on the card, with no atomics.  Sharded,
+        the growth of all walkers is gathered first and summed as in the
+        serial run, so the masters are bitwise the serial run's and the
+        same on every rank."""
+        d = self._gw(delta).T                                # [W, B]
+        window_id = self._gw(window_id)
         finite = torch.isfinite(d)
         n_bad = torch.sum(~finite).to(torch.int32)
         d = torch.where(finite, d, 0.0)
@@ -894,12 +931,13 @@ class Engine:
         nwin = s.master_eta.hi.shape[0]
         B = self.grid.nbins
         wid = s.window_id.long()
-        sbw = torch.full((nwin,), B, dtype=s.start_bin.dtype,
-                         device=wid.device).scatter_reduce(
-            0, wid, s.start_bin, "amin")
-        ebw = torch.full((nwin,), -1, dtype=s.end_bin.dtype,
-                         device=wid.device).scatter_reduce(
-            0, wid, s.end_bin, "amax")
+        # this rank's walkers, then the extrema over the ranks
+        sbw = self.comm.min(torch.full(
+            (nwin,), B, dtype=s.start_bin.dtype, device=wid.device
+        ).scatter_reduce(0, wid, s.start_bin, "amin"))
+        ebw = self.comm.max(torch.full(
+            (nwin,), -1, dtype=s.end_bin.dtype, device=wid.device
+        ).scatter_reduce(0, wid, s.end_bin, "amax"))
         bins = torch.arange(B, device=wid.device)[None, :]
         return (bins >= sbw[:, None]) & (bins <= ebw[:, None])
 
@@ -974,8 +1012,9 @@ class Engine:
         walkers (all by default) from scratch over the full image
         enumeration (no MIC folding, so a box shrunk below the MIC bound
         shows as drift), overwrite them, and return drift [L, n]
-        (mc_monitor_stats:1781-1792)."""
-        n = s.r.shape[-1] if n_walkers is None else n_walkers
+        (mc_monitor_stats:1781-1792).  Sharded, ``n_walkers`` counts from
+        the ensemble's first walker and the drift is this rank's part."""
+        n = self._first_local(n_walkers, s.r.shape[-1])
         L = s.r.shape[0]
         per = [full_energy_batch(s.r[l, ..., :n], s.h[l, ..., :n],
                                  self.aux.shifts, self.model, False)
@@ -1032,11 +1071,14 @@ class Engine:
         """Advance the state ``n_cycles`` cycles IN PLACE; returns
         (state, samples) with the per-cycle therm samples of the first
         therm_walkers walkers stacked along a leading cycle axis
-        (main.f90:200-223)."""
+        (main.f90:200-223).  Each cycle keeps the first therm_walkers of
+        this rank's walkers; sharded, one gather at the end brings the
+        ensemble's first therm_walkers to every rank."""
         rows = [self._one_cycle(s) for _ in range(n_cycles)]
+        T = min(self.prm.therm_walkers, s.r.shape[-1] * self.comm.size)
         samples = {"cycle": torch.as_tensor([r["cycle"] for r in rows])}
         for k in ("E_ls", "mu", "vol", "ls"):
-            samples[k] = torch.stack([r[k] for r in rows])
+            samples[k] = self._gw(torch.stack([r[k] for r in rows]))[..., :T]
         return s, samples
 
     def merged_histogram(self, s: SamplerState):

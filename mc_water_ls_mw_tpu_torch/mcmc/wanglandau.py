@@ -12,6 +12,12 @@ check runs the halving schedule, the switch to 1/t and the curve dumps
 of the 1/t and Swetnam schedules; Delta G takes the reference-enthalpy
 shift of leshift.  One lattice has no mu and no WL arrays: its monitor
 block reports acceptance and drift only.
+
+With the walkers sharded over ranks (``eng.comm``), every rank runs
+each event: the per-walker arrays are gathered from all ranks (``_g``)
+and the decisions taken on the whole ensemble, as in the serial run;
+each rank keeps its block of what the event writes back per walker
+(``_mine``), and only the root rank writes files.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from ..constants import BOHR_TO_ANG, HART_TO_EV, HART_TO_KJPM, KB
 from ..io import writers
 from ..ops.dsfloat import ds_from64, ds_value64
+from ..parallel.mesh import walker_block
 from ..parallel.windows import join_eta, join_uhist
 from .bins import BinGrid
 from .config import RunParams
@@ -34,13 +41,26 @@ def _np(t) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _window_bounds(state, nwin: int):
+def _g(eng, t) -> np.ndarray:
+    """A per-walker field [..., W_local] of every rank's walkers, on the
+    host (collective)."""
+    return _np(eng._gw(t))
+
+
+def _mine(eng, a: np.ndarray) -> np.ndarray:
+    """This rank's block of a per-walker host array [..., W]."""
+    lo, hi = walker_block(eng.comm, a.shape[-1])
+    return a[..., lo:hi]
+
+
+def _window_bounds(eng, state, nwin: int):
     """Per-window (start_bin [nwin], end_bin [nwin], first walker
     [nwin]): the bounds of each window's first walker (all walkers of a
     window share them)."""
-    wid = _np(state.window_id)
+    wid = _g(eng, state.window_id)
     first = np.array([np.nonzero(wid == w)[0][0] for w in range(nwin)])
-    return _np(state.start_bin)[first], _np(state.end_bin)[first], first
+    return (_g(eng, state.start_bin)[first], _g(eng, state.end_bin)[first],
+            first)
 
 
 def monitor_stats(eng, state, logs, aux, write_files=True):
@@ -48,8 +68,8 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
     audit, curve dumps (mc_monitor_stats, mc_moves.F90:1691-1934)."""
     prm, grid = eng.prm, eng.grid
     cycle = int(state.cycle)
-    att = _np(state.att).astype(np.float64)              # [3,W]
-    acc = _np(state.acc).astype(np.float64)
+    att = _g(eng, state.att).astype(np.float64)          # [3,W]
+    acc = _g(eng, state.acc).astype(np.float64)
     with np.errstate(invalid="ignore", divide="ignore"):
         ratios = acc / att                   # [3,W], NaN where untried
 
@@ -59,14 +79,15 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
         atr = np.nan_to_num(ratios[TRANS], nan=1.0)
         avr = np.nan_to_num(ratios[VOL], nan=1.0)
         max_trans = np.maximum(
-            _np(state.max_trans) * atr / prm.mc_target_ratio, 0.1)
+            _g(eng, state.max_trans) * atr / prm.mc_target_ratio, 0.1)
         dv_max = np.maximum(
-            _np(state.dv_max) * avr / prm.mc_target_ratio, 0.0001)
+            _g(eng, state.dv_max) * avr / prm.mc_target_ratio, 0.0001)
         state.max_trans = torch.as_tensor(
-            max_trans, dtype=state.max_trans.dtype,
+            _mine(eng, max_trans), dtype=state.max_trans.dtype,
             device=state.max_trans.device)
         state.dv_max = torch.as_tensor(
-            dv_max, dtype=state.dv_max.dtype, device=state.dv_max.device)
+            _mine(eng, dv_max), dtype=state.dv_max.dtype,
+            device=state.dv_max.device)
 
     def pct(i):
         return 100.0 * np.nansum(acc[i]) / max(np.nansum(att[i]), 1)
@@ -77,7 +98,7 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
     if prm.allow_trans:
         logs.my(f"# Accepted {pct(TRANS):8.2f} % of "
                 f"{int(att[TRANS].sum()):10d} translation moves")
-        tpm = _np(state.trans_per_mol)
+        tpm = _g(eng, state.trans_per_mol)
         logs.my(f"# Translations per molecule: avg "
                 f"{tpm.mean():10.1f} min {tpm.min():6d} max {tpm.max():6d}")
     if prm.mc_ensemble == "npt":
@@ -88,13 +109,13 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
                 f"{int(att[SWITCH].sum()):10d} lattice switches")
     if prm.eq_adjust_mc and cycle < prm.eq_mc_cycles:
         logs.my(f"# Max molecule translation: "
-                f"{_np(state.max_trans).mean() * BOHR_TO_ANG:12.6f} Ang")
+                f"{max_trans.mean() * BOHR_TO_ANG:12.6f} Ang")
         logs.my(f"# Max cell displacement  : "
-                f"{_np(state.dv_max).mean() * BOHR_TO_ANG:12.6f} Ang")
+                f"{dv_max.mean() * BOHR_TO_ANG:12.6f} Ang")
 
     # average excitation energy per degree of freedom
     # (mc_monitor_stats:1766-1772)
-    avg_e = _np(state.avg_energy) / prm.monitor_int          # [L,W]
+    avg_e = _g(eng, state.avg_energy) / prm.monitor_int      # [L,W]
     ref_h = _np(aux.ref_enthalpy)
     for l in range(prm.num_lattices):
         exc = (avg_e[l].mean() - ref_h[l]) / (
@@ -104,8 +125,8 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
     # overlap bins spanned per move (mc_monitor_stats:1776-1777)
     two = prm.num_lattices == 2
     span = grid.nbins / (prm.mu_max - prm.mu_min)
-    mn = _np(state.min_dmu)
-    mx = _np(state.max_dmu)
+    mn = _g(eng, state.min_dmu)
+    mx = _g(eng, state.max_dmu)
     mn = mn[np.isfinite(mn)]
     if two and mn.size:
         logs.my(f"# Overlap bins spanned per move: min "
@@ -119,8 +140,8 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
 
     # energy drift audit + heal (mc_monitor_stats:1781-1792)
     state, drift = eng.audit_energy(state)
-    drift = _np(drift) * HART_TO_EV                           # [L,W]
-    e_now = _np(state.energy) * HART_TO_EV
+    drift = _g(eng, drift) * HART_TO_EV                       # [L,W]
+    e_now = _g(eng, state.energy) * HART_TO_EV
     for l in range(prm.num_lattices):
         logs.my(f"#  latt {l + 1}  stored "
                 f"{e_now[l].mean() + drift[l].mean():12.6f} eV"
@@ -133,7 +154,8 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
     mub = np.asarray(grid.mu_bin)
     if two:
         mu_fresh = eng._mu_scratch(state.energy, state.volume)
-        dmu = _np(state.mu).astype(np.float64) - _np(mu_fresh)
+        dmu = (_g(eng, state.mu).astype(np.float64)
+               - _g(eng, mu_fresh))
         binw = float(mub[1] - mub[0])
         logs.my(f"#  mu   drift {np.abs(dmu).max():12.3e} kT max "
                 f"({np.abs(dmu).max() / binw:8.4f} bins); healed")
@@ -143,10 +165,10 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
     # blocks (io.f90:1105-1144) as one row per window
     nwin = state.master_eta.hi.shape[0]
     if prm.parallel_strategy == "dd" and nwin > 1:
-        wid = _np(state.window_id)
-        inw = _np(state.in_window)
-        mu_w = _np(state.mu).astype(np.float64)
-        f_all = _np(state.f).astype(np.float64)
+        wid = _g(eng, state.window_id)
+        inw = _g(eng, state.in_window)
+        mu_w = _g(eng, state.mu).astype(np.float64)
+        f_all = _g(eng, state.f).astype(np.float64)
         logs.my("# window  walkers in-win acc-tr%  acc-sw%"
                 "            f  max|drift|eV           mu range")
         for w in range(nwin):
@@ -175,7 +197,11 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
     # window (the reference's per-rank curves)
     if two and write_files:
         state = eng.merged_histogram(state)
-        f_all = _np(state.f)
+        f_all = _g(eng, state.f)
+        wid = _g(eng, state.window_id)
+        bounds = _window_bounds(eng, state, nwin) if nwin > 1 else None
+        if not eng.is_root:
+            return state
         w_cur = ds_value64(state.master_eta)                 # [nwin, B]
         h_cur = ds_value64(state.master_hist)
         u_cur = ds_value64(state.master_uhist)
@@ -187,8 +213,7 @@ def monitor_stats(eng, state, logs, aux, write_files=True):
             writers.write_curve("unbiased_histogram.dat", mub, u_cur[0],
                                 wl_f)
         else:
-            wid = _np(state.window_id)
-            sbw, ebw, _ = _window_bounds(state, nwin)
+            sbw, ebw, _ = bounds
             for w in range(nwin):
                 s, e = sbw[w], ebw[w] + 1
                 fv = float(f_all[wid == w].max())
@@ -239,12 +264,13 @@ def check_flatness(eng, state, logs):
     nwin = hist_w.shape[0]
     one = prm.parallel_strategy == "mw" or nwin == 1
 
-    wid = _np(state.window_id)
-    f = _np(state.f).astype(np.float64)
-    firstcycle = _np(state.firstcycle).copy()
-    hreset = _np(state.histogram_reset).copy()
-    invt = _np(state.invt_active).copy()
-    sbw, ebw, first = _window_bounds(state, nwin)
+    wid = _g(eng, state.window_id)
+    f = _g(eng, state.f).astype(np.float64)
+    firstcycle = _g(eng, state.firstcycle).copy()
+    hreset = _g(eng, state.histogram_reset).copy()
+    invt = _g(eng, state.invt_active).copy()
+    sbw, ebw, first = _window_bounds(eng, state, nwin)
+    root = eng.is_root
     bins = np.arange(B)[None, :]
     winmask = (bins >= sbw[:, None]) & (bins <= ebw[:, None])  # [nwin, B]
     hw = np.where(winmask, hist_w, np.nan)
@@ -293,18 +319,20 @@ def check_flatness(eng, state, logs):
             # (mc_check_flatness:2062-2066), record and halve f
             weight_w[w] -= weight_w[w, B // 2]
             fv = float(f[sel].max())
-            writers.append_wlf("wlf.dat", cycle, fv, 0.5 * fv)
             tag = f"{fv:.12f}"
-            writers.write_curve(f"eta_weights.dat_{tag}", mub, weight_w[w],
-                                fv)
-            writers.write_curve(f"histogram.dat_{tag}", mub, hist_w[w], fv)
+            if root:
+                writers.append_wlf("wlf.dat", cycle, fv, 0.5 * fv)
+                writers.write_curve(f"eta_weights.dat_{tag}", mub,
+                                    weight_w[w], fv)
+                writers.write_curve(f"histogram.dat_{tag}", mub, hist_w[w],
+                                    fv)
             logs.g("# Flatness criterion satisfied - updating wl_factor")
         else:
             logs.my(f"# window {w}: flatness satisfied - halving f")
         reset_w[w] = True
         halve |= sel
         firstcycle[sel] = False
-    if flat.any() and not one:
+    if flat.any() and not one and root:
         # the reference's rank-0 wlf.dat records the largest f of the
         # ranks (mc_check_flatness:2068-2082)
         writers.append_wlf("wlf.dat", cycle, float(f.max()),
@@ -324,7 +352,8 @@ def check_flatness(eng, state, logs):
 
     # the 1/t and Swetnam curve dumps (mc_check_flatness:2149-2179): the
     # first walker's window
-    if (invt.any() or prm.wl_swetnam) and cycle % prm.invt_dump_int == 0:
+    if ((invt.any() or prm.wl_swetnam) and cycle % prm.invt_dump_int == 0
+            and root):
         tag = f"{cycle:020d}"
         fmax = float(f.max())
         writers.append_wlf("wlf.dat", cycle, fmax)
@@ -335,10 +364,10 @@ def check_flatness(eng, state, logs):
 
     dev = state.f.device
     dtype = state.master_hist.hi.dtype
-    state.f = torch.as_tensor(f, dtype=state.f.dtype, device=dev)
-    state.firstcycle = torch.as_tensor(firstcycle, device=dev)
-    state.histogram_reset = torch.as_tensor(hreset, device=dev)
-    state.invt_active = torch.as_tensor(invt, device=dev)
+    state.f = torch.as_tensor(_mine(eng, f), dtype=state.f.dtype, device=dev)
+    state.firstcycle = torch.as_tensor(_mine(eng, firstcycle), device=dev)
+    state.histogram_reset = torch.as_tensor(_mine(eng, hreset), device=dev)
+    state.invt_active = torch.as_tensor(_mine(eng, invt), device=dev)
     if reset_w.any():
         # (comms_set_histogram, mc_check_flatness:1977, 2106)
         state.master_hist = ds_from64(hist_w, dtype, dev)
@@ -404,6 +433,8 @@ def compute_deltaG(eng, state, logs, aux):
                            None if aux is None else _np(aux.ref_enthalpy))
     if dg is None:
         logs.g(f"# deltaG at cycle {cycle}: histogram empty, skipped")
+        return state
+    if not eng.is_root:
         return state
     logs.g(f"# Estimate of delta G from histogram at cycle {cycle:10d}")
     logs.g(f"# G(lattice2) - G(lattice1) = {dg['kT_per_mol']:15.8f} "

@@ -5,13 +5,18 @@ Wang-Landau schedules.
 
 Both engines start from the same state and consume the same random
 draws (the port through a stream that reproduces JAX's threefry draws)
-over 3 cycles with a delta-sync every cycle and a chain resync every
-second cycle: the N=216 switch pair in table mode (static neighbour
-tables, displacement wall) and the N=48 stacking cells in dense mode
-(three folded shifts).  One N=216 cycle at ``dense_trials=2`` under
-MINU and Swetnam runs against the JAX engine's fused kernel in
-interpret mode.  The port runs its plain versions (CPU tensors);
+over 2 cycles with a delta-sync every cycle and a chain resync at the
+second: the N=216 switch pair in table mode (static neighbour tables,
+displacement wall) and the N=48 stacking cells in dense mode (three
+folded shifts).  The port runs its plain versions (CPU tensors);
 float64 throughout.
+
+The cases are spread over files, one group of settings each, so that
+the test workers share them: MINU and leshift here, the Swetnam and 1/t
+schedules in test_torch_engine_variants_wl.py, one lattice and NVT in
+test_torch_engine_variants_single.py, and the multi-trial cycle under
+MINU + Swetnam against the JAX fused kernel in
+test_torch_engine_variants_multi.py.
 """
 
 import numpy as np
@@ -44,7 +49,7 @@ from .test_torch_state import (
     small_run_params,
 )
 
-N_CYCLES = 3
+N_CYCLES = 2
 
 # id -> (structure, overrides of small_run_params, preset invt_active)
 CASES = {
@@ -122,8 +127,15 @@ def assert_states_match(tf, jf, L):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", ["minu", "minu_leshift", "leshift",
+                                  "n48_minu"])
 def test_variant_matches_jax(case):
+    check_variant(case)
+
+
+def check_variant(case):
+    """Run a case through both engines and hold the port's run against
+    the JAX engine's."""
     r = _run_both(case)
     prm = r["prm"]
     L = prm.num_lattices
@@ -153,30 +165,3 @@ def test_variant_matches_jax(case):
                                    atol=1e-9, err_msg=k)
     np.testing.assert_array_equal(r["tsamples"]["ls"].numpy(),
                                   np.asarray(r["jsamples"]["ls"]))
-
-
-def test_multitrial_minu_swetnam_matches_fused_kernel():
-    """One N=216 cycle at dense_trials=2 under MINU and Swetnam against
-    the JAX engine's fused kernel (interpret mode), which is the only
-    JAX path of the multi-trial branch."""
-    kw = small_run_params(minu=True, wl_swetnam=True, samplerun=False,
-                          wl_alpha=1e-3, dense_trials=2, mc_vol_prob=0.0,
-                          latt_sync_int=1000)
-    r0, H0 = switch_pair_216()
-    w0 = 0.02 * (np.arange(21) - 10.0) ** 2
-    jgrid = jbins.build_bin_grid(kw["nbins"], kw["mu_min"], kw["mu_max"])
-    js0, jaux = jinit_state(RunParams(**kw), MW, r0, H0, jgrid, weight0=w0)
-    jeng = JEngine(RunParams(**kw, fused="on"), MW, jgrid, jaux)
-    js, _ = jeng.run_cycles(js0, 1)
-
-    tgrid = tbins.build_bin_grid(kw["nbins"], kw["mu_min"], kw["mu_max"])
-    ts0, taux = state_from_numpy(jax_state_fields(js0), jax_aux_fields(jaux),
-                                 device="cpu")
-    teng = TEngine(TRunParams(**kw), TMW, tgrid, taux, device="cpu",
-                   stream=JaxStream(js0))
-    assert teng.fused_cycle.kernel == "fused_cycle_multi_ext"
-    ts, _ = teng.run_cycles(ts0, 1)
-    jf, tf = jax_state_fields(js), state_to_numpy(ts)
-    assert tf["acc"][0].sum() > 0 and (tf["sumhist"] > 0).all()
-    assert (tf["f"] != teng.prm.wl_factor).all()
-    assert_states_match(tf, jf, 2)

@@ -37,7 +37,8 @@ def test_port_imports_without_jax():
     for name in ("ops.cells", "ops.cell_energy", "ops.cell_kernels",
                  "mcmc.chain_kernel", "mcmc.cellengine", "mcmc.wanglandau",
                  "io.namelist", "io.xmol", "io.writers", "io.checkpoint",
-                 "app", "cli"):
+                 "app", "cli", "parallel.comm", "parallel.mesh",
+                 "parallel.spatial"):
         assert f"mc_water_ls_mw_tpu_torch.{name}" in MODULES
 
 
