@@ -210,10 +210,29 @@ Phases (each exits non-zero on failure):
    local slab, the chain on the tables assembled across the space
    ranks; ms per sub-step, the halo refresh's bytes and ms); RANK_* and
    SPATIAL_* list the sizes;
+11b. phase 14 (after the ranks), the run's own tools on the card: 14b
+   runs/n216_sample_torch cut to WATCH_RUN (256 walkers, float64, 200
+   cycles, jit_chunk WATCH_CHUNK) under tools/watchdog.py with the
+   card's probe gate, its first launch SIGSTOPped after its first
+   checkpoint: one kill, one relaunch after "backend probe ok", resumed
+   from the checkpoint to its end, the heartbeat at the final cycle,
+   and the final state that of the same input run uninterrupted
+   (identical integers, the rest within 1e-10), then the kernels of
+   both runs against their plain versions on that final state; 14c
+   tools/threebody_filter.py at N=216, W=16, float64, 4 cycles on the
+   card, its kernels against their plain versions on its final state;
+   then side by side in fresh processes: 14a liveness.probe_device
+   ("ok"), 14c's --device cpu call (finite; ideal-cell values
+   identical; the rest within 1e-9 relative, which holds as both walks
+   meet no near-collinear triplet: they draw different streams), and
+   14d the analysis tools (deltag_error on runs/n216_sample_torch,
+   deltag_from_weights on runs/n216_wl_r2, compare_dd_mw) where JAX
+   cannot be imported, the Done run's Delta G reproduced (+0.8506 +-
+   0.0337 J/mol);
 12. one JSON line with every kernel's launches (summed over the main
-   paths of phases 5, 5b, 5c, 5d, 5e, 5f, 5g, 7, 7b, 7d, 8d, 9, 9b, 10
-   and the ranks' runs of 12-13, and 4e's engine runs of the dense and
-   multi-trial instantiations; 7c runs no kernel), error against its plain
+   paths of phases 5, 5b, 5c, 5d, 5e, 5f, 5g, 7, 7b, 7d, 8d, 9, 9b, 10,
+   the ranks' runs of 12-13 and 14b-c, and 4e's engine runs of the dense
+   and multi-trial instantiations; 7c runs no kernel), error against its plain
    version, times and bound; the multi-trial kernel has a line for each
    T of path C, kernel 1's new instantiations one each, the
    mover-apply kernel one for phase 7's shape ("mover_apply") and one
@@ -3169,7 +3188,7 @@ FLAG_T8 = dict(cell_trials=8, cell_pallas="auto", cell_chain="auto")
 # left out (a whole-cell energy costs ~7 s here), cut to the first
 # FLAG_T8_SUB of its 64 sub-steps (~1.6 s each)
 FLAG_T8_CUTS = dict(list_update_int=1, mpi_sync_int=1, latt_sync_int=10_000)
-FLAG_T8_SUB = 32
+FLAG_T8_SUB = 16
 
 
 def flagship_t8_run(kind, card):
@@ -4209,6 +4228,17 @@ def _rank_checks(tag, checked, launched):
              "their plain versions")
 
 
+def dense_run_checks(tag, eng, s, launched):
+    """Hold the dense engine's kernels against their plain versions on
+    ``s``, the final state of a run through ``eng`` (dense_rank_checks),
+    and fail as _rank_checks does: on any differing walker, an error
+    over RANK_F64_TOL, or a kernel of ``launched`` ({engine attribute:
+    launches of the run}) left unchecked."""
+    _rank_checks(tag, [{"check": dense_rank_checks(eng, s)}],
+                 [{"launches": {_kernel_name(eng, a): n
+                                for a, n in launched.items()}}])
+
+
 def _timed_cycles(comm, eng, s, n_warm, n_cycles):
     """(state, seconds, launches) of ``n_cycles`` cycles after ``n_warm``,
     between barriers of the ranks, with the kernels' counts set to 0
@@ -4687,6 +4717,299 @@ def ranks_phases(kind, card):
         print(f"[time] {name}: {secs:.1f} s", flush=True)
     print(f"[time] 12-13 the rank groups' start-up: "
           f"{t2 - sum(walls2) + t4 - sum(walls4):.1f} s", flush=True)
+    return {"launches": launches}
+
+
+# ----------------------------------------------------------------------
+# 14. the run's own tools on the card
+# ----------------------------------------------------------------------
+
+# 14b's supervised run: runs/n216_sample_torch/run.py's overrides (its
+# ice.input and eta_weights.dat), cut; the run's own values in comments
+WATCH_RUN = dict(
+    stack=(3, 3, 6), n_walkers=256,            # 4096
+    dtype="float64",                           # float32 (the default)
+    mu_min=-700.0, mu_max=700.0, nbins=101, samplerun=True,
+    eq_mc_cycles=10,                           # 1000
+    mpi_sync_int=50, monitor_int=500,          # 5000
+    flat_chk_int=100_000_000, deltaG_int=250,  # 10000
+    chkpt_dump_int=100,                        # 25000
+    timer_closetime=420, max_mc_cycles=200,    # 100_000_000
+)
+WATCH_CHUNK = 10        # jit_chunk: a heartbeat every 10 cycles
+# the watchdog's flags: a stale heartbeat for 5 s after a 20 s start-up
+# grace is a hang (the run's set-up takes ~10 s on the card's machine)
+WATCH_FLAGS = ("--stale", "5", "--grace", "20", "--poll", "0.5",
+               "--kill-grace", "1", "--max-restarts", "2", "--budget", "900",
+               "--probe-backoff", "5")
+# the supervised run's script (WATCH_RUN through run_input_file, as
+# runs/n216_sample_torch/run.py calls it), which writes its pid first and
+# its engine's launch counts last
+WATCH_SCRIPT = """import json, os, sys
+sys.path.insert(0, {root!r})
+from mc_water_ls_mw_tpu_torch import app as app_mod
+
+apps = []
+
+
+class Recorded(app_mod.Application):
+    def setup(self):
+        apps.append(self)
+        return super().setup()
+
+
+app_mod.Application = Recorded
+with open("run.pid", "w") as fh:
+    fh.write(str(os.getpid()))
+over = dict({over!r}, timer_qtime=float(os.environ.get("WL_QTIME", "10800")))
+s = app_mod.run_input_file("ice.input", overrides=over, jit_chunk={chunk})
+app = apps[-1]
+with open("launches_%d.json" % os.getpid(), "w") as fh:
+    json.dump(dict(start=app.start_cycle, cycle=int(s.cycle),
+                   fused_cycle=app.engine.fused_cycle.launches,
+                   full_energy=app.engine.full_energy.launches), fh)
+"""
+THREEBODY = ("4", "16", "--nwater", "216")     # 14c: cycles, walkers
+# 14d: the analysis tools on the committed runs (their grids)
+ANALYSIS = {
+    "deltag_error": ["runs/n216_sample_torch", "--mu-min", "-700",
+                     "--mu-max", "700"],
+    "deltag_from_weights": ["runs/n216_wl_r2", "--nwater", "216"],
+    "compare_dd_mw": ["runs/n216_wl_dd", "runs/n216_wl_r2"],
+}
+DONE_RUN_DG = ("+0.8506", "0.0337")    # J/mol, the Done run's
+
+
+def watchdog_run(kind, card):
+    """14b: WATCH_RUN under the watchdog (tools/watchdog.py, the card's
+    probe gate on) in build/chip_smoke_watchdog, its first launch stopped
+    (SIGSTOP: a wedge of the child only) after its first checkpoint;
+    then the same input uninterrupted in build/chip_smoke_watchdog_ref
+    through this process, and the kernels against their plain versions
+    on its final state.  Returns {"launches": {kernel: count of the
+    relaunch and of the uninterrupted run}}."""
+    import shutil
+    import signal
+
+    import torch
+
+    from mc_water_ls_mw_tpu_torch.io import checkpoint as ckpt
+
+    d = os.path.join(ROOT, "build", "chip_smoke_watchdog")
+    d_ref = d + "_ref"
+    for x in (d, d_ref):
+        shutil.rmtree(x, ignore_errors=True)
+        os.makedirs(x)
+        for name in ("ice.input", "eta_weights.dat"):
+            shutil.copy(os.path.join(ROOT, "runs", "n216_sample_torch", name),
+                        x)
+    with open(os.path.join(d, "run.py"), "w") as fh:
+        fh.write(WATCH_SCRIPT.format(root=ROOT, over=WATCH_RUN,
+                                     chunk=WATCH_CHUNK))
+    pid_file = os.path.join(d, "run.pid")
+    first_ckpt = os.path.join(d, "checkpoint000.npz.1")
+    t0 = time.time()
+    wd = subprocess.Popen(
+        [sys.executable, "-m", "mc_water_ls_mw_tpu_torch.tools.watchdog",
+         "--workdir", d, "--cmd", f"{sys.executable} run.py",
+         "--watch", "heartbeat", *WATCH_FLAGS],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    pid = None
+    try:
+        while not (os.path.exists(first_ckpt) and os.path.exists(pid_file)):
+            if wd.poll() is not None or time.time() - t0 > 120:
+                fail("14b: the supervised run wrote no checkpoint")
+            time.sleep(0.02)
+        pid = int(open(pid_file).read())
+        os.kill(pid, signal.SIGSTOP)
+        t_stop = time.time() - t0
+        stopped_at = int(open(os.path.join(d, "heartbeat")).read())
+        out, _ = wd.communicate(timeout=300)
+    finally:
+        if wd.poll() is None:
+            os.killpg(wd.pid, signal.SIGKILL)
+            wd.wait()
+        if pid is not None:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    t_wd = time.time() - t0
+    log = open(os.path.join(d, "watchdog.log")).read()
+    print(f"[14b] watchdog over {WATCH_RUN['max_mc_cycles']} cycles of "
+          f"runs/n216_sample_torch (W={WATCH_RUN['n_walkers']}, float64, "
+          f"jit_chunk={WATCH_CHUNK}): run {pid} stopped at {t_stop:.1f} s, "
+          f"heartbeat {stopped_at}; the watchdog exited {wd.returncode} "
+          f"after {t_wd:.1f} s; its log:\n{log.rstrip()}", flush=True)
+    ends = [json.load(open(os.path.join(d, f))) for f in sorted(os.listdir(d))
+            if f.startswith("launches_")]
+    logs = "".join(open(os.path.join(d, f)).read()
+                   for f in ("mc.log", "node000.log"))
+    hb = open(os.path.join(d, "heartbeat")).read()
+    kill = log.find("killing process group")
+    probe = log.find("backend probe ok")
+    if not (wd.returncode == 0 and log.count("launch #") == 2
+            and log.count("killing process group") == 1
+            and log.count("backend probe ok") == 1 and 0 <= kill < probe
+            and log.rstrip().endswith("run exited cleanly (rc=0); done")):
+        fail("14b: the watchdog did not kill the stopped run once and "
+             "relaunch it once after a probe of the card")
+    # max_mc_cycles counts the cycles of one call (as in the JAX app):
+    # the relaunch runs them from its checkpoint
+    n_cyc = WATCH_RUN["max_mc_cycles"]
+    end = ends[0]["start"] + n_cyc if len(ends) == 1 else -1
+    if not (stopped_at < n_cyc and len(ends) == 1 and ends[0]["cycle"] == end
+            and 0 < ends[0]["start"] <= stopped_at
+            and f"# Restarting from cycle {ends[0]['start']} (" in logs
+            and hb == f"{end}\n"):
+        fail(f"14b: the relaunch did not resume from the checkpoint to the "
+             f"end: {ends}, heartbeat {hb!r}")
+    relaunch = {k: ends[0][k] for k in ("fused_cycle", "full_energy")}
+    if relaunch["fused_cycle"] != n_cyc:
+        fail(f"14b: relaunch launches {relaunch}")
+
+    # the same input uninterrupted to the same cycle
+    ref = _app_calls(d_ref, dict(WATCH_RUN, timer_qtime=10800.0), [end],
+                     {"fused_cycle": "fused_cycle",
+                      "full_energy": "full_energy"},
+                     jit_chunk=WATCH_CHUNK)[0]
+    got, cycle, path = ckpt.load_checkpoint(ref["s"], d)
+    same, names, err = state_diff(ref["s"], got)
+    hb_ref = open(os.path.join(d_ref, "heartbeat")).read()
+    print(f"[14b] resumed at cycle {ends[0]['start']}, ended at {cycle} "
+          f"({os.path.basename(path)}); against the uninterrupted run "
+          f"({ref['wall']:.1f} s, heartbeat {hb_ref.strip()}): integer "
+          f"fields {'identical' if same else 'DIFFER: ' + str(names)}, "
+          f"float fields max |diff| {err:.3e} (limit {RANK_F64_TOL:g}); "
+          f"launches relaunch {relaunch}, uninterrupted {ref['launches']}; "
+          f"{kind} ({card})", flush=True)
+    if not (same and err <= RANK_F64_TOL and cycle == ref["s"].cycle
+            and hb_ref == hb):
+        fail("14b: the supervised run is not the uninterrupted run")
+    launches = {k: relaunch[k] + ref["launches"][k] for k in relaunch}
+    # the relaunch's kernels and the uninterrupted run's, at the shapes
+    # both ran, against their plain versions on the final state (which
+    # the relaunch's equals, above)
+    dense_run_checks("14b", ref["app"].engine, ref["s"], launches)
+    del ref, got
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def _tool_proc(module, args, block_jax=True):
+    """A fresh process running ``module``'s main(args) from the repository
+    root, with JAX and the JAX package unimportable (``block_jax``)."""
+    code = ("import sys\n"
+            + ("sys.modules['jax'] = None\n"
+               "sys.modules['mc_water_ls_mw_tpu'] = None\n" if block_jax
+               else "")
+            + f"sys.path.insert(0, {ROOT!r})\n"
+            f"from {module} import main\n"
+            f"sys.exit(main({list(args)!r}))\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(proc, timeout=300):
+    """(rc, stdout, stderr) of a process, killed if it outlives
+    ``timeout``."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, out, err
+
+
+def tools_phase(kind, card):
+    """14: the supervised run (b) and the three-body filter tool on the
+    card (c), then side by side in fresh processes: the liveness probe
+    (a), the three-body tool with --device cpu (c) and the analysis
+    tools where JAX cannot be imported (d).  Returns {"launches":
+    {kernel: count of 14b and 14c}}."""
+    import threading
+
+    from mc_water_ls_mw_tpu_torch.constants import HART_TO_KJPM, KB
+    from mc_water_ls_mw_tpu_torch.liveness import probe_device
+    from mc_water_ls_mw_tpu_torch.tools import threebody_filter
+
+    # ---- 14b. the supervised run with a wedge
+    launches = watchdog_run(kind, card)["launches"]
+
+    # ---- 14c. the three-body filter tool on the card
+    t0 = time.time()
+    card_out, tb, ends = threebody_filter.measure(
+        int(THREEBODY[0]), int(THREEBODY[1]), (216,), device=DEVICE)
+    t_card = time.time() - t0
+
+    # ---- 14a, 14c's CPU side and 14d, each in a fresh process, side by
+    # side (each spends its first seconds importing torch)
+    t0 = time.time()
+    probe = {}
+    th = threading.Thread(target=lambda: probe.update(
+        res=probe_device(), s=time.time() - t0))
+    th.start()
+    cpu_proc = _tool_proc("mc_water_ls_mw_tpu_torch.tools.threebody_filter",
+                          [*THREEBODY, "--device", "cpu"], block_jax=False)
+    procs = {name: _tool_proc(f"mc_water_ls_mw_tpu_torch.tools.{name}", args)
+             for name, args in ANALYSIS.items()}
+    rc, cpu_json, cpu_err = _finish(cpu_proc)
+    outs = {name: _finish(proc) for name, proc in procs.items()}
+    th.join()
+    t_procs = time.time() - t0
+
+    status, op_s = probe["res"]
+    print(f"[14a] liveness.probe_device: {status}, op {op_s:.3f} s "
+          f"({probe['s']:.1f} s with the process) on {kind} ({card})",
+          flush=True)
+    if status != "ok":
+        fail(f"14a: the card's probe says {status}")
+
+    if rc != 0:
+        fail(f"14c: the three-body tool with --device cpu failed: "
+             f"{cpu_err[-2000:]}")
+    cpu_out = json.loads(cpu_json)
+    print(f"[14c] tools.threebody_filter {' '.join(THREEBODY)} on {kind} "
+          f"({t_card:.1f} s, launches {tb}): {json.dumps(card_out)}; with "
+          f"--device cpu (a process): {json.dumps(cpu_out)}", flush=True)
+    a, b = card_out["n216"], cpu_out["n216"]
+    ideal = ("ideal_dE_hartree", "ideal_triplets")
+    if not (card_out.keys() == cpu_out.keys()
+            and all(np.isfinite(v) for v in list(a.values()) + list(b.values()))
+            and all(a[k] == b[k] for k in ideal)
+            and all(abs(a[k] - b[k]) <= 1e-9 * max(abs(a[k]), abs(b[k]))
+                    for k in a if k not in ideal)
+            and min(tb.values()) > 0):
+        fail("14c: the three-body filter on the card is not the CPU's")
+    # the card's and the CPU's walks draw different Philox streams, so
+    # the kernels are held against their plain versions on the card's
+    # final state, at the shapes the tool ran
+    dense_run_checks("14c", *ends[216], tb)
+    del ends
+    for k in launches:
+        launches[k] += tb[k]
+
+    for name, (rc, out, err) in outs.items():
+        print(f"[14d] tools.{name} {' '.join(ANALYSIS[name])} (JAX "
+              f"blocked, rc {rc}):\n{out.rstrip()}", flush=True)
+        if rc != 0:
+            fail(f"14d: tools.{name} failed: {err[-2000:]}")
+    print(f"[14a, 14c, 14d] the five processes side by side: "
+          f"{t_procs:.1f} s", flush=True)
+    line = [ln for ln in outs["deltag_error"][1].splitlines()
+            if "kT/molecule" in ln][0]
+    dg, se = (float(x) for x in line.split("=")[1].split("kT")[0]
+              .split("+-"))
+    j_per_mol = KB * 200.0 * HART_TO_KJPM * 1000.0
+    got = (f"{dg * j_per_mol:+.4f}", f"{se * j_per_mol:.4f}")
+    print(f"[14d] the Done run's Delta G: {got[0]} +- {got[1]} J/mol "
+          f"(committed: {DONE_RUN_DG[0]} +- {DONE_RUN_DG[1]})", flush=True)
+    if got != DONE_RUN_DG:
+        fail("14d: deltag_error does not reproduce the Done run's Delta G")
+    json.loads(outs["compare_dd_mw"][1])
     return {"launches": launches}
 
 
@@ -5390,6 +5713,13 @@ def main() -> int:
     for name, n in ranks_phases(kind, card)["launches"].items():
         launches[name] = launches.get(name, 0) + n
     phase_time("12-13. ranks: walker sharding and the spatial engine")
+
+    # ---- 14. the run's own tools on the card: the probe, a supervised
+    # run with a wedge, the three-body filter, the analysis tools
+    torch.cuda.empty_cache()
+    for name, n in tools_phase(kind, card)["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    phase_time("14. the run's tools (probe, watchdog, filter, analysis)")
 
     # ---- 11. the kernels
     kernels = [

@@ -22,8 +22,12 @@ serial layout, so that a run's files and checkpoints do not depend on
 the number of ranks.  A walker count that does not divide over the
 ranks is refused (the JAX package falls back to one device there, but
 several processes each running the whole run would write the same
-files).  ``jit_chunk`` changes nothing: there is no compiled program
-whose length to bound.
+files).  Each block runs in chunks of at most ``jit_chunk`` cycles, as
+in the JAX package; after each chunk the run waits for the card and
+rank 0 writes the cycle reached to ``heartbeat``, the progress signal
+of a long block that ``liveness.py`` and ``tools/watchdog.py`` read.
+The random streams are keyed by the cycle, so the chunking changes no
+result.
 """
 
 from __future__ import annotations
@@ -428,18 +432,22 @@ class Application:
                     "on first contact; out-of-window WL writes are "
                     "excluded from flatness/stitching)")
 
-    def run(self, max_cycles=None, profile_dir=None):
+    def run(self, max_cycles=None, jit_chunk=100, profile_dir=None):
         """The cycle loop, in blocks whose boundaries fall on the event
-        intervals.  ``profile_dir``: write a torch.profiler trace
-        (chrome format) of the SECOND block, the first steady one."""
+        intervals, each run in chunks of at most ``jit_chunk`` cycles
+        with a heartbeat after each.  ``profile_dir``: write a
+        torch.profiler trace (chrome format) of the SECOND block, the
+        first steady one."""
         prm, eng = self.prm, self.engine
         total = max_cycles if max_cycles is not None else prm.max_mc_cycles
         block = _block_size(prm)
+        chunk = min(block, max(1, jit_chunk))
         if profile_dir is not None:
             # a second block inside the run; the shrunk block must divide
             # the original so that boundaries still land on the intervals
-            cap = max(1, min(block, total // 2))
+            cap = max(1, min(chunk, total // 2))
             block = max(d for d in range(1, cap + 1) if block % d == 0)
+            chunk = min(chunk, block)
             if total < 2 * block:
                 self.logs.g("# WARNING: run too short for a steady-state "
                             "profile block; no trace will be written")
@@ -457,9 +465,14 @@ class Application:
             t_blk = time.monotonic()
             # blocks end on the interval boundaries
             n = min(block, total - done, block - self.state.cycle % block)
-            self.state, samples = eng.run_cycles(self.state, n)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            parts, left = [], n
+            while left > 0:
+                c = min(chunk, left)
+                self.state, smp = eng.run_cycles(self.state, c)
+                parts.append(smp)
+                left -= c
+                self._heartbeat()
+            samples = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
             t_disp = time.monotonic()
             done += n
             blocks_done += 1
@@ -501,6 +514,21 @@ class Application:
             self.therm.close()
         return self.state
 
+    def _heartbeat(self):
+        """The liveness heartbeat of a chunk: the card's work is done (the
+        cycles run asynchronously there), then rank 0 writes the cycle
+        reached.  Without it a long block's first output lands at its
+        end, and a watcher cannot tell it from a wedged process."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if not self.root:
+            return
+        try:
+            with open("heartbeat", "w") as hb:
+                hb.write(f"{int(self.state.cycle)}\n")
+        except OSError:
+            pass
+
     def _checkpoint(self, wait=None):
         """The gathered state, written by the root rank in the serial
         layout (collective)."""
@@ -521,14 +549,14 @@ def run_input_file(path, overrides=None, max_cycles=None, workdir=None,
     """Programmatic entry: run an ice.input file (in its directory, or
     ``workdir``) to completion on ``device``; returns the final state.
 
-    ``use_mesh`` and ``jit_chunk`` are the JAX package's arguments, taken
-    so that its callers (the committed runs/*/run.py) run unchanged.
+    ``use_mesh`` and ``jit_chunk`` are the JAX package's arguments, so
+    that its callers (the committed runs/*/run.py) run unchanged.
     ``use_mesh`` shards the walkers over the ranks of a ``torchrun``
     launch (or of an initialised ``torch.distributed`` group), see
-    Application; the JAX package's ``jit_chunk`` caps the cycles of one
-    compiled dispatch (host events stay on the block boundaries, so
-    results never depended on it), and the port compiles no cycle
-    program.
+    Application; ``jit_chunk`` caps the cycles between two heartbeats
+    (Application.run; in the JAX package it also caps the cycles of one
+    compiled dispatch).  Host events stay on the block boundaries, so
+    results do not depend on it.
 
     Cell-engine capacity resilience: if a rebin overflows the slab
     capacity (CapacityOverflow), the run is set up again with a regrown
@@ -542,7 +570,8 @@ def run_input_file(path, overrides=None, max_cycles=None, workdir=None,
         app = Application(prm, workdir=wd, use_mesh=use_mesh, device=device)
         try:
             app.setup()
-            return app.run(max_cycles=max_cycles, profile_dir=profile_dir)
+            return app.run(max_cycles=max_cycles, jit_chunk=jit_chunk,
+                           profile_dir=profile_dir)
         except CapacityOverflow as err:
             if attempt == 3:
                 raise

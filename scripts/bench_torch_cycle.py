@@ -5,7 +5,8 @@ them, with the device's busy share, and phase 4's timing of the table
 kernel, for the port in one source tree.
 
     python3 scripts/bench_torch_cycle.py [--tree DIR] [--label NAME] \\
-        [--reps 3] [--hash-cycles N] [--per-cycle N] [--out OUT.json]
+        [--reps 3] [--paths 4 5 5b] [--hash-cycles N] [--per-cycle N] \\
+        [--frontend N] [--jit-chunk 100 ...] [--out OUT.json]
 
 ``--tree`` is the root of a checkout (default: this one): its
 chip_smoke.py and mc_water_ls_mw_tpu_torch are imported, so two versions
@@ -27,7 +28,20 @@ agree cycle by cycle ran the same trajectory.  With ``--per-cycle N``
 (path "per-cycle"), phase 5's engine runs N cycles from its initial
 state under torch.profiler, which gives the fused kernel's device time
 launch by launch; then phase 4's timing from the state reached.
-Prints one JSON line per path and one of all (also written to --out).
+With ``--frontend N`` (path "frontend"), runs/n216_sample_torch (its
+ice.input, weights and run.py's overrides: 4096 walkers, float32)
+through the tree's run_input_file, N cycles in one block, once untimed
+and then ``reps`` rounds of one run per ``--jit-chunk`` value, each in
+a fresh directory under build/; Application.run alone is timed on the
+host clock (it ends synchronised: the final checkpoint reads the
+state).  The front end writes its heartbeat after each chunk of at most
+jit_chunk cycles, after a synchronise, so this times the heartbeat's
+cost against a tree that has none, and, in one process, against
+``--jit-chunk`` values at or above the block (one synchronise at its
+end, as a tree without the heartbeat does); the host seconds spent in
+the heartbeats are kept too.  ``--paths`` picks which of "4",
+"5" and "5b" run (default all).  Prints one JSON line per path and one
+of all (also written to --out).
 """
 
 from __future__ import annotations
@@ -35,11 +49,20 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
+import statistics
 import sys
 import time
 
 CYCLES = 20
 TRACED = 10
+# runs/n216_sample_torch/run.py's overrides (timer and cycle count aside)
+SAMPLE_RUN = dict(
+    stack=(3, 3, 6), n_walkers=4096, mu_min=-700.0, mu_max=700.0,
+    nbins=101, samplerun=True, eq_mc_cycles=1000, mpi_sync_int=50,
+    monitor_int=5000, flat_chk_int=100_000_000, deltaG_int=10000,
+    chkpt_dump_int=25000, timer_qtime=10800.0, timer_closetime=420,
+)
 
 
 def run_path(cs, name, prm, reps):
@@ -130,12 +153,81 @@ def per_cycle(cs, prm, n):
                                for _ in range(3)])
 
 
+def frontend(tree, n, chunks, reps):
+    """Seconds of Application.run over ``n`` cycles of runs/
+    n216_sample_torch per jit_chunk value of ``chunks`` (``reps`` runs
+    each, after one untimed run at the first value), and where the
+    tree's app has a heartbeat, the host seconds spent in it (the
+    synchronise and the file write) and its count, per run."""
+    import torch
+
+    from mc_water_ls_mw_tpu_torch import app as app_mod
+
+    walls, beats = [], []
+    beat = getattr(app_mod.Application, "_heartbeat", None)
+
+    class Timed(app_mod.Application):
+        def run(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            try:
+                return super().run(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                walls.append(time.time() - t0)
+
+        if beat is not None:
+            def _heartbeat(self):
+                t0 = time.perf_counter()
+                try:
+                    return beat(self)
+                finally:
+                    beats.append(time.perf_counter() - t0)
+
+    def one(tag, chunk):
+        d = os.path.join(tree, "build", "bench_frontend", tag)
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        for f in ("ice.input", "eta_weights.dat"):
+            shutil.copy(os.path.join(tree, "runs", "n216_sample_torch", f),
+                        d)
+        cwd, original = os.getcwd(), app_mod.Application
+        app_mod.Application = Timed
+        try:
+            app_mod.run_input_file(os.path.join(d, "ice.input"),
+                                   overrides=SAMPLE_RUN, max_cycles=n,
+                                   device="cuda", jit_chunk=chunk)
+        finally:
+            app_mod.Application = original
+            os.chdir(cwd)
+        out = (walls.pop(), sum(beats), len(beats))
+        beats.clear()
+        return out
+
+    one("warm", chunks[0])
+    runs = {c: [] for c in chunks}
+    for i in range(reps):
+        for c in chunks:
+            runs[c].append(one(f"{i}_{c}", c))
+    return dict(path="frontend", cycles=n,
+                seconds={str(c): [r[0] for r in v] for c, v in runs.items()},
+                median={str(c): statistics.median(r[0] for r in v)
+                        for c, v in runs.items()},
+                heartbeat_s={str(c): [r[1] for r in v]
+                             for c, v in runs.items()},
+                heartbeats={str(c): v[0][2] for c, v in runs.items()})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default=None)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--paths", nargs="*", choices=["4", "5", "5b"],
+                    default=["4", "5", "5b"])
+    ap.add_argument("--frontend", type=int, default=0)
+    ap.add_argument("--jit-chunk", type=int, nargs="+", default=[100])
     ap.add_argument("--hash-cycles", type=int, default=0)
     ap.add_argument("--per-cycle", type=int, default=0)
     ap.add_argument("--out", default=None)
@@ -152,18 +244,24 @@ def main() -> int:
             raise SystemExit(f"{mod.__name__} imported from {mod.__file__}")
     W, over = cs.W_MAIN, dict(mpi_sync_int=5, latt_sync_int=10,
                               eq_mc_cycles=20, max_mc_cycles=45)
-    rows = [phase4(cs, cs.sample_params(W, "float32", eq_mc_cycles=0),
-                   a.reps),
-            run_path(cs, "5", cs.sample_params(W, "float32", **over),
-                     a.reps),
-            run_path(cs, "5b", cs.dense_params(W, "float32", "n216",
-                                               **over), a.reps)]
+    rows = []
+    if "4" in a.paths:
+        rows.append(phase4(cs, cs.sample_params(W, "float32",
+                                                eq_mc_cycles=0), a.reps))
+    if "5" in a.paths:
+        rows.append(run_path(cs, "5", cs.sample_params(W, "float32", **over),
+                             a.reps))
+    if "5b" in a.paths:
+        rows.append(run_path(cs, "5b", cs.dense_params(W, "float32", "n216",
+                                                       **over), a.reps))
     if a.hash_cycles:
         rows.append(trajectory(cs, cs.sample_params(W, "float32", **over),
                                a.hash_cycles))
     if a.per_cycle:
         rows.append(per_cycle(cs, cs.sample_params(W, "float32", **over),
                               a.per_cycle))
+    if a.frontend:
+        rows.append(frontend(tree, a.frontend, a.jit_chunk, a.reps))
     label = a.label or tree
     card = torch.cuda.get_device_name(0)
     for r in rows:

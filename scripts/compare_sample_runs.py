@@ -3,18 +3,18 @@ bin.
 
 For each run directory: the flatness of the biased visit histogram
 ``histogram.dat`` (the largest relative deviation of a bin from the mean
-over the bins), the block-jackknife Delta G of scripts/deltag_error.py
+over the bins), the block-jackknife Delta G of tools/deltag_error.py
 (in kT per molecule and J/mol at --temperature, 200 K by default) and
-the two runs' difference in combined sigma,
-and the unbiased probability density P(mu) of the last cumulative dump
+the two runs' difference in combined sigma, and the unbiased
+probability density P(mu) of the last cumulative dump
 ``unbiased_histogram_<cycle>.dat`` at or before ``--max-cycle`` (raw
-third column,
-normalised over the widths of the grid that --mu-min, --mu-max and the
-number of bins define), with a per-bin standard error from the
-blocks between consecutive dumps (the first ``--skip-blocks`` dropped:
-the blocks and the estimator are scripts/deltag_error.py's).  Then, bin by bin, the
-difference of the two P(mu) in units of their combined error: the
-largest |z|, the bins beyond 3, and chi^2 per bin.
+third column, normalised over the widths of the grid that --mu-min,
+--mu-max and the number of bins define), with a per-bin standard error
+from the blocks between consecutive dumps (the first ``--skip-blocks``
+dropped: the blocks, the estimator and the jackknife are
+tools/deltag_error.py's).  Then, bin by bin, the difference of the two
+P(mu) in units of their combined error: the largest |z|, the bins
+beyond 3, and chi^2 per bin.
 
 Usage:
     python scripts/compare_sample_runs.py RUN_A RUN_B \
@@ -25,10 +25,8 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import glob
 import json
 import os
-import re
 import sys
 
 import numpy as np
@@ -37,43 +35,29 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 from mc_water_ls_mw_tpu_torch.constants import HART_TO_KJPM, KB  # noqa: E402
 from mc_water_ls_mw_tpu_torch.mcmc.bins import build_bin_grid  # noqa: E402
+from mc_water_ls_mw_tpu_torch.tools.deltag_error import (  # noqa: E402
+    block_differences,
+    deltag,
+    jackknife,
+    load_dumps,
+)
 
 
 def load(run_dir, skip, bw, max_cycle):
-    dumps = []
-    for f in sorted(glob.glob(os.path.join(run_dir,
-                                           "unbiased_histogram_*.dat"))):
-        m = re.search(r"_(\d{10})\.dat$", f)
-        arr = np.loadtxt(f)
-        if m and int(m.group(1)) <= max_cycle and arr.ndim == 2 \
-                and arr.shape[1] >= 3:
-            dumps.append((int(m.group(1)), arr[:, 0], arr[:, 2]))
+    dumps = [d for d in load_dumps(run_dir) if d[0] <= max_cycle]
     if len(dumps) < skip + 3:
         raise SystemExit(f"{run_dir}: {len(dumps)} dumps, too few blocks")
-    mu = dumps[-1][1]
-    raw = np.stack([d[2] for d in dumps])
-    # blocks between consecutive dumps, as deltag_error.py takes them
-    blocks = np.diff(raw, axis=0)[skip:]
-    tot = blocks.sum(axis=0)
-    p = tot / (tot * bw).sum()
-    # delete-one-block jackknife of each bin's normalised density
-    n = len(blocks)
-    jk = np.stack([(tot - b) / ((tot - b) * bw).sum() for b in blocks])
-    err = np.sqrt((n - 1) / n * ((jk - jk.mean(axis=0)) ** 2).sum(axis=0))
-    # Delta G and its delete-one-block jackknife (deltag_error.py's
-    # estimator: the centre bin counts toward the mu > 0 side)
-    half = len(bw) // 2
-
-    def dg(t):
-        w = t * bw
-        return np.log(w[:half].sum() / w[half:].sum())
-
-    g = np.array([dg(tot - b) for b in blocks])
-    dg_err = float(np.sqrt((n - 1) / n * ((g - g.mean()) ** 2).sum()))
+    blocks = block_differences(dumps, skip)
+    # Delta G and each bin's normalised density, each with the
+    # delete-one-block jackknife of tools/deltag_error.py (its estimator:
+    # the centre bin counts toward the mu > 0 side)
+    dg, dg_err, _, n = jackknife(blocks,
+                                 lambda t: deltag(t, bw, len(bw) // 2))
+    p, err, _, _ = jackknife(blocks, lambda t: t / (t * bw).sum())
     h = np.loadtxt(os.path.join(run_dir, "histogram.dat"), comments="#")
     flat = float(np.max(np.abs(h[:, 1] / h[:, 1].mean() - 1.0)))
-    return dict(mu=mu, p=p, err=err, blocks=n, cycle=dumps[-1][0],
-                dg=float(dg(tot)), dg_err=dg_err,
+    return dict(mu=dumps[-1][1], p=p, err=err, blocks=n, cycle=dumps[-1][0],
+                dg=float(dg), dg_err=float(dg_err),
                 flat=flat, hist_min=float(h[:, 1].min()),
                 hist_max=float(h[:, 1].max()))
 

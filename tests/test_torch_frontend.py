@@ -11,7 +11,8 @@ the writers, the checkpoints and the app, on the CPU in float64.
   generator states aside), and a cell checkpoint migrates to a larger
   slab capacity;
 * ``run_input_file`` at N=216 (stack (3,3,6), W = 2, a few cycles)
-  writes the JAX app's set of files with the same header lines,
+  writes the JAX app's set of files (its heartbeat among them) with
+  the same header lines,
   prints the same "Computed energies" line and resumes from its
   checkpoint;
 * the CLI parses its flags.
@@ -313,10 +314,12 @@ def _line(path, start):
 def test_app_matches_jax_and_resumes(tmp_path):
     jd = _run_app(japp.run_input_file, tmp_path, "jax", use_mesh=False)
     td = _run_app(tapp.run_input_file, tmp_path, "port", device="cpu")
-    # the JAX app's set of files (its liveness heartbeat aside: the
-    # wedge guard is not ported)
-    jfiles = set(os.listdir(jd)) - {"heartbeat"}
+    # the JAX app's set of files, the liveness heartbeat with the final
+    # cycle among them
+    jfiles = set(os.listdir(jd))
     assert set(os.listdir(td)) == jfiles
+    assert (td / "heartbeat").read_text() == \
+        (jd / "heartbeat").read_text() == "4\n"
     assert {"mc.log", "node000.log", "mW.psf", "mW.dcd", "ice000_therm.dat",
             "ice001_therm.dat", "eta_weights.dat", "histogram.dat",
             "unbiased_histogram.dat", "checkpoint000.npz.1",
