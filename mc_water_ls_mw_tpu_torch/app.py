@@ -33,6 +33,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
 import signal
@@ -41,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from . import tracing
 from .constants import HART_TO_EV
 from .io import checkpoint as ckpt
 from .io import writers
@@ -227,9 +229,11 @@ class Application:
         t = torch.tensor([int(bool(flag))], device=self.device)
         return bool(self.comm.max(t))
 
+    @tracing.traced("mw/setup")
     def setup(self):
         prm, logs = self.prm, self.logs
-        rng_self_test(logs, self.device)
+        with tracing.span("mw/setup/rng_self_test"):
+            rng_self_test(logs, self.device)
         r0, H0 = self._structure()
         prm = self.prm
         # bin grid; nbins may be promoted to odd (mc_init:557)
@@ -259,18 +263,21 @@ class Application:
         if prm.parallel_strategy == "dd" and prm.num_lattices == 2:
             n_windows = max(2, min(prm.n_walkers, prm.n_windows))
 
-        self.cellgrid = self._cell_grid(r0, H0)
-        if self.cellgrid is not None:
-            from .mcmc.cellengine import init_cell_state
+        with tracing.span("mw/setup/state"):
+            self.cellgrid = self._cell_grid(r0, H0)
+            if self.cellgrid is not None:
+                from .mcmc.cellengine import init_cell_state
 
-            state, self.aux, self._caux = init_cell_state(
-                prm, self.model, r0, H0, self.grid, self.cellgrid,
-                weight0=weight0, n_windows=n_windows, device=self.device)
-        else:
-            state, self.aux = init_state(
-                prm, self.model, r0, H0, self.grid, weight0=weight0,
-                n_windows=n_windows, device=self.device)
-        self.engine = self._make_engine()
+                state, self.aux, self._caux = init_cell_state(
+                    prm, self.model, r0, H0, self.grid, self.cellgrid,
+                    weight0=weight0, n_windows=n_windows,
+                    device=self.device)
+            else:
+                state, self.aux = init_state(
+                    prm, self.model, r0, H0, self.grid, weight0=weight0,
+                    n_windows=n_windows, device=self.device)
+        with tracing.span("mw/setup/engine"):
+            self.engine = self._make_engine()
 
         # initial lattice energies (main.f90:125-140): the float64
         # physics oracle line
@@ -362,15 +369,17 @@ class Application:
 
     # ------------------------------------------------------------------
 
+    @tracing.traced("mw/therm")
     def _write_therm(self, samples):
         prm = self.prm
         if not self.root:
             return
         cycles = samples["cycle"].numpy()
-        e = samples["E_ls"].double().cpu().numpy()           # [n, T]
-        mu = samples["mu"].double().cpu().numpy()
-        vol = samples["vol"].double().cpu().numpy()          # [n, L, T]
-        ls = samples["ls"].cpu().numpy()
+        with tracing.wait("therm_copy"):
+            e = samples["E_ls"].double().cpu().numpy()       # [n, T]
+            mu = samples["mu"].double().cpu().numpy()
+            vol = samples["vol"].double().cpu().numpy()      # [n, L, T]
+            ls = samples["ls"].cpu().numpy()
         fixed = prm.samplerun or prm.wl_factor < 1e-300
         for i in np.nonzero(cycles % prm.file_output_int == 0)[0]:
             for w in self.therm.files:
@@ -383,16 +392,18 @@ class Application:
         if not self.root:
             return
         s = self.state
-        ls0 = int(s.ls[0])
-        r_all = s.r[..., 0]                                   # [L,3,n]
-        if self.cellgrid is not None:
-            # slab layout: molecule order through mol2slot
-            r_all = r_all[:, :, s.mol2slot[:, 0].long()]
-        r_all = r_all.double().cpu().numpy()
+        with tracing.wait("traj_copy"):
+            ls0 = int(s.ls[0])
+            r_all = s.r[..., 0]                               # [L,3,n]
+            if self.cellgrid is not None:
+                # slab layout: molecule order through mol2slot
+                r_all = r_all[:, :, s.mol2slot[:, 0].long()]
+            r_all = r_all.double().cpu().numpy()
+            h0 = s.h[ls0, :, :, 0].double().cpu().numpy()
         r_oth = r_all[1 - ls0].T if self.prm.num_lattices == 2 else None
-        writers.append_dcd_snapshot("mW.dcd", r_all[ls0].T, r_oth,
-                                    s.h[ls0, :, :, 0].double().cpu().numpy())
+        writers.append_dcd_snapshot("mW.dcd", r_all[ls0].T, r_oth, h0)
 
+    @tracing.traced("mw/events")
     def _events(self, cycle):
         """The host events of a block boundary at ``cycle``."""
         prm, eng = self.prm, self.engine
@@ -408,6 +419,7 @@ class Application:
             self.state = wl.compute_deltaG(eng, self.state, self.logs,
                                            self.aux)
 
+    @tracing.traced("mw/audit")
     def _check_windows(self, cycle):
         """The 'dd' equilibration window check (mc_cycle:187-201) after
         the boundary.  With window seeding (dd_seeding, the default)
@@ -420,7 +432,8 @@ class Application:
         prm = self.prm
         if prm.parallel_strategy != "dd" or cycle < prm.eq_mc_cycles:
             return
-        n_out = int(self.comm.sum((~self.state.in_window).sum()[None]))
+        with tracing.wait("audit_read"):
+            n_out = int(self.comm.sum((~self.state.in_window).sum()[None]))
         if n_out == 0:
             return
         if not prm.dd_seeding:
@@ -435,9 +448,21 @@ class Application:
     def run(self, max_cycles=None, jit_chunk=100, profile_dir=None):
         """The cycle loop, in blocks whose boundaries fall on the event
         intervals, each run in chunks of at most ``jit_chunk`` cycles
-        with a heartbeat after each.  ``profile_dir``: write a
-        torch.profiler trace (chrome format) of the SECOND block, the
-        first steady one."""
+        with a heartbeat after each.  ``profile_dir``: trace the run
+        (``tracing``) and write to that directory a torch.profiler trace
+        (chrome format) of the SECOND block, the first steady one, as
+        ``trace.json``, and at the end the spans and counters of the run
+        (``tracing.snapshot()``, rank 0's) as ``spans.json``."""
+        with tracing.recording(profile_dir is not None):
+            state = self._run(max_cycles, jit_chunk, profile_dir)
+            if profile_dir is not None and self.root:
+                os.makedirs(profile_dir, exist_ok=True)
+                with open(os.path.join(profile_dir, "spans.json"),
+                          "w") as fh:
+                    json.dump(tracing.snapshot(), fh, indent=1)
+        return state
+
+    def _run(self, max_cycles, jit_chunk, profile_dir):
         prm, eng = self.prm, self.engine
         total = max_cycles if max_cycles is not None else prm.max_mc_cycles
         block = _block_size(prm)
@@ -462,52 +487,61 @@ class Application:
                     else [])
                 prof = profile(activities=acts)
                 prof.start()
-            t_blk = time.monotonic()
-            # blocks end on the interval boundaries
-            n = min(block, total - done, block - self.state.cycle % block)
-            parts, left = [], n
-            while left > 0:
-                c = min(chunk, left)
-                self.state, smp = eng.run_cycles(self.state, c)
-                parts.append(smp)
-                left -= c
-                self._heartbeat()
-            samples = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
-            t_disp = time.monotonic()
-            done += n
-            blocks_done += 1
-            if prof is not None:
-                prof.stop()
-                os.makedirs(profile_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(profile_dir,
-                                                      "trace.json"))
-                self.logs.g(f"# profiler trace ({n} cycles) written to "
-                            f"{profile_dir}")
-            cycle = self.state.cycle
-            self._write_therm(samples)
-            t_therm = time.monotonic()
-            self._events(cycle)
-            t_wl = time.monotonic()
-            # slab-capacity audit BEFORE the checkpoint write: an
-            # overflowing walker is corrupt and must never be persisted
-            if self.cellgrid is not None:
-                ovf = int(self.comm.max(self.state.occ_overflow.max()))
-                if ovf > 0:
-                    raise CapacityOverflow(self.cellgrid.cap, ovf)
-            if cycle % prm.chkpt_dump_int == 0:
-                self._checkpoint()
-            t_end = time.monotonic()
-            self.logs.g(
-                f"# block {cycle}: {n} cycles in {t_end - t_blk:.1f}s = "
-                f"dispatch {t_disp - t_blk:.1f} + therm "
-                f"{t_therm - t_disp:.1f} + wl/monitor {t_wl - t_therm:.1f}"
-                f" + ckpt/other {t_end - t_wl:.1f}")
-            if self._any(not self.timer.safe()):
-                self.logs.g("!============================================!")
-                self.logs.g("! Approaching end of queue time - stopping   !")
-                self.logs.g("!============================================!")
-                break
-            self._check_windows(cycle)
+            with tracing.span("mw/block"):
+                t_blk = time.monotonic()
+                # blocks end on the interval boundaries
+                n = min(block, total - done,
+                        block - self.state.cycle % block)
+                parts, left = [], n
+                while left > 0:
+                    c = min(chunk, left)
+                    self.state, smp = eng.run_cycles(self.state, c)
+                    parts.append(smp)
+                    left -= c
+                    self._heartbeat()
+                samples = {k: torch.cat([p[k] for p in parts])
+                           for k in parts[0]}
+                t_disp = time.monotonic()
+                done += n
+                blocks_done += 1
+                if prof is not None:
+                    prof.stop()
+                    os.makedirs(profile_dir, exist_ok=True)
+                    prof.export_chrome_trace(os.path.join(profile_dir,
+                                                          "trace.json"))
+                    self.logs.g(f"# profiler trace ({n} cycles) written "
+                                f"to {profile_dir}")
+                cycle = self.state.cycle
+                self._write_therm(samples)
+                t_therm = time.monotonic()
+                self._events(cycle)
+                t_wl = time.monotonic()
+                # slab-capacity audit BEFORE the checkpoint write: an
+                # overflowing walker is corrupt and must never be
+                # persisted
+                if self.cellgrid is not None:
+                    with tracing.span("mw/audit"), \
+                            tracing.wait("audit_read"):
+                        ovf = int(self.comm.max(
+                            self.state.occ_overflow.max()))
+                    if ovf > 0:
+                        raise CapacityOverflow(self.cellgrid.cap, ovf)
+                if cycle % prm.chkpt_dump_int == 0:
+                    self._checkpoint()
+                t_end = time.monotonic()
+                self.logs.g(
+                    f"# block {cycle}: {n} cycles in {t_end - t_blk:.1f}s"
+                    f" = dispatch {t_disp - t_blk:.1f} + therm "
+                    f"{t_therm - t_disp:.1f} + wl/monitor "
+                    f"{t_wl - t_therm:.1f} + ckpt/other {t_end - t_wl:.1f}")
+                if self._any(not self.timer.safe()):
+                    bar = "!" + "=" * 44 + "!"
+                    self.logs.g(bar)
+                    self.logs.g("! Approaching end of queue time - "
+                                "stopping   !")
+                    self.logs.g(bar)
+                    break
+                self._check_windows(cycle)
         # final checkpoint (main.f90:246), synchronous
         self._checkpoint(wait=True)
         if self.therm is not None:
@@ -520,7 +554,8 @@ class Application:
         reached.  Without it a long block's first output lands at its
         end, and a watcher cannot tell it from a wedged process."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with tracing.wait("heartbeat"):
+                torch.cuda.synchronize(self.device)
         if not self.root:
             return
         try:
@@ -529,6 +564,7 @@ class Application:
         except OSError:
             pass
 
+    @tracing.traced("mw/checkpoint")
     def _checkpoint(self, wait=None):
         """The gathered state, written by the root rank in the serial
         layout (collective)."""
@@ -566,19 +602,21 @@ def run_input_file(path, overrides=None, max_cycles=None, workdir=None,
     had)."""
     prm = read_input(path, extra_overrides=overrides)
     wd = workdir or os.path.dirname(os.path.abspath(path))
-    for attempt in range(4):
-        app = Application(prm, workdir=wd, use_mesh=use_mesh, device=device)
-        try:
-            app.setup()
-            return app.run(max_cycles=max_cycles, jit_chunk=jit_chunk,
-                           profile_dir=profile_dir)
-        except CapacityOverflow as err:
-            if attempt == 3:
-                raise
-            new_cap = err.cap + max(2, err.overflow, err.cap // 8)
-            app.logs.g(f"# Slab capacity {err.cap} overflowed by "
-                       f"{err.overflow}: regrowing cell_cap to {new_cap} "
-                       "and resuming from the last good checkpoint")
-            prm = dataclasses.replace(prm, cell_cap=new_cap)
-        finally:
-            app.close()
+    with tracing.recording(profile_dir is not None):
+        for attempt in range(4):
+            app = Application(prm, workdir=wd, use_mesh=use_mesh,
+                              device=device)
+            try:
+                app.setup()
+                return app.run(max_cycles=max_cycles, jit_chunk=jit_chunk,
+                               profile_dir=profile_dir)
+            except CapacityOverflow as err:
+                if attempt == 3:
+                    raise
+                new_cap = err.cap + max(2, err.overflow, err.cap // 8)
+                app.logs.g(f"# Slab capacity {err.cap} overflowed by "
+                           f"{err.overflow}: regrowing cell_cap to {new_cap} "
+                           "and resuming from the last good checkpoint")
+                prm = dataclasses.replace(prm, cell_cap=new_cap)
+            finally:
+                app.close()

@@ -30,8 +30,12 @@ def parse_args(argv=None):
                     help="run on the card (default) or on the CPU")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--profile-dir", default=None,
-                    help="write a torch.profiler trace of one steady-state "
-                         "cycle block to this directory")
+                    help="trace the run and write to this directory "
+                         "trace.json, a torch.profiler trace of one "
+                         "steady-state cycle block, and spans.json, the "
+                         "run's spans (count and total, self and longest "
+                         "ns of each) and counters (cycles, sub-steps, "
+                         "volume moves, kernel launches)")
     return ap.parse_args(argv)
 
 

@@ -37,6 +37,7 @@ import zipfile
 import numpy as np
 import torch
 
+from .. import tracing
 from ..mcmc.state import fields_from_numpy
 from ..ops.dsfloat import DS
 
@@ -208,7 +209,8 @@ class CheckpointWriter:
         """Write ``state`` (and the generator states of ``stream``, a
         PhiloxStream) to the next slot; returns the slot's path."""
         self.wait()
-        leaves = _host_leaves(state, self.seed)
+        with tracing.wait("checkpoint_copy"):
+            leaves = _host_leaves(state, self.seed)
         arrays = {f"leaf{i}": x for i, x in enumerate(leaves)}
         arrays["__fingerprint__"] = np.frombuffer(
             state_fingerprint(state).encode(), dtype=np.uint8)

@@ -75,6 +75,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models.sw import SWParams
 from ..ops.cell_energy import (
     _FULL_ENERGY_MAX_ELEMS,
@@ -502,6 +503,7 @@ class CellEngine(Engine):
     def _slab_valid(self, s: CellState):
         return s.slot2mol >= 0
 
+    @tracing.traced("mw/full_energy")
     def _full_both(self, s: CellState, r, h, n=None):
         """Energies [L,n] and moments [10,L,nslot,n] from scratch for the
         first ``n`` walkers (all by default) at positions r, cells h."""
@@ -623,8 +625,9 @@ class CellEngine(Engine):
         sub-step, unpack.  Test/diagnostic entry point - the cycle loop
         calls _substep on the packed slabs and rows it carries.
         ``u`` [K, n_u, W] as the random stream lays it out."""
-        codes_k = codes_k.to(s.r.device if self.use_chain_kernel else "cpu",
-                             torch.int32)
+        with tracing.wait("move_codes"):
+            codes_k = codes_k.to(
+                s.r.device if self.use_chain_kernel else "cpu", torch.int32)
         pks = self._pack(s)
         rows = self._loop_rows(s, switch_ok)
         if self.T == 1:
@@ -1442,6 +1445,7 @@ class CellEngine(Engine):
     # rebin: new random grid origin (ergodicity across cells)
     # ------------------------------------------------------------------
 
+    @tracing.traced("mw/rebin")
     def _rebin(self, s: CellState) -> CellState:
         cg = self.cellgrid
         N, W = s.mol2slot.shape
@@ -1451,7 +1455,8 @@ class CellEngine(Engine):
         r_mol = gather_from_slab(s.r, s.mol2slot)            # [L,3,N,W]
         mom_mol = gather_from_slab(s.moments, s.mol2slot)    # [10,L,N,W]
 
-        origin = self.stream.rebin_origin(s.cycle, dtype).to(dev)
+        with tracing.wait("rebin_origin"):
+            origin = self.stream.rebin_origin(s.cycle, dtype).to(dev)
 
         # wrap so that the MID fractional position lands in
         # [origin, origin+1): the grid is periodic in g = f_mid - origin,
@@ -1492,6 +1497,7 @@ class CellEngine(Engine):
     # chain resynchronisation (slab variant of Engine._resync_chains)
     # ------------------------------------------------------------------
 
+    @tracing.traced("mw/chain_resync")
     def _resync_chains(self, s: CellState) -> CellState:
         L = s.r.shape[0]
         if L != 2:
@@ -1559,25 +1565,29 @@ class CellEngine(Engine):
                               device=dev)
         # the chain kernel reads the codes on the device, the XLA chains
         # on the host
-        codes_d = codes.to(device=dev if self.use_chain_kernel else "cpu",
-                           dtype=torch.int32)
+        with tracing.wait("move_codes"):
+            codes_d = codes.to(device=dev if self.use_chain_kernel
+                               else "cpu", dtype=torch.int32)
         pks = self._pack(s)
         rows = self._loop_rows(s, switch_ok)
         if T == 1:
             # [n_sub, 7, K, W]: each uniform's [K, W] block contiguous
             u_all = u_all.permute(0, 2, 1, 3).contiguous()
             for sid in range(n_sub):
-                self._substep(s, pks, tpm_slab, sid % self.n_tables,
-                              u_all[sid], codes_d[sid * K:(sid + 1) * K],
-                              rows, cnt_all[sid])
+                with tracing.span("mw/substep"):
+                    self._substep(s, pks, tpm_slab, sid % self.n_tables,
+                                  u_all[sid], codes_d[sid * K:(sid + 1) * K],
+                                  rows, cnt_all[sid])
         else:
             u_mv, u_a, u_z = self._split_uniforms(u_all)
             for sid in range(n_sub):
-                self._substep_multi(
-                    s, pks, tpm_slab, sid % self.n_tables, u_mv[sid],
-                    u_a[sid], u_z[sid],
-                    codes_d[sid * K * T:(sid + 1) * K * T], rows,
-                    cnt_all[sid])
+                with tracing.span("mw/substep"):
+                    self._substep_multi(
+                        s, pks, tpm_slab, sid % self.n_tables, u_mv[sid],
+                        u_a[sid], u_z[sid],
+                        codes_d[sid * K * T:(sid + 1) * K * T], rows,
+                        cnt_all[sid])
+        tracing.count("substeps", n_sub)
         self._chain_unrows(s, rows)
         self._count(s, cnt_all)
         return self._unpack(s, pks), tpm_slab
@@ -1611,7 +1621,8 @@ class CellEngine(Engine):
             cycle, self.probs, self.trials_per_cycle, n_sub, self.K,
             self.n_u, W, s.r.dtype)
 
-        s, tpm_slab = scan_fn(s, codes, u_all, n_sub, switch_ok)
+        with tracing.span("mw/substeps"):
+            s, tpm_slab = scan_fn(s, codes, u_all, n_sub, switch_ok)
         s.trans_per_mol += gather_from_slab(tpm_slab, s.mol2slot)
 
         # scheduled volume moves, back to back (Engine._volume with the

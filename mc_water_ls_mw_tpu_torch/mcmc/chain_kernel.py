@@ -62,7 +62,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import cuda_build
+from .. import cuda_build, tracing
 from ..cuda_build import SMEM_BLOCK_MAX
 from ..ops.dsfloat import _two_sum
 from .bins import (
@@ -217,6 +217,7 @@ class ChainWLKernel:
         self._plans = {}
         # kernel launches (one per call on CUDA tensors)
         self.launches = 0
+        tracing.register(self, "chain_wl")
 
     def _bins(self, dev, dtype):
         """(binw, mub, binfrac) [B] on the device, uploaded once

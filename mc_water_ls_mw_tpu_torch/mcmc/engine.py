@@ -55,6 +55,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models.sw import SWParams
 from ..ops.dense import (
     Moments,
@@ -314,6 +315,7 @@ class Engine:
             s.end_bin, s.my_mu_min, s.my_mu_max, s.in_window,
             prm.eta_interp, prm.dd_seeding)
 
+    @tracing.traced("mw/dd_track")
     def _dd_track_window(self, s: SamplerState, cycle: int):
         """'dd' window membership at the top of cycle ``cycle``
         (mc_cycle:181-210), decided on the host from the cycle counter.
@@ -851,6 +853,7 @@ class Engine:
             ]))
         return out[0], out[1]
 
+    @tracing.traced("mw/full_energy")
     def _vol_energy(self, s, r, h):
         """Whole-cell energies [L,W] and moments [10,L,N,W] of both
         lattices at positions r, cells h (FullEnergyKernel)."""
@@ -892,13 +895,15 @@ class Engine:
         switches are allowed (hoisted out of the per-move loop as in the
         JAX engine)."""
         nvol = int((codes == VOL).sum())
+        tracing.count("volume_moves", nvol)
         W = s.r.shape[-1]
         for k in range(nvol):
-            u, zeta2 = self.stream.volume_draws(cycle, k, W, s.r.dtype)
-            self._volume(s, u)
-            if self.prm.num_lattices == 2 and self.prm.mc_always_switch \
-                    and switch_ok:
-                self._switch(s, zeta2)
+            with tracing.span("mw/volume_move"):
+                u, zeta2 = self.stream.volume_draws(cycle, k, W, s.r.dtype)
+                self._volume(s, u)
+                if self.prm.num_lattices == 2 and \
+                        self.prm.mc_always_switch and switch_ok:
+                    self._switch(s, zeta2)
 
     # ------------------------------------------------------------------
     # delta-sync (comms_mpi.f90:244-530)
@@ -941,6 +946,7 @@ class Engine:
         bins = torch.arange(B, device=wid.device)[None, :]
         return (bins >= sbw[:, None]) & (bins <= ebw[:, None])
 
+    @tracing.traced("mw/delta_sync")
     def _sync_all(self, s: SamplerState):
         """Merge weights and histograms across the walkers of each window
         (mc_cycle:258-278) and re-zero the per-walker deltas (one lattice
@@ -978,6 +984,7 @@ class Engine:
     # mc_moves.F90:2217-2416)
     # ------------------------------------------------------------------
 
+    @tracing.traced("mw/chain_resync")
     def _resync_chains(self, s: SamplerState):
         """Force lattice 2's cell displacement and every molecule's
         fractional displacement from its reference site to equal
@@ -1074,7 +1081,11 @@ class Engine:
         (main.f90:200-223).  Each cycle keeps the first therm_walkers of
         this rank's walkers; sharded, one gather at the end brings the
         ensemble's first therm_walkers to every rank."""
-        rows = [self._one_cycle(s) for _ in range(n_cycles)]
+        rows = []
+        for _ in range(n_cycles):
+            with tracing.span("mw/cycle"):
+                rows.append(self._one_cycle(s))
+            tracing.count("cycles")
         T = min(self.prm.therm_walkers, s.r.shape[-1] * self.comm.size)
         samples = {"cycle": torch.as_tensor([r["cycle"] for r in rows])}
         for k in ("E_ls", "mu", "vol", "ls"):

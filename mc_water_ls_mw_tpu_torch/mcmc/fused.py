@@ -53,7 +53,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import cuda_build
+from .. import cuda_build, tracing
 from ..cuda_build import SMEM_BLOCK_MAX
 from ..ops.dsfloat import ds_value
 from .bins import (
@@ -222,6 +222,7 @@ class FusedCycle:
         self._dev = {}
         # kernel launches (one per call on CUDA tensors)
         self.launches = 0
+        tracing.register(self, self.kernel)
 
     def _switch_on(self, code, switch_ok):
         prm = self.eng.prm
@@ -318,6 +319,7 @@ class FusedCycle:
                          "smem_bytes", "walkers_per_block", "blocks"),
                         out))
 
+    @tracing.traced("mw/step_kernel")
     def __call__(self, s, codes, sched_mol, cycle_u, wl_active,
                  switch_ok):
         if not s.r.is_cuda:
@@ -383,7 +385,8 @@ class FusedCycle:
         sched = codes.to(torch.int32)
         if sched_mol is not None:
             sched = torch.cat([sched, sched_mol.to(torch.int32)])
-        sched = sched.to(dev)
+        with tracing.wait("move_codes"):
+            sched = sched.to(dev)
         m = eng.model
         P = lambda t: None if t is None else t.data_ptr()   # noqa: E731
         args = FusedArgs(

@@ -27,6 +27,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import BOHR_TO_ANG, HART_TO_EV, HART_TO_KJPM, KB
 from ..io import writers
 from ..ops.dsfloat import ds_from64, ds_value64
@@ -38,7 +39,8 @@ from .engine import SWITCH, TRANS, VOL
 
 
 def _np(t) -> np.ndarray:
-    return t.cpu().numpy()
+    with tracing.wait("monitor_read"):
+        return t.cpu().numpy()
 
 
 def _g(eng, t) -> np.ndarray:

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models.sw import SWParams
 from .cells import CellGrid
 from .dense import Moments, _e3_closed_form, _leg, _pair
@@ -277,8 +278,9 @@ def slab_full_energy(slab_r, valid, H, grid: CellGrid, prm: SWParams,
     fc[:, :CF] = grid.full_cells
     fo[:, :CF] = grid.full_off
     fm[:CF] = grid.full_mask
-    cells_all = torch.as_tensor(fc, device=dev)
-    off_all = torch.as_tensor(fo, device=dev)
+    with tracing.wait("energy_tables"):
+        cells_all = torch.as_tensor(fc, device=dev)
+        off_all = torch.as_tensor(fo, device=dev)
     mask_g = fm.reshape(ngr, ngroup)
     arange_cap = torch.arange(cap, device=dev)
 
@@ -306,8 +308,9 @@ def slab_full_energy(slab_r, valid, H, grid: CellGrid, prm: SWParams,
             cx, cy, cz = (_cell_take(a, nbc, cap)
                           for a in (rxc, ryc, rzc))         # [cc,C,W]
             cval = _cell_take(vc, nbc, cap)
-            gmask = torch.as_tensor(np.repeat(mask_g[gi], cap),
-                                    device=dev)
+            with tracing.wait("energy_tables"):
+                gmask = torch.as_tensor(np.repeat(mask_g[gi], cap),
+                                        device=dev)
             cval = cval & gmask[None, :, None]
             cx = cx + shx27[:, g0:g0 + ngroup].repeat_interleave(cap, 1)
             cy = cy + shy27[:, g0:g0 + ngroup].repeat_interleave(cap, 1)

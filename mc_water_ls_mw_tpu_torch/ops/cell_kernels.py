@@ -50,7 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import cuda_build
+from .. import cuda_build, tracing
 from ..cuda_build import SMEM_BLOCK_MAX
 from ..models.sw import SWParams
 from .cell_energy import mover_energies, mover_point_energies
@@ -214,6 +214,7 @@ class _MoverKernel:
         self.consts = cuda_build.SWConsts.of(model)
         # kernel launches (one per call on CUDA tensors)
         self.launches = 0
+        tracing.register(self, self.name)
 
     def _check(self, pks, h, cand, off, fc, rank, points, points_shape):
         """Raise unless the inputs are what the kernels take; ``points``
@@ -290,10 +291,10 @@ class MoverEnergiesKernel(_MoverKernel):
 
     def __init__(self, model: SWParams, cg: CellGrid,
                  with_deltas: bool = False):
-        super().__init__(model, cg)
         self.with_deltas = bool(with_deltas)
         self.name = ("mover_energies_deltas" if self.with_deltas
                      else "mover_energies")
+        super().__init__(model, cg)
         # warps per block of the energies kernel (energies_geometry)
         self.en_warps = energies_geometry(1, 1, self.CF, self.cap, 1)[1][1]
 

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import cuda_build
+from .. import cuda_build, tracing
 from ..cuda_build import SMEM_BLOCK_MAX
 from ..models.sw import SWParams
 from .dense import Moments, full_energy_batch
@@ -109,6 +109,7 @@ class FullEnergyKernel:
         self._shapes = {}
         # kernel launches (one per call on CUDA tensors)
         self.launches = 0
+        tracing.register(self, "full_energy")
 
     def plan(self, dtype, N, W) -> FullEnergyPlan:
         return full_energy_plan(torch.empty((), dtype=dtype).element_size(),

@@ -57,6 +57,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..mcmc.cellengine import (
     CN_FIXED,
     CellEngine,
@@ -427,8 +428,9 @@ class SpatialCellEngine(CellEngine):
         W = s.r.shape[-1]
         K, T, cap = self.K, self.T, self.cellgrid.cap
         dev = s.r.device
-        codes_d = codes.to(device=dev if self.use_chain_kernel else "cpu",
-                           dtype=torch.int32)
+        with tracing.wait("move_codes"):
+            codes_d = codes.to(device=dev if self.use_chain_kernel
+                               else "cpu", dtype=torch.int32)
         pks_loc, st_loc, rows, rows_loc = self._local_view(s, switch_ok)
         tpm_loc = torch.zeros((pks_loc[0].shape[0] * cap, W),
                               dtype=torch.int32, device=dev)
@@ -437,18 +439,22 @@ class SpatialCellEngine(CellEngine):
         if T == 1:
             u_all = u_all.permute(0, 2, 1, 3).contiguous()   # [n,7,K,W]
             for sid in range(n_sub):
-                self._local_substep(
-                    s, st_loc, pks_loc, tpm_loc, (t0 + sid) % self.n_tables,
-                    u_all[sid], codes_d[sid * K:(sid + 1) * K], rows,
-                    rows_loc, cnt_all[sid])
+                with tracing.span("mw/substep"):
+                    self._local_substep(
+                        s, st_loc, pks_loc, tpm_loc,
+                        (t0 + sid) % self.n_tables, u_all[sid],
+                        codes_d[sid * K:(sid + 1) * K], rows, rows_loc,
+                        cnt_all[sid])
         else:
             u_mv, u_a, u_z = self._split_uniforms(u_all)
             for sid in range(n_sub):
-                self._local_substep_multi(
-                    s, st_loc, pks_loc, tpm_loc, (t0 + sid) % self.n_tables,
-                    u_mv[sid], u_a[sid], u_z[sid],
-                    codes_d[sid * K * T:(sid + 1) * K * T], rows, rows_loc,
-                    cnt_all[sid])
+                with tracing.span("mw/substep"):
+                    self._local_substep_multi(
+                        s, st_loc, pks_loc, tpm_loc,
+                        (t0 + sid) % self.n_tables, u_mv[sid], u_a[sid],
+                        u_z[sid], codes_d[sid * K * T:(sid + 1) * K * T],
+                        rows, rows_loc, cnt_all[sid])
+        tracing.count("substeps", n_sub)
         self._chain_unrows(s, rows)
         self._count(s, cnt_all)
         # owned rows back into the global slabs (the halo and dummy rows
