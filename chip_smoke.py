@@ -107,6 +107,14 @@ Phases (each exits non-zero on failure):
    cycle, trials/s, launch counts, slab overflow (must be 0), an energy
    audit of 64 walkers, a finite merged histogram, and a torch.profiler
    trace of one more cycle (device time per kernel, the idle share);
+   then the whole-cell energy kernel (slab_energy) against its plain
+   version, some slots emptied for some walkers only, a second launch
+   bitwise equal: float32 on the main path's state at W=32, 128 and 512
+   with its time, the plain version's, its bound (portbench/work.py's
+   volume move) and occupancy; float64 on the N=8064 grid (CF=27) at
+   W=32, 128, 33, 1 and 64 and at one lattice, and on the flagship's
+   grid (CF=75) at W=32, within 1e-10 relative (phases 7b and 7d check
+   the flagship's and the single box's own shapes in float32);
    6b. the scatter path (cell_pallas 'on', what 'auto' picks where
    same-colour stencils overlap) on the N=6048 (12,7,18) pair after a
    cycle of sampling, float64 at W=64: the mover kernel's delta output
@@ -1182,6 +1190,176 @@ def profile_cell_cycle(eng, s, tag="cell-profile"):
     print(f"[{tag}] whole cycle: device {dev['cycle']:.3f} s of "
           f"{walls['cycle']:.3f} s: {busy:.4f} busy, {1 - busy:.4f} idle",
           flush=True)
+
+
+# ----------------------------------------------------------------------
+# the whole-cell energy kernel (ops/slab_energy.py): set-up shared with
+# tests/test_torch_kernels_cuda.py and scripts/bench_torch_cell.py
+# ----------------------------------------------------------------------
+
+# walkers of the kernel's checks and times: the benchmark's N=8064 cell,
+# the front end's, and the main path's
+SLAB_WIDTHS = (32, 128, W_CELL)
+SLAB_F64_RTOL = 1e-10
+
+
+def slab_inputs(s, W, seed, drop=0.05):
+    """(r, valid, h) of the first W walkers of the cell state ``s``:
+    occupied slots jittered by N(0, 0.05) Bohr, and ``drop`` of the
+    occupied slots of every odd walker emptied (some slots are then
+    empty for some walkers only)."""
+    import torch
+
+    gen = torch.Generator(device=s.r.device)
+    gen.manual_seed(seed)
+    valid = (s.slot2mol[:, :W] >= 0).clone()
+    r = s.r[..., :W] + torch.where(
+        valid, 0.05 * torch.randn(s.r[..., :W].shape, generator=gen,
+                                  dtype=s.r.dtype, device=s.r.device), 0.0)
+    gone = torch.rand(valid.shape, generator=gen, dtype=s.r.dtype,
+                      device=s.r.device) < drop
+    gone[:, 0::2] = False
+    return r.contiguous(), valid & ~gone, s.h[..., :W].contiguous()
+
+
+def slab_energy_errors(kern, r, valid, h):
+    """The kernel against its plain version on (r, valid, h): the largest
+    relative error of E, the largest error of a moment field relative to
+    that field's largest magnitude, whether a second launch is bitwise
+    equal, and whether every empty slot has zero moments."""
+    import torch
+
+    e, mom = kern(r, valid, h)
+    e2, mom2 = kern(r, valid, h)
+    e_p, mom_p = kern.plain(r, valid, h)
+    torch.cuda.synchronize()
+    scale = mom_p.abs().amax(dim=(1, 2, 3)).clamp(min=1e-300)
+    return dict(
+        e_rel=float(torch.max(torch.abs(e - e_p) / torch.abs(e_p))),
+        mom_rel=float(((mom - mom_p).abs().amax(dim=(1, 2, 3))
+                       / scale).max()),
+        mom_err=float((mom - mom_p).abs().max()),
+        repeat_equal=bool(torch.equal(e, e2) and torch.equal(mom, mom2)),
+        empty_zero=bool((mom[:, :, ~valid] == 0).all()))
+
+
+def slab_energy_bound(s, W, itemsize, kind):
+    """(ms, 'bytes' or 'operations') of the roofline of one whole-cell
+    energy of every lattice of the first W walkers of ``s``: the
+    operations of portbench/work.py's volume move (every pair and triplet
+    in range, from the benchmark's reference neighbour search) against
+    the kernel's bytes, each once: the positions of the occupied slots,
+    the cells and the flags in; the moments of every slot and the
+    energies out."""
+    import torch
+
+    from portbench import work
+    from portbench.peaks import PEAKS
+    from portbench.reference.sw import sw_terms
+
+    L, _, nslot, _ = s.r.shape
+    idx = s.mol2slot[:, :W].long()                       # [N, W]
+    terms = []
+    for l in range(L):
+        r_mol = torch.gather(s.r[l][..., :W], 1,
+                             idx[None].expand(3, -1, -1))  # [3, N, W]
+        terms.append(sw_terms(r_mol.permute(2, 1, 0),
+                              s.h[l][..., :W].permute(2, 0, 1)))
+    pairs = torch.stack([t.pairs for t in terms])
+    triplets = torch.stack([t.triplets for t in terms])
+    ops = float(work.volume_ops(pairs, triplets).sum())
+    n_occ = int((s.slot2mol[:, :W] >= 0).sum())
+    nbytes = float(itemsize * (3 * L * n_occ + 10 * L * nslot * W
+                               + 10 * L * W) + nslot * W)
+    peak = PEAKS[kind]
+    by = ("bytes" if nbytes / peak["bytes_per_s"]
+          >= ops / peak["f32_ops_per_s"] else "operations")
+    return work.least_seconds(ops, nbytes, peak) * 1e3, by
+
+
+def slab_f32_check(tag, kern, s, W, kind, card, L=None, timed=False):
+    """The kernel in float32 on the first W walkers (and the first L
+    lattices, all by default) of ``s``, jittered with slots emptied for
+    some walkers only, against its plain version: E within F32_E_RTOL
+    relative, the moments within F32_MOM_ATOL (the plain version adds
+    the candidates and the slots in another order), a second launch
+    bitwise equal, empty slots zero.  ``timed``: also the kernel's and
+    the plain version's times on ``s`` itself, the bound and the
+    occupancy.  Returns the numbers of the kernels line."""
+    import torch
+
+    L = s.r.shape[0] if L is None else L
+    r, valid, h = slab_inputs(s, W, seed=W)
+    err = slab_energy_errors(kern, r[:L], valid, h[:L])
+    out = dict(max_abs_err=err["mom_err"])
+    line = (f"[slab_energy] f32 {tag} CF={kern.CF} L={L} W={W}: E rel err "
+            f"{err['e_rel']:.3e} (limit {F32_E_RTOL:g}), moments max abs "
+            f"err {err['mom_err']:.3e} (limit {F32_MOM_ATOL:g}), repeat "
+            f"bitwise {err['repeat_equal']}, empty slots zero "
+            f"{err['empty_zero']}")
+    if timed:
+        r, valid, h = (s.r[:L, ..., :W], s.slot2mol[:, :W] >= 0,
+                       s.h[:L, ..., :W])
+        ms = cuda_ms(lambda: kern(r, valid, h), 20)
+        plain_ms = cuda_ms(lambda: kern.plain(r, valid, h), 2)
+        bound_ms, bound_by = slab_energy_bound(s, W, 4, kind)
+        occ = kern.occupancy(torch.float32, L, W)
+        out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, **occupancy_keys(occ))
+        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                 f"{bound_ms:.6f} ms ({bound_by}); "
+                 f"{kern.plan(torch.float32, L, W)}; {occupancy_text(occ)}")
+    print(f"{line} on {kind} ({card})", flush=True)
+    if not (err["e_rel"] <= F32_E_RTOL and err["mom_err"] <= F32_MOM_ATOL
+            and err["repeat_equal"] and err["empty_zero"]):
+        fail(f"slab_energy f32 ({tag}, L={L}, W={W}) disagrees with its "
+             "plain version")
+    return out
+
+
+def slab_energy_phase(kind, card, eng, s):
+    """Phase 7's checks of the whole-cell energy kernel against its plain
+    version: float32 on the main path's engine and state (N=8064, CF=27)
+    at the widths of SLAB_WIDTHS, timed (slab_f32_check; phases 7b and
+    7d check the flagship's and the single box's own); float64 on the N=8064 grid at the widths of SLAB_WIDTHS,
+    33, 1 and 64 (the audits') and at one lattice, and on the flagship's
+    (8,8,4) x 2^3 grid (CF=75) at 32 walkers, within SLAB_F64_RTOL (E
+    relative, each moment field relative to its largest magnitude),
+    every empty slot zero, a second launch bitwise equal.  Returns the
+    kernels line's entry (the N=8064, W=32 numbers, the benchmark's
+    shape)."""
+    import torch
+
+    report = None
+    for W in SLAB_WIDTHS:
+        out = slab_f32_check("N=8064", eng.slab_energy, s, W, kind, card,
+                             timed=True)
+        report = report or out
+    for tag, stack, cases in (
+            ("N=8064", CELL_STACK,
+             [(2, W) for W in SLAB_WIDTHS[:2] + (33, 1, 64)]
+             + [(1, 32), (1, 33)]),
+            ("flagship", FLAG_STACK, [(2, 32)])):
+        prm = cell_params(max(W for _, W in cases), "float64", stack=stack,
+                          cell_pallas="auto", cell_chain="auto")
+        eng64, s64 = make_cell_engine(prm)
+        kern = eng64.slab_energy
+        for L, W in cases:
+            r, valid, h = slab_inputs(s64, W, seed=W)
+            err = slab_energy_errors(kern, r[:L], valid, h[:L])
+            print(f"[slab_energy] fp64 {tag} CF={kern.CF} L={L} W={W}: E "
+                  f"rel err {err['e_rel']:.3e}, moments rel err "
+                  f"{err['mom_rel']:.3e}, repeat bitwise "
+                  f"{err['repeat_equal']}, empty slots zero "
+                  f"{err['empty_zero']}", flush=True)
+            if not (err["e_rel"] <= SLAB_F64_RTOL
+                    and err["mom_rel"] <= SLAB_F64_RTOL
+                    and err["repeat_equal"] and err["empty_zero"]):
+                fail(f"slab_energy fp64 ({tag}, L={L}, W={W}) disagrees "
+                     "with its plain version")
+        del eng64, s64
+        torch.cuda.empty_cache()
+    return report
 
 
 # ----------------------------------------------------------------------
@@ -2749,6 +2927,8 @@ def flagship_run(kind, card):
     t0 = time.time()
     eng, s = make_cell_engine(prm)
     torch.cuda.synchronize()
+    # the whole-cell energy on this grid (CF=75) at this path's width
+    slab_f32_check("flagship", eng.slab_energy, s, W_FLAG, kind, card)
     cg = eng.cellgrid
     n_sub = eng.sweeps_per_cycle * eng.n_tables
     mu0 = float(s.mu[0])
@@ -3969,6 +4149,8 @@ def single_cell_run(kind, card):
              "stage with the XLA chain")
     eng.run_cycles(s, 1)                     # warm-up
     torch.cuda.synchronize()
+    # the whole-cell energy at one lattice (volume moves, the audit)
+    slab_f32_check("single box", eng.slab_energy, s, W_CELL, kind, card)
     # one sub-step's kernels against their plain versions
     K, W = eng.K, s.r.shape[-1]
     gen = torch.Generator(device=DEVICE)
@@ -5470,7 +5652,8 @@ def main() -> int:
     n_timed = 3
     cell_kernels = {"mover_energies": eng.mover_kernel,
                     "chain_wl": eng.chain_kernel,
-                    "mover_apply": eng.apply_kernel}
+                    "mover_apply": eng.apply_kernel,
+                    "slab_energy": eng.slab_energy}
     for k in cell_kernels.values():
         k.launches = 0
     att0 = s.att.clone()
@@ -5513,10 +5696,11 @@ def main() -> int:
     t0 = time.time()
     fresh, _ = eng._full_both(s, s.r, s.h)
     torch.cuda.synchronize()
-    print(f"[cell-main] slab_full_energy of both lattices, all {Wc} "
-          f"walkers: {time.time() - t0:.3f} s", flush=True)
+    print(f"[cell-main] slab_full_energy of both lattices (the slab_energy "
+          f"kernel), all {Wc} walkers: {time.time() - t0:.3f} s", flush=True)
     del fresh
     profile_cell_cycle(eng, s)
+    report["slab_energy"] = slab_energy_phase(kind, card, eng, s)
     del eng, s, samples
     torch.cuda.empty_cache()
     phase_time("7. N=8064 cell main path")
@@ -5774,6 +5958,12 @@ def main() -> int:
                       "(with_deltas=True)",
              launches=launches["mover_energies_deltas"], library_ms=None,
              **report["mover_energies_deltas"]),
+        dict(name="slab_energy", route="cuda",
+             source="mc_water_ls_mw_tpu_torch/csrc/slab_energy.cu",
+             replaces="none (plain jnp that XLA fuses: "
+                      "mc_water_ls_mw_tpu/ops/cell_energy.py:281)",
+             launches=launches["slab_energy"], library_ms=None,
+             **report["slab_energy"]),
     ]
     variants_src = "mc_water_ls_mw_tpu_torch/csrc/fused_cycle_variants.cu"
     kernels += [

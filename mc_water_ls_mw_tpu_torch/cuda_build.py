@@ -30,7 +30,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "build" / \
     "torch_kernels"
 KERNELS = ("full_energy", "fused_cycle", "fused_cycle_variants",
-           "cell_movers", "chain_wl")
+           "cell_movers", "chain_wl", "slab_energy")
 # Shared memory one block can use on the H100 (227 KB): the launch plans
 # keep their blocks under it.
 SMEM_BLOCK_MAX = 232448

@@ -77,12 +77,7 @@ import torch
 
 from .. import tracing
 from ..models.sw import SWParams
-from ..ops.cell_energy import (
-    _FULL_ENERGY_MAX_ELEMS,
-    mover_energies,
-    mover_point_energies,
-    slab_full_energy,
-)
+from ..ops.cell_energy import mover_energies, mover_point_energies
 from ..ops.cell_kernels import (
     MoverApplyKernel,
     MoverEnergiesKernel,
@@ -101,6 +96,7 @@ from ..ops.cells import (
 from ..ops.dense import Moments
 from ..ops.dsfloat import DS, _two_sum, ds_value, ds_zeros
 from ..ops.geometry import determinant3, from_frac, recip_matrix, to_frac
+from ..ops.slab_energy import SlabEnergyKernel
 from .bins import (
     SCHED_INVT,
     SCHED_SWETNAM,
@@ -153,11 +149,6 @@ from .state import (
     warm_start_rows,
     window_layout,
 )
-
-# per-intermediate element budget of slab_full_energy on the card (80 GB
-# of device memory: ~10 live arrays of 256 MB in float32)
-_FULL_ENERGY_MAX_ELEMS_CUDA = 1 << 26
-
 
 @dataclasses.dataclass
 class CellState:
@@ -438,9 +429,9 @@ class CellEngine(Engine):
             self.chain_kernel = ChainWLKernel(
                 prm, self.grid, self.K, self.T,
                 float(self.aux.log_unbiased_norm))
-        self.full_max_elems = (_FULL_ENERGY_MAX_ELEMS_CUDA
-                               if dev.type == "cuda"
-                               else _FULL_ENERGY_MAX_ELEMS)
+        # the whole-cell energy of both lattices (volume moves, resyncs,
+        # audits): one kernel launch a call on the card
+        self.slab_energy = SlabEnergyKernel(self.model, cg, dev)
 
     def _resolve_modes(self):
         """``cell_pallas`` / ``cell_chain`` as the JAX engine resolves
@@ -507,15 +498,8 @@ class CellEngine(Engine):
     def _full_both(self, s: CellState, r, h, n=None):
         """Energies [L,n] and moments [10,L,nslot,n] from scratch for the
         first ``n`` walkers (all by default) at positions r, cells h."""
-        valid = self._slab_valid(s)[:, :n]
-        per = [
-            slab_full_energy(r[l][..., :n], valid, h[l][..., :n],
-                             self.cellgrid, self.model,
-                             max_elems=self.full_max_elems)
-            for l in range(r.shape[0])
-        ]
-        return (torch.stack([p[0] for p in per]),
-                torch.stack([p[1] for p in per], dim=1))
+        return self.slab_energy(r[..., :n], self._slab_valid(s)[:, :n],
+                                h[..., :n])
 
     # ------------------------------------------------------------------
     # one colour sub-step: K parallel movers, exact sequential chain
@@ -1725,10 +1709,8 @@ def init_cell_state(prm: RunParams, model: SWParams, r0: np.ndarray,
     r1 = torch.as_tensor(r_slab0, dtype=dtype, device=device)[..., None]
     h1 = torch.as_tensor(H0, dtype=dtype, device=device)[..., None]
     valid1 = torch.as_tensor(s2m0 >= 0, device=device)[:, None]
-    per = [slab_full_energy(r1[l], valid1, h1[l], cellgrid, model)
-           for l in range(L)]
-    energy1 = torch.cat([p[0] for p in per])                 # [L]
-    mom1 = torch.stack([p[1] for p in per], dim=1)           # [10,L,nslot,1]
+    e1, mom1 = SlabEnergyKernel(model, cellgrid, device)(r1, valid1, h1)
+    energy1 = e1[:, 0]                                       # [L]
     h = h1.expand(L, 3, 3, W).contiguous()
     recip = torch.stack([recip_matrix(h[l]) for l in range(L)])
     vol = torch.abs(torch.stack([determinant3(h[l]) for l in range(L)]))

@@ -16,9 +16,12 @@ fold.
 ``mover_energies`` is the plain version the mover-energies and
 mover-apply kernels are held against, ``mover_point_energies`` (the
 multi-trial sub-step, cell_trials > 1) that of the mover-points kernel
-(ops/cell_kernels.py); ``slab_full_energy`` serves volume moves,
-resyncs and audits on both devices (it is plain tensor code in the JAX
-package too).
+(ops/cell_kernels.py), and ``slab_full_energy`` that of the whole-cell
+energy kernel (ops/slab_energy.py, csrc/slab_energy.cu), which serves the
+volume moves, resyncs and audits of both lattices in one launch on the
+card.  In the JAX package ``slab_full_energy`` is plain jnp that XLA
+fuses; here, unfused, it was some hundred launches a centre chunk and
+blocking table copies, hence the hand-written kernel.
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import tracing
 from ..models.sw import SWParams
 from .cells import CellGrid
 from .dense import Moments, _e3_closed_form, _leg, _pair
@@ -278,9 +280,8 @@ def slab_full_energy(slab_r, valid, H, grid: CellGrid, prm: SWParams,
     fc[:, :CF] = grid.full_cells
     fo[:, :CF] = grid.full_off
     fm[:CF] = grid.full_mask
-    with tracing.wait("energy_tables"):
-        cells_all = torch.as_tensor(fc, device=dev)
-        off_all = torch.as_tensor(fo, device=dev)
+    cells_all = torch.as_tensor(fc, device=dev)
+    off_all = torch.as_tensor(fo, device=dev)
     mask_g = fm.reshape(ngr, ngroup)
     arange_cap = torch.arange(cap, device=dev)
 
@@ -308,9 +309,7 @@ def slab_full_energy(slab_r, valid, H, grid: CellGrid, prm: SWParams,
             cx, cy, cz = (_cell_take(a, nbc, cap)
                           for a in (rxc, ryc, rzc))         # [cc,C,W]
             cval = _cell_take(vc, nbc, cap)
-            with tracing.wait("energy_tables"):
-                gmask = torch.as_tensor(np.repeat(mask_g[gi], cap),
-                                        device=dev)
+            gmask = torch.as_tensor(np.repeat(mask_g[gi], cap), device=dev)
             cval = cval & gmask[None, :, None]
             cx = cx + shx27[:, g0:g0 + ngroup].repeat_interleave(cap, 1)
             cy = cy + shy27[:, g0:g0 + ngroup].repeat_interleave(cap, 1)

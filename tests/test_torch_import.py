@@ -37,6 +37,7 @@ def test_port_imports_without_jax():
     # the cell engine's modules, the front end and the run's tools are
     # among them
     for name in ("ops.cells", "ops.cell_energy", "ops.cell_kernels",
+                 "ops.slab_energy",
                  "mcmc.chain_kernel", "mcmc.cellengine", "mcmc.wanglandau",
                  "io.namelist", "io.xmol", "io.writers", "io.checkpoint",
                  "app", "cli", "parallel.comm", "parallel.mesh",

@@ -341,6 +341,7 @@ def test_cell_engine_on_card_runs_its_kernels(card):
     n_sub = eng.sweeps_per_cycle * eng.n_tables
     for kern in (eng.mover_kernel, eng.chain_kernel, eng.apply_kernel):
         assert kern.launches == 3 * n_sub
+    assert eng.slab_energy.launches >= 1          # the resync at cycle 2
     assert torch.isfinite(samples["E_ls"]).all()
     assert int(s.occ_overflow.max()) == 0
     assert int(s.att[0].min()) > 0 and int(s.acc[0].min()) > 0
@@ -563,3 +564,86 @@ def test_chain_wl_launch_after_a_smaller_plans_occupancy(card):
         build_bin_grid(201, -1200.0, 1200.0), 8, 1, 3.0).plan(
             torch.float64, W_CHAIN).smem
     _chain_on_card(False, 1, 8, False)
+
+
+@pytest.fixture(scope="module")
+def slab_systems(card):
+    """{grid: (engine, state)} in float64 at 128 walkers: the N=8064 pair
+    (27 coverage cells a fine cell) and the (12,7,18) pair (75)."""
+    return {name: chip_smoke.make_cell_engine(chip_smoke.cell_params(
+        128, "float64", stack=stack, cell_pallas="auto", cell_chain="auto"))
+        for name, stack in (("cf27", chip_smoke.CELL_STACK),
+                            ("cf75", chip_smoke.SCATTER_STACK))}
+
+
+@pytest.mark.parametrize("grid", ["cf27", "cf75"])
+@pytest.mark.parametrize("Wr", [1, 32, 33, 128])
+@pytest.mark.parametrize("L", [2, 1])
+def test_slab_energy_kernel_fp64(slab_systems, grid, Wr, L):
+    """The whole-cell energy kernel against its plain version on the
+    first Wr walkers (jittered, some slots emptied for odd walkers only)
+    of both lattices or of the first (the single box): E and every
+    moment field within 1e-10 relative, empty slots zero, a second
+    launch on the same scratch and tickets bitwise equal."""
+    eng, s = slab_systems[grid]
+    kern = eng.slab_energy
+    assert kern.CF == int(grid[2:])
+    n0 = kern.launches
+    r, valid, h = chip_smoke.slab_inputs(s, Wr, seed=Wr)
+    err = chip_smoke.slab_energy_errors(kern, r[:L], valid, h[:L])
+    assert err["e_rel"] <= chip_smoke.SLAB_F64_RTOL
+    assert err["mom_rel"] <= chip_smoke.SLAB_F64_RTOL
+    assert err["repeat_equal"] and err["empty_zero"]
+    assert kern.launches == n0 + 2
+
+
+@pytest.fixture(scope="module")
+def slab_f32(card):
+    return chip_smoke.make_cell_engine(chip_smoke.cell_params(128,
+                                                              "float32"))
+
+
+@pytest.mark.parametrize("Wr", [1, 33, 128])
+def test_slab_energy_kernel_f32(slab_f32, Wr):
+    """float32 on the N=8064 grid: E within F32_E_RTOL relative and the
+    moments within F32_MOM_ATOL (the plain version adds the candidates
+    and the slots in another order), bitwise repeat."""
+    eng, s = slab_f32
+    err = chip_smoke.slab_energy_errors(
+        eng.slab_energy, *chip_smoke.slab_inputs(s, Wr, seed=Wr))
+    assert err["e_rel"] <= chip_smoke.F32_E_RTOL
+    assert err["mom_err"] <= chip_smoke.F32_MOM_ATOL
+    assert err["repeat_equal"] and err["empty_zero"]
+
+
+def test_slab_energy_kernel_refuses(slab_systems):
+    from mc_water_ls_mw_tpu_torch.ops.slab_energy import SlabEnergyKernel
+
+    eng, s = slab_systems["cf27"]
+    kern = eng.slab_energy
+    r, valid, h = s.r, s.slot2mol >= 0, s.h
+    n0 = kern.launches
+    bad = [(r.float(), valid, h),                 # r and H of two types
+           (r.to(torch.float16), valid, h.to(torch.float16)),
+           (r, valid.to(torch.uint8), h),
+           (r, valid.cpu(), h),                   # valid off the card
+           (r[:, :, :-1], valid, h),              # one slot short
+           (r, valid, h[..., :-1])]               # H of fewer walkers
+    for args in bad:
+        with pytest.raises(ValueError, match="slab_energy"):
+            kern(*args)
+    with pytest.raises(ValueError, match="slab_energy"):
+        SlabEnergyKernel(eng.model, eng.cellgrid, "cpu")(r, valid, h)
+    assert kern.launches == n0
+
+
+def test_cell_engine_full_both_launches_the_kernel(slab_systems):
+    """_full_both (volume moves, resyncs, audits) is one launch for both
+    lattices, on all walkers and on the first n."""
+    eng, s = slab_systems["cf27"]
+    n0 = eng.slab_energy.launches
+    E, mom = eng._full_both(s, s.r, s.h)
+    E8, mom8 = eng._full_both(s, s.r, s.h, 8)
+    assert eng.slab_energy.launches == n0 + 2
+    assert torch.equal(E8, E[:, :8]) and torch.equal(mom8, mom[..., :8])
+    assert float((E - s.energy).abs().max()) <= 1e-9
